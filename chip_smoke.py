@@ -35,11 +35,21 @@ U, N, M = 1250, 16, 250            # the paper's users and subchannels; 16 APs
 MAX_ITERS = 200
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12             # H100 SXM, float32 outside the tensor cores
+# Non-FMA float32 instructions a second: the 67 TFLOP/s counts an FMA as two
+# operations, so one lane-instruction per clock is half of it.
+FP32_INSTR_PER_S = FP32_OPS_PER_S / 2
+# Every check holds each element to its own scale, never to the largest
+# output: own gains span many orders of magnitude (path-loss exponent 5),
+# so a far user's row would hide under a whole-array maximum.
 # Kernel vs plain twin: the same float32 terms summed in another order (up
-# to U=1250 terms), so errors are held relative to the largest output.
+# to U=1250 terms); the scale of an element is the sum of the magnitudes of
+# its terms (the plain twin on absolute weights), the float32 summation bound.
 KERNEL_RTOL = 1e-4
 # Kernel backend vs einsum for whole rates, utilities and gradients: the
-# einsum path sums the pairwise terms through matmuls in another order.
+# einsum path sums the pairwise terms through matmuls in another order. The
+# scale of a (U, M) element is the largest magnitude in its user's row; of a
+# per-user power gradient, the magnitude of its chain-rule terms through
+# tx = beta * p (power_scale).
 PATH_RTOL = 1e-4
 TPU_KERNELS = {
     "noma_cell_intra": "src/repro/kernels/noma_rates.py:280",
@@ -60,23 +70,37 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def rel_err(got, want):
+def row_scale(want):
+    """Per-element scale of a (U, M) tensor: the largest magnitude in its
+    row; of a vector or scalar: its own magnitude."""
     import torch
-    scale = max(float(torch.max(torch.abs(want))), 1e-30)
-    err = float(torch.max(torch.abs(got - want)))
-    return err, err / scale
+    a = want.detach().abs()
+    return torch.amax(a, dim=-1, keepdim=True) if a.ndim >= 2 else a
 
 
-def check(name: str, got, want, rtol: float, errs: dict | None = None, key=None):
+def power_scale(g_p, g_beta, beta, p, dp_dx: float = 1.0):
+    """Per-user scale of a power gradient g_p whose power p also enters
+    through tx = beta * p: |g_p| plus dp/dx * sum_m |g_beta| * beta / p,
+    the magnitude of its terms through tx. Its terms have both signs, so
+    |g_p| alone can sit far below the rounding of its sum."""
+    import torch
+    return g_p.abs() + dp_dx * torch.sum(g_beta.abs() * beta, dim=-1) / p
+
+
+def check(name: str, got, want, rtol: float, scale, errs: dict | None = None,
+          key=None):
+    """Fail unless |got - want| <= rtol * scale element by element."""
     import torch
     if got.shape != want.shape:
         fail(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
     if not bool(torch.isfinite(got).all()):
         fail(f"{name}: non-finite output")
-    err, rel = rel_err(got, want)
-    print(f"check {name}: max_abs_err={err:.3e} max_rel_err={rel:.3e} tol={rtol:g}")
-    if rel > rtol:
-        fail(f"{name}: relative error {rel:.3e} above {rtol:g}")
+    diff = torch.abs(got - want)
+    err = float(torch.max(diff))
+    worst = float(torch.max(diff / torch.clamp_min(scale, 1e-38)))
+    print(f"check {name}: max_abs_err={err:.3e} max_scaled_err={worst:.3e} tol={rtol:g}")
+    if not bool((diff <= rtol * scale).all()):
+        fail(f"{name}: error {worst:.3e} of the element's scale, above {rtol:g}")
     if errs is not None:
         errs[key] = max(errs.get(key, 0.0), err)
 
@@ -121,7 +145,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from repro_torch.core import GdConfig, li_gd, make_env, profiles
+    from repro_torch.core import GdConfig, channel, li_gd, make_env, profiles
     from repro_torch.core.utility import utility
     from repro_torch.kernels import build, build_cell_layout, ops
     from repro_torch.kernels import noma_rates as nr
@@ -179,45 +203,50 @@ def main() -> int:
             for direction, csr, w_s, desc in (("fwd", fwd, w_in, uplink),
                                               ("bwd", bwd, cot, not uplink)):
                 args = (own, own, w_s, ap, ap, *csr, bu, bv, desc)
+                scale = nr.noma_cell_intra_plain(own, own, w_s.abs(), *args[3:])
                 check(f"noma_cell_intra {link} {direction} {sched}",
                       nr.noma_cell_intra(*args), nr.noma_cell_intra_plain(*args),
-                      KERNEL_RTOL, errs, "noma_cell_intra")
+                      KERNEL_RTOL, scale, errs, "noma_cell_intra")
         own, g_raw, ap = ops._inputs(env, uplink)
         tx = (beta * p[:, None]).contiguous()
         if uplink:   # forward table A, backward contraction of C
             check("noma_per_ap up fwd", nr.noma_per_ap(ap, tx, g_raw, True),
-                  nr.noma_per_ap_plain(ap, tx, g_raw, True), KERNEL_RTOL, errs,
-                  "noma_per_ap")
+                  nr.noma_per_ap_plain(ap, tx, g_raw, True), KERNEL_RTOL,
+                  nr.noma_per_ap_plain(ap, tx, g_raw, True), errs, "noma_per_ap")
             c_nm = nr.segment_table(cot, ap, N)
             check("noma_ap_contract up bwd", nr.noma_ap_contract(ap, c_nm, g_raw, True),
-                  nr.noma_ap_contract_plain(ap, c_nm, g_raw, True), KERNEL_RTOL, errs,
+                  nr.noma_ap_contract_plain(ap, c_nm, g_raw, True), KERNEL_RTOL,
+                  nr.noma_ap_contract_plain(ap, c_nm.abs(), g_raw, True), errs,
                   "noma_ap_contract")
         else:        # forward contraction of B, backward table D
             b_nm = nr.segment_table(tx, ap, N)
             check("noma_ap_contract dn fwd", nr.noma_ap_contract(ap, b_nm, g_raw, False),
-                  nr.noma_ap_contract_plain(ap, b_nm, g_raw, False), KERNEL_RTOL, errs,
+                  nr.noma_ap_contract_plain(ap, b_nm, g_raw, False), KERNEL_RTOL,
+                  nr.noma_ap_contract_plain(ap, b_nm, g_raw, False), errs,
                   "noma_ap_contract")
             check("noma_per_ap dn bwd", nr.noma_per_ap(ap, cot, g_raw, False),
-                  nr.noma_per_ap_plain(ap, cot, g_raw, False), KERNEL_RTOL, errs,
-                  "noma_per_ap")
+                  nr.noma_per_ap_plain(ap, cot, g_raw, False), KERNEL_RTOL,
+                  nr.noma_per_ap_plain(ap, cot.abs(), g_raw, False), errs, "noma_per_ap")
 
-    # Whole rates and their gradients: kernel backend vs einsum.
+    # Whole rates and their gradients, through the channel functions the
+    # engine drives: kernel backend vs einsum.
     for uplink in (True, False):
         link = "up" if uplink else "dn"
         p = p_up if uplink else p_dn
-        rate_k = ops.noma_uplink_rates if uplink else ops.noma_downlink_rates
-        from repro_torch.core import channel
-        rate_e = channel.uplink_rates if uplink else channel.downlink_rates
+        rate_fn = channel.uplink_rates if uplink else channel.downlink_rates
         b0 = beta.clone().requires_grad_(True)
         q0 = p.clone().requires_grad_(True)
-        want = rate_e(env, b0, q0, backend="einsum")
+        want = rate_fn(env, b0, q0, backend="einsum")
         g_want = torch.autograd.grad((want * cot).sum(), [b0, q0])
+        p_scale = power_scale(g_want[1], g_want[0], beta, p)
         for sched, lay in (("dense", None), ("layout", layout)):
-            got = rate_k(env, b0, q0, layout=lay)
+            got = rate_fn(env, b0, q0, backend="kernel", layout=lay)
             g_got = torch.autograd.grad((got * cot).sum(), [b0, q0])
-            check(f"rates {link} {sched}", got.detach(), want.detach(), PATH_RTOL)
-            check(f"d rates/d beta {link} {sched}", g_got[0], g_want[0], PATH_RTOL)
-            check(f"d rates/d p {link} {sched}", g_got[1], g_want[1], PATH_RTOL)
+            check(f"rates {link} {sched}", got.detach(), want.detach(), PATH_RTOL,
+                  row_scale(want))
+            check(f"d rates/d beta {link} {sched}", g_got[0], g_want[0], PATH_RTOL,
+                  row_scale(g_want[0]))
+            check(f"d rates/d p {link} {sched}", g_got[1], g_want[1], PATH_RTOL, p_scale)
         del want, g_want
     torch.cuda.empty_cache()
 
@@ -239,21 +268,36 @@ def main() -> int:
     other = (ap[:, None] != torch.arange(N, device=dev, dtype=ap.dtype)).float()
     counts = torch.bincount(ap.long(), minlength=N).double()
     same_triples = float((counts * counts).sum()) * M
+    # The intra term as one library call: the (r, s, m) mask same & cmp is
+    # fixed while the gains are (a whole GD solve), so it is built once,
+    # outside the timed window, and stored (M, R, S) so the einsum is one
+    # batched matrix-vector product with no copy of the 1.56 GB mask.
+    same = ap[:, None] == ap[None, :]
+    mask = ((own_up[None, :, :] < own_up[:, None, :]) & same[:, :, None])
+    mask = mask.permute(2, 0, 1).float().contiguous()
+    check("noma_cell_intra library einsum vs plain",
+          torch.einsum("mrs,sm->rm", mask, w_in), nr.noma_cell_intra_plain(*intra_args),
+          KERNEL_RTOL, nr.noma_cell_intra_plain(own_up, own_up, w_in.abs(),
+                                                *intra_args[3:]))
     f4 = 4
+    # Bytes each input read once, each output written once; own and ap are
+    # one tensor in both roles. The operations of intra are instructions
+    # (compare, select, add) per same-cell triple at the non-FMA rate; of
+    # per_ap and contract, a multiply-add per (w, n, m) at the FLOP rate.
     timing = {
         "noma_cell_intra": dict(
             kernel=[lambda: nr.noma_cell_intra(*intra_args)],
             plain=[lambda: nr.noma_cell_intra_plain(*intra_args)],
-            library=None,
-            bytes=f4 * (4 * U * M + 2 * U) + 4 * (csr[0].numel() + csr[1].numel()),
-            ops=2 * same_triples),
+            library=[lambda: torch.einsum("mrs,sm->rm", mask, w_in)],
+            bytes=f4 * (3 * U * M + U) + 4 * (csr[0].numel() + csr[1].numel()),
+            ops_s=3 * same_triples / FP32_INSTR_PER_S),
         "noma_per_ap": dict(
             kernel=[lambda g=g: nr.noma_per_ap(ap, tx_up, g, True) for g in g_ups],
             plain=[lambda g=g: nr.noma_per_ap_plain(ap, tx_up, g, True) for g in g_ups],
             library=[lambda g=g: torch.einsum("wn,wm,wnm->nm", other, tx_up, g)
                      for g in g_ups],
             bytes=f4 * (U * N * M + U * M + U + N * M),
-            ops=2 * U * N * M),
+            ops_s=2 * U * N * M / FP32_OPS_PER_S),
         "noma_ap_contract": dict(
             kernel=[lambda g=g: nr.noma_ap_contract(ap, b_nm, g, False) for g in g_dns],
             plain=[lambda g=g: nr.noma_ap_contract_plain(ap, b_nm, g, False)
@@ -261,24 +305,24 @@ def main() -> int:
             library=[lambda g=g: torch.einsum("wn,nwm,nm->wm", other, g, b_nm)
                      for g in g_dns],
             bytes=f4 * (U * N * M + N * M + U + U * M),
-            ops=2 * U * N * M),
+            ops_s=2 * U * N * M / FP32_OPS_PER_S),
     }
     rows = {}
     for name, t in timing.items():
         t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = t["ops"] / FP32_OPS_PER_S * 1e3
+        t_ops = t["ops_s"] * 1e3
         rows[name] = {
             "ms": device_ms(t["kernel"]),
             "plain_ms": device_ms(t["plain"], reps=4),
-            "library_ms": None if t["library"] is None else device_ms(t["library"]),
+            "library_ms": device_ms(t["library"]),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         }
         print(f"time {name}: " + " ".join(f"{k}={v}" for k, v in rows[name].items()))
     print(f"time noma_cell_intra: dense schedule visits {U * U * M:.3e} (r,s,m) triples, "
-          f"{2 * U * U * M / FP32_OPS_PER_S * 1e3:.4f} ms at the fp32 rate; the data "
+          f"{3 * U * U * M / FP32_INSTR_PER_S * 1e3:.4f} ms of instructions; the data "
           f"needs {same_triples:.3e} same-cell triples")
-    del g_ups, g_dns, timing
+    del g_ups, g_dns, timing, mask
     torch.cuda.empty_cache()
 
     # -- 4. the main path ------------------------------------------------------
@@ -371,10 +415,21 @@ def main() -> int:
         gamma = utility(env, eng.prof, 3, li_gd.to_physical(x, env), w, backend=backend)
         grads = torch.autograd.grad(gamma, [x[k] for k in li_gd.KEYS])
         vals[backend] = (gamma.detach(), grads)
-    check("utility kernel vs einsum", vals["kernel"][0].reshape(1),
-          vals["einsum"][0].reshape(1), PATH_RTOL)
-    for k, gk, ge in zip(li_gd.KEYS, vals["kernel"][1], vals["einsum"][1]):
-        check(f"d utility/d {k} kernel vs einsum", gk, ge, PATH_RTOL)
+    want = vals["einsum"][0].reshape(1)
+    check("utility kernel vs einsum", vals["kernel"][0].reshape(1), want, PATH_RTOL,
+          want.abs())
+    g_e = dict(zip(li_gd.KEYS, vals["einsum"][1]))
+    phys = li_gd.to_physical(norm0, env)
+    rc = env.radio
+    scales = {
+        "beta_up": row_scale(g_e["beta_up"]), "beta_dn": row_scale(g_e["beta_dn"]),
+        "p_up": power_scale(g_e["p_up"], g_e["beta_up"], phys.beta_up, phys.p_up,
+                            rc.p_up_max_w - rc.p_up_min_w),
+        "p_dn": power_scale(g_e["p_dn"], g_e["beta_dn"], phys.beta_dn, phys.p_dn,
+                            rc.p_dn_max_w - rc.p_dn_min_w),
+        "r": row_scale(g_e["r"])}
+    for k, gk in zip(li_gd.KEYS, vals["kernel"][1]):
+        check(f"d utility/d {k} kernel vs einsum", gk, g_e[k], PATH_RTOL, scales[k])
 
     # -- 5. where the time goes: 40 GD steps under torch.profiler -------------
     # A window of the step that dominates the path (a full replan yields

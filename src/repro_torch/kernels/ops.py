@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.types import LOG2, NetworkEnv
+from repro_torch.core import channel
+from repro_torch.core.types import NetworkEnv
 from repro_torch.kernels.cells import CellLayout
 from repro_torch.kernels.noma_rates import (
     BLOCK_U,
@@ -116,25 +117,15 @@ def noma_pairwise_dn(env: NetworkEnv, tx: torch.Tensor,
     return _Pairwise.apply(tx, env, layout, False, block_u, block_v)
 
 
-def noma_uplink_rates(env: NetworkEnv, beta_up, p_up, block_u: int = BLOCK_U,
-                      block_v: int = BLOCK_V, layout: CellLayout | None = None):
-    """Kernel-backed uplink rates, eq. (5)-(6). Gains are constants."""
-    own = env.own_gain_up().detach().float()
-    tx = beta_up * p_up[:, None]
-    intra, inter = noma_pairwise_up(env, tx, block_u=block_u,
-                                    block_v=block_v, layout=layout)
-    sinr = p_up[:, None] * own / (intra + inter + env.noise_up)
-    bw = env.radio.bandwidth_up_hz / env.n_sub
-    return beta_up * bw * torch.log1p(sinr) / LOG2
+def noma_uplink_rates(env: NetworkEnv, beta_up, p_up,
+                      layout: CellLayout | None = None):
+    """Kernel-backed uplink rates, eq. (5)-(6): channel.uplink_rates with
+    backend="kernel". Gains are constants."""
+    return channel.uplink_rates(env, beta_up, p_up, backend="kernel", layout=layout)
 
 
-def noma_downlink_rates(env: NetworkEnv, beta_dn, p_dn, block_u: int = BLOCK_U,
-                        block_v: int = BLOCK_V, layout: CellLayout | None = None):
-    """Kernel-backed downlink rates, eq. (8)-(9). Gains are constants."""
-    own = env.own_gain_dn().detach().float()
-    tx = beta_dn * p_dn[:, None]
-    intra, inter = noma_pairwise_dn(env, tx, block_u=block_u,
-                                    block_v=block_v, layout=layout)
-    sinr = p_dn[:, None] * own / (intra * own + inter + env.noise_dn)
-    bw = env.radio.bandwidth_dn_hz / env.n_sub
-    return beta_dn * bw * torch.log1p(sinr) / LOG2
+def noma_downlink_rates(env: NetworkEnv, beta_dn, p_dn,
+                        layout: CellLayout | None = None):
+    """Kernel-backed downlink rates, eq. (8)-(9): channel.downlink_rates
+    with backend="kernel". Gains are constants."""
+    return channel.downlink_rates(env, beta_dn, p_dn, backend="kernel", layout=layout)

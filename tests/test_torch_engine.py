@@ -1,7 +1,7 @@
 """The slice as a whole: PlannerEngine.plan and a warm replan in both
 packages on the same envs, a reference plan carried across to warm-start
-the port, the device policy, and the rule that the port never imports JAX
-or the JAX package.
+the port (also at U=200, N=16, M=40), the device policy, and the rule that
+the port never imports JAX or the JAX package.
 
 The JAX engine runs sinr_backend="einsum" (interpret-mode Pallas inside a
 whole GD loop is too slow for the suite); the port runs "kernel", which on
@@ -10,7 +10,14 @@ does for the reference's own backends: s and the subchannels exactly,
 powers and compute units to rtol 1e-3 / atol 1e-4, the utility to rtol 1e-4,
 and the per-split iteration counts exactly (float32 sums in another order
 have not moved a stopping step on these envs; a change that does shows up
-here)."""
+here).
+
+Run as a script, the file prints per-split iteration counts and warm
+choices of plan + warm replan at U=200 for the JAX einsum path and the
+port's einsum and kernel paths:
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_engine.py
+"""
 import ast
 import dataclasses
 from pathlib import Path
@@ -88,21 +95,49 @@ def test_plan_and_warm_replan_match_reference(u, n, m, seed):
     assert ts2.opt_steps.tolist() == np.asarray(js2.opt_steps).tolist()
 
 
+def _port_state(js):
+    """A reference PlanState carried across with convert."""
+    from repro_torch import convert
+    return convert.plan_state_from_numpy(
+        {k: np.asarray(v) for k, v in js.norms.items()},
+        moms=tuple({k: np.asarray(v) for k, v in mm.items()} for mm in js.moms),
+        opt_steps=np.asarray(js.opt_steps), gains=np.asarray(js.gains), device="cpu")
+
+
 def test_reference_plan_warm_starts_the_port():
     """A plan made by the JAX engine, carried across with convert, warm-starts
     the port's replan to the reference's own replan."""
     _, _, jprof, JGdConfig, JEngine = _jax()
-    from repro_torch import convert
     jenv, jenv2, _, t2 = _pair(16, 3, 8, 0)
     je = JEngine(jprof.nin(), cfg=JGdConfig(**CFG))
     js = je.plan(jenv)
-    state = convert.plan_state_from_numpy(
-        {k: np.asarray(v) for k, v in js.norms.items()},
-        moms=tuple({k: np.asarray(v) for k, v in mm.items()} for mm in js.moms),
-        opt_steps=np.asarray(js.opt_steps), gains=np.asarray(js.gains), device="cpu")
     te = PlannerEngine(tprof.nin(), cfg=GdConfig(**CFG), sinr_backend="kernel",
                        device="cpu")
-    _assert_same_plan(te.replan(state, t2), je.replan(js, jenv2))
+    _assert_same_plan(te.replan(_port_state(js), t2), je.replan(js, jenv2))
+
+
+def test_warm_replan_tracks_reference_at_moderate_size():
+    """U=200, N=16, M=40. At this size a split's stopping step hangs on the
+    float32 summation order: on one cold env the JAX einsum path and the
+    port's einsum and kernel paths stop some splits up to 167 steps apart
+    (this file run as a script prints them). So every split runs a fixed 20
+    steps (eps=0), and the warm path itself is held to the reference's:
+    from the reference's own plan state, the same rho estimate, the same
+    warm-or-carry choice per split (opt_steps), the Adam state resumed, and
+    the same s, subchannels and plan."""
+    _, _, jprof, JGdConfig, JEngine = _jax()
+    jenv, jenv2, _, t2 = _pair(200, 16, 40, 0)
+    cfg = dict(optimizer="adam", max_iters=20, eps=0.0)
+    je = JEngine(jprof.nin(), cfg=JGdConfig(**cfg), sinr_backend="einsum")
+    js = je.plan(jenv)
+    te = PlannerEngine(tprof.nin(), cfg=GdConfig(**cfg), sinr_backend="kernel",
+                       device="cpu")
+    ts2, js2 = te.replan(_port_state(js), t2), je.replan(js, jenv2)
+    _assert_same_plan(ts2, js2)
+    np.testing.assert_allclose(float(ts2.warm_rho), float(js2.warm_rho), rtol=1e-5)
+    assert ts2.opt_steps.tolist() == np.asarray(js2.opt_steps).tolist()
+    used_warm = ts2.opt_steps > ts2.plan.iters
+    assert 0 < int(used_warm.sum()) < len(used_warm)     # both choices made
 
 
 def test_engine_device_none_needs_cuda():
@@ -150,3 +185,29 @@ def test_port_never_imports_jax_or_the_reference():
     bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, f"the port imports JAX or the JAX package: {bad}"
+
+
+def _readings(u=200, n=16, m=50, max_iters=200):
+    """Per-split GD iterations and warm choices of plan + warm replan, for
+    the JAX einsum path and the port's einsum and kernel paths."""
+    _, _, jprof, JGdConfig, JEngine = _jax()
+    jenv, jenv2, t1, t2 = _pair(u, n, m, 0)
+    cfg = dict(optimizer="adam", max_iters=max_iters)
+    runs = (("jax einsum", JEngine(jprof.nin(), cfg=JGdConfig(**cfg),
+                                   sinr_backend="einsum"), jenv, jenv2),
+            *((f"port {b}", PlannerEngine(tprof.nin(), cfg=GdConfig(**cfg),
+                                          sinr_backend=b, device="cpu"), t1, t2)
+              for b in ("einsum", "kernel")))
+    for name, eng, e1, e2 in runs:
+        s1 = eng.plan(e1)
+        s2 = eng.replan(s1, e2)
+        for call, st in (("plan", s1), ("replan", s2)):
+            iters = np.asarray(st.plan.iters)
+            warm = (np.asarray(st.opt_steps) > iters).astype(int)
+            print(f"{name:11s} {call:6s} s*={int(st.plan.s)} "
+                  f"total={int(st.total_iters)} iters={iters.tolist()} "
+                  f"used_warm={warm.tolist()} utility={float(st.plan.utility):.7g}")
+
+
+if __name__ == "__main__":
+    _readings()
