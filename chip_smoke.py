@@ -20,11 +20,24 @@ Phases, each fatal on failure (no phase catches its own error):
                  held against "einsum";
   5. profile  -- 40 GD steps of one split under torch.profiler: wall time
                  per step, device busy time and share, and the top kernels
-                 by device time.
+                 by device time;
+  6. serve    -- split serving of recurrentgemma-9b at full width and depth
+                 (38 layers, 8.5e9 parameters, random weights from a seed):
+                 the flash_attention and rg_lru kernels against their plain
+                 twins at the served shapes, and their times; then the
+                 serving entry point (plan s*, cut, serve 4 requests of 3072
+                 tokens, greedy continuation) with the launch counters read
+                 around it; split logits at s* and at s=19 equal to the
+                 unsplit forward's to the bit, 12 flash_attention and 26
+                 rg_lru launches a forward; prefill + 8 cached decode steps
+                 against the forward; one forward under torch.profiler; the
+                 reduced model on the card against its plain twins on the
+                 CPU; and the serving times.
 The last lines are the kernels JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -35,6 +48,7 @@ U, N, M = 1250, 16, 250            # the paper's users and subchannels; 16 APs
 MAX_ITERS = 200
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12             # H100 SXM, float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12            # H100 SXM, bf16 tensor cores, dense
 # Non-FMA float32 instructions a second: the 67 TFLOP/s counts an FMA as two
 # operations, so one lane-instruction per clock is half of it.
 FP32_INSTR_PER_S = FP32_OPS_PER_S / 2
@@ -51,12 +65,26 @@ KERNEL_RTOL = 1e-4
 # per-user power gradient, the magnitude of its chain-rule terms through
 # tx = beta * p (power_scale).
 PATH_RTOL = 1e-4
+# Phase 6: per-element scales of the served kernels. flash_attention: the
+# bf16 output rounds at 2^-8 of sum_k p_k |v_k| (the twin on |v|), and p is
+# rounded to bf16 before the AV product. rg_lru: the float32 summation
+# bound, the twin on (log_a, |b|, |h0|).
+FLASH_RTOL = 1e-2
+RG_LRU_RTOL = 1e-5
+SERVE_ARCH = "recurrentgemma-9b"
+SERVE_B, SERVE_S = 4, 3072         # 4 requests of 3072 tokens
+SERVE_SPLIT = 19                   # the second split point held to the bit
+DECODE_STEPS = 8
+# TPU kernel each CUDA kernel replaces, and its source in this repo.
+NOMA_SOURCE = "src/repro_torch/kernels/csrc/noma_rates.cu"
 TPU_KERNELS = {
-    "noma_cell_intra": "src/repro/kernels/noma_rates.py:280",
-    "noma_per_ap": "src/repro/kernels/noma_rates.py:355",
-    "noma_ap_contract": "src/repro/kernels/noma_rates.py:409",
+    "noma_cell_intra": ("src/repro/kernels/noma_rates.py:280", NOMA_SOURCE),
+    "noma_per_ap": ("src/repro/kernels/noma_rates.py:355", NOMA_SOURCE),
+    "noma_ap_contract": ("src/repro/kernels/noma_rates.py:409", NOMA_SOURCE),
+    "flash_attention": ("src/repro/kernels/flash_attention.py:75",
+                        "src/repro_torch/kernels/csrc/flash_attention.cu"),
+    "rg_lru": ("src/repro/kernels/rg_lru.py:41", "src/repro_torch/kernels/csrc/rg_lru.cu"),
 }
-SOURCE = "src/repro_torch/kernels/csrc/noma_rates.cu"
 
 
 def fail(msg: str) -> None:
@@ -139,6 +167,9 @@ def device_ms(fns, reps: int = 20, trials: int = 7) -> float:
 
 
 def main() -> int:
+    # phase 6 holds 12.6 GB logit tensors beside 19 GB of weights: let the
+    # allocator grow segments rather than fragment them
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on the card",
@@ -161,13 +192,15 @@ def main() -> int:
     print(f"device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
 
-    # -- 2. build -------------------------------------------------------------
+    # -- 2. build: one nvcc per source, all at once ---------------------------
     t0 = time.perf_counter()
-    build.load()
-    print(f"build: {time.perf_counter() - t0:.2f} s (noma_rates.cu, sm_90a)")
-    for line in build.BUILD_INFO.get("noma_rates", {}).get("log", "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"  ptxas: {line.strip()}")
+    build.build_all()
+    print(f"build: {time.perf_counter() - t0:.2f} s ({', '.join(build.SIGNATURES)}; sm_90a)")
+    for name, info in build.BUILD_INFO.items():
+        print(f"  {name}.cu: nvcc {info['seconds']:.2f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"  ptxas: {line.strip()}")
 
     # -- 3. kernels against their plain twins --------------------------------
     env = make_env(U, N, M, seed=0, device=dev)
@@ -460,14 +493,279 @@ def main() -> int:
         print(f"profile kernel {e.self_device_time_total / 1e3:9.2f} ms "
               f"{e.self_device_time_total / busy_us:6.1%} {e.count:6d} launches  {e.key[:80]}")
 
-    kernels = [{"name": name, "route": "cuda", "source": SOURCE,
-                "replaces": TPU_KERNELS[name], "launches": launches[name],
-                "max_abs_err": errs[name], **rows[name]} for name in TPU_KERNELS]
+    del prof, rows_k
+    torch.cuda.empty_cache()
+
+    # -- 6. serve recurrentgemma-9b --------------------------------------------
+    serve_rows, serve_launches = serve_phase(dev, kind, smi, errs)
+    rows.update(serve_rows)
+    launches.update(serve_launches)
+
+    kernels = [{"name": name, "route": "cuda", "source": src, "replaces": tpu,
+                "launches": launches[name], "max_abs_err": errs[name], **rows[name]}
+               for name, (tpu, src) in TPU_KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def serve_phase(dev, kind: str, smi: str, errs: dict):
+    """Phase 6. Returns (timing rows, main-path launch counts) of the two
+    served kernels; adds their worst errors to errs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import configs
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import noma_rates as nr
+    from repro_torch.kernels import rg_lru as rl
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import Model, stages_for
+    from repro_torch.runtime.serve import make_split_serve
+
+    cfg = configs.get(SERVE_ARCH)
+    H, KV, HD, W = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.window
+    B, S = SERVE_B, SERVE_S
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, device=dev, generator=gen).to(dtype)
+
+    # 6.1 the kernels against their plain twins at the served shapes
+    def check_flash(tag, b, s_q, s_k, h, kv, hd, causal, window):
+        q = randn(b * h, s_q, hd, dtype=torch.bfloat16)
+        k = randn(b * kv, s_k, hd, dtype=torch.bfloat16)
+        v = randn(b * kv, s_k, hd, dtype=torch.bfloat16)
+        args = (h // kv, causal, window)
+        got = fa.flash_attention(q, k, v, *args)
+        torch.cuda.synchronize()
+        scale = fa.flash_attention_plain(q, k, v.abs(), *args).float()
+        check(f"flash_attention {tag}", got.float(), fa.flash_attention_plain(q, k, v, *args)
+              .float(), FLASH_RTOL, scale, errs, "flash_attention")
+        return q, k, v, scale
+
+    q, k, v, f_scale = check_flash(f"served B={B} S={S} H={H}/{KV} hd={HD} window {W}",
+                                   B, S, S, H, KV, HD, True, W)
+    check_flash("ragged S=1000 hd=64 G=4 causal", 2, 1000, 1000, 8, 2, 64, True, 0)
+    check_flash("bidirectional S=1500 hd=128 G=4", 2, 1500, 1500, 8, 2, 128, False, 0)
+
+    log_a = -8.0 * torch.rand((B, S, cfg.rglru_dim), device=dev, generator=gen)
+    x_b = randn(B, S, cfg.rglru_dim)
+    h0 = randn(B, cfg.rglru_dim)
+    for tag, h_init in (("no h0", None), ("h0", h0)):
+        got = rl.rg_lru(log_a, x_b, h_init)
+        torch.cuda.synchronize()
+        scale = rl.rg_lru_plain(log_a, x_b.abs(), None if h_init is None else h_init.abs())
+        check(f"rg_lru (B, S, W)=({B}, {S}, {cfg.rglru_dim}) {tag}", got,
+              rl.rg_lru_plain(log_a, x_b, h_init), RG_LRU_RTOL, scale, errs, "rg_lru")
+
+    # The library yardstick for attention: one SDPA call with the boolean
+    # band mask built outside the timed window (never called by the port).
+    qs = q.view(B, H, S, HD)
+    ks, vs = k.view(B, KV, S, HD), v.view(B, KV, S, HD)
+    band = fa.attention_mask(S, S, True, W, S, dev)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=band, enable_gqa=True)
+
+    check("flash_attention library sdpa vs plain", sdpa().reshape(B * H, S, HD).float(),
+          fa.flash_attention_plain(q, k, v, H // KV, True, W).float(), FLASH_RTOL, f_scale)
+    del f_scale
+    pairs = int(band.sum())             # unmasked (q, k) pairs of a head row
+    flash_bytes = 2 * (2 * B * H * S * HD + 2 * B * KV * S * HD)
+    flash_ops = 4 * HD * pairs * B * H
+    rg_bytes = 4 * (3 * B * S * cfg.rglru_dim + B * cfg.rglru_dim)
+    rg_ops = 3 * B * S * cfg.rglru_dim      # exp, multiply, add
+    timing = {
+        "flash_attention": dict(
+            kernel=[lambda: fa.flash_attention(q, k, v, H // KV, True, W)],
+            plain=[lambda: fa.flash_attention_plain(q, k, v, H // KV, True, W)],
+            library=[sdpa], bytes=flash_bytes, ops_s=flash_ops / BF16_OPS_PER_S, reps=5),
+        "rg_lru": dict(
+            kernel=[lambda: rl.rg_lru(log_a, x_b, h0)],
+            plain=[lambda: rl.rg_lru_plain(log_a, x_b, h0)],
+            library=None, bytes=rg_bytes, ops_s=rg_ops / FP32_INSTR_PER_S, reps=20),
+    }
+    rows = {}
+    for name, t in timing.items():
+        t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = t["ops_s"] * 1e3
+        rows[name] = {
+            "ms": device_ms(t["kernel"], reps=t["reps"]),
+            "plain_ms": device_ms(t["plain"], reps=1, trials=3),
+            "library_ms": None if t["library"] is None else device_ms(t["library"], reps=5),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+        print(f"time {name}: " + " ".join(f"{k}={v}" for k, v in rows[name].items())
+              + f" | {smi}")
+    rows["rg_lru"]["library_note"] = (
+        "no single PyTorch call computes a first-order recurrence with per-step "
+        "decay; the closed form through cumsum(log_a) underflows (exp of about "
+        f"{float(log_a.sum(1).min()):.0f} over {S} steps)")
+    print(f"time flash_attention: {pairs} unmasked pairs a head row, {flash_ops:.4e} FLOP, "
+          f"{flash_bytes / 1e6:.1f} MB; rg_lru: {rg_bytes / 1e6:.1f} MB")
+    print(f"time rg_lru library_ms=None: {rows['rg_lru']['library_note']}")
+    del q, k, v, qs, ks, vs, band, log_a, x_b, h0, timing
+    torch.cuda.empty_cache()
+
+    # 6.2 the main path: the serving entry point, plan + cut + serve
+    counters = (nr.reset_launches, fa.reset_launches, rl.reset_launches)
+    for reset in counters:
+        reset()
+    argv = ["--arch", SERVE_ARCH, "--requests", str(B), "--seq", str(S),
+            "--new-tokens", "2", "--seed", "0"]
+    print(f"serve main: python -m repro_torch.launch.serve {' '.join(argv)}")
+    t0 = time.perf_counter()
+    out = launch_serve.main(argv)
+    torch.cuda.synchronize()
+    main_wall = time.perf_counter() - t0
+    main_launches = {**nr.LAUNCHES, **fa.LAUNCHES, **rl.LAUNCHES}
+    s_star = out["split"]
+    n_attn = sum(sp.n_layers for sp in stages_for(cfg) if sp.kind == "attn")
+    n_rec = cfg.n_layers - n_attn
+    print(f"serve main: s*={s_star} wall_s={main_wall:.3f} device_s={out['device_s']:.4f} "
+          f"edge_s={out['edge_s']:.4f} link_s={out['link_s']:.4f} (simulated) "
+          f"launches={main_launches}")
+    if not 0 <= s_star <= cfg.n_layers:
+        fail(f"serve: s*={s_star} out of range")
+    for name in ("flash_attention", "rg_lru", *nr.LAUNCHES):
+        if main_launches[name] <= 0:
+            fail(f"{name} was not launched on the serving main path")
+    want = {"flash_attention": 2 * n_attn, "rg_lru": 2 * n_rec}   # 2 split passes
+    for name, n in want.items():
+        if main_launches[name] != n:
+            fail(f"{name}: {main_launches[name]} launches on the serving main path, "
+                 f"expected {n}")
+    new_toks = out["new_tokens"]
+    if tuple(new_toks.shape) != (B, 2) or int(new_toks.min()) < 0 or \
+            int(new_toks.max()) >= cfg.vocab_size:
+        fail(f"serve: new tokens {new_toks.tolist()} outside the vocabulary")
+    del out
+    torch.cuda.empty_cache()
+
+    # 6.3 the same weights again: split logits against the unsplit forward
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(launch_serve.PARAM_SEED))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"serve model: {SERVE_ARCH} {cfg.n_layers} layers ({n_rec} rec, {n_attn} attn), "
+          f"{n_params} parameters, {model.param_bytes()} bytes on the card, "
+          f"init {time.perf_counter() - t0:.2f} s")
+    tokens = make_batch(0, 0, B, S, cfg.vocab_size, device=dev)["tokens"]
+    t0 = time.perf_counter()
+    full, _, _ = model(tokens)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    if tuple(full.shape) != (B, S, model.vocab_padded) or not bool(torch.isfinite(full).all()):
+        fail(f"forward logits: shape {tuple(full.shape)} or not finite")
+    full_absmax = float(full.abs().max())
+    print(f"serve forward: logits {tuple(full.shape)} finite, max |logit| {full_absmax:.4f}, "
+          f"{fwd_s:.3f} s")
+    split_times = {}
+    for s in (s_star, SERVE_SPLIT):
+        progs = make_split_serve(model, s)
+        for reset in counters:
+            reset()
+        t0 = time.perf_counter()
+        act = progs.device_fn(tokens)
+        torch.cuda.synchronize()
+        t_dev = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        logits = progs.edge_fn(act)
+        torch.cuda.synchronize()
+        t_edge = time.perf_counter() - t0
+        split_times[s] = (t_dev, t_edge)
+        n_fa, n_rl = fa.LAUNCHES["flash_attention"], rl.LAUNCHES["rg_lru"]
+        act_desc = f"act {tuple(act.shape)} {act.dtype}"
+        del act
+        # positions (not elements) that differ: a count of elements would
+        # need an int64 sum over 3.1e9 entries
+        n_diff = int((logits != full).any(-1).sum())
+        print(f"serve split s={s}: device_s={t_dev:.4f} edge_s={t_edge:.4f} {act_desc}; "
+              f"launches flash_attention={n_fa} rg_lru={n_rl}; positions whose logits "
+              f"differ from the forward's: {n_diff}")
+        if n_diff or not torch.equal(logits, full):
+            fail(f"split s={s}: logits at {n_diff} positions differ from the unsplit forward")
+        if (n_fa, n_rl) != (n_attn, n_rec):
+            fail(f"split s={s}: {n_fa} flash_attention / {n_rl} rg_lru launches a "
+                 f"forward, expected {n_attn} / {n_rec}")
+        del logits, progs
+        torch.cuda.empty_cache()
+    ref = full[:, S - DECODE_STEPS - 1:].clone()
+    del full
+    torch.cuda.empty_cache()
+
+    # 6.4 cached decode against the forward
+    tol = 0.05 * max(1.0, full_absmax)
+    p_len = S - DECODE_STEPS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, caches = model.prefill({"tokens": tokens[:, :p_len]}, max_len=S)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    errs_dec = [float((last - ref[:, 0]).abs().max())]
+    step_s = []
+    for i in range(DECODE_STEPS):
+        t0 = time.perf_counter()
+        logits, caches = model.decode_step(caches, tokens[:, p_len + i:p_len + i + 1])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        errs_dec.append(float((logits - ref[:, i + 1]).abs().max()))
+    worst = max(errs_dec)
+    print(f"serve decode: prefill {p_len} tokens then {DECODE_STEPS} steps; max |decode - "
+          f"forward| per step {[f'{e:.4f}' for e in errs_dec]}; worst {worst:.4f}, "
+          f"{worst / tol:.3f} of the bound 0.05*max(1, max|logits|) = {tol:.4f}")
+    if not worst <= tol:
+        fail(f"cached decode differs from the forward by {worst:.4f} > {tol:.4f}")
+    del caches, ref, last, logits
+    torch.cuda.empty_cache()
+
+    # 6.5 where a forward's time goes: one forward under torch.profiler
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model(tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows_k = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in rows_k)
+    print(f"profile forward (4 x 3072 tokens, profiled): wall_s={wall:.4f} "
+          f"device_busy_s={busy_us / 1e6:.4f} busy_share={busy_us / 1e6 / wall:.4f} "
+          f"kernel_launches={sum(e.count for e in rows_k)}")
+    for e in sorted(rows_k, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"profile kernel {e.self_device_time_total / 1e3:9.2f} ms "
+              f"{e.self_device_time_total / max(busy_us, 1):6.1%} {e.count:6d} launches  "
+              f"{e.key[:80]}")
+    del model, prof, rows_k
+    torch.cuda.empty_cache()
+
+    # 6.6 a small input against the plain twins on the CPU
+    small = configs.get(SERVE_ARCH).reduced()
+    m_card = Model(small, device=dev).init(torch.Generator(device=dev).manual_seed(1))
+    m_cpu = Model(small, device="cpu")
+    m_cpu.load_state_dict({k: t.cpu() for k, t in m_card.state_dict().items()})
+    toks = make_batch(0, 0, 2, 96, small.vocab_size, device=dev)["tokens"]
+    got, _, _ = m_card(toks)
+    want, _, _ = m_cpu(toks.cpu())
+    check("serve reduced model: card vs CPU plain twins", got.cpu(), want, 2e-2,
+          want.abs().amax(-1, keepdim=True))
+
+    # 6.7 serving times
+    t_dev, t_edge = split_times[s_star]
+    dec_ms = statistics.median(step_s) * 1e3
+    print(f"serve times ({smi}): prefill_s={prefill_s:.4f} ({B}x{p_len} tokens, "
+          f"{B * p_len / prefill_s:.1f} tokens/s); decode_ms_per_step={dec_ms:.3f} "
+          f"({B / dec_ms * 1e3:.1f} tokens/s over {B} requests); split s*={s_star} "
+          f"device_s={t_dev:.4f} edge_s={t_edge:.4f} "
+          f"({B * S / (t_dev + t_edge):.1f} tokens/s through both halves); "
+          f"forward_s={fwd_s:.4f}; main wall_s={main_wall:.3f}")
+    launches = {k: main_launches[k] for k in ("flash_attention", "rg_lru")}
+    return rows, launches
 
 
 if __name__ == "__main__":

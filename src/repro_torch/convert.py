@@ -84,6 +84,32 @@ def plan_state_from_numpy(norms: dict, moms=None, opt_steps=None, gains=None,
         opt_steps=_tree(opt_steps, device), gains=_tree(gains, device))
 
 
+def _layer(tree, i: int):
+    return {k: _layer(v, i) for k, v in tree.items()} if isinstance(tree, dict) else tree[i]
+
+
+def _from_numpy(tree, device):
+    if isinstance(tree, dict):
+        return {k: _from_numpy(v, device) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree, dtype=np.float32)).to(device)
+
+
+def model_params_from_numpy(model, tree: dict):
+    """Load the reference Model.init pytree, given as numpy arrays, into the
+    port's Model: top leaves as they are, each stage's stacked leaves
+    [L, ...] split into its L layers. Every leaf is cast to the port's
+    storage dtype on the model's device. Returns the model."""
+    dev = model.device
+    model.top.load_(_from_numpy({k: v for k, v in tree.items() if k != "stages"}, dev))
+    if len(tree["stages"]) != len(model.stage_layers):
+        raise ValueError(f"{len(tree['stages'])} stages in the tree, "
+                         f"{len(model.stage_layers)} in the model")
+    for st, layers in zip(tree["stages"], model.stage_layers):
+        for i, blk in enumerate(layers):
+            blk.p.load_(_from_numpy(_layer(st, i), dev))
+    return model
+
+
 def to_numpy(x):
     """Tensors (alone, or in dicts, tuples, lists and dataclasses) to numpy."""
     if isinstance(x, torch.Tensor):

@@ -29,7 +29,6 @@ suffix ``_plain``, which is also what the kernel is held against on the card.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
@@ -93,33 +92,6 @@ def dense_csr(n_blocks_r: int, n_blocks_s: int, device: torch.device):
     return row_ptr * n_blocks_s, col.repeat(n_blocks_r)
 
 
-# -- argument checks -----------------------------------------------------------
-def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def _raise_on(rc: int, kernel: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{kernel} launch failed: cudaError {rc}")
-
-
 # -- kernel 1: intra (SIC) -----------------------------------------------------
 def noma_cell_intra(own_r, own_s, w_s, ap_r, ap_s, row_ptr, col,
                     block_r: int, block_s: int,
@@ -137,13 +109,13 @@ def noma_cell_intra(own_r, own_s, w_s, ap_r, ap_s, row_ptr, col,
     s = own_s.shape[0]
     dev = own_r.device
     n_rb = -(-r // block_r) if r else 0
-    _check("own_r", own_r, torch.float32, (r, m), dev)
-    _check("own_s", own_s, torch.float32, (s, m), dev)
-    _check("w_s", w_s, torch.float32, (s, m), dev)
-    _check("ap_r", ap_r, torch.int32, (r,), dev)
-    _check("ap_s", ap_s, torch.int32, (s,), dev)
-    _check("row_ptr", row_ptr, torch.int32, (n_rb + 1,), dev)
-    _check("col", col, torch.int32, (col.shape[0],), dev)
+    build.check("own_r", own_r, torch.float32, (r, m), dev)
+    build.check("own_s", own_s, torch.float32, (s, m), dev)
+    build.check("w_s", w_s, torch.float32, (s, m), dev)
+    build.check("ap_r", ap_r, torch.int32, (r,), dev)
+    build.check("ap_s", ap_s, torch.int32, (s,), dev)
+    build.check("row_ptr", row_ptr, torch.int32, (n_rb + 1,), dev)
+    build.check("col", col, torch.int32, (col.shape[0],), dev)
     if not 1 <= block_r <= MAX_BLOCK_ROWS:
         raise ValueError(f"block_r must be in [1, {MAX_BLOCK_ROWS}], got {block_r}")
     if block_s < 1 or intra_smem_bytes(block_s) > SMEM_LIMIT_BYTES:
@@ -155,11 +127,11 @@ def noma_cell_intra(own_r, own_s, w_s, ap_r, ap_s, row_ptr, col,
     out = torch.empty((r, m), dtype=torch.float32, device=dev)
     if r == 0 or m == 0:
         return out
-    rc = build.load().noma_cell_intra(
-        _ptr(own_r), _ptr(own_s), _ptr(w_s), _ptr(ap_r), _ptr(ap_s),
-        _ptr(row_ptr), _ptr(col), _ptr(out), r, s, m, block_r, block_s,
-        _rows_per_thread(block_r), int(descending), dev.index, _stream(dev))
-    _raise_on(rc, "noma_cell_intra")
+    rc = build.load("noma_rates").noma_cell_intra(
+        build.ptr(own_r), build.ptr(own_s), build.ptr(w_s), build.ptr(ap_r), build.ptr(ap_s),
+        build.ptr(row_ptr), build.ptr(col), build.ptr(out), r, s, m, block_r, block_s,
+        _rows_per_thread(block_r), int(descending), dev.index, build.stream(dev))
+    build.raise_on(rc, "noma_cell_intra")
     LAUNCHES["noma_cell_intra"] += 1
     return out
 
@@ -203,17 +175,18 @@ def noma_per_ap(ap, wgt, g_raw, uplink: bool = True) -> torch.Tensor:
     w = ap.shape[0]
     n, m, g_shape = _gain_dims(g_raw, uplink, w)
     dev = ap.device
-    _check("ap", ap, torch.int32, (w,), dev)
-    _check("wgt", wgt, torch.float32, (w, m), dev)
-    _check("g_raw", g_raw, torch.float32, g_shape, dev)
+    build.check("ap", ap, torch.int32, (w,), dev)
+    build.check("wgt", wgt, torch.float32, (w, m), dev)
+    build.check("g_raw", g_raw, torch.float32, g_shape, dev)
     if dev.type != "cuda":
         return noma_per_ap_plain(ap, wgt, g_raw, uplink)
     out = torch.empty((n, m), dtype=torch.float32, device=dev)
     if n == 0 or m == 0:
         return out
-    rc = build.load().noma_per_ap(_ptr(ap), _ptr(wgt), _ptr(g_raw), _ptr(out),
-                                  w, n, m, int(uplink), dev.index, _stream(dev))
-    _raise_on(rc, "noma_per_ap")
+    rc = build.load("noma_rates").noma_per_ap(
+        build.ptr(ap), build.ptr(wgt), build.ptr(g_raw), build.ptr(out), w, n, m,
+        int(uplink), dev.index, build.stream(dev))
+    build.raise_on(rc, "noma_per_ap")
     LAUNCHES["noma_per_ap"] += 1
     return out
 
@@ -241,18 +214,18 @@ def noma_ap_contract(ap, nm_table, g_raw, uplink: bool = True) -> torch.Tensor:
     w = ap.shape[0]
     n, m, g_shape = _gain_dims(g_raw, uplink, w)
     dev = ap.device
-    _check("ap", ap, torch.int32, (w,), dev)
-    _check("nm_table", nm_table, torch.float32, (n, m), dev)
-    _check("g_raw", g_raw, torch.float32, g_shape, dev)
+    build.check("ap", ap, torch.int32, (w,), dev)
+    build.check("nm_table", nm_table, torch.float32, (n, m), dev)
+    build.check("g_raw", g_raw, torch.float32, g_shape, dev)
     if dev.type != "cuda":
         return noma_ap_contract_plain(ap, nm_table, g_raw, uplink)
     out = torch.empty((w, m), dtype=torch.float32, device=dev)
     if w == 0 or m == 0:
         return out
-    rc = build.load().noma_ap_contract(
-        _ptr(ap), _ptr(nm_table), _ptr(g_raw), _ptr(out), w, n, m,
-        int(uplink), dev.index, _stream(dev))
-    _raise_on(rc, "noma_ap_contract")
+    rc = build.load("noma_rates").noma_ap_contract(
+        build.ptr(ap), build.ptr(nm_table), build.ptr(g_raw), build.ptr(out), w, n, m,
+        int(uplink), dev.index, build.stream(dev))
+    build.raise_on(rc, "noma_ap_contract")
     LAUNCHES["noma_ap_contract"] += 1
     return out
 

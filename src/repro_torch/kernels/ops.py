@@ -1,4 +1,7 @@
-"""Differentiable wrappers around the NOMA kernels.
+"""Public wrappers around the kernels.
+
+flash_attention and rg_lru take the models' layouts and reshape to the
+kernels' (no padding: the kernels mask their ragged edges).
 
 torch.autograd.Functions carry the uplink and downlink pairwise terms: the
 forward runs noma_pairwise_kernel, the backward re-streams the same raw gain
@@ -13,6 +16,8 @@ import torch
 
 from repro_torch.core import channel
 from repro_torch.core.types import NetworkEnv
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import rg_lru as rl
 from repro_torch.kernels.cells import CellLayout
 from repro_torch.kernels.noma_rates import (
     BLOCK_U,
@@ -20,6 +25,25 @@ from repro_torch.kernels.noma_rates import (
     noma_pairwise_bwd_kernel,
     noma_pairwise_kernel,
 )
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q (B, Sq, H, hd), k/v (B, Sk, KV, hd) -> (B, Sq, H, hd). Query head
+    h = kv*G + g reads KV head kv, as the models' grouped layout orders
+    them."""
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    qf = q.transpose(1, 2).contiguous().view(b * h, sq, hd)
+    kf = k.transpose(1, 2).contiguous().view(b * kv, sk, hd)
+    vf = v.transpose(1, 2).contiguous().view(b * kv, sk, hd)
+    out = fa.flash_attention(qf, kf, vf, group=h // kv, causal=causal, window=window)
+    return out.view(b, h, sq, hd).transpose(1, 2)
+
+
+def rg_lru(log_a, b, h0=None) -> torch.Tensor:
+    """The RG-LRU recurrence over (B, S, W) float32 with optional h0 (B, W)."""
+    return rl.rg_lru(log_a.contiguous(), b.contiguous(),
+                     None if h0 is None else h0.contiguous())
 
 
 def _layout_blocks(layout, env, block_u, block_v):

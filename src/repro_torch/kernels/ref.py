@@ -1,8 +1,53 @@
-"""Plain PyTorch oracles for the NOMA pairwise reduction (the allclose
-targets the kernels' composition is held against)."""
+"""Plain PyTorch oracles, float32: naive softmax attention, the RG-LRU
+recurrence as a log-depth scan, and the NOMA pairwise reduction (the
+allclose targets the kernels and their compositions are held against)."""
 from __future__ import annotations
 
 import torch
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q, k, v, group: int, causal=True, window=0,
+                        kv_len=None):
+    """q: (B*KV*G, Sq, hd); k/v: (B*KV, Sk, hd). Naive softmax attention
+    over positions 0..Sq-1 and 0..Sk-1, in float32, cast to q's dtype."""
+    sq, hd = q.shape[1], q.shape[2]
+    sk = k.shape[1]
+    kv_len = sk if kv_len is None else kv_len
+    k = torch.repeat_interleave(k.float(), group, dim=0)
+    v = torch.repeat_interleave(v.float(), group, dim=0)
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k) * hd**-0.5
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    mask = k_pos < kv_len
+    if causal:
+        mask = mask & (k_pos <= q_pos)
+    if window:
+        mask = mask & ((q_pos - k_pos) < window)
+    s = torch.where(mask[None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v).to(q.dtype)
+
+
+def rg_lru_ref(log_a, b, h0=None):
+    """h_t = exp(log_a_t) * h_{t-1} + b_t by a log-depth (Hillis-Steele)
+    scan over S: the composition of two steps (a1, b1) then (a2, b2) is
+    (a1 a2, a2 b1 + b2). log_a, b: (B, S, W) float32; h0: (B, W)."""
+    a = torch.exp(log_a.float())
+    bb = b.float().clone()
+    if h0 is not None:
+        bb[:, 0] += a[:, 0] * h0.float()
+    shift = 1
+    while shift < a.shape[1]:
+        a_prev = torch.ones_like(a)
+        b_prev = torch.zeros_like(bb)
+        a_prev[:, shift:] = a[:, :-shift]
+        b_prev[:, shift:] = bb[:, :-shift]
+        bb = a * b_prev + bb
+        a = a * a_prev
+        shift *= 2
+    return bb
 
 
 def _cmp(own_u, own_v, descending: bool):

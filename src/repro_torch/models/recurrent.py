@@ -1,0 +1,93 @@
+"""RG-LRU recurrent block (Griffin / RecurrentGemma, arXiv:2402.19427).
+
+Block:  x -> [W_gate -> GeLU] branch (gate)
+        x -> [W_x -> causal depthwise conv(w=4) -> RG-LRU] branch
+        out = W_out (gate * lru_out)
+
+RG-LRU per channel:
+    r_t = sigmoid(W_r x_t);  i_t = sigmoid(W_i x_t)
+    log a_t = -c * softplus(Lambda) * r_t          (c = 8)
+    h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
+
+A sequence (S > 1) runs the recurrence through ops.rg_lru (the CUDA kernel
+on the card, its plain twin on the CPU), the function the JAX package
+computes with an associative scan; a decode step (S == 1) is the one-step
+update.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import COMPUTE_DTYPE, ParamDef
+
+C_EXP = 8.0
+
+
+def rglru_defs(cfg) -> dict:
+    d = cfg.d_model
+    w = cfg.rglru_dim or d
+    f32 = torch.float32
+    return {
+        "w_in": ParamDef((d, w), ("embed", "lru")),
+        "w_gate": ParamDef((d, w), ("embed", "lru")),
+        "conv_w": ParamDef((cfg.conv_width, w), (None, "lru"), scale=0.1),
+        "conv_b": ParamDef((w,), ("lru",), init="zeros"),
+        "w_r": ParamDef((w, w), ("lru", "lru_out"), dtype=f32),
+        "w_i": ParamDef((w, w), ("lru", "lru_out"), dtype=f32),
+        "lam": ParamDef((w,), ("lru",), init="ones", dtype=f32),
+        "w_out": ParamDef((w, d), ("lru", "embed")),
+    }
+
+
+def _causal_conv(x, w, b, state):
+    """Depthwise causal conv, width K, in x's dtype. x: (B, S, W); state:
+    (B, K-1, W) of the previous tokens, or None (zeros)."""
+    k = w.shape[0]
+    if state is None:
+        pad = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)  # (B, S+K-1, W)
+    out = sum(xp[:, i:i + x.shape[1], :] * w[i].to(x.dtype) for i in range(k))
+    new_state = xp[:, -(k - 1):, :] if k > 1 else None
+    return out + b.to(x.dtype), new_state
+
+
+def rglru_apply(p: dict, x, cfg, state: dict | None = None):
+    """x: (B, S, D). state: {"h": (B, W), "conv": (B, K-1, W)} or None.
+    Returns (out (B, S, D), new state or None)."""
+    gate = F.gelu(x @ p["w_gate"], approximate="tanh")
+    u = x @ p["w_in"]
+    u, conv_state = _causal_conv(u, p["conv_w"], p["conv_b"],
+                                 None if state is None else state["conv"])
+    uf = u.float()
+    r = torch.sigmoid(uf @ p["w_r"])
+    i = torch.sigmoid(uf @ p["w_i"])
+    # jax.nn.softplus is logaddexp(x, 0), with no linear threshold
+    softplus = torch.logaddexp(p["lam"], torch.zeros_like(p["lam"]))
+    log_a = -C_EXP * softplus * r
+    scale = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-6))
+    b = scale * (i * uf)
+    if state is None:
+        h = ops.rg_lru(log_a, b)
+        new_state = None
+    else:
+        h0 = state["h"].float()
+        if x.shape[1] == 1:  # decode: one step
+            h = (torch.exp(log_a[:, 0]) * h0 + b[:, 0])[:, None, :]
+        else:
+            h = ops.rg_lru(log_a, b, h0)
+        new_state = {"h": h[:, -1, :].float(), "conv": conv_state}
+    out = (gate * h.to(COMPUTE_DTYPE)) @ p["w_out"]
+    return out, new_state
+
+
+def make_rglru_state(cfg, batch: int, n_layers: int, device=None) -> dict:
+    w = cfg.rglru_dim or cfg.d_model
+    return {
+        "h": torch.zeros((n_layers, batch, w), dtype=torch.float32, device=device),
+        "conv": torch.zeros((n_layers, batch, cfg.conv_width - 1, w), dtype=COMPUTE_DTYPE,
+                            device=device),
+    }

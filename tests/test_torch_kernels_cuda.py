@@ -10,16 +10,30 @@ Shapes cover ragged U/M/N, block_u != block_v, one AP, and CellLayout
 schedules. The kernel and its twin sum the same float32 terms in another
 order: each element's error is held to 1e-5 of the sum of the magnitudes
 of its terms (the twin on absolute weights), never of the largest output,
-under which a far user's rows would hide."""
+under which a far user's rows would hide.
+
+flash_attention: each output element within 1e-2 (bf16) or 1e-5 (float32)
+of sum_k p_k |v_k| (the twin on |v|): the bf16 output rounds at 2^-8 of it
+and p is rounded to bf16 before the AV product; in float32 only the order
+of the sums differs. rg_lru: within 1e-5 of the twin on (log_a, |b|, |h0|),
+the float32 summation bound of the recurrence. The reduced model on the
+card against itself on the CPU: within 1e-2 of each position's largest
+logit (bf16 matmuls with other summation orders)."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import configs  # noqa: E402
 from repro_torch.core import GdConfig, channel, make_env, profiles  # noqa: E402
+from repro_torch.data import make_batch  # noqa: E402
 from repro_torch.kernels import build_cell_layout, ops  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import noma_rates as nr  # noqa: E402
+from repro_torch.kernels import rg_lru as rl  # noqa: E402
+from repro_torch.models import Model  # noqa: E402
 from repro_torch.planning import PlannerEngine  # noqa: E402
+from repro_torch.runtime.serve import make_split_serve  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-5
@@ -126,3 +140,76 @@ def test_engine_plan_on_the_card(cuda):
     cpu = PlannerEngine(profiles.nin(), cfg=GdConfig(optimizer="adam", max_iters=40),
                         sinr_backend="kernel", device="cpu").plan(env.to("cpu"))
     np.testing.assert_allclose(float(plan.utility), float(cpu.plan.utility), rtol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "b,sq,sk,h,kv,hd,causal,window,kv_len",
+    [
+        (1, 64, 64, 4, 4, 32, True, 0, None),
+        (2, 100, 100, 4, 1, 64, True, 0, None),       # ragged, MQA
+        (1, 77, 130, 8, 2, 64, False, 0, 111),        # bidirectional, Sq != Sk, kv_len
+        (2, 200, 200, 4, 2, 32, True, 48, None),      # local window
+        (1, 129, 129, 16, 1, 256, True, 64, None),    # the served model's head shape
+        (1, 70, 70, 2, 1, 128, False, 0, None),
+    ],
+)
+def test_flash_attention_matches_plain_twin(cuda, dtype, b, sq, sk, h, kv, hd, causal,
+                                            window, kv_len):
+    g = torch.Generator(device=cuda).manual_seed(sq * 7 + hd)
+    q = torch.randn((b * h, sq, hd), device=cuda, generator=g).to(dtype)
+    k = torch.randn((b * kv, sk, hd), device=cuda, generator=g).to(dtype)
+    v = torch.randn((b * kv, sk, hd), device=cuda, generator=g).to(dtype)
+    args = dict(group=h // kv, causal=causal, window=window, kv_len=kv_len)
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, **args)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    want = fa.flash_attention_plain(q, k, v, **args)
+    scale = fa.flash_attention_plain(q, k, v.abs(), **args).float()
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    _close(got.float(), want.float(), scale, 1e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.parametrize("b,s,w,with_h0", [(1, 32, 64, False), (2, 45, 96, True),
+                                           (3, 128, 128, True), (2, 17, 200, False)])
+def test_rg_lru_matches_plain_twin(cuda, b, s, w, with_h0):
+    g = torch.Generator(device=cuda).manual_seed(s + w)
+    log_a = -torch.rand((b, s, w), device=cuda, generator=g) * 2
+    x = torch.randn((b, s, w), device=cuda, generator=g)
+    h0 = torch.randn((b, w), device=cuda, generator=g) if with_h0 else None
+    before = rl.LAUNCHES["rg_lru"]
+    got = rl.rg_lru(log_a, x, h0)
+    torch.cuda.synchronize()
+    assert rl.LAUNCHES["rg_lru"] == before + 1
+    scale = rl.rg_lru_plain(log_a, x.abs(), None if h0 is None else h0.abs())
+    _close(got, rl.rg_lru_plain(log_a, x, h0), scale, 1e-5)
+
+
+def test_attention_and_rg_lru_wrappers_refuse_bad_cuda_arguments(cuda):
+    q = torch.randn((4, 16, 48), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q, q[:1], q[:1], group=4)
+    q = torch.randn((4, 16, 32), device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, q[:1], q[:1], group=4)
+    la = torch.zeros((2, 8, 16), device=cuda)
+    with pytest.raises(ValueError, match="shape"):
+        rl.rg_lru(la, la, torch.zeros((2, 8), device=cuda))
+
+
+def test_split_serve_on_the_card_is_bit_equal_and_counts_launches(cuda):
+    cfg = configs.get("recurrentgemma-9b").reduced()
+    model = Model(cfg, device=cuda).init(torch.Generator(device=cuda).manual_seed(1))
+    tokens = make_batch(0, 0, 2, 96, cfg.vocab_size, device=cuda)["tokens"]
+    fa.reset_launches()
+    rl.reset_launches()
+    full, _, _ = model(tokens)
+    assert fa.LAUNCHES["flash_attention"] == 1 and rl.LAUNCHES["rg_lru"] == 2
+    for s in range(cfg.n_layers + 1):
+        progs = make_split_serve(model, s)
+        assert torch.equal(progs.edge_fn(progs.device_fn(tokens)), full)
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    want, _, _ = cpu(tokens.cpu())
+    _close(full.cpu(), want, want.abs().amax(-1, keepdim=True), 1e-2)
