@@ -8,10 +8,15 @@ Phases, each fatal on failure (no phase catches its own error):
   2. build    -- compile the CUDA kernels from src/repro_torch/kernels/csrc;
   3. kernels  -- every kernel against its plain PyTorch twin at the paper's
                  scale (U=1250 users, N=16 APs, M=250 subchannels): both links,
-                 forward and backward, dense and with a CellLayout; then the
-                 rates and their gradients, kernel backend against einsum; then
-                 each kernel's time beside its plain twin's, a one-call PyTorch
-                 yardstick's where there is one, and its bound;
+                 forward and backward, dense and with a CellLayout (the intra
+                 term both by the dense per-cell kernel the main path runs and
+                 by the CSR kernel on either tile list), the dense kernel also
+                 on skewed cells (half the users in one cell, one cell empty);
+                 then the rates and their gradients, kernel backend against
+                 einsum; then each kernel's time beside its plain twin's, a
+                 one-call PyTorch yardstick's where there is one, and its bound
+                 (and the CSR intra kernel on the dense tile list, timed in
+                 turns with the dense kernel, which must beat it);
   4. main path -- PlannerEngine(nin, sinr_backend="kernel").plan on a sampled
                  env, then two replans on gains perturbed by a few percent, with
                  the kernel launch counters read around them; the plan is
@@ -24,7 +29,10 @@ Phases, each fatal on failure (no phase catches its own error):
   6. serve    -- split serving of recurrentgemma-9b at full width and depth
                  (38 layers, 8.5e9 parameters, random weights from a seed):
                  the flash_attention and rg_lru kernels against their plain
-                 twins at the served shapes, and their times; then the
+                 twins at the served shapes (flash also at hd 32 to 256 with
+                 ragged Sq/Sk, windows, kv_len < Sk, and on its float32
+                 path), and their times (bf16 flash no slower than
+                 scaled_dot_product_attention); then the
                  serving entry point (plan s*, cut, serve 4 requests of 3072
                  tokens, greedy continuation) with the launch counters read
                  around it; split logits at s* and at s=19 equal to the
@@ -70,6 +78,8 @@ PATH_RTOL = 1e-4
 # rounded to bf16 before the AV product. rg_lru: the float32 summation
 # bound, the twin on (log_a, |b|, |h0|).
 FLASH_RTOL = 1e-2
+# The float32 path (FMA kernel): only the order of the sums differs.
+FLASH_F32_RTOL = 1e-5
 RG_LRU_RTOL = 1e-5
 SERVE_ARCH = "recurrentgemma-9b"
 SERVE_B, SERVE_S = 4, 3072         # 4 requests of 3072 tokens
@@ -240,6 +250,12 @@ def main() -> int:
                 check(f"noma_cell_intra {link} {direction} {sched}",
                       nr.noma_cell_intra(*args), nr.noma_cell_intra_plain(*args),
                       KERNEL_RTOL, scale, errs, "noma_cell_intra")
+                if sched == "dense":   # the main path's kernel: per-cell work
+                    d_args = (own, own, w_s, ap, ap, N, desc)
+                    check(f"noma_cell_intra_dense {link} {direction}",
+                          nr.noma_cell_intra_dense(*d_args),
+                          nr.noma_cell_intra_dense_plain(*d_args), KERNEL_RTOL, scale, errs,
+                          "noma_cell_intra")
         own, g_raw, ap = ops._inputs(env, uplink)
         tx = (beta * p[:, None]).contiguous()
         if uplink:   # forward table A, backward contraction of C
@@ -260,6 +276,21 @@ def main() -> int:
             check("noma_per_ap dn bwd", nr.noma_per_ap(ap, cot, g_raw, False),
                   nr.noma_per_ap_plain(ap, cot, g_raw, False), KERNEL_RTOL,
                   nr.noma_per_ap_plain(ap, cot.abs(), g_raw, False), errs, "noma_per_ap")
+
+    # The dense kernel on skewed cells: one cell holding half the users, one
+    # cell empty (its users moved to cell 0), both SIC orders.
+    own_sk, _, ap_sk = ops._inputs(env, True)
+    ap_sk = ap_sk.clone()
+    ap_sk[: U // 2] = 1
+    ap_sk[ap_sk == N - 1] = 0
+    sizes = torch.bincount(ap_sk.long(), minlength=N)
+    w_sk = (beta * p_up[:, None] * own_sk).contiguous()
+    for desc in (True, False):
+        d_args = (own_sk, own_sk, w_sk, ap_sk, ap_sk, N, desc)
+        check(f"noma_cell_intra_dense skewed cells {sizes.tolist()} descending={desc}",
+              nr.noma_cell_intra_dense(*d_args), nr.noma_cell_intra_dense_plain(*d_args),
+              KERNEL_RTOL, nr.noma_cell_intra_dense_plain(*d_args), errs, "noma_cell_intra")
+    del own_sk, ap_sk, w_sk
 
     # Whole rates and their gradients, through the channel functions the
     # engine drives: kernel backend vs einsum.
@@ -294,6 +325,7 @@ def main() -> int:
     w_in = (tx_up * own_up).contiguous()
     csr = nr.dense_csr(-(-U // nr.BLOCK_U), -(-U // nr.BLOCK_V), dev)
     intra_args = (own_up, own_up, w_in, ap, ap, *csr, nr.BLOCK_U, nr.BLOCK_V, True)
+    dense_args = (own_up, own_up, w_in, ap, ap, N, True)
     copies = 4
     g_ups = [g_up.clone() for _ in range(copies)]
     g_dns = [g_dn.clone() for _ in range(copies)]
@@ -309,20 +341,22 @@ def main() -> int:
     mask = ((own_up[None, :, :] < own_up[:, None, :]) & same[:, :, None])
     mask = mask.permute(2, 0, 1).float().contiguous()
     check("noma_cell_intra library einsum vs plain",
-          torch.einsum("mrs,sm->rm", mask, w_in), nr.noma_cell_intra_plain(*intra_args),
-          KERNEL_RTOL, nr.noma_cell_intra_plain(own_up, own_up, w_in.abs(),
-                                                *intra_args[3:]))
+          torch.einsum("mrs,sm->rm", mask, w_in), nr.noma_cell_intra_dense_plain(*dense_args),
+          KERNEL_RTOL, nr.noma_cell_intra_dense_plain(own_up, own_up, w_in.abs(),
+                                                      *dense_args[3:]))
     f4 = 4
     # Bytes each input read once, each output written once; own and ap are
     # one tensor in both roles. The operations of intra are instructions
     # (compare, select, add) per same-cell triple at the non-FMA rate; of
     # per_ap and contract, a multiply-add per (w, n, m) at the FLOP rate.
+    # intra is timed as the main path runs it (the dense per-cell kernel);
+    # the CSR kernel on the dense tile list is timed beside it.
     timing = {
         "noma_cell_intra": dict(
-            kernel=[lambda: nr.noma_cell_intra(*intra_args)],
-            plain=[lambda: nr.noma_cell_intra_plain(*intra_args)],
+            kernel=[lambda: nr.noma_cell_intra_dense(*dense_args)],
+            plain=[lambda: nr.noma_cell_intra_dense_plain(*dense_args)],
             library=[lambda: torch.einsum("mrs,sm->rm", mask, w_in)],
-            bytes=f4 * (3 * U * M + U) + 4 * (csr[0].numel() + csr[1].numel()),
+            bytes=f4 * (3 * U * M + U),
             ops_s=3 * same_triples / FP32_INSTR_PER_S),
         "noma_per_ap": dict(
             kernel=[lambda g=g: nr.noma_per_ap(ap, tx_up, g, True) for g in g_ups],
@@ -352,9 +386,19 @@ def main() -> int:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         }
         print(f"time {name}: " + " ".join(f"{k}={v}" for k, v in rows[name].items()))
-    print(f"time noma_cell_intra: dense schedule visits {U * U * M:.3e} (r,s,m) triples, "
+    # The CSR kernel on the dense tile list, in turns with the dense kernel.
+    csr_ms = [device_ms([lambda: nr.noma_cell_intra(*intra_args)]),
+              device_ms([lambda: nr.noma_cell_intra_dense(*dense_args)]),
+              device_ms([lambda: nr.noma_cell_intra(*intra_args)])]
+    rows["noma_cell_intra"]["csr_dense_ms"] = min(csr_ms[0], csr_ms[2])
+    print(f"time noma_cell_intra: CSR kernel on the dense tile list {csr_ms[0]} / {csr_ms[2]} "
+          f"ms against the dense per-cell kernel {rows['noma_cell_intra']['ms']} / {csr_ms[1]} "
+          f"ms; the tile list visits {U * U * M:.3e} (r,s,m) triples, "
           f"{3 * U * U * M / FP32_INSTR_PER_S * 1e3:.4f} ms of instructions; the data "
           f"needs {same_triples:.3e} same-cell triples")
+    if not rows["noma_cell_intra"]["ms"] < rows["noma_cell_intra"]["csr_dense_ms"]:
+        fail("the dense per-cell intra kernel is not faster than the CSR kernel on the "
+             "dense tile list")
     del g_ups, g_dns, timing, mask
     torch.cuda.empty_cache()
 
@@ -534,22 +578,32 @@ def serve_phase(dev, kind: str, smi: str, errs: dict):
         return torch.randn(shape, device=dev, generator=gen).to(dtype)
 
     # 6.1 the kernels against their plain twins at the served shapes
-    def check_flash(tag, b, s_q, s_k, h, kv, hd, causal, window):
-        q = randn(b * h, s_q, hd, dtype=torch.bfloat16)
-        k = randn(b * kv, s_k, hd, dtype=torch.bfloat16)
-        v = randn(b * kv, s_k, hd, dtype=torch.bfloat16)
-        args = (h // kv, causal, window)
+    def check_flash(tag, b, s_q, s_k, h, kv, hd, causal, window, kv_len=None,
+                    dtype=torch.bfloat16):
+        q = randn(b * h, s_q, hd, dtype=dtype)
+        k = randn(b * kv, s_k, hd, dtype=dtype)
+        v = randn(b * kv, s_k, hd, dtype=dtype)
+        args = (h // kv, causal, window, kv_len)
         got = fa.flash_attention(q, k, v, *args)
         torch.cuda.synchronize()
         scale = fa.flash_attention_plain(q, k, v.abs(), *args).float()
+        rtol = FLASH_RTOL if dtype == torch.bfloat16 else FLASH_F32_RTOL
         check(f"flash_attention {tag}", got.float(), fa.flash_attention_plain(q, k, v, *args)
-              .float(), FLASH_RTOL, scale, errs, "flash_attention")
+              .float(), rtol, scale, errs, "flash_attention")
         return q, k, v, scale
 
     q, k, v, f_scale = check_flash(f"served B={B} S={S} H={H}/{KV} hd={HD} window {W}",
                                    B, S, S, H, KV, HD, True, W)
     check_flash("ragged S=1000 hd=64 G=4 causal", 2, 1000, 1000, 8, 2, 64, True, 0)
     check_flash("bidirectional S=1500 hd=128 G=4", 2, 1500, 1500, 8, 2, 128, False, 0)
+    check_flash("ragged S=999 hd=32 G=1 causal", 2, 999, 999, 4, 4, 32, True, 0)
+    check_flash("ragged Sq=1000 Sk=1100 hd=256 G=16 window 700", 1, 1000, 1100, 16, 1, 256,
+                True, 700)
+    check_flash("kv_len=1801 < Sk=2000 hd=256 G=16 bidirectional", 1, 1500, 2000, 16, 1, 256,
+                False, 0, 1801)
+    check_flash("kv_len=900 < Sk=1000 hd=32 G=4 causal", 2, 1000, 1000, 8, 2, 32, True, 0, 900)
+    check_flash("float32 path S=1000 hd=128 G=4 causal", 2, 1000, 1000, 8, 2, 128, True, 0,
+                None, torch.float32)
 
     log_a = -8.0 * torch.rand((B, S, cfg.rglru_dim), device=dev, generator=gen)
     x_b = randn(B, S, cfg.rglru_dim)
@@ -601,6 +655,9 @@ def serve_phase(dev, kind: str, smi: str, errs: dict):
         }
         print(f"time {name}: " + " ".join(f"{k}={v}" for k, v in rows[name].items())
               + f" | {smi}")
+    if not rows["flash_attention"]["ms"] <= rows["flash_attention"]["library_ms"]:
+        fail("the bf16 flash_attention kernel is slower than scaled_dot_product_attention "
+             "at the served shape")
     rows["rg_lru"]["library_note"] = (
         "no single PyTorch call computes a first-order recurrence with per-step "
         "decay; the closed form through cumsum(log_a) underflows (exp of about "

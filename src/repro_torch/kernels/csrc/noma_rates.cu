@@ -10,21 +10,38 @@
 // 1. cell_intra   replaces src/repro/kernels/noma_rates.py
 //                 noma_cell_intra_kernel (_cell_intra_kernel):
 //      out[r,m] = sum_s [ap_r[r]==ap_s[s]] * cmp(own_s[s,m], own_r[r,m]) * w_s[s,m]
-//    over a CSR list of (receiver block, streamed block) tiles; cmp is '<'
-//    (descending, uplink SIC) or '>' (downlink SIC).
-//    Bound: operations. The work a run's data needs is one compare and one
-//    add per same-cell (r, s, m) triple; the dense schedule visits all U^2*M
-//    triples (3.9e8 at U=1250, M=250), far above the ~5 MB it reads.
-//    Design: one thread block owns one (receiver block, 32-wide m block)
-//    output tile and walks its receiver block's CSR run in order, so the sum
-//    needs no atomics and is the same on every run (the TPU kernel instead
-//    revisits a VMEM accumulator across sequential grid steps). Threads lie
-//    along m, so global loads of the row-major (U, M) operands coalesce;
-//    each streamed tile (own_s, w_s, ap_s) is staged once in shared memory
-//    and read by all 8 warps, and each thread keeps ROWS receivers in
-//    registers so one shared-memory read feeds ROWS triples. Ragged edges
-//    are masked with selects (ap sentinel -1 for rows past S), never with a
-//    multiply.
+//    cmp is '<' (descending, uplink SIC) or '>' (downlink SIC). Two entry
+//    points compute it:
+//    - noma_cell_intra_dense, the dense schedule the planner runs (no
+//      CellLayout; forward and backward, roles swapped in the backward).
+//    - noma_cell_intra, over a CSR list of (receiver block, streamed block)
+//      tiles: a CellLayout's same-cell block-diagonal tiles (or, for
+//      comparison, the dense list of all U^2 tiles).
+//    Bound: operations. The work a run's data needs is one compare, select
+//    and add per same-cell (r, s, m) triple: 3.2e7 at U=1250, N=16, M=250
+//    (0.00286 ms at 33.5e12 non-FMA instructions a second), far above the
+//    ~5 MB it reads. The dense tile list visits all U^2*M = 3.9e8 triples,
+//    12x what the data needs.
+//    Dense design: work per cell, not per U^2. One thread block per
+//    (32-wide m block, cell, receiver-chunk slot); it finds its cell's
+//    receivers and senders itself, in ascending id, by a block-wide
+//    ballot/prefix compaction of the AP ids in shared memory (2048 ids a
+//    pass, 8 KB), so it needs no host sync, no extra launch and no tile
+//    list. Only same-cell senders are streamed: their own_s / w_s rows are
+//    gathered by index (coalesced along m) into a double-buffered cp.async
+//    ring of 32-sender tiles read by all 8 warps; each thread keeps 4
+//    receivers in registers, so one shared-memory read feeds 4 triples.
+//    Skewed cells (19 to 203 users) spread over several blocks: a cell gets
+//    enough 32-receiver chunk slots for a cell 3x the mean size, and a
+//    larger cell's slots take several chunks in turn. Every receiver sums
+//    its senders in ascending id: no atomics, the same order on every run.
+//    CSR design: one thread block owns one (receiver block, 32-wide
+//    m block) output tile and walks its receiver block's CSR run in order
+//    (the TPU kernel instead revisits a VMEM accumulator across sequential
+//    grid steps). Each streamed tile (own_s, w_s, ap_s) is staged once in
+//    shared memory and read by all 8 warps; each thread keeps ROWS
+//    receivers in registers. Ragged edges are masked with selects (ap
+//    sentinel -1 for rows past S), never with a multiply.
 //
 // 2. per_ap       replaces noma_rates.py noma_per_ap_kernel (_per_ap_kernel):
 //      out[n,m] = sum_w [ap[w] != n] * wgt[w,m] * g
@@ -46,6 +63,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -118,6 +136,182 @@ cell_intra_kernel(const float* __restrict__ own_r, const float* __restrict__ own
     const int rl = warp * ROWS + i;
     const int r = rb * block_r + rl;
     if (rl < block_r && r < R && m_ok) out[static_cast<size_t>(r) * M + m] = acc[i];
+  }
+}
+
+// -- cell_intra on the dense schedule: per-cell work -------------------------
+constexpr int kDenseRows = 4;                       // receivers a thread
+constexpr int kDenseChunk = kWarps * kDenseRows;    // receivers a block
+constexpr int kDenseTile = 32;                      // senders a streamed tile
+constexpr int kDenseBallots = 8;                    // ballots a warp per window
+constexpr int kDenseWindow = kWarps * kDenseBallots * kLanes;  // ids a compaction pass
+
+// Block-wide, order-keeping compaction of the users of `cell` among ids
+// [base, base + kDenseWindow) of ap (n ids in all): warp w scans
+// kDenseBallots x 32 consecutive ids, warps are ranked by a prefix of
+// their counts. Each hit is handed to emit(id, rank within the window).
+// Returns the window's count. All threads of the block must call it.
+template <typename Emit>
+__device__ __forceinline__ int compact_window(const int* __restrict__ ap, int n, int cell,
+                                              int base, int* warp_cnt, Emit emit) {
+  const int lane = threadIdx.x;
+  const int warp = threadIdx.y;
+  const int w0 = base + warp * kDenseBallots * kLanes;
+  // All loads first, so their latencies overlap (a ballot waits for its
+  // operand); ids past n read as -1, which is no cell.
+  int ids[kDenseBallots];
+#pragma unroll
+  for (int b = 0; b < kDenseBallots; ++b) {
+    const int id = w0 + b * kLanes + lane;
+    ids[b] = id < n ? ap[id] : -1;
+  }
+  unsigned mask[kDenseBallots];
+  int cnt = 0;
+#pragma unroll
+  for (int b = 0; b < kDenseBallots; ++b) {
+    mask[b] = __ballot_sync(0xffffffffu, ids[b] == cell);
+    cnt += __popc(mask[b]);
+  }
+  if (lane == 0) warp_cnt[warp] = cnt;
+  __syncthreads();
+  int pos = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int c = warp_cnt[w];
+    pos += w < warp ? c : 0;
+    total += c;
+  }
+#pragma unroll
+  for (int b = 0; b < kDenseBallots; ++b) {
+    if ((mask[b] >> lane) & 1u)
+      emit(w0 + b * kLanes + lane, pos + __popc(mask[b] & ((1u << lane) - 1u)));
+    pos += __popc(mask[b]);
+  }
+  __syncthreads();  // warp_cnt is reused, and the emitted lists are complete
+  return total;
+}
+
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One thread block per (32-wide m block, cell, receiver chunk slot). Chunk
+// slot j takes the cell's receiver chunks j, j + chunks_per_cell, ... (a
+// chunk is kDenseChunk receivers in ascending id); a slot past the cell's
+// chunks exits after counting. Each thread keeps kDenseRows receivers of
+// its warp in registers; the cell's senders, found window by window in
+// ascending id, stream through a double-buffered cp.async ring of
+// (kDenseTile senders x 32 m) tiles of own_s and w_s that all 8 warps read.
+// Every receiver of the cell gets every same-cell sender in ascending id:
+// the same order on every run, no atomics.
+template <bool DESC>
+__global__ void __launch_bounds__(kLanes * kWarps)
+cell_intra_dense_kernel(const float* __restrict__ own_r, const float* __restrict__ own_s,
+                        const float* __restrict__ w_s, const int* __restrict__ ap_r,
+                        const int* __restrict__ ap_s, float* __restrict__ out, int R, int S,
+                        int M, int n_aps, int chunks_per_cell) {
+  __shared__ int recv[kDenseChunk];
+  __shared__ int send[kDenseWindow];
+  __shared__ int warp_cnt[kWarps];
+  __shared__ float t_own[2][kDenseTile][kLanes];
+  __shared__ float t_w[2][kDenseTile][kLanes];
+
+  const int lane = threadIdx.x;
+  const int warp = threadIdx.y;
+  const int tid = warp * kLanes + lane;
+  // Slot-major launch order: every cell's first chunk before any cell's
+  // second, so the blocks that find no chunk to take come last.
+  const int cell = blockIdx.y % n_aps;
+  const int slot = blockIdx.y / n_aps;
+  const int m0 = blockIdx.x * kLanes;
+  const int m = m0 + lane;
+  const bool m_ok = m < M;
+  const int m_ld = min(m, M - 1);  // lanes past M load a valid address, store nothing
+
+  for (int chunk = slot;; chunk += chunks_per_cell) {
+    // This chunk's receivers: ranks [lo, lo + kDenseChunk) of the cell.
+    const int lo = chunk * kDenseChunk;
+    int n_cell = 0;
+    for (int base = 0; base < R; base += kDenseWindow) {
+      const int before = n_cell;
+      n_cell += compact_window(ap_r, R, cell, base, warp_cnt, [&](int id, int rank) {
+        const int k = before + rank - lo;
+        if (k >= 0 && k < kDenseChunk) recv[k] = id;
+      });
+    }
+    if (lo >= n_cell) return;  // block-uniform: every thread holds the same count
+    const int n_recv = min(kDenseChunk, n_cell - lo);
+
+    float own_mine[kDenseRows];
+    float acc[kDenseRows];
+#pragma unroll
+    for (int i = 0; i < kDenseRows; ++i) {
+      const int rl = warp * kDenseRows + i;
+      own_mine[i] = rl < n_recv ? own_r[static_cast<size_t>(recv[rl]) * M + m_ld] : 0.f;
+      acc[i] = 0.f;
+    }
+    const bool warp_live = warp * kDenseRows < n_recv;
+
+    for (int base = 0; base < S; base += kDenseWindow) {
+      const int n_send = compact_window(ap_s, S, cell, base, warp_cnt,
+                                        [&](int id, int rank) { send[rank] = id; });
+      const int n_tiles = (n_send + kDenseTile - 1) / kDenseTile;
+      auto fetch = [&](int t) {
+        const int buf = t & 1;
+        for (int idx = tid; idx < kDenseTile * kLanes; idx += kLanes * kWarps) {
+          const int sl = idx / kLanes, ml = idx % kLanes;
+          const int k = t * kDenseTile + sl;
+          if (k < n_send) {
+            const size_t g = static_cast<size_t>(send[k]) * M + min(m0 + ml, M - 1);
+            cp_async_f32(&t_own[buf][sl][ml], own_s + g);
+            cp_async_f32(&t_w[buf][sl][ml], w_s + g);
+          }
+        }
+        cp_async_commit();
+      };
+      if (n_tiles > 0) fetch(0);
+      for (int t = 0; t < n_tiles; ++t) {
+        if (t + 1 < n_tiles) {
+          fetch(t + 1);
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncthreads();
+        if (warp_live) {
+          const int buf = t & 1;
+          const int cnt = min(kDenseTile, n_send - t * kDenseTile);
+#pragma unroll 4
+          for (int sl = 0; sl < cnt; ++sl) {
+            const float o = t_own[buf][sl][lane];
+            const float w = t_w[buf][sl][lane];
+#pragma unroll
+            for (int i = 0; i < kDenseRows; ++i) {
+              const bool cmp = DESC ? (o < own_mine[i]) : (o > own_mine[i]);
+              acc[i] += cmp ? w : 0.f;
+            }
+          }
+        }
+        __syncthreads();  // the buffer is refilled by the fetch two tiles on
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < kDenseRows; ++i) {
+      const int rl = warp * kDenseRows + i;
+      if (rl < n_recv && m_ok) out[static_cast<size_t>(recv[rl]) * M + m] = acc[i];
+    }
+    __syncthreads();  // recv is rewritten by the next chunk
   }
 }
 
@@ -210,6 +404,29 @@ int noma_cell_intra(const float* own_r, const float* own_s, const float* w_s,
     case 4: launch_intra<4>(desc, grid, smem, s, own_r, own_s, w_s, ap_r, ap_s, row_ptr, col, out, R, S, M, block_r, block_s); break;
     case 8: launch_intra<8>(desc, grid, smem, s, own_r, own_s, w_s, ap_r, ap_s, row_ptr, col, out, R, S, M, block_r, block_s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The dense schedule (no CellLayout): every receiver against every sender
+// of its cell. AP ids must lie in [0, n_aps); grid (ceil(M / 32), n_aps *
+// chunks_per_cell) of 8 x 32 threads, 24,736 bytes of static shared memory.
+int noma_cell_intra_dense(const float* own_r, const float* own_s, const float* w_s,
+                          const int* ap_r, const int* ap_s, float* out, int R, int S, int M,
+                          int n_aps, int chunks_per_cell, int descending, int device,
+                          void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_aps < 1 || chunks_per_cell < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(ceil_div(M, kLanes), n_aps * chunks_per_cell);
+  const dim3 block(kLanes, kWarps);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (descending) {
+    cell_intra_dense_kernel<true><<<grid, block, 0, s>>>(own_r, own_s, w_s, ap_r, ap_s, out,
+                                                         R, S, M, n_aps, chunks_per_cell);
+  } else {
+    cell_intra_dense_kernel<false><<<grid, block, 0, s>>>(own_r, own_s, w_s, ap_r, ap_s, out,
+                                                          R, S, M, n_aps, chunks_per_cell);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,26 +19,38 @@ from repro_torch.kernels import build
 LAUNCHES = {"flash_attention": 0}
 
 # -- Hopper block table (csrc/flash_attention.cu) -------------------------------
-# One thread block of THREADS = 16 x 16 threads per (query head row,
-# BLOCK_Q queries), looping over BLOCK_K keys at a time. Q, K and V tiles in
-# dynamic shared memory, smem_bytes(hd, dtype): 116 KB at hd=256 in bf16,
-# 210 KB in float32, under the 227 KB a block may opt in to.
-BLOCK_Q = 64
-BLOCK_K = 64
-THREADS = 256
+# bf16 (tensor cores): one thread block of two warpgroups per (query head
+# row, WG_BLOCK_Q queries), each warpgroup 64 query rows; K/V tiles of
+# WG_BLOCK_K keys stream through a WG_STAGES-deep TMA ring. Tiles are
+# 128-byte swizzled rows of 64 bf16, so head dims under 64 are staged 64
+# wide. float32 (FMA kernel): 16 x 16 threads per (query head row,
+# F32_BLOCK_Q queries), F32_BLOCK_K keys at a time. Both under the 227 KB
+# of dynamic shared memory a block may opt in to (smem_bytes).
+WG_BLOCK_Q = 128
+WG_BLOCK_K = 64
+WG_STAGES = 2
+F32_BLOCK_Q = 64
+F32_BLOCK_K = 64
 HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = (torch.bfloat16, torch.float32)
 NEG_INF = -1e30
+# Tensor maps (the bf16 path's TMA descriptors) need 16-byte-aligned data.
+TMA_ALIGN_BYTES = 16
 
 
 def smem_bytes(hd: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one thread block: Q and K tiles with rows
-    padded by one 32-bit word, the V tile, the float32 P tile (rows padded
-    by one) and the three per-row float32 vectors m, l, corr."""
-    e = torch.finfo(dtype).bits // 8
-    stride = hd + 4 // e
-    return e * ((BLOCK_Q + BLOCK_K) * stride + BLOCK_K * hd) + 4 * (
-        BLOCK_Q * (BLOCK_K + 1) + 3 * BLOCK_Q)
+    """Dynamic shared memory of one thread block.
+
+    bf16: 1024 bytes of slack to align the base to the swizzle's 1024-byte
+    atom, the Q tile, WG_STAGES stages of K and V tiles (64 columns wide at
+    least), and 1 + WG_STAGES 8-byte mbarriers. float32: Q and K tiles with
+    rows padded by one element, the V tile, the P tile (rows padded by one)
+    and the three per-row vectors m, l, corr."""
+    if dtype == torch.bfloat16:
+        hdp = max(hd, 64)
+        return 1024 + 2 * hdp * (WG_BLOCK_Q + 2 * WG_STAGES * WG_BLOCK_K) + 8 * (1 + WG_STAGES)
+    return 4 * ((F32_BLOCK_Q + F32_BLOCK_K) * (hd + 1) + F32_BLOCK_K * hd) + 4 * (
+        F32_BLOCK_Q * (F32_BLOCK_K + 1) + 3 * F32_BLOCK_Q)
 
 
 def reset_launches() -> None:
@@ -83,6 +95,11 @@ def flash_attention(q, k, v, group: int, causal: bool = True, window: int = 0,
     build.check("v", v, q.dtype, (bh // group, sk, hd), dev)
     if dev.type != "cuda":
         return flash_attention_plain(q, k, v, group, causal, window, kv_len)
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % TMA_ALIGN_BYTES:
+                raise ValueError(f"{name} must start on a {TMA_ALIGN_BYTES}-byte boundary "
+                                 "(a TMA tensor map's requirement)")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

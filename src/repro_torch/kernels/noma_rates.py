@@ -18,9 +18,10 @@ different kernels (the CUDA sources are in csrc/noma_rates.cu):
 
     intra[u,m] = sum_v same[u,v] * cmp(own_v[v,m], own_u[u,m]) * w_intra[v,m]
 
-  taken by noma_cell_intra over a CSR list of (receiver block, streamed
-  block) tiles: all pairs when no CellLayout is given, the same-cell
-  block-diagonal tiles with one.
+  taken by noma_cell_intra_dense when no CellLayout is given (each cell's
+  receivers against that cell's senders, found on the device), and by
+  noma_cell_intra over a CSR list of (receiver block, streamed block)
+  tiles with one (the same-cell block-diagonal tiles).
 
 Every wrapper checks device, dtype, shape and contiguity. For CUDA tensors
 it launches its kernel (counted in LAUNCHES) or raises; for CPU tensors it
@@ -151,12 +152,93 @@ def noma_cell_intra_plain(own_r, own_s, w_s, ap_r, ap_s, row_ptr, col,
     r_blk = torch.arange(r, device=dev) // block_r
     s_blk = torch.arange(s, device=dev) // block_s
     pair = (ap_r[:, None] == ap_s[None, :]) & tiles[r_blk][:, s_blk]
+    return _sic_select(own_r, own_s, w_s, pair, descending)
+
+
+def _sic_select(own_r, own_s, w_s, pair, descending: bool) -> torch.Tensor:
+    """sum_s pair[r,s] * cmp(own_s[s,m], own_r[r,m]) * w_s[s,m] through an
+    (R, S, M) select."""
     if descending:
         cmp = own_s[None, :, :] < own_r[:, None, :]
     else:
         cmp = own_s[None, :, :] > own_r[:, None, :]
     keep = cmp & pair[:, :, None]
     return torch.where(keep, w_s[None, :, :], 0.0).sum(1)
+
+
+# -- kernel 1, dense schedule: per-cell work -------------------------------------
+# One thread block (LANES x WARPS threads) per (LANES-wide m block, cell,
+# receiver-chunk slot). A chunk is DENSE_CHUNK receivers of the cell in
+# ascending id, DENSE_ROWS a thread in registers; the cell's members are
+# found DENSE_WINDOW ids at a time by a block-wide compaction of the AP ids,
+# and its senders stream in DENSE_TILE-sender tiles through a
+# double-buffered cp.async ring in static shared memory
+# (intra_dense_smem_bytes). A cell gets dense_chunks_per_cell slots: enough
+# for a cell DENSE_SKEW times the mean size to spread over blocks of its
+# own; a slot of a larger cell takes several chunks in turn, and a slot
+# past its cell's chunks exits.
+DENSE_ROWS = 4
+DENSE_CHUNK = WARPS * DENSE_ROWS
+DENSE_TILE = 32
+DENSE_WINDOW = WARPS * 8 * LANES
+DENSE_SKEW = 3
+
+
+def intra_dense_smem_bytes() -> int:
+    """Static shared memory of one dense-intra block: the chunk's receiver
+    ids, a window's sender ids, the per-warp counts, and two (own_s, w_s)
+    tile pairs of (DENSE_TILE, LANES) floats."""
+    return 4 * (DENSE_CHUNK + DENSE_WINDOW + WARPS + 2 * 2 * DENSE_TILE * LANES)
+
+
+def dense_chunks_per_cell(n_r: int, n_aps: int) -> int:
+    """Receiver-chunk slots a cell gets on the dense schedule."""
+    most = max(1, -(-n_r // DENSE_CHUNK))
+    skewed = -(-DENSE_SKEW * n_r // (n_aps * DENSE_CHUNK))
+    return max(1, min(most, skewed))
+
+
+def noma_cell_intra_dense(own_r, own_s, w_s, ap_r, ap_s, n_aps: int,
+                          descending: bool = True) -> torch.Tensor:
+    """SIC intra reduction over every same-cell pair, (R, M):
+
+      out[r,m] = sum_s [ap_r[r] == ap_s[s]] * cmp(own_s, own_r) * w_s[s,m]
+
+    The dense schedule (no CellLayout): the kernel visits only same-cell
+    (r, s) pairs, finding each cell's members on the device. own_r (R, M),
+    own_s/w_s (S, M) float32; ap_r (R,), ap_s (S,) int32 AP ids in
+    [0, n_aps) (not checked: that would sync the host; a receiver with an
+    id outside is never written). cmp is '<' when descending (uplink SIC
+    order), '>' otherwise. Counted under LAUNCHES["noma_cell_intra"]."""
+    r, m = own_r.shape
+    s = own_s.shape[0]
+    dev = own_r.device
+    build.check("own_r", own_r, torch.float32, (r, m), dev)
+    build.check("own_s", own_s, torch.float32, (s, m), dev)
+    build.check("w_s", w_s, torch.float32, (s, m), dev)
+    build.check("ap_r", ap_r, torch.int32, (r,), dev)
+    build.check("ap_s", ap_s, torch.int32, (s,), dev)
+    if n_aps < 1:
+        raise ValueError(f"n_aps must be >= 1, got {n_aps}")
+    if dev.type != "cuda":
+        return noma_cell_intra_dense_plain(own_r, own_s, w_s, ap_r, ap_s, n_aps, descending)
+    out = torch.empty((r, m), dtype=torch.float32, device=dev)
+    if r == 0 or m == 0:
+        return out
+    rc = build.load("noma_rates").noma_cell_intra_dense(
+        build.ptr(own_r), build.ptr(own_s), build.ptr(w_s), build.ptr(ap_r), build.ptr(ap_s),
+        build.ptr(out), r, s, m, n_aps, dense_chunks_per_cell(r, n_aps), int(descending),
+        dev.index, build.stream(dev))
+    build.raise_on(rc, "noma_cell_intra_dense")
+    LAUNCHES["noma_cell_intra"] += 1
+    return out
+
+
+def noma_cell_intra_dense_plain(own_r, own_s, w_s, ap_r, ap_s, n_aps: int,
+                                descending: bool = True) -> torch.Tensor:
+    """Plain twin of noma_cell_intra_dense: the (R, S, M) select over all
+    same-cell pairs (n_aps only bounds the ids)."""
+    return _sic_select(own_r, own_s, w_s, ap_r[:, None] == ap_s[None, :], descending)
 
 
 # -- kernel 2: per-AP table ------------------------------------------------------
@@ -247,12 +329,6 @@ def segment_table(values, ap, n_aps: int) -> torch.Tensor:
     return torch.where(own[:, :, None], values[None, :, :], 0.0).sum(1)
 
 
-def _csr(csr, n_r: int, n_s: int, block_r: int, block_s: int, device):
-    if csr is not None:
-        return csr
-    return dense_csr(-(-n_r // block_r), -(-n_s // block_s), device)
-
-
 def noma_pairwise_kernel(own_u, own_v, w_intra, w_power, g_raw, ap_u, ap_v,
                          descending: bool = True, uplink: bool = True,
                          block_u: int = BLOCK_U, block_v: int = BLOCK_V,
@@ -260,11 +336,14 @@ def noma_pairwise_kernel(own_u, own_v, w_intra, w_power, g_raw, ap_u, ap_v,
     """Cell-block pairwise reduction: (intra (U, M), inter (U, M)).
 
     csr is the forward (row_ptr, col) of a CellLayout, or None for the dense
-    schedule. g_raw is (V, N, M) uplink or (N, U, M) downlink."""
-    bu, bv = min(block_u, own_u.shape[0]), min(block_v, own_v.shape[0])
-    row_ptr, col = _csr(csr, own_u.shape[0], own_v.shape[0], bu, bv, own_u.device)
-    intra = noma_cell_intra(own_u, own_v, w_intra, ap_u, ap_v, row_ptr, col,
-                            bu, bv, descending)
+    schedule (per-cell work, no tile list). g_raw is (V, N, M) uplink or
+    (N, U, M) downlink; its N is the number of cells."""
+    n_aps = g_raw.shape[1] if uplink else g_raw.shape[0]
+    if csr is None:
+        intra = noma_cell_intra_dense(own_u, own_v, w_intra, ap_u, ap_v, n_aps, descending)
+    else:
+        bu, bv = min(block_u, own_u.shape[0]), min(block_v, own_v.shape[0])
+        intra = noma_cell_intra(own_u, own_v, w_intra, ap_u, ap_v, *csr, bu, bv, descending)
     if uplink:
         a_nm = noma_per_ap(ap_v, w_power, g_raw, uplink=True)
         inter = a_nm.index_select(0, ap_u.long())
@@ -285,10 +364,14 @@ def noma_pairwise_bwd_kernel(own_u, own_v, g_raw, ap_u, ap_v, d_intra, d_inter,
     v-block). The inter cotangent mirrors the forward factorization: uplink
     contracts C = segment_table(d_inter) against the raw gain, downlink
     takes rows of the per-AP table D built by noma_per_ap."""
-    bu, bv = min(block_u, own_u.shape[0]), min(block_v, own_v.shape[0])
-    row_ptr, col = _csr(csr, own_v.shape[0], own_u.shape[0], bv, bu, own_u.device)
-    d_wi = noma_cell_intra(own_v, own_u, d_intra, ap_v, ap_u, row_ptr, col,
-                           bv, bu, not descending)
+    n_aps = g_raw.shape[1] if uplink else g_raw.shape[0]
+    if csr is None:
+        d_wi = noma_cell_intra_dense(own_v, own_u, d_intra, ap_v, ap_u, n_aps,
+                                     not descending)
+    else:
+        bu, bv = min(block_u, own_u.shape[0]), min(block_v, own_v.shape[0])
+        d_wi = noma_cell_intra(own_v, own_u, d_intra, ap_v, ap_u, *csr, bv, bu,
+                               not descending)
     if uplink:
         c_nm = segment_table(d_inter, ap_u, g_raw.shape[1])
         d_wp = noma_ap_contract(ap_v, c_nm, g_raw, uplink=True)

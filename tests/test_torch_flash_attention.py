@@ -129,4 +129,9 @@ def test_flash_attention_smem_budget():
     for hd in fa.HEAD_DIMS:
         for dt in fa.DTYPES:
             assert fa.smem_bytes(hd, dt) <= 232448, (hd, dt)
-    assert fa.smem_bytes(256, torch.bfloat16) == 116224
+    # bf16: 1 KB alignment slack, Q (128 x 256), 2 stages of K and V
+    # (64 x 256 each), three mbarriers
+    assert fa.smem_bytes(256, torch.bfloat16) == 1024 + 2 * 256 * (128 + 4 * 64) + 24 == 197656
+    # head dims under 64 are staged 64 wide (one 128-byte swizzled row)
+    assert fa.smem_bytes(32, torch.bfloat16) == fa.smem_bytes(64, torch.bfloat16)
+    assert fa.smem_bytes(256, torch.float32) == 214528

@@ -126,6 +126,12 @@ def test_wrappers_refuse_bad_cuda_arguments(cuda):
         nr.noma_cell_intra(own, own.cpu(), own, ap, ap, row_ptr, col, 4, 4)
     with pytest.raises(TypeError, match="float32"):
         nr.noma_per_ap(ap, own.double(), torch.rand(6, 2, 5, device=cuda).double())
+    with pytest.raises(ValueError, match="n_aps"):
+        nr.noma_cell_intra_dense(own, own, own, ap, ap, 0)
+    q = torch.randn((2, 4, 64), device=cuda, dtype=torch.bfloat16)
+    shifted = q.view(-1)[2:258].view(1, 4, 64)   # 4 bytes past an aligned start
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fa.flash_attention(shifted, q[:1], q[:1], group=1)
 
 
 def test_engine_plan_on_the_card(cuda):
@@ -169,6 +175,90 @@ def test_flash_attention_matches_plain_twin(cuda, dtype, b, sq, sk, h, kv, hd, c
     scale = fa.flash_attention_plain(q, k, v.abs(), **args).float()
     assert got.dtype == dtype and bool(torch.isfinite(got).all())
     _close(got.float(), want.float(), scale, 1e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.parametrize(
+    "b,sq,sk,h,kv,hd,causal,window,kv_len",
+    [
+        (1, 200, 200, 4, 4, 32, True, 0, None),       # G = 1, ragged against 128 / 64
+        (2, 130, 130, 8, 2, 64, True, 100, None),     # G = 4, window edge inside a key block
+        (1, 77, 300, 16, 1, 128, False, 0, 250),      # G = 16, kv_len < Sk, Sq != Sk
+        (1, 300, 300, 16, 1, 256, True, 200, None),   # the served head shape, window
+        (2, 129, 129, 4, 1, 256, False, 0, 100),      # bidirectional, kv_len < Sk
+        (1, 64, 190, 4, 4, 64, True, 0, 150),         # causal with Sq < Sk, kv_len
+        (1, 1, 70, 2, 2, 128, False, 0, None),        # one query row
+        (1, 257, 257, 2, 1, 32, True, 64, None),      # window of exactly one key block
+    ],
+)
+def test_flash_attention_bf16_tensor_core_shapes(cuda, b, sq, sk, h, kv, hd, causal, window,
+                                                 kv_len):
+    """The bf16 (wgmma + TMA) path at every head_dim, with ragged Sq / Sk,
+    window and kv_len edges inside key blocks, and G = 1, 4, 16."""
+    g = torch.Generator(device=cuda).manual_seed(sq * 13 + sk + hd)
+    q = torch.randn((b * h, sq, hd), device=cuda, generator=g).bfloat16()
+    k = torch.randn((b * kv, sk, hd), device=cuda, generator=g).bfloat16()
+    v = torch.randn((b * kv, sk, hd), device=cuda, generator=g).bfloat16()
+    args = dict(group=h // kv, causal=causal, window=window, kv_len=kv_len)
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, **args)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    want = fa.flash_attention_plain(q, k, v, **args)
+    scale = fa.flash_attention_plain(q, k, v.abs(), **args).float()
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    _close(got.float(), want.float(), scale, 1e-2)
+
+
+def _skewed_ap(ap, n, skew):
+    """natural (nearest AP); giant: half the users in cell 0 and cell n-1
+    empty; empty: cells 1 and 3 emptied into cell 0."""
+    ap = ap.clone()
+    if skew == "giant":
+        ap[: ap.shape[0] // 2] = 0
+        ap[ap == n - 1] = 0
+    elif skew == "empty":
+        ap[(ap == 1) | (ap == 3)] = 0
+    return ap.to(torch.int32).contiguous()
+
+
+@pytest.mark.parametrize("u,n,m,skew", [(300, 16, 250, "natural"), (200, 5, 45, "giant"),
+                                        (37, 1, 33, "natural"), (150, 6, 70, "empty"),
+                                        (1250, 16, 250, "giant")])
+@pytest.mark.parametrize("descending", [True, False])
+def test_dense_intra_matches_twin_and_csr_kernel(cuda, u, n, m, skew, descending):
+    """The per-cell dense intra kernel against its plain twin and against
+    the CSR kernel on the dense tile list, in the forward role (w = tx *
+    own) and the backward role (a cotangent, comparison flipped)."""
+    env, beta, p, cot = _inputs(u, n, m, u + n, cuda)
+    own, _, _ = ops._inputs(env, True)
+    ap = _skewed_ap(env.ap, n, skew)
+    w = (beta * p[:, None] * own).contiguous()
+    csr = nr.dense_csr(-(-u // 16), -(-u // 16), cuda)
+    for w_s, desc in ((w, descending), (cot[0], not descending)):
+        args = (own, own, w_s, ap, ap)
+        before = nr.LAUNCHES["noma_cell_intra"]
+        got = nr.noma_cell_intra_dense(*args, n, desc)
+        torch.cuda.synchronize()
+        assert nr.LAUNCHES["noma_cell_intra"] == before + 1
+        scale = nr.noma_cell_intra_dense_plain(own, own, w_s.abs(), ap, ap, n, desc)
+        _close(got, nr.noma_cell_intra_dense_plain(*args, n, desc), scale)
+        _close(got, nr.noma_cell_intra(*args, *csr, 16, 16, desc), scale)
+
+
+def test_dense_intra_with_distinct_receivers_and_senders(cuda):
+    """R != S, both past one compaction window (2048 ids), with independent
+    gains and AP ids (one cell left empty)."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    r, s, m, n = 2200, 2100, 40, 7
+    own_r = torch.rand((r, m), device=cuda, generator=g)
+    own_s = torch.rand((s, m), device=cuda, generator=g)
+    w_s = torch.randn((s, m), device=cuda, generator=g)
+    ap_r = torch.randint(0, n - 1, (r,), device=cuda, generator=g).to(torch.int32)
+    ap_s = torch.randint(0, n - 1, (s,), device=cuda, generator=g).to(torch.int32)
+    for desc in (True, False):
+        args = (own_r, own_s, w_s, ap_r, ap_s, n, desc)
+        scale = nr.noma_cell_intra_dense_plain(own_r, own_s, w_s.abs(), ap_r, ap_s, n, desc)
+        _close(nr.noma_cell_intra_dense(*args), nr.noma_cell_intra_dense_plain(*args), scale)
 
 
 @pytest.mark.parametrize("b,s,w,with_h0", [(1, 32, 64, False), (2, 45, 96, True),

@@ -319,6 +319,89 @@ def test_wrappers_check_their_arguments():
     assert nr.BLOCK_U <= nr.MAX_BLOCK_ROWS
 
 
+@pytest.mark.parametrize("descending", [True, False])
+@pytest.mark.parametrize("u,n,m,skew", [(20, 3, 6, "natural"), (20, 3, 6, "giant"),
+                                        (12, 4, 5, "one_cell"), (9, 1, 12, "natural"),
+                                        (40, 6, 35, "giant")])
+def test_dense_intra_twin_matches_interpret_pallas(u, n, m, skew, descending):
+    """noma_cell_intra_dense (its plain twin on the CPU) against the JAX
+    package's noma_cell_intra_kernel on its dense grid in interpret mode,
+    in the forward role (w = tx * own) and the backward role (cotangent,
+    comparison flipped), on natural, giant (with empty) and single cells."""
+    jenv, tenv, beta, p, cot = _case(u, n, m, seed=u + 7, skew=skew)
+    own = np.asarray(jenv.own_gain_up(), np.float32)
+    ap = np.asarray(jenv.ap, np.int32)
+    tx = (beta * p[:, None]).astype(np.float32)
+    for w, desc in ((tx * own, descending), (cot[0], not descending)):
+        want = jnr.noma_cell_intra_kernel(own, own, w, ap, ap, descending=desc, block_r=4,
+                                          block_s=8, block_m=8, interpret=True)
+        T = torch.tensor
+        got = nr.noma_cell_intra_dense(T(own), T(own), T(w), T(ap), T(ap), n, desc)
+        scale = nr.noma_cell_intra_dense_plain(T(own), T(own), T(np.abs(w)), T(ap), T(ap),
+                                               n, desc)
+        _close(got, want, scale)
+
+
+def test_dense_intra_wrapper_checks_its_arguments():
+    own = torch.rand(6, 5)
+    ap = torch.zeros(6, dtype=torch.int32)
+    with pytest.raises(ValueError, match="n_aps"):
+        nr.noma_cell_intra_dense(own, own, own, ap, ap, 0)
+    with pytest.raises(TypeError, match="ap_s must be torch.int32"):
+        nr.noma_cell_intra_dense(own, own, own, ap, ap.long(), 1)
+    with pytest.raises(ValueError, match="w_s must have shape"):
+        nr.noma_cell_intra_dense(own, own, own[:5], ap, ap, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        nr.noma_cell_intra_dense(torch.rand(5, 6).T, own, own, ap, ap, 1)
+    # no receivers or no senders: an empty result / zeros
+    assert nr.noma_cell_intra_dense(own[:0], own, own, ap[:0], ap, 1).shape == (0, 5)
+    assert not nr.noma_cell_intra_dense(own, own[:0], own[:0], ap, ap[:0], 1).any()
+
+
+def test_dense_intra_block_table_and_grid():
+    """The dense kernel's static shared memory stays under the 48 KiB a
+    block gets without opting in; its grid, (m blocks, n_aps x slots),
+    gives every cell enough chunk slots for a cell DENSE_SKEW times the
+    mean, never more than the users could fill, and at least one."""
+    assert nr.DENSE_CHUNK == nr.WARPS * nr.DENSE_ROWS == 32
+    assert nr.DENSE_WINDOW == nr.WARPS * 8 * nr.LANES == 2048
+    assert nr.intra_dense_smem_bytes() == 24736 <= nr.SMEM_LIMIT_BYTES
+    # the planner's shape: 3 x 1250 / (16 x 32) -> 8 slots a cell (a grid
+    # of 8 m blocks x 128)
+    assert nr.dense_chunks_per_cell(1250, 16) == 8
+    # never more slots than a cell holding every user could fill
+    assert nr.dense_chunks_per_cell(40, 1) == 2
+    assert nr.dense_chunks_per_cell(5, 16) == 1 and nr.dense_chunks_per_cell(0, 4) == 1
+    for u, n in ((1250, 16), (300, 16), (37, 1), (20000, 64)):
+        slots = nr.dense_chunks_per_cell(u, n)
+        assert slots * nr.DENSE_CHUNK >= min(u, nr.DENSE_SKEW * u / n)
+
+
+def test_dense_schedule_routes_through_the_dense_kernel(monkeypatch):
+    """Without a CellLayout the composition calls the dense per-cell intra
+    entry point (with N taken from the gain's shape), with one it calls the
+    CSR tile-list kernel."""
+    calls = []
+    real_dense, real_csr = nr.noma_cell_intra_dense, nr.noma_cell_intra
+    monkeypatch.setattr(nr, "noma_cell_intra_dense",
+                        lambda *a: calls.append(("dense", a[5])) or real_dense(*a))
+    monkeypatch.setattr(nr, "noma_cell_intra",
+                        lambda *a: calls.append(("csr", None)) or real_csr(*a))
+    _, tenv, beta, p, _ = _case(13, 5, 7, seed=2)
+    tx = torch.tensor(beta * p[:, None], requires_grad=True)
+    for link, n_aps in (("up", 5), ("dn", 5)):
+        fn = ops.noma_pairwise_up if link == "up" else ops.noma_pairwise_dn
+        intra, _ = fn(tenv, tx)
+        intra.sum().backward()
+        assert calls == [("dense", n_aps), ("dense", n_aps)]
+        calls.clear()
+        intra, _ = fn(tenv, tx, block_u=4, block_v=4,
+                      layout=build_cell_layout(tenv, block_u=4, block_v=4))
+        intra.sum().backward()
+        assert calls == [("csr", None), ("csr", None)]
+        calls.clear()
+
+
 def test_segment_table_matches_reference():
     rng = np.random.default_rng(2)
     vals = rng.standard_normal((11, 4)).astype(np.float32)
