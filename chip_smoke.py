@@ -12,11 +12,15 @@ Phases, each fatal on failure (no phase catches its own error):
                  term both by the dense per-cell kernel the main path runs and
                  by the CSR kernel on either tile list), the dense kernel also
                  on skewed cells (half the users in one cell, one cell empty);
-                 then the rates and their gradients, kernel backend against
-                 einsum; then each kernel's time beside its plain twin's, a
-                 one-call PyTorch yardstick's where there is one, and its bound
-                 (and the CSR intra kernel on the dense tile list, timed in
-                 turns with the dense kernel, which must beat it);
+                 two per_ap launches on the same inputs bit-identical in both
+                 layouts; then the rates and their gradients, kernel backend
+                 against einsum; then each kernel's time beside its plain
+                 twin's, a one-call PyTorch yardstick's where there is one, and
+                 its bound and share of it (per_ap in both layouts, uplink
+                 table A and downlink table D, beside a streaming yardstick of
+                 the same gain bytes, a torch.sum over them; and the CSR intra
+                 kernel on the dense tile list, timed in turns with the dense
+                 kernel, which must beat it);
   4. main path -- PlannerEngine(nin, sinr_backend="kernel").plan on a sampled
                  env, then two replans on gains perturbed by a few percent, with
                  the kernel launch counters read around them; the plan is
@@ -31,8 +35,11 @@ Phases, each fatal on failure (no phase catches its own error):
                  the flash_attention and rg_lru kernels against their plain
                  twins at the served shapes (flash also at hd 32 to 256 with
                  ragged Sq/Sk, windows, kv_len < Sk, and on its float32
-                 path), and their times (bf16 flash no slower than
-                 scaled_dot_product_attention); then the
+                 path), rg_lru also bit-equal (torch.equal) to its twin, and
+                 its cp.async path (operands off a 16-byte boundary) to its
+                 TMA path, and their times (bf16 flash no slower than
+                 scaled_dot_product_attention; rg_lru beside a streaming
+                 yardstick, torch.add(log_a, b, out=buf)); then the
                  serving entry point (plan s*, cut, serve 4 requests of 3072
                  tokens, greedy continuation) with the launch counters read
                  around it; split logits at s* and at s=19 equal to the
@@ -277,6 +284,19 @@ def main() -> int:
                   nr.noma_per_ap_plain(ap, cot, g_raw, False), KERNEL_RTOL,
                   nr.noma_per_ap_plain(ap, cot.abs(), g_raw, False), errs, "noma_per_ap")
 
+    # per_ap sums in an order fixed by the shapes alone: two launches on the
+    # same inputs give the same bits, in both layouts.
+    for uplink in (True, False):
+        own, g_raw, ap = ops._inputs(env, uplink)
+        w_t = (beta * p_up[:, None]).contiguous() if uplink else cot
+        first = nr.noma_per_ap(ap, w_t, g_raw, uplink)
+        second = nr.noma_per_ap(ap, w_t, g_raw, uplink)
+        print(f"check noma_per_ap {'up' if uplink else 'dn'} two launches bit-identical: "
+              f"{torch.equal(first, second)}")
+        if not torch.equal(first, second):
+            fail("noma_per_ap: two launches on the same inputs differ")
+    del first, second
+
     # The dense kernel on skewed cells: one cell holding half the users, one
     # cell empty (its users moved to cell 0), both SIC orders.
     own_sk, _, ap_sk = ops._inputs(env, True)
@@ -314,8 +334,9 @@ def main() -> int:
         del want, g_want
     torch.cuda.empty_cache()
 
-    # Times at the main path's shapes (dense schedule, forward): the uplink
-    # intra, the uplink per-AP table, the downlink contraction. The gain
+    # Times at the main path's shapes (dense schedule): the uplink intra, the
+    # per-AP table in both layouts (uplink forward table A, downlink backward
+    # table D), the downlink contraction. The gain
     # kernels cycle through 4 copies of their inputs (85 MB) so the gain is
     # not served from the 50 MB L2 cache on every launch.
     own_up, g_up, ap = ops._inputs(env, True)
@@ -365,6 +386,13 @@ def main() -> int:
                      for g in g_ups],
             bytes=f4 * (U * N * M + U * M + U + N * M),
             ops_s=2 * U * N * M / FP32_OPS_PER_S),
+        "noma_per_ap dn": dict(
+            kernel=[lambda g=g: nr.noma_per_ap(ap, cot, g, False) for g in g_dns],
+            plain=[lambda g=g: nr.noma_per_ap_plain(ap, cot, g, False) for g in g_dns],
+            library=[lambda g=g: torch.einsum("wn,wm,nwm->nm", other, cot, g)
+                     for g in g_dns],
+            bytes=f4 * (U * N * M + U * M + U + N * M),
+            ops_s=2 * U * N * M / FP32_OPS_PER_S),
         "noma_ap_contract": dict(
             kernel=[lambda g=g: nr.noma_ap_contract(ap, b_nm, g, False) for g in g_dns],
             plain=[lambda g=g: nr.noma_ap_contract_plain(ap, b_nm, g, False)
@@ -374,6 +402,10 @@ def main() -> int:
             bytes=f4 * (U * N * M + N * M + U + U * M),
             ops_s=2 * U * N * M / FP32_OPS_PER_S),
     }
+    # A streaming yardstick for per_ap: one reduction over the same gain
+    # bytes (what this card streams at that size; never called by the port).
+    timing["noma_per_ap"]["stream"] = [lambda g=g: torch.sum(g, 0) for g in g_ups]
+    timing["noma_per_ap dn"]["stream"] = [lambda g=g: torch.sum(g, 1) for g in g_dns]
     rows = {}
     for name, t in timing.items():
         t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -385,7 +417,13 @@ def main() -> int:
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         }
-        print(f"time {name}: " + " ".join(f"{k}={v}" for k, v in rows[name].items()))
+        if "stream" in t:
+            rows[name]["stream_ms"] = device_ms(t["stream"])
+        rows[name]["bound_share"] = rows[name]["bound_ms"] / rows[name]["ms"]
+        print(f"time {name}: " + " ".join(f"{k}={v}" for k, v in rows[name].items())
+              + f" | {smi}")
+    # The downlink layout (backward table D) rides in the per_ap row.
+    rows["noma_per_ap"]["downlink"] = rows.pop("noma_per_ap dn")
     # The CSR kernel on the dense tile list, in turns with the dense kernel.
     csr_ms = [device_ms([lambda: nr.noma_cell_intra(*intra_args)]),
               device_ms([lambda: nr.noma_cell_intra_dense(*dense_args)]),
@@ -612,8 +650,14 @@ def serve_phase(dev, kind: str, smi: str, errs: dict):
         got = rl.rg_lru(log_a, x_b, h_init)
         torch.cuda.synchronize()
         scale = rl.rg_lru_plain(log_a, x_b.abs(), None if h_init is None else h_init.abs())
-        check(f"rg_lru (B, S, W)=({B}, {S}, {cfg.rglru_dim}) {tag}", got,
-              rl.rg_lru_plain(log_a, x_b, h_init), RG_LRU_RTOL, scale, errs, "rg_lru")
+        want = rl.rg_lru_plain(log_a, x_b, h_init)
+        check(f"rg_lru (B, S, W)=({B}, {S}, {cfg.rglru_dim}) {tag}", got, want,
+              RG_LRU_RTOL, scale, errs, "rg_lru")
+        # The kernel rounds as its twin, step by step: the same bits.
+        print(f"check rg_lru {tag} bit-equal to its twin: {torch.equal(got, want)}")
+        if not torch.equal(got, want):
+            fail(f"rg_lru {tag}: not bit-equal to its plain twin at the served shape")
+        del got, want, scale
 
     # The library yardstick for attention: one SDPA call with the boolean
     # band mask built outside the timed window (never called by the port).
@@ -640,8 +684,10 @@ def serve_phase(dev, kind: str, smi: str, errs: dict):
         "rg_lru": dict(
             kernel=[lambda: rl.rg_lru(log_a, x_b, h0)],
             plain=[lambda: rl.rg_lru_plain(log_a, x_b, h0)],
-            library=None, bytes=rg_bytes, ops_s=rg_ops / FP32_INSTR_PER_S, reps=20),
+            library=None, bytes=rg_bytes, ops_s=rg_ops / FP32_INSTR_PER_S, reps=20,
+            stream=[lambda: torch.add(log_a, x_b, out=rg_buf)]),
     }
+    rg_buf = torch.empty_like(log_a)    # the yardstick reads two tensors, writes one
     rows = {}
     for name, t in timing.items():
         t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -653,8 +699,26 @@ def serve_phase(dev, kind: str, smi: str, errs: dict):
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         }
+        if "stream" in t:
+            rows[name]["stream_ms"] = device_ms(t["stream"], reps=t["reps"])
+        rows[name]["bound_share"] = rows[name]["bound_ms"] / rows[name]["ms"]
         print(f"time {name}: " + " ".join(f"{k}={v}" for k, v in rows[name].items())
               + f" | {smi}")
+    # The cp.async path at the served shape: operands 4 bytes past a 16-byte
+    # boundary cannot back a tensor map, so the ring is filled by cp.async.
+    n_el = log_a.numel()
+    shifted = torch.empty(2 * n_el + 1, device=dev)
+    la_c = shifted[1:1 + n_el].view_as(log_a).copy_(log_a)
+    xb_c = shifted[1 + n_el:].view_as(x_b).copy_(x_b)
+    if rl.uses_tma(cfg.rglru_dim, la_c.data_ptr(), xb_c.data_ptr()):
+        fail("rg_lru: a misaligned operand would be filled by TMA")
+    same = torch.equal(rl.rg_lru(la_c, xb_c, h0), rl.rg_lru(log_a, x_b, h0))
+    print(f"check rg_lru cp.async path bit-equal to the TMA path at the served shape: {same}")
+    if not same:
+        fail("rg_lru: the cp.async and TMA paths differ at the served shape")
+    rows["rg_lru"]["cp_async_ms"] = device_ms([lambda: rl.rg_lru(la_c, xb_c, h0)])
+    print(f"time rg_lru cp.async path: {rows['rg_lru']['cp_async_ms']} ms | {smi}")
+    del shifted, la_c, xb_c
     if not rows["flash_attention"]["ms"] <= rows["flash_attention"]["library_ms"]:
         fail("the bf16 flash_attention kernel is slower than scaled_dot_product_attention "
              "at the served shape")
@@ -665,7 +729,7 @@ def serve_phase(dev, kind: str, smi: str, errs: dict):
     print(f"time flash_attention: {pairs} unmasked pairs a head row, {flash_ops:.4e} FLOP, "
           f"{flash_bytes / 1e6:.1f} MB; rg_lru: {rg_bytes / 1e6:.1f} MB")
     print(f"time rg_lru library_ms=None: {rows['rg_lru']['library_note']}")
-    del q, k, v, qs, ks, vs, band, log_a, x_b, h0, timing
+    del q, k, v, qs, ks, vs, band, log_a, x_b, h0, timing, rg_buf
     torch.cuda.empty_cache()
 
     # 6.2 the main path: the serving entry point, plan + cut + serve

@@ -46,12 +46,37 @@
 // 2. per_ap       replaces noma_rates.py noma_per_ap_kernel (_per_ap_kernel):
 //      out[n,m] = sum_w [ap[w] != n] * wgt[w,m] * g
 //    with g = g[w,n,m] (uplink layout) or g[n,w,m] (downlink layout).
-//    Bound: bytes (the raw gain, W*N*M floats, read once).
-//    Design: one thread block per (n, 32-wide m block); its 8 warps split
-//    the w loop (w = warp, warp+8, ...) and their partial sums are added in
-//    a fixed order through shared memory, so the result is deterministic.
-//    Only N*M/32 warps are live (16 x 8 blocks at N=16, M=250), too few to
-//    keep HBM busy: a later version splits w across blocks.
+//    Bound: bytes (the raw gain, W*N*M floats, read once: 20 MB at W=1250,
+//    N=16, M=250, 6.35 us at 3.35 TB/s). Covering HBM's latency at that
+//    rate takes about 2 MB of loads in flight across the card.
+//    Design: the w reduction is split across the blocks of a thread-block
+//    cluster (split <= 8 blocks, the portable cluster size). One cluster
+//    per output tile of (kPerApGroup = 2 APs, 32-wide m block), the tiles
+//    along grid x (any count up to 2^31 - 1) and the cluster along grid y;
+//    cluster rank r takes the contiguous w range
+//    [r * w_chunk, min(W, (r + 1) * w_chunk)). Inside a block the 8 warps
+//    interleave over that range (w = lo + warp, lo + warp + 8, ...), each
+//    thread issuing the loads of kPerApUnroll w's (one wgt value and
+//    kPerApGroup gains each) before it adds any of them: 512 blocks of 8
+//    warps at the planner's shape, about 6 MB of loads in flight. One wgt
+//    value feeds kPerApGroup APs, so wgt is read N / 2 times (through L2),
+//    not N times. Distributed shared memory may be touched only once every
+//    block of the cluster has started: each thread arrives (relaxed) at a
+//    first cluster barrier on entry and waits on it after its w loop, so
+//    the loop hides the wait. Then each rank writes its partial tile into
+//    rank 0's shared memory (map_shared_rank) and arrives at a second
+//    cluster barrier with release semantics; only rank 0 waits (acquire),
+//    adds the tiles in rank order and stores, and the other ranks exit at
+//    once (nothing reads their shared memory). One launch, no atomics, no
+//    scratch in global memory.
+//    Alignment: at M = 250 a gain row is 1,000 bytes, not a multiple of 16,
+//    so neither float4 loads nor a TMA tensor map over g are legal; every
+//    load is a coalesced 4-byte load along m (a warp reads 128 bytes).
+//    Determinism: every output element is ((p_0 + p_1) + ...) + p_{split-1},
+//    p_r rank r's 8 warp sums added in warp order, each warp's sum taken in
+//    ascending w. split and w_chunk come from the shapes alone
+//    (kernels/noma_rates.py per_ap_geometry), so two launches on the same
+//    inputs give the same bits.
 //
 // 3. ap_contract  replaces noma_rates.py noma_ap_contract_kernel
 //                 (_ap_contract_kernel):
@@ -60,6 +85,7 @@
 //    Design: one thread per (w, m), threads along m, looping over n < N:
 //    APs past N are never visited, the CUDA form of the TPU kernel's
 //    explicit out-of-range n mask.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -322,28 +348,101 @@ __device__ __forceinline__ float gain(const float* __restrict__ g, int w, int n,
                 : g[(static_cast<size_t>(n) * W + w) * M + m];
 }
 
+// -- per_ap: w split across the blocks of a cluster ---------------------------
+constexpr int kPerApUnroll = 4;    // w's of loads a thread has in flight
+constexpr int kPerApMaxSplit = 8;  // blocks of a cluster: the portable limit
+constexpr int kPerApGroup = 2;     // APs a cluster: one wgt load feeds both
+
+// Grid (ceil(N / kPerApGroup) * ceil(M / 32), split) in clusters of
+// (1, split, 1): the cluster is one output tile of kPerApGroup APs x 32 m
+// (APs past N load and store nothing), its rank r the w range
+// [r * w_chunk, min(W, (r + 1) * w_chunk)).
 template <bool UPLINK>
 __global__ void __launch_bounds__(kLanes * kWarps)
 per_ap_kernel(const int* __restrict__ ap, const float* __restrict__ wgt,
-              const float* __restrict__ g, float* __restrict__ out, int W, int N,
-              int M) {
-  __shared__ float part[kWarps][kLanes];
-  const int n = blockIdx.x;
-  const int m = blockIdx.y * kLanes + threadIdx.x;
-  float acc = 0.f;
+              const float* __restrict__ g, float* __restrict__ out, int W, int N, int M,
+              int w_chunk) {
+  __shared__ float part[kWarps][kPerApGroup][kLanes];
+  __shared__ float gather[kPerApMaxSplit][kPerApGroup][kLanes];  // rank 0's: each rank's tile
+  namespace cg = cooperative_groups;
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int split = static_cast<int>(cluster.num_blocks());
+  const int lane = threadIdx.x;
+  const int warp = threadIdx.y;
+  const int m_blocks = (M + kLanes - 1) / kLanes;
+  const int n0 = static_cast<int>(blockIdx.x) / m_blocks * kPerApGroup;
+  const int m = static_cast<int>(blockIdx.x) % m_blocks * kLanes + lane;
+  const int lo = rank * w_chunk;
+  const int hi = min(W, lo + w_chunk);
+  // Announce this block's start; the matching wait comes after the w loop.
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  float acc[kPerApGroup];
+#pragma unroll
+  for (int j = 0; j < kPerApGroup; ++j) acc[j] = 0.f;
   if (m < M) {
-    for (int w = threadIdx.y; w < W; w += kWarps) {
-      const float term = wgt[static_cast<size_t>(w) * M + m] * gain<UPLINK>(g, w, n, m, W, N, M);
-      acc += (ap[w] != n) ? term : 0.f;
+    int w = lo + warp;
+    // All loads of kPerApUnroll w's first, then their terms in ascending w.
+    for (; w + (kPerApUnroll - 1) * kWarps < hi; w += kPerApUnroll * kWarps) {
+      int a[kPerApUnroll];
+      float x[kPerApUnroll];
+      float gv[kPerApUnroll][kPerApGroup];
+#pragma unroll
+      for (int u = 0; u < kPerApUnroll; ++u) {
+        const int wu = w + u * kWarps;
+        a[u] = ap[wu];
+        x[u] = wgt[static_cast<size_t>(wu) * M + m];
+#pragma unroll
+        for (int j = 0; j < kPerApGroup; ++j)
+          gv[u][j] = n0 + j < N ? gain<UPLINK>(g, wu, n0 + j, m, W, N, M) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kPerApUnroll; ++u)
+#pragma unroll
+        for (int j = 0; j < kPerApGroup; ++j) {
+          const float term = x[u] * gv[u][j];
+          acc[j] += (a[u] != n0 + j) ? term : 0.f;
+        }
+    }
+    for (; w < hi; w += kWarps) {
+      const int a = ap[w];
+      const float x = wgt[static_cast<size_t>(w) * M + m];
+#pragma unroll
+      for (int j = 0; j < kPerApGroup; ++j) {
+        const float term = n0 + j < N ? x * gain<UPLINK>(g, w, n0 + j, m, W, N, M) : 0.f;
+        acc[j] += (a != n0 + j) ? term : 0.f;
+      }
     }
   }
-  part[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0 && m < M) {
-    float s = 0.f;
 #pragma unroll
-    for (int y = 0; y < kWarps; ++y) s += part[y][threadIdx.x];
-    out[static_cast<size_t>(n) * M + m] = s;
+  for (int j = 0; j < kPerApGroup; ++j) part[warp][j][lane] = acc[j];
+  __syncthreads();
+  // Every block of the cluster has started: rank 0's shared memory exists.
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (warp == 0) {
+#pragma unroll
+    for (int j = 0; j < kPerApGroup; ++j) {
+      float s = 0.f;
+#pragma unroll
+      for (int y = 0; y < kWarps; ++y) s += part[y][j][lane];
+      *cluster.map_shared_rank(&gather[rank][j][lane], 0) = s;
+    }
+  }
+  // Every rank's tile is in rank 0's shared memory once rank 0 has waited
+  // at this second cluster barrier; the other ranks arrive (release) and exit, as
+  // nothing reads their shared memory.
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  if (rank != 0) return;
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  if (warp == 0 && m < M) {
+#pragma unroll
+    for (int j = 0; j < kPerApGroup; ++j) {
+      if (n0 + j >= N) continue;
+      float s = gather[0][j][lane];
+      for (int r = 1; r < split; ++r) s += gather[r][j][lane];
+      out[static_cast<size_t>(n0 + j) * M + m] = s;
+    }
   }
 }
 
@@ -431,18 +530,33 @@ int noma_cell_intra_dense(const float* own_r, const float* own_s, const float* w
   return static_cast<int>(cudaGetLastError());
 }
 
+// split blocks a cluster (1..8), each a range of w_chunk w's covering
+// [0, W) (split * w_chunk >= W). Grid (ceil(N / 2) * ceil(M / 32), split)
+// of 8 x 32 threads, launched with cudaLaunchKernelEx and a cluster
+// dimension of (1, split, 1).
 int noma_per_ap(const int* ap, const float* wgt, const float* g, float* out, int W,
-                int N, int M, int uplink, int device, void* stream) {
+                int N, int M, int split, int w_chunk, int uplink, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(N, ceil_div(M, kLanes));
-  const dim3 block(kLanes, kWarps);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (uplink) {
-    per_ap_kernel<true><<<grid, block, 0, s>>>(ap, wgt, g, out, W, N, M);
-  } else {
-    per_ap_kernel<false><<<grid, block, 0, s>>>(ap, wgt, g, out, W, N, M);
-  }
+  const long long tiles = static_cast<long long>(ceil_div(N, kPerApGroup)) * ceil_div(M, kLanes);
+  if (split < 1 || split > kPerApMaxSplit || w_chunk < 1 ||
+      static_cast<long long>(split) * w_chunk < W || tiles > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(tiles), split);
+  cfg.blockDim = dim3(kLanes, kWarps);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = split;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = uplink ? cudaLaunchKernelEx(&cfg, per_ap_kernel<true>, ap, wgt, g, out, W, N, M, w_chunk)
+               : cudaLaunchKernelEx(&cfg, per_ap_kernel<false>, ap, wgt, g, out, W, N, M, w_chunk);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

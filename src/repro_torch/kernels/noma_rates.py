@@ -242,6 +242,27 @@ def noma_cell_intra_dense_plain(own_r, own_s, w_s, ap_r, ap_s, n_aps: int,
 
 
 # -- kernel 2: per-AP table ------------------------------------------------------
+# The w reduction is split across the blocks of a thread-block cluster: a
+# cluster of `split` blocks (LANES x WARPS threads each) per output tile of
+# (PER_AP_GROUP APs, LANES-wide m block); block r of a cluster sums the w range
+# [r * w_chunk, min(W, (r + 1) * w_chunk)) and block 0 adds the partial
+# tiles in rank order (csrc/noma_rates.cu). split is at most the portable
+# cluster size, PER_AP_MAX_SPLIT, and a block takes at least PER_AP_MIN_W
+# w's (8 a warp), so small W runs in fewer blocks. The geometry depends on
+# the shapes alone, so the summation order, and with it the result's bits,
+# is the same on every launch.
+PER_AP_MAX_SPLIT = 8
+PER_AP_MIN_W = WARPS * 8
+PER_AP_GROUP = 2
+
+
+def per_ap_geometry(w: int) -> tuple[int, int]:
+    """(split, w_chunk) of the per_ap launch for W users: a grid of
+    (ceil(N / PER_AP_GROUP) * ceil(M / LANES), split) blocks."""
+    split = max(1, min(PER_AP_MAX_SPLIT, -(-w // PER_AP_MIN_W)))
+    return split, max(1, -(-w // split))
+
+
 def _gain_dims(g_raw, uplink: bool, w: int):
     n = g_raw.shape[1] if uplink else g_raw.shape[0]
     m = g_raw.shape[2]
@@ -267,7 +288,7 @@ def noma_per_ap(ap, wgt, g_raw, uplink: bool = True) -> torch.Tensor:
         return out
     rc = build.load("noma_rates").noma_per_ap(
         build.ptr(ap), build.ptr(wgt), build.ptr(g_raw), build.ptr(out), w, n, m,
-        int(uplink), dev.index, build.stream(dev))
+        *per_ap_geometry(w), int(uplink), dev.index, build.stream(dev))
     build.raise_on(rc, "noma_per_ap")
     LAUNCHES["noma_per_ap"] += 1
     return out

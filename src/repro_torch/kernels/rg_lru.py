@@ -12,9 +12,16 @@ import torch
 from repro_torch.kernels import build
 
 LAUNCHES = {"rg_lru": 0}
-# One thread per (b, w) channel, THREADS along w a block, the S loop
-# unrolled by 8 (csrc/rg_lru.cu).
-THREADS = 128
+# The kernel's geometry lives in csrc/rg_lru.cu: one-warp blocks of 32
+# channels, one thread each with h in a register; log_a and b reach it
+# through a ring of time tiles in static shared memory, filled ahead by TMA
+# where uses_tma allows it, else by cp.async.
+
+
+def uses_tma(w: int, *ptrs: int) -> bool:
+    """Whether the ring is filled by TMA: the tensor map's strides (W * 4
+    bytes) and base addresses must be multiples of 16 bytes."""
+    return w % 4 == 0 and all(p % 16 == 0 for p in ptrs)
 
 
 def reset_launches() -> None:
@@ -37,8 +44,9 @@ def rg_lru(log_a, b, h0=None) -> torch.Tensor:
     out = torch.empty_like(log_a)
     if out.numel() == 0:
         return out
+    tma = uses_tma(w, log_a.data_ptr(), b.data_ptr())
     rc = build.load("rg_lru").rg_lru(build.ptr(log_a), build.ptr(b), build.ptr(h0),
-                                     build.ptr(out), bsz, s, w, dev.index,
+                                     build.ptr(out), bsz, s, w, int(tma), dev.index,
                                      build.stream(dev))
     build.raise_on(rc, "rg_lru")
     LAUNCHES["rg_lru"] += 1

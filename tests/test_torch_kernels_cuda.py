@@ -276,6 +276,66 @@ def test_rg_lru_matches_plain_twin(cuda, b, s, w, with_h0):
     _close(got, rl.rg_lru_plain(log_a, x, h0), scale, 1e-5)
 
 
+# per_ap's w split: (W, N, M) with W not a multiple of the w chunk (W=1003
+# in 8 blocks of 126 w, W=500 in 8 of 63; W=300 is 5 blocks of exactly 60),
+# W smaller than one block's least chunk (W=40 < PER_AP_MIN_W), the serve
+# planner's tiny env, one AP (an exact zero), 1,000-byte rows (M=250),
+# M < 32, and more output tiles (65,625) than a grid's y extent holds.
+PER_AP_SHAPES = [(300, 5, 45), (1003, 7, 70), (40, 3, 20), (12, 3, 4), (70, 1, 33),
+                 (500, 16, 250), (200, 4, 7), (3, 2, 2_100_000)]
+
+
+@pytest.mark.parametrize("w,n,m", PER_AP_SHAPES)
+@pytest.mark.parametrize("uplink", [True, False])
+def test_per_ap_split_matches_plain_twin(cuda, w, n, m, uplink):
+    g = torch.Generator(device=cuda).manual_seed(w + n + m)
+    ap = torch.randint(0, n, (w,), device=cuda, generator=g).to(torch.int32)
+    wgt = torch.randn((w, m), device=cuda, generator=g)
+    shape = (w, n, m) if uplink else (n, w, m)
+    g_raw = torch.rand(shape, device=cuda, generator=g) * 10.0 ** (
+        -4 * torch.rand(shape, device=cuda, generator=g))
+    before = nr.LAUNCHES["noma_per_ap"]
+    got = nr.noma_per_ap(ap, wgt, g_raw, uplink)
+    torch.cuda.synchronize()
+    assert nr.LAUNCHES["noma_per_ap"] == before + 1
+    if n == 1:
+        assert not got.any()
+    _close(got, nr.noma_per_ap_plain(ap, wgt, g_raw, uplink),
+           nr.noma_per_ap_plain(ap, wgt.abs(), g_raw, uplink))
+    assert torch.equal(nr.noma_per_ap(ap, wgt, g_raw, uplink), got)
+
+
+@pytest.mark.parametrize("b,s,w,with_h0,tma", [
+    (2, 45, 96, True, True),      # S not a multiple of the ring's 32 steps
+    (3, 1, 64, False, True),      # S = 1
+    (1, 100, 30, True, False),    # W % 4 != 0: cp.async; B = 1
+    (2, 77, 201, False, False),   # W % 4 != 0, a ragged channel tile
+    (2, 70, 20, True, True),      # W under one 32-channel tile, TMA
+    (1, 33, 6, False, False),     # W under one tile, cp.async
+    (4, 160, 4096, True, True),   # the served width
+])
+def test_rg_lru_is_bit_equal_to_plain_twin(cuda, b, s, w, with_h0, tma):
+    g = torch.Generator(device=cuda).manual_seed(3 * s + w)
+    log_a = -8.0 * torch.rand((b, s, w), device=cuda, generator=g)
+    x = torch.randn((b, s, w), device=cuda, generator=g)
+    h0 = torch.randn((b, w), device=cuda, generator=g) if with_h0 else None
+    assert rl.uses_tma(w, log_a.data_ptr(), x.data_ptr()) == tma
+    got = rl.rg_lru(log_a, x, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rl.rg_lru_plain(log_a, x, h0))
+
+
+def test_rg_lru_takes_cp_async_for_misaligned_operands(cuda):
+    """An operand off a 16-byte boundary cannot back a tensor map: the
+    wrapper fills the ring by cp.async, with the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    flat = torch.randn(2 * 40 * 64 + 1, device=cuda, generator=g)
+    log_a = -torch.rand((2, 40, 64), device=cuda, generator=g)
+    x = flat[1:].view(2, 40, 64)
+    assert not rl.uses_tma(64, log_a.data_ptr(), x.data_ptr())
+    assert torch.equal(rl.rg_lru(log_a, x), rl.rg_lru_plain(log_a, x))
+
+
 def test_attention_and_rg_lru_wrappers_refuse_bad_cuda_arguments(cuda):
     q = torch.randn((4, 16, 48), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):

@@ -402,6 +402,34 @@ def test_dense_schedule_routes_through_the_dense_kernel(monkeypatch):
         calls.clear()
 
 
+def _per_ap_blocks(w, n, m):
+    """Thread blocks of one per_ap launch."""
+    return nr.per_ap_geometry(w)[0] * -(-n // nr.PER_AP_GROUP) * -(-m // nr.LANES)
+
+
+@pytest.mark.parametrize("w", [1, 12, 63, 64, 65, 200, 511, 513, 1003, 1250, 4099, 20000,
+                               99991])
+def test_per_ap_w_split_covers_every_w_once(w):
+    """The blocks of a per_ap cluster, rank r taking the w range
+    [r * w_chunk, min(W, (r + 1) * w_chunk)), cover [0, W) exactly once in
+    rank order with no empty range; the cluster stays within the portable
+    size and the C entry point's checks."""
+    split, chunk = nr.per_ap_geometry(w)
+    ranges = [(r * chunk, min(w, (r + 1) * chunk)) for r in range(split)]
+    assert 1 <= split <= nr.PER_AP_MAX_SPLIT and split * chunk >= w
+    assert all(lo < hi for lo, hi in ranges)
+    assert [i for lo, hi in ranges for i in range(lo, hi)] == list(range(w))
+
+
+def test_per_ap_grid_fills_the_card_at_the_planner_shape():
+    """At U=1250, N=16, M=250 the split gives at least two blocks for each
+    of the H100's 132 SMs; the serve planner's tiny env (12 users, 3 APs, 4
+    subchannels) takes one block a cluster."""
+    assert nr.per_ap_geometry(1250) == (8, 157)
+    assert _per_ap_blocks(1250, 16, 250) == 512 >= 2 * 132
+    assert nr.per_ap_geometry(12) == (1, 12) and _per_ap_blocks(12, 3, 4) == 2
+
+
 def test_segment_table_matches_reference():
     rng = np.random.default_rng(2)
     vals = rng.standard_normal((11, 4)).astype(np.float32)

@@ -9,6 +9,9 @@ held to 1e-5 of its float32 summation bound: the twin run on (log_a, |b|,
 |h0|), the sum of the magnitudes of the terms h_t adds up. The CUDA kernel
 runs only on the card (test_torch_kernels_cuda.py and chip_smoke.py hold it
 against this twin there)."""
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -73,3 +76,31 @@ def test_rg_lru_wrapper_refuses_bad_arguments():
         rl.rg_lru(la, la, torch.zeros((2, 8)))
     with pytest.raises(ValueError, match="contiguous"):
         rl.rg_lru(la.transpose(1, 2).contiguous().transpose(1, 2), la)
+
+
+def test_rg_lru_ring_fits_shared_memory():
+    """The ring declared in csrc/rg_lru.cu (kStages tiles of kSteps x
+    kChannels floats of log_a and of b, one 8-byte mbarrier a stage; the
+    kernel's only stage and tile choice) fits the 48 KiB a block gets as
+    static shared memory, under the H100's 227 KB (232,448 bytes) a block;
+    at the served (4, 3072, 4096) its one-warp blocks number at least two
+    for each of the 132 SMs."""
+    src = (Path(rl.__file__).parent / "csrc" / "rg_lru.cu").read_text()
+    const = {k: int(v) for k, v in
+             re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    stages, steps, channels = const["kStages"], const["kSteps"], const["kChannels"]
+    ring = stages * (2 * steps * channels * 4 + 8)
+    assert ring <= 48 * 1024 <= 232448
+    assert channels == 32  # one warp a block, one thread a channel
+    assert -(-4096 // channels) * 4 >= 2 * 132
+
+
+@pytest.mark.parametrize("w,ptrs,tma", [
+    (4096, (0, 1 << 20), True),
+    (20, (256, 512), True),     # under one channel tile: the box is zero-filled
+    (30, (0, 0), False),        # W * 4 bytes is no multiple of 16
+    (201, (0, 0), False),
+    (64, (0, 4), False),        # b off a 16-byte boundary
+])
+def test_rg_lru_fills_the_ring_by_tma_only_where_a_tensor_map_is_legal(w, ptrs, tma):
+    assert rl.uses_tma(w, *ptrs) is tma
