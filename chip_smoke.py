@@ -47,7 +47,19 @@ Phases, each fatal on failure (no phase catches its own error):
                  rg_lru launches a forward; prefill + 8 cached decode steps
                  against the forward; one forward under torch.profiler; the
                  reduced model on the card against its plain twins on the
-                 CPU; and the serving times.
+                 CPU; and the serving times;
+  7. fleet    -- B=8 members of a Scenario at the paper's width (U=1250, N=16,
+                 M=250, dense_urban's motion and churn, Jakes rho ~0.92): the
+                 three NOMA kernels' fleet launches, each member bit-identical
+                 to a single launch on it, members 0 and 7 against the plain
+                 twins, each operand set of both links and directions timed
+                 beside eight single launches (no slower) and its bound; then
+                 plan_many and two epochs of step_many -> env_many ->
+                 replan_many with exact launch counts (6 / 3 / 3 a fleet GD
+                 step) and every member's plan feasible; members 0 and 1
+                 planned alone beside the fleet (utility gate); 40 fixed GD
+                 steps of the fleet against member 0 alone; 40 fleet GD steps
+                 under torch.profiler.
 The last lines are the kernels JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
@@ -88,6 +100,29 @@ FLASH_RTOL = 1e-2
 # The float32 path (FMA kernel): only the order of the sums differs.
 FLASH_F32_RTOL = 1e-5
 RG_LRU_RTOL = 1e-5
+# Phase 7: a fleet at the paper's width. The fleet's plan utility (at s*
+# and at every split) may be worse than a member's own plan's by at most
+# this fraction: the two solves
+# run the same kernels (the same bits per member) but reduce other sums in
+# another order, and at U >= 200 a split's stopping step follows float32
+# summation order (ROADMAP section 3) while the utility it stops at does not
+# (utilities within 1.2e-6 there across 167-step differences): 1e-4 is
+# about 100 times that.
+FLEET_UTILITY_RTOL = 1e-4
+# 40 fixed GD steps of the fleet and of member 0 alone: each row of a
+# normalized variable (a user's beta row, or its power or compute unit)
+# within this fraction of the row's largest magnitude. Only the order of
+# non-kernel sums differs, which Adam's normalized steps carry forward.
+FLEET_STEP_RTOL = 1e-3
+FLEET_B = 8
+FLEET_SCENARIO = dict(n_users=1250, n_aps=16, n_sub=250, epoch_dt_s=0.01, doppler_hz=9.0,
+                      speed_mps=1.4, arrival_rate_hz=2.0, cluster_frac=0.5, n_clusters=3,
+                      cluster_radius_m=40.0, name="paper_scale_urban")
+# Phase 3's single-launch times of the main operand sets before the three
+# NOMA kernels took a member dim (ms, H100 80GB HBM3 at 700 W): intra,
+# per_ap up, per_ap dn, contract. Printed beside this run's.
+BEFORE_MEMBER_DIM_MS = {"noma_cell_intra": 0.027266, "noma_per_ap": 0.012206,
+                        "noma_per_ap dn": 0.011464, "noma_ap_contract": 0.010245}
 SERVE_ARCH = "recurrentgemma-9b"
 SERVE_B, SERVE_S = 4, 3072         # 4 requests of 3072 tokens
 SERVE_SPLIT = 19                   # the second split point held to the bit
@@ -150,6 +185,34 @@ def check(name: str, got, want, rtol: float, scale, errs: dict | None = None,
         errs[key] = max(errs.get(key, 0.0), err)
 
 
+def check_plan(name: str, st, env, n_layers: int) -> None:
+    """Fail unless one environment's plan is finite and feasible: beta rows
+    on the floored simplex, powers and compute units in their boxes,
+    subchannels in range."""
+    import torch
+    plan, rc, cc = st.plan, env.radio, env.comp
+    for field in ("p_up", "p_dn", "r", "utility", "per_layer_utility"):
+        if not bool(torch.isfinite(getattr(plan, field)).all()):
+            fail(f"{name}: {field} not finite")
+    s = int(plan.s)
+    if not 0 <= s <= n_layers:
+        fail(f"{name}: s*={s} out of range")
+    for key in ("beta_up", "beta_dn"):
+        b = st.norms[key][s]
+        if float((b.sum(1) - 1).abs().max()) > 1e-4 or float(b.min()) < rc.beta_min - 1e-6:
+            fail(f"{name}: {key} rows off the floored simplex")
+    for field, lo, hi in (("p_up", rc.p_up_min_w, rc.p_up_max_w),
+                          ("p_dn", rc.p_dn_min_w, rc.p_dn_max_w),
+                          ("r", cc.r_min, cc.r_max)):
+        x = getattr(plan, field)
+        if float(x.min()) < lo * (1 - 1e-6) or float(x.max()) > hi * (1 + 1e-6):
+            fail(f"{name}: {field} outside [{lo}, {hi}]")
+    for field in ("sub_up", "sub_dn"):
+        x = getattr(plan, field)
+        if int(x.min()) < 0 or int(x.max()) >= env.n_sub:
+            fail(f"{name}: {field} outside [0, {env.n_sub})")
+
+
 def device_ms(fns, reps: int = 20, trials: int = 7) -> float:
     """Median device milliseconds of one call, from CUDA events around a
     CUDA graph of `reps` calls cycling through `fns` (so no host gap sits
@@ -184,6 +247,7 @@ def device_ms(fns, reps: int = 20, trials: int = 7) -> float:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     # phase 6 holds 12.6 GB logit tensors beside 19 GB of weights: let the
     # allocator grow segments rather than fragment them
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
@@ -497,27 +561,7 @@ def main() -> int:
             fail(f"{k}: {v} launches on the main path, expected {expect[k]}")
 
     for name, st in zip(("plan", "replan1", "replan2"), states):
-        plan, rc, cc = st.plan, env.radio, env.comp
-        for field in ("p_up", "p_dn", "r", "utility", "per_layer_utility"):
-            if not bool(torch.isfinite(getattr(plan, field)).all()):
-                fail(f"{name}: {field} not finite")
-        s = int(plan.s)
-        if not 0 <= s <= prof.n_layers:
-            fail(f"{name}: s*={s} out of range")
-        for key in ("beta_up", "beta_dn"):
-            b = st.norms[key][s]
-            if float((b.sum(1) - 1).abs().max()) > 1e-4 or float(b.min()) < rc.beta_min - 1e-6:
-                fail(f"{name}: {key} rows off the floored simplex")
-        for field, lo, hi in (("p_up", rc.p_up_min_w, rc.p_up_max_w),
-                              ("p_dn", rc.p_dn_min_w, rc.p_dn_max_w),
-                              ("r", cc.r_min, cc.r_max)):
-            x = getattr(plan, field)
-            if float(x.min()) < lo * (1 - 1e-6) or float(x.max()) > hi * (1 + 1e-6):
-                fail(f"{name}: {field} outside [{lo}, {hi}]")
-        for field in ("sub_up", "sub_dn"):
-            x = getattr(plan, field)
-            if int(x.min()) < 0 or int(x.max()) >= M:
-                fail(f"{name}: {field} outside [0, {M})")
+        check_plan(name, st, env, prof.n_layers)
     print("main plan checks: finite, beta rows on the floored simplex, powers and r in "
           "their boxes, subchannels in range")
 
@@ -583,9 +627,15 @@ def main() -> int:
     rows.update(serve_rows)
     launches.update(serve_launches)
 
+    # -- 7. a fleet ------------------------------------------------------------
+    fleet_rows = fleet_phase(dev, smi, rows, eng.cfg)
+    for name, fr in fleet_rows.items():
+        rows[name].update(fr)
+
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": tpu,
                 "launches": launches[name], "max_abs_err": errs[name], **rows[name]}
                for name, (tpu, src) in TPU_KERNELS.items()]
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all | {smi}")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -887,6 +937,229 @@ def serve_phase(dev, kind: str, smi: str, errs: dict):
           f"forward_s={fwd_s:.4f}; main wall_s={main_wall:.3f}")
     launches = {k: main_launches[k] for k in ("flash_attention", "rg_lru")}
     return rows, launches
+
+
+def fleet_phase(dev, smi: str, rows: dict, cfg) -> dict:
+    """Phase 7. Returns the fleet fields of the three NOMA kernels' rows."""
+    import torch
+    from repro_torch.core import GdConfig, li_gd, profiles
+    from repro_torch.kernels import noma_rates as nr
+    from repro_torch.kernels import ops
+    from repro_torch.planning import PlannerEngine, member
+    from repro_torch.scenarios import Scenario, ScenarioConfig
+
+    b = FLEET_B
+    seeds = list(range(b))
+    sc = Scenario(ScenarioConfig(**FLEET_SCENARIO))
+    t0 = time.perf_counter()
+    states = sc.init_many(seeds)
+    envs = sc.env_many(states)
+    torch.cuda.synchronize()
+    counts = torch.stack([torch.bincount(a.long(), minlength=N) for a in envs.ap])
+    print(f"fleet: {FLEET_SCENARIO['name']} B={b} U={U} N={N} M={M} rho={sc.cfg.rho:.6f}; "
+          f"init_many + env_many {time.perf_counter() - t0:.3f} s; cell sizes of member 0 "
+          f"{counts[0].tolist()}, largest cell in the fleet {int(counts.max())}")
+
+    # 7.1 the kernels' fleet launches
+    gen = torch.Generator(device=dev).manual_seed(7)
+    e = torch.empty((b, U, M), device=dev).exponential_(generator=gen)
+    beta = e / e.sum(-1, keepdim=True)
+    p_up = 1e-3 + 0.3 * torch.rand((b, U), device=dev, generator=gen)
+    p_dn = 0.1 + 9.9 * torch.rand((b, U), device=dev, generator=gen)
+    cot = torch.randn((b, U, M), device=dev, generator=gen)
+    f4 = 4
+    same_triples = float((counts.double() ** 2).sum()) * M
+    intra_bound = (b * f4 * (3 * U * M + U) / HBM_BYTES_PER_S,
+                   3 * same_triples / FP32_INSTR_PER_S)
+    table_bound = (b * f4 * (U * N * M + U * M + U + N * M) / HBM_BYTES_PER_S,
+                   b * 2 * U * N * M / FP32_OPS_PER_S)
+    sets = []     # (kernel name, label, wrapper, twin, tensors, rest, index of the weight)
+    for uplink in (True, False):
+        link = "up" if uplink else "dn"
+        own, g_raw, ap = ops._inputs(envs, uplink)
+        tx = (beta * (p_up if uplink else p_dn)[..., None]).contiguous()
+        w_in = (tx * own).contiguous() if uplink else tx
+        sets += [("noma_cell_intra", f"intra {link} fwd", nr.noma_cell_intra_dense,
+                  nr.noma_cell_intra_dense_plain, (own, own, w_in, ap, ap), (N, uplink), 2),
+                 ("noma_cell_intra", f"intra {link} bwd", nr.noma_cell_intra_dense,
+                  nr.noma_cell_intra_dense_plain, (own, own, cot, ap, ap), (N, not uplink), 2)]
+        if uplink:
+            c_nm = nr.segment_table(cot, ap, N).contiguous()
+            sets += [("noma_per_ap", "per_ap up fwd", nr.noma_per_ap, nr.noma_per_ap_plain,
+                      (ap, tx, g_raw), (True,), 1),
+                     ("noma_ap_contract", "contract up bwd", nr.noma_ap_contract,
+                      nr.noma_ap_contract_plain, (ap, c_nm, g_raw), (True,), 1)]
+        else:
+            b_nm = nr.segment_table(tx, ap, N).contiguous()
+            sets += [("noma_ap_contract", "contract dn fwd", nr.noma_ap_contract,
+                      nr.noma_ap_contract_plain, (ap, b_nm, g_raw), (False,), 1),
+                     ("noma_per_ap", "per_ap dn bwd", nr.noma_per_ap, nr.noma_per_ap_plain,
+                      (ap, cot, g_raw), (False,), 1)]
+    fleet = {k: {"fleet_max_abs_err": 0.0, "fleet": {}} for k in
+             ("noma_cell_intra", "noma_per_ap", "noma_ap_contract")}
+    for name, label, kernel, twin, tensors, rest, w_pos in sets:
+        before = dict(nr.LAUNCHES)
+        got = kernel(*tensors, *rest)
+        torch.cuda.synchronize()
+        if nr.LAUNCHES[name] != before[name] + 1:
+            fail(f"{label}: a fleet launch did not count once")
+        singles = [kernel(*(t[i] for t in tensors), *rest) for i in range(b)]
+        same = [torch.equal(got[i], one) for i, one in enumerate(singles)]
+        print(f"check {label} fleet of {b}: each member bit-identical to its single launch: "
+              f"{all(same)}")
+        if not all(same):
+            fail(f"{label}: members {[i for i, x in enumerate(same) if not x]} of the fleet "
+                 "launch differ from their single launches")
+        errs = {}
+        for i in (0, b - 1):
+            args = tuple(t[i] for t in tensors)
+            scale = twin(*(t.abs() if j == w_pos else t for j, t in enumerate(args)), *rest)
+            check(f"{label} member {i} vs plain twin", got[i], twin(*args, *rest),
+                  KERNEL_RTOL, scale, errs, name)
+            del scale
+        fleet[name]["fleet_max_abs_err"] = max(fleet[name]["fleet_max_abs_err"], errs[name])
+        del got, singles
+        members = [tuple(t[i] for t in tensors) for i in range(b)]
+        f_ms = device_ms([lambda: kernel(*tensors, *rest)])
+        s_ms = device_ms([lambda: [kernel(*a, *rest) for a in members]])
+        t_bytes, t_ops = intra_bound if name == "noma_cell_intra" else table_bound
+        bound = max(t_bytes, t_ops) * 1e3
+        fleet[name]["fleet"][label] = {
+            "fleet_ms": f_ms, "eight_singles_ms": s_ms, "fleet_bound_ms": bound,
+            "fleet_bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "fleet_bound_share": bound / f_ms}
+        print(f"time {label} fleet of {b}: fleet_ms={f_ms} eight_singles_ms={s_ms} "
+              f"({s_ms / f_ms:.2f}x) fleet_bound_ms={bound} share={bound / f_ms:.4f} | {smi}")
+        if not f_ms <= s_ms:
+            fail(f"{label}: the fleet launch ({f_ms} ms) is slower than {b} single launches "
+                 f"({s_ms} ms)")
+    main_sets = {"noma_cell_intra": "intra up fwd", "noma_per_ap": "per_ap up fwd",
+                 "noma_ap_contract": "contract dn fwd"}
+    for name, label in main_sets.items():
+        fleet[name].update({k: fleet[name]["fleet"][label][k] for k in
+                            ("fleet_ms", "eight_singles_ms", "fleet_bound_ms")})
+    now = {"noma_cell_intra": rows["noma_cell_intra"]["ms"],
+           "noma_per_ap": rows["noma_per_ap"]["ms"],
+           "noma_per_ap dn": rows["noma_per_ap"]["downlink"]["ms"],
+           "noma_ap_contract": rows["noma_ap_contract"]["ms"]}
+    print(f"time phase 3 single launches (ms) beside those before the member dim | {smi}: "
+          + ", ".join(f"{k} {now[k]} (before {v})" for k, v in BEFORE_MEMBER_DIM_MS.items()))
+    del sets, beta, p_up, p_dn, cot, e, members
+    torch.cuda.empty_cache()
+
+    # 7.2 the main path: plan_many, then two epochs of step_many -> env_many
+    # -> replan_many, with the launch counters read around them
+    prof = profiles.nin()
+    eng = PlannerEngine(prof, cfg=cfg, sinr_backend="kernel")
+    torch.cuda.synchronize()
+    nr.reset_launches()
+    li_gd.reset_counts()
+    walls, fleet_states, steps, env_list = [], [], [], []
+    prev = None
+    for epoch in range(3):
+        t0 = time.perf_counter()
+        before = li_gd.COUNTS["steps"]
+        if epoch:
+            states = sc.step_many(seeds, states)
+            envs = sc.env_many(states)
+        prev = eng.plan_many(envs) if prev is None else eng.replan_many(prev, envs)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        steps.append(li_gd.COUNTS["steps"] - before)
+        fleet_states.append(prev)
+        env_list.append(envs)
+    launches = dict(nr.LAUNCHES)
+    splits = prof.n_layers + 1
+    for name, st, wall, n_steps in zip(("plan_many", "replan_many1", "replan_many2"),
+                                       fleet_states, walls, steps):
+        rho = None if st.warm_rho is None else [round(x, 6) for x in st.warm_rho.tolist()]
+        used = (st.opt_steps > st.plan.iters).int().tolist()
+        print(f"fleet {name}: wall_s={wall:.3f} fleet_steps={n_steps} s*={st.plan.s.tolist()} "
+              f"total_iters={st.total_iters.tolist()} warm_rho={rho}")
+        print(f"fleet {name}: used_warm per member {used}")
+        print(f"fleet {name}: utility {[f'{x:.7g}' for x in st.plan.utility.tolist()]}")
+    total_steps = sum(steps)
+    n_evals = total_steps + splits * 3 + 2 * 3 + 2 * splits * 2
+    expect = {"noma_cell_intra": 4 * total_steps + 2 * n_evals,
+              "noma_per_ap": 2 * total_steps + n_evals,
+              "noma_ap_contract": 2 * total_steps + n_evals}
+    print(f"fleet launches: {launches}; expected from {total_steps} fleet GD steps: {expect} "
+          f"(6 / 3 / 3 a fleet step, whatever B)")
+    for k, v in launches.items():
+        if v != expect[k]:
+            fail(f"fleet: {k} launched {v} times on the fleet path, expected {expect[k]}")
+        fleet[k]["fleet_launches"] = v
+    for name, st, e_i in zip(("plan_many", "replan_many1", "replan_many2"), fleet_states,
+                             env_list):
+        for i in range(b):
+            check_plan(f"fleet {name} member {i}", member(st, i), member(e_i, i), prof.n_layers)
+    print(f"fleet plan checks: all {b} members of the 3 epochs finite and feasible")
+
+    # 7.3 against sequential plans of members 0 and 1
+    first, env0 = fleet_states[0], env_list[0]
+    for i in (0, 1):
+        t0 = time.perf_counter()
+        one = eng.plan(member(env0, i))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        f_u, s_u = float(first.plan.utility[i]), float(one.plan.utility)
+        # every split's utility too: s* = F (no offload) leaves the radio out
+        f_split, s_split = first.plan.per_layer_utility[i], one.plan.per_layer_utility
+        worst = float(torch.max(f_split / s_split - 1))
+        print(f"fleet vs sequential member {i}: fleet s*={int(first.plan.s[i])} "
+              f"total_iters={int(first.total_iters[i])} iters={first.plan.iters[i].tolist()} "
+              f"utility={f_u:.9g} | alone s*={int(one.plan.s)} "
+              f"total_iters={int(one.total_iters)} iters={one.plan.iters.tolist()} "
+              f"utility={s_u:.9g} wall_s={wall:.3f}; fleet/alone - 1 = {f_u / s_u - 1:.3e}, "
+              f"worst split {worst:.3e}")
+        if not (f_u <= s_u * (1 + FLEET_UTILITY_RTOL) and worst <= FLEET_UTILITY_RTOL):
+            fail(f"fleet member {i}: utility worse than its own plan's by more than "
+                 f"{FLEET_UTILITY_RTOL} (s* {f_u} vs {s_u}; worst split {worst:.3e})")
+    step_cfg = GdConfig(optimizer="adam", max_iters=40, eps=0.0, sinr_backend="kernel")
+    w = eng._w(env0, None)
+    fleet_res = li_gd.gd_solve(env0, prof, 4, w, li_gd.cold_init(env0), step_cfg)
+    one_env = member(env0, 0)
+    one_res = li_gd.gd_solve(one_env, prof, 4, w, li_gd.cold_init(one_env), step_cfg)
+    for k in li_gd.KEYS:
+        got, want = fleet_res.norm[k][0], one_res.norm[k]
+        scale = want.abs().amax(-1, keepdim=True) if want.ndim == 2 else want.abs()
+        check(f"fleet 40 fixed steps, member 0 vs alone: {k}", got, want, FLEET_STEP_RTOL,
+              scale)
+    print(f"fleet 40 fixed steps: member 0 bit-identical to alone in "
+          f"{sum(torch.equal(fleet_res.norm[k][0], one_res.norm[k]) for k in li_gd.KEYS)} "
+          f"of {len(li_gd.KEYS)} variables")
+    del fleet_res, one_res
+
+    # 7.4 where a fleet GD step's time goes
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    env2 = env_list[-1]
+    start = li_gd.cold_init(env2)
+    li_gd.gd_solve(env2, prof, 4, w, start, step_cfg)      # warm-up
+    torch.cuda.synchronize()
+    li_gd.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_run:
+        t0 = time.perf_counter()
+        li_gd.gd_solve(env2, prof, 4, w, start, step_cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n_steps = li_gd.COUNTS["steps"]
+    rows_k = [e for e in prof_run.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in rows_k)
+    if busy_us <= 0:
+        fail("torch.profiler recorded no device time for the fleet")
+    launches_k = sum(e.count for e in rows_k)
+    print(f"profile fleet gd_solve split 4, B={b}, {n_steps} steps (profiled): "
+          f"wall_s={wall:.4f} per_step_ms={wall / n_steps * 1e3:.3f} "
+          f"device_busy_s={busy_us / 1e6:.4f} busy_ms_per_step={busy_us / 1e3 / n_steps:.3f} "
+          f"busy_share={busy_us / 1e6 / wall:.4f} kernel_launches={launches_k} "
+          f"launches_per_step={launches_k / n_steps:.1f}")
+    for e in sorted(rows_k, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"profile fleet kernel {e.self_device_time_total / 1e3:9.2f} ms "
+              f"{e.self_device_time_total / busy_us:6.1%} {e.count:6d} launches  {e.key[:80]}")
+    del prof_run, rows_k
+    torch.cuda.empty_cache()
+    return fleet
 
 
 if __name__ == "__main__":

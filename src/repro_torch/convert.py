@@ -1,8 +1,10 @@
 """State carried across from the JAX reference.
 
 Turns the reference's objects, given as numpy arrays plus constants, into
-the port's: a NetworkEnv, a ModelProfile, EccWeights and a PlanState, so a
-plan made by the reference can warm-start the port's replan. Constants may
+the port's: a NetworkEnv, a ModelProfile, EccWeights, a PlanState (one
+scenario's or a fleet's) and a ScenarioState, so a plan made by the
+reference can warm-start the port's replan / replan_many and a reference
+scenario can be stepped on by the port. Constants may
 be any object with the fields of RadioConstants / ComputeConstants (the
 reference's dataclasses qualify) or a dict. No JAX here: callers convert
 their arrays with np.asarray first. to_numpy goes the other way.
@@ -23,15 +25,17 @@ from repro_torch.core.types import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.planning.engine import PlanState
+from repro_torch.scenarios.mobility import MobilityState
+from repro_torch.scenarios.scenario import ScenarioState
 
 _DTYPES = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float32,
            np.dtype(np.int32): torch.int32, np.dtype(np.int64): torch.int32,
-           np.dtype(np.bool_): torch.bool}
+           np.dtype(np.bool_): torch.bool, np.dtype(np.complex64): torch.complex64}
 
 
 def tensor(x, device=None) -> torch.Tensor:
     """A numpy array (or scalar) as a tensor on ``device``: floats become
-    float32 and integers int32, the reference's dtypes."""
+    float32, integers int32 and complex64 stays so, the reference's dtypes."""
     a = np.array(x)     # a writable copy: arrays from JAX are read-only
     if a.dtype not in _DTYPES:
         raise TypeError(f"unsupported dtype {a.dtype}")
@@ -82,6 +86,33 @@ def plan_state_from_numpy(norms: dict, moms=None, opt_steps=None, gains=None,
         plan=None, norms=_tree(dict(norms), device),
         moms=_tree(None if moms is None else tuple(dict(m) for m in moms), device),
         opt_steps=_tree(opt_steps, device), gains=_tree(gains, device))
+
+
+def fleet_plan_state_from_numpy(norms: dict, moms=None, opt_steps=None, gains=None,
+                                device=None) -> PlanState:
+    """The warm-start payload of a reference fleet PlanState (plan_many /
+    replan_many): every leaf leads with the fleet dim B, norms (B, F+1, U, M)
+    and (B, F+1, U), opt_steps (B, F+1), gains (B, U, N, M)."""
+    beta = np.shape(norms["beta_up"])
+    if len(beta) != 4:
+        raise ValueError(f"a fleet state's norms are (B, F+1, U, M); got beta_up {beta}")
+    return plan_state_from_numpy(norms, moms, opt_steps, gains, device)
+
+
+def scenario_state_from_numpy(pos, waypoint, ap_pos, h_up, h_dn, epoch,
+                              device=None) -> ScenarioState:
+    """A reference ScenarioState (one scenario's, or a fleet's with every
+    array leading with B): positions and waypoints ([B,] U, 2), AP positions
+    ([B,] N, 2), complex64 coefficients ([B,] U, N, M), and the epoch (a
+    fleet's members must share it: the port's epoch is one counter)."""
+    epochs = np.unique(np.asarray(epoch))
+    if epochs.size != 1:
+        raise ValueError(f"the members' epochs differ ({epochs.tolist()}); a fleet "
+                         "steps together")
+    return ScenarioState(
+        mob=MobilityState(pos=tensor(pos, device), waypoint=tensor(waypoint, device)),
+        ap_pos=tensor(ap_pos, device), h_up=tensor(h_up, device),
+        h_dn=tensor(h_dn, device), epoch=int(epochs[0]))
 
 
 def _layer(tree, i: int):

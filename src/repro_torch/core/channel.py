@@ -16,6 +16,10 @@ Two SINR backends: "einsum" is plain tensor algebra and materializes the
 (U, U, M) pairwise comparison; "kernel" runs the pairwise reductions through
 the hand-written kernels of repro_torch.kernels (on the CPU, their plain
 twins), differentiable in (beta, p) with the channel gains as constants.
+
+Every function takes a fleet env too (planning.stack_envs: each tensor
+leads with B), with the variables leading with B as well. The einsum
+backend then holds a (B, U, U, M) tensor: it is for test sizes.
 """
 from __future__ import annotations
 
@@ -84,7 +88,7 @@ def make_env(
 
 
 def _cell_onehot(env: NetworkEnv) -> Tensor:
-    """(U, N) one-hot of the serving AP."""
+    """([B,] U, N) one-hot of the serving AP."""
     return F.one_hot(env.ap.long(), env.n_aps).to(env.g_up.dtype)
 
 
@@ -95,7 +99,7 @@ def uplink_sinr(env: NetworkEnv, beta_up: Tensor, p_up: Tensor,
     backend = _SINR_BACKEND if backend is None else backend
     _check_backend(backend)
     own = env.own_gain_up()                      # (U, M) gain to own AP
-    tx = beta_up * p_up[:, None]                  # (U, M) effective tx power
+    tx = beta_up * p_up[..., None]                # (U, M) effective tx power
     if backend == "kernel":
         from repro_torch.kernels import ops
         # The kernels treat the gains as constants; detach the own-gain
@@ -106,13 +110,14 @@ def uplink_sinr(env: NetworkEnv, beta_up: Tensor, p_up: Tensor,
         cell = _cell_onehot(env)                  # (U, N)
         # Inter-cell interference received at AP n from users NOT in cell n,
         # masked directly (no subtraction: fp32-safe).
-        inter_at = torch.einsum("vn,vm,vnm->nm", 1.0 - cell, tx, env.g_up)  # (N, M)
-        inter = torch.einsum("un,nm->um", cell, inter_at)
+        inter_at = torch.einsum("...vn,...vm,...vnm->...nm", 1.0 - cell, tx,
+                                env.g_up)         # (N, M)
+        inter = torch.einsum("...un,...nm->...um", cell, inter_at)
         same = env.same_cell().to(own.dtype)      # (U, U)
         # Intra-cell: same-cell users with weaker own-gain (decoded after me).
-        weaker = (own[None, :, :] < own[:, None, :]).to(own.dtype)  # (U, V, M)
-        intra = torch.einsum("uvm,vm->um", weaker * same[:, :, None], tx * own)
-    sig = p_up[:, None] * own
+        weaker = (own[..., None, :, :] < own[..., :, None, :]).to(own.dtype)  # (U, V, M)
+        intra = torch.einsum("...uvm,...vm->...um", weaker * same[..., None], tx * own)
+    sig = p_up[..., None] * own
     return sig / (intra + inter + env.noise_up)
 
 
@@ -130,7 +135,7 @@ def downlink_sinr(env: NetworkEnv, beta_dn: Tensor, p_dn: Tensor,
     backend = _SINR_BACKEND if backend is None else backend
     _check_backend(backend)
     own = env.own_gain_dn()                       # (U, M) gain my AP -> me
-    tx = beta_dn * p_dn[:, None]                  # (U, M) power my AP spends on me
+    tx = beta_dn * p_dn[..., None]                # (U, M) power my AP spends on me
     if backend == "kernel":
         from repro_torch.kernels import ops
         own = own.detach()
@@ -138,15 +143,15 @@ def downlink_sinr(env: NetworkEnv, beta_dn: Tensor, p_dn: Tensor,
         intra = intra * own
     else:
         cell = _cell_onehot(env)                  # (U, N)
-        ap_tx = torch.einsum("un,um->nm", cell, tx)   # (N, M) total AP tx power
+        ap_tx = torch.einsum("...un,...um->...nm", cell, tx)   # (N, M) total AP tx power
         # Interference from *other* APs received at me, masked directly.
-        g_all = env.g_dn.transpose(0, 1)          # (U, N, M)
-        inter = torch.einsum("nm,unm,un->um", ap_tx, g_all, 1.0 - cell)
+        g_all = env.g_dn.transpose(-3, -2)        # (U, N, M)
+        inter = torch.einsum("...nm,...unm,...un->...um", ap_tx, g_all, 1.0 - cell)
         # Intra-cell: same-cell users with *stronger* gain (decoded after me).
         same = env.same_cell().to(own.dtype)
-        stronger = (own[None, :, :] > own[:, None, :]).to(own.dtype)
-        intra = torch.einsum("uvm,vm->um", stronger * same[:, :, None], tx) * own
-    sig = p_dn[:, None] * own
+        stronger = (own[..., None, :, :] > own[..., :, None, :]).to(own.dtype)
+        intra = torch.einsum("...uvm,...vm->...um", stronger * same[..., None], tx) * own
+    sig = p_dn[..., None] * own
     return sig / (intra + inter + env.noise_dn)
 
 
@@ -177,11 +182,11 @@ def oma_rates(env: NetworkEnv, p_up: Tensor, p_dn: Tensor) -> tuple[Tensor, Tens
     TDMA-style equal split within the cell."""
     own_up = env.own_gain_up()
     own_dn = env.own_gain_dn()
-    counts = torch.sum(env.same_cell(), dim=1).to(own_up.dtype)
+    counts = torch.sum(env.same_cell(), dim=-1).to(own_up.dtype)
     bw_up = env.radio.bandwidth_up_hz / counts
     bw_dn = env.radio.bandwidth_dn_hz / counts
-    g_up = torch.amax(own_up, dim=1)
-    g_dn = torch.amax(own_dn, dim=1)
+    g_up = torch.amax(own_up, dim=-1)
+    g_dn = torch.amax(own_dn, dim=-1)
     snr_up = p_up * g_up / (env.noise_up * env.n_sub)   # full-band noise share
     snr_dn = p_dn * g_dn / (env.noise_dn * env.n_sub)
     r_up = bw_up * torch.log1p(snr_up) / LOG2

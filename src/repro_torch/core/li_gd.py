@@ -16,6 +16,13 @@
 * Li-GD chains split points, warm-starting split s+1 from the optimum of
   split s (Table I lines 13-16); chain=False is the cold-start baseline.
 * Online warm starts resume the Adam moments and step counts.
+* Fleets: every function takes a fleet env (planning.stack_envs, each
+  tensor leading with B) and solves all B members at once, as jax.vmap of
+  the reference does. The stop flags, iteration counts, norms, utilities
+  and Adam step counts are per member, and a stopped member stays frozen
+  while the others run, so its counts equal a solve of it alone. A single
+  environment is solved as a fleet of one (_lift), so there is one code
+  path; its results come back without the member dim (_drop).
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from repro_torch.core.types import (
     NetworkEnv,
     SplitPlan,
     Tensor,
+    tree_map,
 )
 from repro_torch.core.utility import utility as _utility
 
@@ -48,6 +56,25 @@ COUNTS = {"steps": 0, "host_reads": 0}
 def reset_counts() -> None:
     for k in COUNTS:
         COUNTS[k] = 0
+
+
+def _lift(x):
+    """One environment's objects as a fleet of one."""
+    return tree_map(lambda t: t.unsqueeze(0), x)
+
+
+def _drop(x):
+    """A fleet of one's results without the member dim."""
+    return tree_map(lambda t: t[0], x)
+
+
+def _bcast(c: Tensor, like: Tensor) -> Tensor:
+    """A (B,) per-member tensor shaped to broadcast against a (B, ...) leaf."""
+    return c.reshape(c.shape + (1,) * (like.ndim - c.ndim))
+
+
+def _member_sum(x: Tensor) -> Tensor:
+    return torch.sum(x, dim=tuple(range(1, x.ndim)))
 
 
 # --------------------------------------------------------------------------
@@ -98,9 +125,9 @@ def to_physical(norm: dict, env: NetworkEnv) -> GdVars:
 
 def cold_init(env: NetworkEnv) -> dict:
     """Table I line 1: start mid-box / uniform simplex, no prior knowledge."""
-    u, m, dev = env.n_users, env.n_sub, env.device
-    one = torch.ones((u, m), device=dev) / m
-    half = torch.full((u,), 0.5, device=dev)
+    lead, u, m, dev = env.g_up.shape[:-3], env.n_users, env.n_sub, env.device
+    one = torch.ones((*lead, u, m), device=dev) / m
+    half = torch.full((*lead, u), 0.5, device=dev)
     return {"beta_up": one, "beta_dn": one, "p_up": half, "p_dn": half, "r": half}
 
 
@@ -109,15 +136,18 @@ def rho_estimate(prev_gains: Tensor, gains: Tensor) -> Tensor:
     Gauss-Markov process corr(|h_t|^2, |h_{t+1}|^2) = rho^2, so
     rho_hat = sqrt(clip(corr, 0, 1)). Computed on the device, so the warm
     gate needs no host read. Both tensors are max-normalized first (gains
-    are ~1e-12), which keeps the float32 sums far from underflow."""
-    a = prev_gains.reshape(-1).float()
-    b = gains.reshape(-1).float()
-    a = a / torch.clamp_min(torch.amax(torch.abs(a)), 1e-30)
-    b = b / torch.clamp_min(torch.amax(torch.abs(b)), 1e-30)
-    a = a - torch.mean(a)
-    b = b - torch.mean(b)
-    denom = torch.sqrt(torch.sum(a * a) * torch.sum(b * b))
-    corr = torch.sum(a * b) / torch.clamp_min(denom, 1e-30)
+    are ~1e-12), which keeps the float32 sums far from underflow. Gains are
+    ([B,] U, N, M): a fleet gets one estimate per member, from that
+    member's own maxima, means and sums."""
+    lead = gains.shape[:-3]
+    a = prev_gains.reshape(*lead, -1).float()
+    b = gains.reshape(*lead, -1).float()
+    a = a / torch.clamp_min(torch.amax(torch.abs(a), -1, keepdim=True), 1e-30)
+    b = b / torch.clamp_min(torch.amax(torch.abs(b), -1, keepdim=True), 1e-30)
+    a = a - torch.mean(a, -1, keepdim=True)
+    b = b - torch.mean(b, -1, keepdim=True)
+    denom = torch.sqrt(torch.sum(a * a, -1) * torch.sum(b * b, -1))
+    corr = torch.sum(a * b, -1) / torch.clamp_min(denom, 1e-30)
     return torch.sqrt(torch.clamp(corr, 0.0, 1.0))
 
 
@@ -133,15 +163,19 @@ class GdResult(NamedTuple):
 
 
 def _tree_norm(t: dict) -> Tensor:
-    return torch.sqrt(sum(torch.sum(t[k] * t[k]) for k in KEYS))
+    """(B,): each member's norm over all leaves (summed in KEYS order)."""
+    return torch.sqrt(sum(_member_sum(t[k] * t[k]) for k in KEYS))
 
 
 def _tree_maxdiff(a: dict, b: dict) -> Tensor:
-    return torch.amax(torch.stack([torch.amax(torch.abs(a[k] - b[k])) for k in KEYS]))
+    """(B,): each member's largest change over all leaves."""
+    return torch.amax(torch.stack([torch.amax(torch.abs(a[k] - b[k]).flatten(1), 1)
+                                   for k in KEYS]), 0)
 
 
 def _where(c: Tensor, a: dict, b: dict) -> dict:
-    return {k: torch.where(c, a[k], b[k]) for k in KEYS}
+    """Per member: a's leaves where c, else b's."""
+    return {k: torch.where(_bcast(c, a[k]), a[k], b[k]) for k in KEYS}
 
 
 def zeros_like(t: dict) -> dict:
@@ -155,13 +189,17 @@ def gd_solve(env: NetworkEnv, prof: ModelProfile, s: int, w: EccWeights,
 
     init_mom/init_steps resume a previous solve's optimizer state: the Adam
     moments keep their history and the bias correction continues from
-    init_steps instead of restarting at t=1."""
+    init_steps instead of restarting at t=1. For a fleet env every input
+    and output leads with B, and each member stops on its own."""
     if cfg.stop_rule not in ("pgd", "raw"):
         raise ValueError(f"stop_rule must be 'pgd' or 'raw', got {cfg.stop_rule!r}")
+    if env.fleet is None:
+        return _drop(gd_solve(_lift(env), prof, s, w, _lift(init_norm), cfg,
+                              _lift(init_mom), _lift(init_steps)))
     beta_min = env.radio.beta_min
     adam = cfg.optimizer == "adam"
     dev = env.device
-    steps0 = (torch.zeros((), dtype=torch.int32, device=dev) if init_steps is None
+    steps0 = (torch.zeros(env.fleet, dtype=torch.int32, device=dev) if init_steps is None
               else init_steps.to(torch.int32))
 
     def gamma_fn(norm):
@@ -169,10 +207,12 @@ def gd_solve(env: NetworkEnv, prof: ModelProfile, s: int, w: EccWeights,
                         backend=cfg.sinr_backend)
 
     def value_and_grad(norm):
+        # Members are independent: the gradient of the fleet's sum is each
+        # member's own gradient.
         with torch.enable_grad():
             x = {k: norm[k].detach().requires_grad_(True) for k in KEYS}
             gamma = gamma_fn(x)
-            grads = torch.autograd.grad(gamma, [x[k] for k in KEYS])
+            grads = torch.autograd.grad(gamma.sum(), [x[k] for k in KEYS])
         return gamma.detach(), dict(zip(KEYS, grads))
 
     def body(norm, mom, it):
@@ -181,9 +221,10 @@ def gd_solve(env: NetworkEnv, prof: ModelProfile, s: int, w: EccWeights,
             m1, m2 = mom
             m1 = {k: cfg.adam_b1 * m1[k] + (1 - cfg.adam_b1) * g[k] for k in KEYS}
             m2 = {k: cfg.adam_b2 * m2[k] + (1 - cfg.adam_b2) * g[k] * g[k] for k in KEYS}
-            t = (steps0 + it + 1).float()
-            step = {k: cfg.step_size * (m1[k] / (1 - cfg.adam_b1**t))
-                    / (torch.sqrt(m2[k] / (1 - cfg.adam_b2**t)) + 1e-8) for k in KEYS}
+            t = (steps0 + it + 1).float()     # each member's own step count
+            c1, c2 = 1 - cfg.adam_b1**t, 1 - cfg.adam_b2**t
+            step = {k: cfg.step_size * (m1[k] / _bcast(c1, m1[k]))
+                    / (torch.sqrt(m2[k] / _bcast(c2, m2[k])) + 1e-8) for k in KEYS}
             mom = (m1, m2)
         else:
             step = {k: cfg.step_size * g[k] for k in KEYS}
@@ -208,8 +249,8 @@ def gd_solve(env: NetworkEnv, prof: ModelProfile, s: int, w: EccWeights,
         mom = (zeros_like(init_norm), zeros_like(init_norm)) if init_mom is None \
             else init_mom
         gamma = gamma_fn(norm)
-        it = torch.zeros((), dtype=torch.int32, device=dev)
-        done = torch.zeros((), dtype=torch.bool, device=dev)
+        it = torch.zeros(env.fleet, dtype=torch.int32, device=dev)
+        done = torch.zeros(env.fleet, dtype=torch.bool, device=dev)
         executed, chunk = 0, 1
         while executed < cfg.max_iters:
             n = min(chunk, cfg.max_iters - executed)
@@ -226,7 +267,7 @@ def gd_solve(env: NetworkEnv, prof: ModelProfile, s: int, w: EccWeights,
             executed += n
             COUNTS["steps"] += n
             COUNTS["host_reads"] += 1
-            if bool(done):            # the one host read of this chunk
+            if bool(done.all()):      # the one host read of this chunk
                 break
             chunk = min(2 * chunk, SYNC_EVERY)
     return GdResult(norm=norm, gamma=gamma, iters=it, mom=mom, opt_steps=steps0 + it)
@@ -246,7 +287,8 @@ class LoopResult(NamedTuple):
 
 
 def _stack(dicts: list[dict]) -> dict:
-    return {k: torch.stack([d[k] for d in dicts]) for k in KEYS}
+    """Per-split dicts of (B, ...) leaves as (B, F+1, ...) leaves."""
+    return {k: torch.stack([d[k] for d in dicts], 1) for k in KEYS}
 
 
 def gd_loop(env: NetworkEnv, prof: ModelProfile, w: EccWeights, cfg: GdConfig,
@@ -254,6 +296,9 @@ def gd_loop(env: NetworkEnv, prof: ModelProfile, w: EccWeights, cfg: GdConfig,
             warm_mom: tuple | None = None, warm_steps: Tensor | None = None,
             use_warm: Tensor | bool = True) -> LoopResult:
     """Solve all F+1 split points with one warm-start policy.
+
+    For a fleet env every input leads with B (warm leaves (B, F+1, ...),
+    use_warm a bool or (B,)) and so does every output.
 
     chain=True,  warm=None  -- paper Li-GD: split s+1 starts from split s's
                                optimum.
@@ -267,18 +312,23 @@ def gd_loop(env: NetworkEnv, prof: ModelProfile, w: EccWeights, cfg: GdConfig,
                                bool) False makes the solve exactly the
                                chained Li-GD.
     """
+    if env.fleet is None:
+        return _drop(gd_loop(_lift(env), prof, w, cfg, chain=chain, warm=_lift(warm),
+                             warm_mom=_lift(warm_mom), warm_steps=_lift(warm_steps),
+                             use_warm=_lift(use_warm)))
     n_splits = prof.n_layers + 1
+    b, dev = env.fleet, env.device
     init = cold_init(env)
     results, picks = [], []
     if warm is not None:
         if warm_mom is None:
             warm_mom = (zeros_like(warm), zeros_like(warm))
         if warm_steps is None:
-            warm_steps = torch.zeros(n_splits, dtype=torch.int32, device=env.device)
-        use_warm = torch.as_tensor(use_warm, dtype=torch.bool, device=env.device)
+            warm_steps = torch.zeros((b, n_splits), dtype=torch.int32, device=dev)
+        use_warm = torch.as_tensor(use_warm, dtype=torch.bool, device=dev)
         carry = _project(init, env.radio.beta_min)
         for s in range(n_splits):
-            w0 = {k: warm[k][s] for k in KEYS}
+            w0 = {k: warm[k][:, s] for k in KEYS}
 
             def gamma_at(n):
                 return _utility(env, prof, s, to_physical(n, env), w,
@@ -287,14 +337,14 @@ def gd_loop(env: NetworkEnv, prof: ModelProfile, w: EccWeights, cfg: GdConfig,
             with torch.no_grad():
                 pick = use_warm & (gamma_at(w0) <= gamma_at(carry))
             start = _where(pick, w0, carry)
-            mom0 = tuple({k: torch.where(pick, m[k][s], 0.0) for k in KEYS}
-                         for m in warm_mom)
-            steps = torch.where(pick, warm_steps[s], 0)
+            mom0 = tuple({k: torch.where(_bcast(pick, m[k][:, s]), m[k][:, s], 0.0)
+                          for k in KEYS} for m in warm_mom)
+            steps = torch.where(pick, warm_steps[:, s], 0)
             res = gd_solve(env, prof, s, w, start, cfg, init_mom=mom0, init_steps=steps)
             carry = res.norm
             results.append(res)
             picks.append(pick)
-        used_warm = torch.stack(picks)
+        used_warm = torch.stack(picks, 1)
     else:
         carry = init
         for s in range(n_splits):
@@ -302,15 +352,15 @@ def gd_loop(env: NetworkEnv, prof: ModelProfile, w: EccWeights, cfg: GdConfig,
             if chain:
                 carry = res.norm
             results.append(res)
-        used_warm = torch.zeros(n_splits, dtype=torch.bool, device=env.device)
-    iters = torch.stack([r.iters for r in results])
+        used_warm = torch.zeros((b, n_splits), dtype=torch.bool, device=dev)
+    iters = torch.stack([r.iters for r in results], 1)
     return LoopResult(
-        gammas=torch.stack([r.gamma for r in results]),
+        gammas=torch.stack([r.gamma for r in results], 1),
         iters=iters,
         norms=_stack([r.norm for r in results]),
-        total_iters=torch.sum(iters),
+        total_iters=torch.sum(iters, -1),
         moms=(_stack([r.mom[0] for r in results]), _stack([r.mom[1] for r in results])),
-        opt_steps=torch.stack([r.opt_steps for r in results]),
+        opt_steps=torch.stack([r.opt_steps for r in results], 1),
         used_warm=used_warm,
     )
 
@@ -321,12 +371,12 @@ def gd_loop(env: NetworkEnv, prof: ModelProfile, w: EccWeights, cfg: GdConfig,
 def round_beta(beta: Tensor, paper_rule: bool = True) -> tuple[Tensor, Tensor, Tensor]:
     """Paper rule: beta > 0.5 -> 1 else 0. Returns (onehot, chosen, violations).
     Where the 0.5-rule breaks constraint (18.e) the row is repaired with
-    argmax (first index at ties) and counted."""
+    argmax (first index at ties) and counted (per member for ([B,] U, M))."""
     if paper_rule:
         hard = (beta > 0.5).to(beta.dtype)
-        viol = torch.sum(torch.abs(torch.sum(hard, dim=-1) - 1.0) > 0.5).to(torch.int32)
+        viol = torch.sum(torch.abs(torch.sum(hard, dim=-1) - 1.0) > 0.5, dim=-1).to(torch.int32)
     else:
-        viol = torch.zeros((), dtype=torch.int32, device=beta.device)
+        viol = torch.zeros(beta.shape[:-2], dtype=torch.int32, device=beta.device)
     chosen = torch.argmax(beta, dim=-1).to(torch.int32)
     onehot = F.one_hot(chosen.long(), beta.shape[-1]).to(beta.dtype)
     return onehot, chosen, viol
@@ -337,47 +387,59 @@ def greedy_round_up(env: NetworkEnv, beta: Tensor, p: Tensor) -> Tensor:
     subchannel maximizing their SINR given interference from the users
     already assigned. Each step gathers a (U, M) slice, never the
     (U, U, M) pairwise tensor, and keeps the chosen subchannel on the
-    device (no host read per step)."""
-    own = env.own_gain_up()                          # (U, M)
-    ap = env.ap.long()
+    device (no host read per step). A fleet takes the U steps once, each
+    on all members, gathering with each member's own AP ids."""
+    if env.fleet is None:
+        return _drop(greedy_round_up(_lift(env), beta[None], p[None]))
+    own = env.own_gain_up()                          # (B, U, M)
+    at_ap = env.ap.long()[:, :, None].expand(-1, -1, env.n_sub)
     assigned = torch.zeros_like(own)
     subs = []
     for u in range(env.n_users):
-        sinr = p[u] * own[u] / (assigned[u] + env.noise_up)
-        m = torch.argmax(beta[u] * torch.log1p(sinr))
-        g_at_u = env.g_up[u].index_select(0, ap)     # (U, M): u at every user's AP
-        add = p[u] * g_at_u * F.one_hot(m, env.n_sub).to(own.dtype)[None, :]
+        sinr = p[:, u, None] * own[:, u] / (assigned[:, u] + env.noise_up)
+        m = torch.argmax(beta[:, u] * torch.log1p(sinr), dim=-1)
+        g_at_u = torch.gather(env.g_up[:, u], 1, at_ap)  # (B, U, M): u at every user's AP
+        add = p[:, u, None, None] * g_at_u * F.one_hot(m, env.n_sub).to(own.dtype)[:, None, :]
         assigned = assigned + add
         subs.append(m)
-    return torch.stack(subs).to(torch.int32)
+    return torch.stack(subs, 1).to(torch.int32)
 
 
 def greedy_round_dn(env: NetworkEnv, beta: Tensor, p: Tensor) -> Tensor:
     """Downlink analogue: interference at the *user* from other APs' tx."""
-    own = env.own_gain_dn()                          # (U, M)
-    g_all = env.g_dn.transpose(0, 1)                 # (U, N, M) AP->user gains
-    cell = F.one_hot(env.ap.long(), env.n_aps).to(own.dtype)   # (U, N)
-    ap_tx = torch.zeros((env.n_aps, env.n_sub), dtype=own.dtype, device=own.device)
+    if env.fleet is None:
+        return _drop(greedy_round_dn(_lift(env), beta[None], p[None]))
+    own = env.own_gain_dn()                          # (B, U, M)
+    g_all = env.g_dn.transpose(1, 2)                 # (B, U, N, M) AP->user gains
+    cell = F.one_hot(env.ap.long(), env.n_aps).to(own.dtype)   # (B, U, N)
+    ap_tx = torch.zeros((env.fleet, env.n_aps, env.n_sub), dtype=own.dtype,
+                        device=own.device)
     subs = []
     for u in range(env.n_users):
         # Other-AP interference via a masked sum (fp32-safe).
-        interf = torch.einsum("nm,nm,n->m", ap_tx, g_all[u], 1.0 - cell[u])
-        sinr = p[u] * own[u] / (interf + env.noise_dn)
-        m = torch.argmax(beta[u] * torch.log1p(sinr))
-        add = p[u] * torch.outer(cell[u], F.one_hot(m, env.n_sub).to(own.dtype))
+        interf = torch.einsum("bnm,bnm,bn->bm", ap_tx, g_all[:, u], 1.0 - cell[:, u])
+        sinr = p[:, u, None] * own[:, u] / (interf + env.noise_dn)
+        m = torch.argmax(beta[:, u] * torch.log1p(sinr), dim=-1)
+        onehot = F.one_hot(m, env.n_sub).to(own.dtype)
+        add = p[:, u, None, None] * (cell[:, u, :, None] * onehot[:, None, :])
         ap_tx = ap_tx + add
         subs.append(m)
-    return torch.stack(subs).to(torch.int32)
+    return torch.stack(subs, 1).to(torch.int32)
 
 
 def assemble_plan(env: NetworkEnv, loop: LoopResult, prof: ModelProfile,
                   rounding: str = "best", w: EccWeights | None = None,
                   backend: str | None = None) -> SplitPlan:
     """The discrete plan at the best split: s* by argmin (first index at
-    ties), its optimum picked on the device, then rounded."""
-    s_star = torch.argmin(loop.gammas).to(torch.int32)
-    idx = s_star.long().reshape(1)
-    best = {k: loop.norms[k].index_select(0, idx)[0] for k in KEYS}
+    ties), its optimum picked on the device, then rounded. For a fleet each
+    member takes its own s* and optimum (a gather), and the best-of
+    discrete utility is each member's at its own split."""
+    if env.fleet is None:
+        return _drop(assemble_plan(_lift(env), _lift(loop), prof, rounding, w, backend))
+    s_star = torch.argmin(loop.gammas, dim=-1).to(torch.int32)   # (B,)
+    idx = s_star.long()
+    members = torch.arange(env.fleet, device=idx.device)
+    best = {k: loop.norms[k][members, idx] for k in KEYS}
     v = to_physical(best, env)
     _, sub_up, viol_up = round_beta(v.beta_up)
     _, sub_dn, viol_dn = round_beta(v.beta_dn)
@@ -397,14 +459,14 @@ def assemble_plan(env: NetworkEnv, loop: LoopResult, prof: ModelProfile,
                     beta_dn=F.one_hot(sd.long(), env.n_sub).to(v.p_up.dtype),
                     p_up=v.p_up, p_dn=v.p_dn, r=v.r,
                 )
-                return _utility(env, prof, idx[0], vv, w, backend=backend)
+                return _utility(env, prof, s_star, vv, w, backend=backend)
 
-            pick = disc_util(g_up, g_dn) < disc_util(sub_up, sub_dn)
+            pick = (disc_util(g_up, g_dn) < disc_util(sub_up, sub_dn))[:, None]
             sub_up = torch.where(pick, g_up, sub_up)
             sub_dn = torch.where(pick, g_dn, sub_dn)
     return SplitPlan(
         s=s_star, sub_up=sub_up, sub_dn=sub_dn, p_up=v.p_up, p_dn=v.p_dn, r=v.r,
-        utility=loop.gammas.index_select(0, idx)[0],
+        utility=loop.gammas.gather(-1, idx[:, None])[:, 0],
         per_layer_utility=loop.gammas, iters=loop.iters,
         rounding_violations=viol_up + viol_dn,
     )

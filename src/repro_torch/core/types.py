@@ -23,6 +23,24 @@ Tensor = torch.Tensor
 LOG2 = 0.6931471805599453
 
 
+def tree_map(fn, x):
+    """fn on every tensor of x: dicts, tuples, named tuples and dataclasses
+    are rebuilt around the results; anything else (floats, ints, None)
+    passes through."""
+    if isinstance(x, Tensor):
+        return fn(x)
+    if isinstance(x, dict):
+        return {k: tree_map(fn, v) for k, v in x.items()}
+    if hasattr(x, "_fields"):
+        return type(x)(*(tree_map(fn, v) for v in x))
+    if isinstance(x, tuple):
+        return tuple(tree_map(fn, v) for v in x)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{
+            f.name: tree_map(fn, getattr(x, f.name)) for f in dataclasses.fields(x)})
+    return x
+
+
 @dataclasses.dataclass(frozen=True)
 class RadioConstants:
     """Paper Sec. VI.A constants (configurable)."""
@@ -62,6 +80,9 @@ class NetworkEnv:
       g_up[u, n, m]  uplink |h|^2 from user u to AP n on subchannel m
       g_dn[n, u, m]  downlink |h|^2 from AP n to user u on subchannel m
       ap[u]          nearest-AP association (int32)
+    A fleet of B same-shape environments (planning.stack_envs) leads every
+    tensor with B; the shape properties read the trailing dims, and radio /
+    comp stay shared constants.
     """
 
     g_up: Tensor
@@ -72,15 +93,20 @@ class NetworkEnv:
 
     @property
     def n_users(self) -> int:
-        return self.g_up.shape[0]
+        return self.g_up.shape[-3]
 
     @property
     def n_aps(self) -> int:
-        return self.g_up.shape[1]
+        return self.g_up.shape[-2]
 
     @property
     def n_sub(self) -> int:
-        return self.g_up.shape[2]
+        return self.g_up.shape[-1]
+
+    @property
+    def fleet(self) -> int | None:
+        """B for a fleet, None for one environment."""
+        return self.g_up.shape[0] if self.g_up.ndim == 4 else None
 
     @property
     def device(self) -> torch.device:
@@ -95,17 +121,17 @@ class NetworkEnv:
         return self.radio.noise_psd_w_per_hz * self.radio.bandwidth_dn_hz / self.n_sub
 
     def _own(self, g_unm: Tensor) -> Tensor:
-        idx = self.ap.long()[:, None, None].expand(-1, 1, g_unm.shape[2])
-        return torch.gather(g_unm, 1, idx).squeeze(1)
+        idx = self.ap.long()[..., None, None].expand(*self.ap.shape, 1, g_unm.shape[-1])
+        return torch.gather(g_unm, -2, idx).squeeze(-2)
 
-    def own_gain_up(self) -> Tensor:  # (U, M)
+    def own_gain_up(self) -> Tensor:  # ([B,] U, M)
         return self._own(self.g_up)
 
-    def own_gain_dn(self) -> Tensor:  # (U, M)
-        return self._own(self.g_dn.transpose(0, 1))
+    def own_gain_dn(self) -> Tensor:  # ([B,] U, M)
+        return self._own(self.g_dn.transpose(-3, -2))
 
-    def same_cell(self) -> Tensor:  # (U, U) bool
-        return self.ap[:, None] == self.ap[None, :]
+    def same_cell(self) -> Tensor:  # ([B,] U, U) bool
+        return self.ap[..., :, None] == self.ap[..., None, :]
 
     def to(self, device) -> "NetworkEnv":
         return dataclasses.replace(self, g_up=self.g_up.to(device),

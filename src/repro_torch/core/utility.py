@@ -1,7 +1,9 @@
 """Inference-delay + energy models and the weighted utility (paper eqs. 1-22).
 
 Differentiable in the continuous variables (beta, p, r); the split index
-enters through precomputed per-split constants. Python-float constant
+enters through precomputed per-split constants. A fleet env (leading member
+dim B) gives per-user terms (B, U) and a utility (B,); its split index is a
+Python int shared by the fleet or a (B,) tensor, one split per member. Python-float constant
 products are written in the reference's order, so they fold to the same
 float32 values before meeting a tensor.
 """
@@ -15,15 +17,18 @@ from repro_torch.core.types import EccWeights, GdVars, ModelProfile, NetworkEnv,
 
 def _at(x: Tensor, s) -> Tensor:
     """x[s] for a Python int or a device scalar; a device scalar is taken
-    with index_select, which needs no host read."""
+    with index_select, which needs no host read. For a (B,) tensor of
+    per-member splits, x[s] as a (B, 1) column against (B, U) terms."""
     if isinstance(s, Tensor):
+        if s.ndim == 1:
+            return x.index_select(0, s.long())[:, None]
         return x.index_select(0, s.long().reshape(1))[0]
     return x[s]
 
 
 def split_constants(prof: ModelProfile, s) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     """(f_device, f_edge, w_up_bits, m_down_bits) for split index s in 0..F
-    (a Python int or a device scalar)."""
+    (a Python int, a device scalar, or a (B,) tensor of per-member splits)."""
     pre = prof.prefix_flops()
     suf = prof.suffix_flops()
     return _at(pre, s), _at(suf, s), _at(prof.w, s), _at(prof.m_down, s)
@@ -58,9 +63,10 @@ def delay_energy(env: NetworkEnv, prof: ModelProfile, s, v: GdVars,
 
 def utility(env: NetworkEnv, prof: ModelProfile, s, v: GdVars, w: EccWeights,
             backend: str | None = None, layout=None) -> Tensor:
-    """Gamma_s = sum_i omega_T^i T_i + omega_E^i E_i  (paper eq. 22)."""
+    """Gamma_s = sum_i omega_T^i T_i + omega_E^i E_i  (paper eq. 22); per
+    member for a fleet."""
     T, E = delay_energy(env, prof, s, v, backend=backend, layout=layout)
-    return torch.sum(w.w_T * T + w.w_E * E)
+    return torch.sum(w.w_T * T + w.w_E * E, dim=-1)
 
 
 def per_user_utility(env: NetworkEnv, prof: ModelProfile, s, v: GdVars,

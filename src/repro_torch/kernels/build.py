@@ -33,9 +33,9 @@ _F = ctypes.c_float
 SIGNATURES = {
     "noma_rates": {
         "noma_cell_intra": [_P] * 8 + [_I] * 8 + [_P],
-        "noma_cell_intra_dense": [_P] * 6 + [_I] * 7 + [_P],
-        "noma_per_ap": [_P] * 4 + [_I] * 7 + [_P],
-        "noma_ap_contract": [_P] * 4 + [_I] * 5 + [_P],
+        "noma_cell_intra_dense": [_P] * 6 + [_I] * 8 + [_P],
+        "noma_per_ap": [_P] * 4 + [_I] * 8 + [_P],
+        "noma_ap_contract": [_P] * 4 + [_I] * 6 + [_P],
     },
     "flash_attention": {
         "flash_attention": [_P] * 4 + [_I] * 9 + [_F, _I, _P],

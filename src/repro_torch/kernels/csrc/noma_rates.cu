@@ -7,6 +7,18 @@
 // kernels/noma_rates.py). Every entry point launches on the caller's stream,
 // allocates nothing, does not synchronise, and returns cudaGetLastError().
 //
+// Fleets. The dense intra, per_ap and contract kernels take a leading member
+// dimension B (the JAX package runs them under jax.vmap, which adds a grid
+// axis): member b is grid z = b, and every operand of member b sits at b
+// times its member stride. A launch's geometry (chunks a cell, split,
+// w ranges, tiles) depends on (U, N, M) alone, never on B, so member b of
+// a fleet launch sums the same terms in the same order as a launch on b
+// alone: the same bits. A single environment is the B = 1 launch. B is at
+// most 65,535 (grid z). The dense intra kernel offsets its operands by
+// size_t member strides; per_ap and contract fold the member into their
+// row indices instead (gain()), B * W and B * N being ints, and every
+// element index is size_t.
+//
 // 1. cell_intra   replaces src/repro/kernels/noma_rates.py
 //                 noma_cell_intra_kernel (_cell_intra_kernel):
 //      out[r,m] = sum_s [ap_r[r]==ap_s[s]] * cmp(own_s[s,m], own_r[r,m]) * w_s[s,m]
@@ -84,7 +96,10 @@
 //    Bound: bytes (the raw gain read once).
 //    Design: one thread per (w, m), threads along m, looping over n < N:
 //    APs past N are never visited, the CUDA form of the TPU kernel's
-//    explicit out-of-range n mask.
+//    explicit out-of-range n mask. Each thread issues the loads of
+//    kContractUnroll APs before it adds their terms in ascending n (left to
+//    the compiler, the loop kept fewer loads in flight once the fleet
+//    member entered the indices, and ran slower).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -246,6 +261,14 @@ cell_intra_dense_kernel(const float* __restrict__ own_r, const float* __restrict
                         const float* __restrict__ w_s, const int* __restrict__ ap_r,
                         const int* __restrict__ ap_s, float* __restrict__ out, int R, int S,
                         int M, int n_aps, int chunks_per_cell) {
+  // Member blockIdx.z of the fleet: its operands at their member strides.
+  const size_t mem = blockIdx.z;
+  own_r += mem * R * M;
+  own_s += mem * S * M;
+  w_s += mem * S * M;
+  ap_r += mem * R;
+  ap_s += mem * S;
+  out += mem * R * M;
   __shared__ int recv[kDenseChunk];
   __shared__ int send[kDenseWindow];
   __shared__ int warp_cnt[kWarps];
@@ -341,11 +364,16 @@ cell_intra_dense_kernel(const float* __restrict__ own_r, const float* __restrict
   }
 }
 
+// The gain of fleet member b, (w, n, m): uplink layout (B, W, N, M),
+// downlink (B, N, W, M). The member enters the index, not the base
+// pointer, so the base stays a kernel parameter and the loops keep their
+// registers for loads in flight (B * W and B * N fit an int: checked at
+// launch).
 template <bool UPLINK>
-__device__ __forceinline__ float gain(const float* __restrict__ g, int w, int n, int m,
-                                      int W, int N, int M) {
-  return UPLINK ? g[(static_cast<size_t>(w) * N + n) * M + m]
-                : g[(static_cast<size_t>(n) * W + w) * M + m];
+__device__ __forceinline__ float gain(const float* __restrict__ g, int b, int w, int n,
+                                      int m, int W, int N, int M) {
+  return UPLINK ? g[(static_cast<size_t>(b * W + w) * N + n) * M + m]
+                : g[(static_cast<size_t>(b * N + n) * W + w) * M + m];
 }
 
 // -- per_ap: w split across the blocks of a cluster ---------------------------
@@ -353,15 +381,17 @@ constexpr int kPerApUnroll = 4;    // w's of loads a thread has in flight
 constexpr int kPerApMaxSplit = 8;  // blocks of a cluster: the portable limit
 constexpr int kPerApGroup = 2;     // APs a cluster: one wgt load feeds both
 
-// Grid (ceil(N / kPerApGroup) * ceil(M / 32), split) in clusters of
-// (1, split, 1): the cluster is one output tile of kPerApGroup APs x 32 m
-// (APs past N load and store nothing), its rank r the w range
+// Grid (ceil(N / kPerApGroup) * ceil(M / 32), split, B) in clusters of
+// (1, split, 1): the cluster is one output tile, of kPerApGroup APs x 32 m,
+// of fleet member z (APs past N load and store nothing), its rank r the w range
 // [r * w_chunk, min(W, (r + 1) * w_chunk)).
 template <bool UPLINK>
 __global__ void __launch_bounds__(kLanes * kWarps)
 per_ap_kernel(const int* __restrict__ ap, const float* __restrict__ wgt,
               const float* __restrict__ g, float* __restrict__ out, int W, int N, int M,
               int w_chunk) {
+  const int b = blockIdx.z;  // fleet member; a cluster never spans two
+  const int wb = b * W;      // member b's first row of ap and wgt
   __shared__ float part[kWarps][kPerApGroup][kLanes];
   __shared__ float gather[kPerApMaxSplit][kPerApGroup][kLanes];  // rank 0's: each rank's tile
   namespace cg = cooperative_groups;
@@ -391,11 +421,11 @@ per_ap_kernel(const int* __restrict__ ap, const float* __restrict__ wgt,
 #pragma unroll
       for (int u = 0; u < kPerApUnroll; ++u) {
         const int wu = w + u * kWarps;
-        a[u] = ap[wu];
-        x[u] = wgt[static_cast<size_t>(wu) * M + m];
+        a[u] = ap[wb + wu];
+        x[u] = wgt[static_cast<size_t>(wb + wu) * M + m];
 #pragma unroll
         for (int j = 0; j < kPerApGroup; ++j)
-          gv[u][j] = n0 + j < N ? gain<UPLINK>(g, wu, n0 + j, m, W, N, M) : 0.f;
+          gv[u][j] = n0 + j < N ? gain<UPLINK>(g, b, wu, n0 + j, m, W, N, M) : 0.f;
       }
 #pragma unroll
       for (int u = 0; u < kPerApUnroll; ++u)
@@ -406,11 +436,11 @@ per_ap_kernel(const int* __restrict__ ap, const float* __restrict__ wgt,
         }
     }
     for (; w < hi; w += kWarps) {
-      const int a = ap[w];
-      const float x = wgt[static_cast<size_t>(w) * M + m];
+      const int a = ap[wb + w];
+      const float x = wgt[static_cast<size_t>(wb + w) * M + m];
 #pragma unroll
       for (int j = 0; j < kPerApGroup; ++j) {
-        const float term = n0 + j < N ? x * gain<UPLINK>(g, w, n0 + j, m, W, N, M) : 0.f;
+        const float term = n0 + j < N ? x * gain<UPLINK>(g, b, w, n0 + j, m, W, N, M) : 0.f;
         acc[j] += (a != n0 + j) ? term : 0.f;
       }
     }
@@ -441,29 +471,56 @@ per_ap_kernel(const int* __restrict__ ap, const float* __restrict__ wgt,
       if (n0 + j >= N) continue;
       float s = gather[0][j][lane];
       for (int r = 1; r < split; ++r) s += gather[r][j][lane];
-      out[static_cast<size_t>(n0 + j) * M + m] = s;
+      out[static_cast<size_t>(b * N + n0 + j) * M + m] = s;
     }
   }
 }
+
+constexpr int kContractUnroll = 4;  // APs of loads a thread has in flight
 
 template <bool UPLINK>
 __global__ void __launch_bounds__(kLanes * kWarps)
 ap_contract_kernel(const int* __restrict__ ap, const float* __restrict__ nm,
                    const float* __restrict__ g, float* __restrict__ out, int W, int N,
                    int M) {
+  const int b = blockIdx.z;  // fleet member
   const int w = blockIdx.x * kWarps + threadIdx.y;
   const int m = blockIdx.y * kLanes + threadIdx.x;
   if (w >= W || m >= M) return;
-  const int a = ap[w];
+  const int a = ap[b * W + w];
   float acc = 0.f;
-  for (int n = 0; n < N; ++n) {
-    const float term = gain<UPLINK>(g, w, n, m, W, N, M) * nm[static_cast<size_t>(n) * M + m];
+  int n = 0;
+  // The loads of kContractUnroll APs first, then their terms in ascending n.
+  for (; n + kContractUnroll <= N; n += kContractUnroll) {
+    float gv[kContractUnroll], tv[kContractUnroll];
+#pragma unroll
+    for (int u = 0; u < kContractUnroll; ++u) {
+      gv[u] = gain<UPLINK>(g, b, w, n + u, m, W, N, M);
+      tv[u] = nm[static_cast<size_t>(b * N + n + u) * M + m];
+    }
+#pragma unroll
+    for (int u = 0; u < kContractUnroll; ++u) {
+      const float term = gv[u] * tv[u];
+      acc += (a != n + u) ? term : 0.f;
+    }
+  }
+  for (; n < N; ++n) {
+    const float term =
+        gain<UPLINK>(g, b, w, n, m, W, N, M) * nm[static_cast<size_t>(b * N + n) * M + m];
     acc += (a != n) ? term : 0.f;
   }
-  out[static_cast<size_t>(w) * M + m] = acc;
+  out[static_cast<size_t>(b * W + w) * M + m] = acc;
 }
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+constexpr int kMaxMembers = 65535;  // fleet members: grid z
+constexpr int kMaxGridY = 65535;
+
+// per_ap and contract index rows of the fleet by int (gain()).
+bool member_rows_fit(int B, int W, int N) {
+  return static_cast<long long>(B) * W <= 0x7fffffff && static_cast<long long>(B) * N <= 0x7fffffff;
+}
 
 template <int ROWS>
 void launch_intra(bool desc, dim3 grid, size_t smem, cudaStream_t stream,
@@ -508,16 +565,19 @@ int noma_cell_intra(const float* own_r, const float* own_s, const float* w_s,
 }
 
 // The dense schedule (no CellLayout): every receiver against every sender
-// of its cell. AP ids must lie in [0, n_aps); grid (ceil(M / 32), n_aps *
-// chunks_per_cell) of 8 x 32 threads, 24,736 bytes of static shared memory.
+// of its cell, for each of B fleet members. AP ids must lie in [0, n_aps);
+// grid (ceil(M / 32), n_aps * chunks_per_cell, B) of 8 x 32 threads, 24,736
+// bytes of static shared memory.
 int noma_cell_intra_dense(const float* own_r, const float* own_s, const float* w_s,
-                          const int* ap_r, const int* ap_s, float* out, int R, int S, int M,
-                          int n_aps, int chunks_per_cell, int descending, int device,
+                          const int* ap_r, const int* ap_s, float* out, int B, int R, int S,
+                          int M, int n_aps, int chunks_per_cell, int descending, int device,
                           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_aps < 1 || chunks_per_cell < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(ceil_div(M, kLanes), n_aps * chunks_per_cell);
+  if (n_aps < 1 || chunks_per_cell < 1 || B < 1 || B > kMaxMembers ||
+      static_cast<long long>(n_aps) * chunks_per_cell > kMaxGridY)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(ceil_div(M, kLanes), n_aps * chunks_per_cell, B);
   const dim3 block(kLanes, kWarps);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (descending) {
@@ -531,19 +591,20 @@ int noma_cell_intra_dense(const float* own_r, const float* own_s, const float* w
 }
 
 // split blocks a cluster (1..8), each a range of w_chunk w's covering
-// [0, W) (split * w_chunk >= W). Grid (ceil(N / 2) * ceil(M / 32), split)
+// [0, W) (split * w_chunk >= W). Grid (ceil(N / 2) * ceil(M / 32), split, B)
 // of 8 x 32 threads, launched with cudaLaunchKernelEx and a cluster
 // dimension of (1, split, 1).
-int noma_per_ap(const int* ap, const float* wgt, const float* g, float* out, int W,
+int noma_per_ap(const int* ap, const float* wgt, const float* g, float* out, int B, int W,
                 int N, int M, int split, int w_chunk, int uplink, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long tiles = static_cast<long long>(ceil_div(N, kPerApGroup)) * ceil_div(M, kLanes);
   if (split < 1 || split > kPerApMaxSplit || w_chunk < 1 ||
-      static_cast<long long>(split) * w_chunk < W || tiles > 0x7fffffff)
+      static_cast<long long>(split) * w_chunk < W || tiles > 0x7fffffff || B < 1 ||
+      B > kMaxMembers || !member_rows_fit(B, W, N))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(tiles), split);
+  cfg.gridDim = dim3(static_cast<unsigned>(tiles), split, B);
   cfg.blockDim = dim3(kLanes, kWarps);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = static_cast<cudaStream_t>(stream);
@@ -560,11 +621,15 @@ int noma_per_ap(const int* ap, const float* wgt, const float* g, float* out, int
   return static_cast<int>(cudaGetLastError());
 }
 
-int noma_ap_contract(const int* ap, const float* nm, const float* g, float* out, int W,
-                     int N, int M, int uplink, int device, void* stream) {
+// Grid (ceil(W / 8), ceil(M / 32), B) of 8 x 32 threads.
+int noma_ap_contract(const int* ap, const float* nm, const float* g, float* out, int B,
+                     int W, int N, int M, int uplink, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(ceil_div(W, kWarps), ceil_div(M, kLanes));
+  if (B < 1 || B > kMaxMembers || ceil_div(M, kLanes) > kMaxGridY ||
+      !member_rows_fit(B, W, N))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(ceil_div(W, kWarps), ceil_div(M, kLanes), B);
   const dim3 block(kLanes, kWarps);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (uplink) {

@@ -27,6 +27,14 @@ Every wrapper checks device, dtype, shape and contiguity. For CUDA tensors
 it launches its kernel (counted in LAUNCHES) or raises; for CPU tensors it
 computes its plain PyTorch twin, the function of the same name with the
 suffix ``_plain``, which is also what the kernel is held against on the card.
+
+Fleets: noma_cell_intra_dense, noma_per_ap, noma_ap_contract, their twins
+and segment_table also take every operand with a leading member dim B (the
+JAX package runs its kernels under jax.vmap). One launch covers all B
+members and counts once; a single environment is the B = 1 launch of the
+same kernel. The launch geometry depends on (U, N, M) alone, so member b of
+a fleet launch has the same bits as a launch on member b alone. The CSR
+kernel (noma_cell_intra, a CellLayout's schedule) stays single-environment.
 """
 from __future__ import annotations
 
@@ -63,6 +71,18 @@ SMEM_LIMIT_BYTES = 48 * 1024
 # 2 rows a thread and ~630 thread blocks at U=1250, M=250.
 BLOCK_U = 16
 BLOCK_V = 16
+# Most fleet members a launch takes: the member is grid z.
+MAX_MEMBERS = 65535
+
+
+def _fleet_of_one(*ts):
+    """Each tensor with a leading member dim of 1 (a view)."""
+    return tuple(t.unsqueeze(0) for t in ts)
+
+
+def _check_members(b: int) -> None:
+    if not 1 <= b <= MAX_MEMBERS:
+        raise ValueError(f"a launch takes 1 to {MAX_MEMBERS} fleet members, got {b}")
 
 
 def intra_smem_bytes(block_s: int) -> int:
@@ -157,13 +177,13 @@ def noma_cell_intra_plain(own_r, own_s, w_s, ap_r, ap_s, row_ptr, col,
 
 def _sic_select(own_r, own_s, w_s, pair, descending: bool) -> torch.Tensor:
     """sum_s pair[r,s] * cmp(own_s[s,m], own_r[r,m]) * w_s[s,m] through an
-    (R, S, M) select."""
+    (R, S, M) select, per leading member index."""
     if descending:
-        cmp = own_s[None, :, :] < own_r[:, None, :]
+        cmp = own_s[..., None, :, :] < own_r[..., :, None, :]
     else:
-        cmp = own_s[None, :, :] > own_r[:, None, :]
-    keep = cmp & pair[:, :, None]
-    return torch.where(keep, w_s[None, :, :], 0.0).sum(1)
+        cmp = own_s[..., None, :, :] > own_r[..., :, None, :]
+    keep = cmp & pair[..., None]
+    return torch.where(keep, w_s[..., None, :, :], 0.0).sum(-2)
 
 
 # -- kernel 1, dense schedule: per-cell work -------------------------------------
@@ -209,36 +229,41 @@ def noma_cell_intra_dense(own_r, own_s, w_s, ap_r, ap_s, n_aps: int,
     own_s/w_s (S, M) float32; ap_r (R,), ap_s (S,) int32 AP ids in
     [0, n_aps) (not checked: that would sync the host; a receiver with an
     id outside is never written). cmp is '<' when descending (uplink SIC
-    order), '>' otherwise. Counted under LAUNCHES["noma_cell_intra"]."""
-    r, m = own_r.shape
-    s = own_s.shape[0]
+    order), '>' otherwise. With a leading member dim B on every operand,
+    out is (B, R, M), one launch. Counted under LAUNCHES["noma_cell_intra"]."""
+    single = own_r.ndim == 2
+    if single:
+        own_r, own_s, w_s, ap_r, ap_s = _fleet_of_one(own_r, own_s, w_s, ap_r, ap_s)
+    b, r, m = own_r.shape
+    s = own_s.shape[-2]
     dev = own_r.device
-    build.check("own_r", own_r, torch.float32, (r, m), dev)
-    build.check("own_s", own_s, torch.float32, (s, m), dev)
-    build.check("w_s", w_s, torch.float32, (s, m), dev)
-    build.check("ap_r", ap_r, torch.int32, (r,), dev)
-    build.check("ap_s", ap_s, torch.int32, (s,), dev)
+    build.check("own_r", own_r, torch.float32, (b, r, m), dev)
+    build.check("own_s", own_s, torch.float32, (b, s, m), dev)
+    build.check("w_s", w_s, torch.float32, (b, s, m), dev)
+    build.check("ap_r", ap_r, torch.int32, (b, r), dev)
+    build.check("ap_s", ap_s, torch.int32, (b, s), dev)
+    _check_members(b)
     if n_aps < 1:
         raise ValueError(f"n_aps must be >= 1, got {n_aps}")
     if dev.type != "cuda":
-        return noma_cell_intra_dense_plain(own_r, own_s, w_s, ap_r, ap_s, n_aps, descending)
-    out = torch.empty((r, m), dtype=torch.float32, device=dev)
-    if r == 0 or m == 0:
-        return out
-    rc = build.load("noma_rates").noma_cell_intra_dense(
-        build.ptr(own_r), build.ptr(own_s), build.ptr(w_s), build.ptr(ap_r), build.ptr(ap_s),
-        build.ptr(out), r, s, m, n_aps, dense_chunks_per_cell(r, n_aps), int(descending),
-        dev.index, build.stream(dev))
-    build.raise_on(rc, "noma_cell_intra_dense")
-    LAUNCHES["noma_cell_intra"] += 1
-    return out
+        out = noma_cell_intra_dense_plain(own_r, own_s, w_s, ap_r, ap_s, n_aps, descending)
+    else:
+        out = torch.empty((b, r, m), dtype=torch.float32, device=dev)
+        if r and m:
+            rc = build.load("noma_rates").noma_cell_intra_dense(
+                build.ptr(own_r), build.ptr(own_s), build.ptr(w_s), build.ptr(ap_r),
+                build.ptr(ap_s), build.ptr(out), b, r, s, m, n_aps,
+                dense_chunks_per_cell(r, n_aps), int(descending), dev.index, build.stream(dev))
+            build.raise_on(rc, "noma_cell_intra_dense")
+            LAUNCHES["noma_cell_intra"] += 1
+    return out[0] if single else out
 
 
 def noma_cell_intra_dense_plain(own_r, own_s, w_s, ap_r, ap_s, n_aps: int,
                                 descending: bool = True) -> torch.Tensor:
-    """Plain twin of noma_cell_intra_dense: the (R, S, M) select over all
-    same-cell pairs (n_aps only bounds the ids)."""
-    return _sic_select(own_r, own_s, w_s, ap_r[:, None] == ap_s[None, :], descending)
+    """Plain twin of noma_cell_intra_dense: the ([B,] R, S, M) select over
+    all same-cell pairs (n_aps only bounds the ids)."""
+    return _sic_select(own_r, own_s, w_s, ap_r[..., :, None] == ap_s[..., None, :], descending)
 
 
 # -- kernel 2: per-AP table ------------------------------------------------------
@@ -264,8 +289,10 @@ def per_ap_geometry(w: int) -> tuple[int, int]:
 
 
 def _gain_dims(g_raw, uplink: bool, w: int):
-    n = g_raw.shape[1] if uplink else g_raw.shape[0]
-    m = g_raw.shape[2]
+    """(N, M, one member's gain shape) of a raw gain, with or without a
+    leading member dim: uplink (W, N, M), downlink (N, W, M)."""
+    n = g_raw.shape[-2] if uplink else g_raw.shape[-3]
+    m = g_raw.shape[-1]
     return n, m, ((w, n, m) if uplink else (n, w, m))
 
 
@@ -274,37 +301,44 @@ def noma_per_ap(ap, wgt, g_raw, uplink: bool = True) -> torch.Tensor:
 
       out[n,m] = sum_w [ap[w] != n] * wgt[w,m] * g[w,n,m]   (uplink layout)
       out[n,m] = sum_w [ap[w] != n] * wgt[w,m] * g[n,w,m]   (downlink layout)
-    """
-    w = ap.shape[0]
+
+    With a leading member dim B on every operand, out is (B, N, M), one
+    launch."""
+    single = ap.ndim == 1
+    if single:
+        ap, wgt, g_raw = _fleet_of_one(ap, wgt, g_raw)
+    b, w = ap.shape
     n, m, g_shape = _gain_dims(g_raw, uplink, w)
     dev = ap.device
-    build.check("ap", ap, torch.int32, (w,), dev)
-    build.check("wgt", wgt, torch.float32, (w, m), dev)
-    build.check("g_raw", g_raw, torch.float32, g_shape, dev)
+    build.check("ap", ap, torch.int32, (b, w), dev)
+    build.check("wgt", wgt, torch.float32, (b, w, m), dev)
+    build.check("g_raw", g_raw, torch.float32, (b, *g_shape), dev)
+    _check_members(b)
     if dev.type != "cuda":
-        return noma_per_ap_plain(ap, wgt, g_raw, uplink)
-    out = torch.empty((n, m), dtype=torch.float32, device=dev)
-    if n == 0 or m == 0:
-        return out
-    rc = build.load("noma_rates").noma_per_ap(
-        build.ptr(ap), build.ptr(wgt), build.ptr(g_raw), build.ptr(out), w, n, m,
-        *per_ap_geometry(w), int(uplink), dev.index, build.stream(dev))
-    build.raise_on(rc, "noma_per_ap")
-    LAUNCHES["noma_per_ap"] += 1
-    return out
+        out = noma_per_ap_plain(ap, wgt, g_raw, uplink)
+    else:
+        out = torch.empty((b, n, m), dtype=torch.float32, device=dev)
+        if n and m:
+            rc = build.load("noma_rates").noma_per_ap(
+                build.ptr(ap), build.ptr(wgt), build.ptr(g_raw), build.ptr(out), b, w, n, m,
+                *per_ap_geometry(w), int(uplink), dev.index, build.stream(dev))
+            build.raise_on(rc, "noma_per_ap")
+            LAUNCHES["noma_per_ap"] += 1
+    return out[0] if single else out
 
 
 def _other_cell(ap, n_aps: int):
-    """(W, N) bool: [ap[w] != n]."""
-    return ap[:, None] != torch.arange(n_aps, device=ap.device, dtype=ap.dtype)
+    """([B,] W, N) bool: [ap[w] != n]."""
+    return ap[..., :, None] != torch.arange(n_aps, device=ap.device, dtype=ap.dtype)
 
 
 def noma_per_ap_plain(ap, wgt, g_raw, uplink: bool = True) -> torch.Tensor:
-    n = g_raw.shape[1] if uplink else g_raw.shape[0]
+    n = g_raw.shape[-2] if uplink else g_raw.shape[-3]
     other = _other_cell(ap, n)
     if uplink:
-        return torch.where(other[:, :, None], wgt[:, None, :] * g_raw, 0.0).sum(0)
-    return torch.where(other.T[:, :, None], g_raw * wgt[None, :, :], 0.0).sum(1)
+        return torch.where(other[..., None], wgt[..., :, None, :] * g_raw, 0.0).sum(-3)
+    return torch.where(other.transpose(-1, -2)[..., None], g_raw * wgt[..., None, :, :],
+                       0.0).sum(-2)
 
 
 # -- kernel 3: per-AP contraction ------------------------------------------------
@@ -313,41 +347,54 @@ def noma_ap_contract(ap, nm_table, g_raw, uplink: bool = True) -> torch.Tensor:
 
       out[w,m] = sum_n [ap[w] != n] * g[w,n,m] * nm[n,m]   (uplink layout)
       out[w,m] = sum_n [ap[w] != n] * g[n,w,m] * nm[n,m]   (downlink layout)
-    """
-    w = ap.shape[0]
+
+    With a leading member dim B on every operand, out is (B, W, M), one
+    launch."""
+    single = ap.ndim == 1
+    if single:
+        ap, nm_table, g_raw = _fleet_of_one(ap, nm_table, g_raw)
+    b, w = ap.shape
     n, m, g_shape = _gain_dims(g_raw, uplink, w)
     dev = ap.device
-    build.check("ap", ap, torch.int32, (w,), dev)
-    build.check("nm_table", nm_table, torch.float32, (n, m), dev)
-    build.check("g_raw", g_raw, torch.float32, g_shape, dev)
+    build.check("ap", ap, torch.int32, (b, w), dev)
+    build.check("nm_table", nm_table, torch.float32, (b, n, m), dev)
+    build.check("g_raw", g_raw, torch.float32, (b, *g_shape), dev)
+    _check_members(b)
     if dev.type != "cuda":
-        return noma_ap_contract_plain(ap, nm_table, g_raw, uplink)
-    out = torch.empty((w, m), dtype=torch.float32, device=dev)
-    if w == 0 or m == 0:
-        return out
-    rc = build.load("noma_rates").noma_ap_contract(
-        build.ptr(ap), build.ptr(nm_table), build.ptr(g_raw), build.ptr(out), w, n, m,
-        int(uplink), dev.index, build.stream(dev))
-    build.raise_on(rc, "noma_ap_contract")
-    LAUNCHES["noma_ap_contract"] += 1
-    return out
+        out = noma_ap_contract_plain(ap, nm_table, g_raw, uplink)
+    else:
+        out = torch.empty((b, w, m), dtype=torch.float32, device=dev)
+        if w and m:
+            rc = build.load("noma_rates").noma_ap_contract(
+                build.ptr(ap), build.ptr(nm_table), build.ptr(g_raw), build.ptr(out), b, w,
+                n, m, int(uplink), dev.index, build.stream(dev))
+            build.raise_on(rc, "noma_ap_contract")
+            LAUNCHES["noma_ap_contract"] += 1
+    return out[0] if single else out
 
 
 def noma_ap_contract_plain(ap, nm_table, g_raw, uplink: bool = True) -> torch.Tensor:
-    other = _other_cell(ap, nm_table.shape[0])
+    other = _other_cell(ap, nm_table.shape[-2])
     if uplink:
-        return torch.where(other[:, :, None], g_raw * nm_table[None, :, :], 0.0).sum(1)
-    return torch.where(other.T[:, :, None], g_raw * nm_table[:, None, :], 0.0).sum(0)
+        return torch.where(other[..., None], g_raw * nm_table[..., None, :, :], 0.0).sum(-2)
+    return torch.where(other.transpose(-1, -2)[..., None], g_raw * nm_table[..., :, None, :],
+                       0.0).sum(-3)
 
 
 # -- composition -----------------------------------------------------------------
 def segment_table(values, ap, n_aps: int) -> torch.Tensor:
-    """(N, M) per-AP segment sum: sum_w [ap[w] == n] * values[w, m]. The
+    """([B,] N, M) per-AP segment sum: sum_w [ap[w] == n] * values[w, m]. The
     gain-free tables (forward-downlink B, backward-uplink C). A fixed-order
     reduction rather than index_add_, whose atomics sum in an order that
     changes from run to run on the card."""
-    own = ap[None, :] == torch.arange(n_aps, device=ap.device, dtype=ap.dtype)[:, None]
-    return torch.where(own[:, :, None], values[None, :, :], 0.0).sum(1)
+    own = ap[..., None, :] == torch.arange(n_aps, device=ap.device, dtype=ap.dtype)[:, None]
+    return torch.where(own[..., None], values[..., None, :, :], 0.0).sum(-2)
+
+
+def _take_rows(table, ap):
+    """([B,] W, M): row ap[w] of the per-AP table ([B,] N, M)."""
+    idx = ap.long()[..., None].expand(*ap.shape, table.shape[-1])
+    return torch.gather(table, -2, idx)
 
 
 def noma_pairwise_kernel(own_u, own_v, w_intra, w_power, g_raw, ap_u, ap_v,
@@ -358,8 +405,9 @@ def noma_pairwise_kernel(own_u, own_v, w_intra, w_power, g_raw, ap_u, ap_v,
 
     csr is the forward (row_ptr, col) of a CellLayout, or None for the dense
     schedule (per-cell work, no tile list). g_raw is (V, N, M) uplink or
-    (N, U, M) downlink; its N is the number of cells."""
-    n_aps = g_raw.shape[1] if uplink else g_raw.shape[0]
+    (N, U, M) downlink; its N is the number of cells. Without csr every
+    operand may lead with a member dim B (one launch a kernel)."""
+    n_aps = g_raw.shape[-2] if uplink else g_raw.shape[-3]
     if csr is None:
         intra = noma_cell_intra_dense(own_u, own_v, w_intra, ap_u, ap_v, n_aps, descending)
     else:
@@ -367,9 +415,9 @@ def noma_pairwise_kernel(own_u, own_v, w_intra, w_power, g_raw, ap_u, ap_v,
         intra = noma_cell_intra(own_u, own_v, w_intra, ap_u, ap_v, *csr, bu, bv, descending)
     if uplink:
         a_nm = noma_per_ap(ap_v, w_power, g_raw, uplink=True)
-        inter = a_nm.index_select(0, ap_u.long())
+        inter = _take_rows(a_nm, ap_u)
     else:
-        b_nm = segment_table(w_power, ap_v, g_raw.shape[0])
+        b_nm = segment_table(w_power, ap_v, n_aps)
         inter = noma_ap_contract(ap_u, b_nm, g_raw, uplink=False)
     return intra, inter
 
@@ -385,7 +433,7 @@ def noma_pairwise_bwd_kernel(own_u, own_v, g_raw, ap_u, ap_v, d_intra, d_inter,
     v-block). The inter cotangent mirrors the forward factorization: uplink
     contracts C = segment_table(d_inter) against the raw gain, downlink
     takes rows of the per-AP table D built by noma_per_ap."""
-    n_aps = g_raw.shape[1] if uplink else g_raw.shape[0]
+    n_aps = g_raw.shape[-2] if uplink else g_raw.shape[-3]
     if csr is None:
         d_wi = noma_cell_intra_dense(own_v, own_u, d_intra, ap_v, ap_u, n_aps,
                                      not descending)
@@ -394,9 +442,9 @@ def noma_pairwise_bwd_kernel(own_u, own_v, g_raw, ap_u, ap_v, d_intra, d_inter,
         d_wi = noma_cell_intra(own_v, own_u, d_intra, ap_v, ap_u, *csr, bv, bu,
                                not descending)
     if uplink:
-        c_nm = segment_table(d_inter, ap_u, g_raw.shape[1])
+        c_nm = segment_table(d_inter, ap_u, n_aps)
         d_wp = noma_ap_contract(ap_v, c_nm, g_raw, uplink=True)
     else:
         d_nm = noma_per_ap(ap_u, d_inter, g_raw, uplink=False)
-        d_wp = d_nm.index_select(0, ap_v.long())
+        d_wp = _take_rows(d_nm, ap_v)
     return d_wi, d_wp

@@ -8,7 +8,9 @@ forward runs noma_pairwise_kernel, the backward re-streams the same raw gain
 through noma_pairwise_bwd_kernel (with a CellLayout, over the same tile set
 reordered by v-block). Only the own gains and the layout are kept for
 backward; the channel gains are constants of the GD path and get no
-gradient, and neither does the env or the layout.
+gradient, and neither does the env or the layout. A fleet env (every tensor
+with a leading member dim B) runs the same kernels, each launch covering
+all B members, with tx and the results (B, U, M).
 """
 from __future__ import annotations
 
@@ -49,9 +51,14 @@ def rg_lru(log_a, b, h0=None) -> torch.Tensor:
 def _layout_blocks(layout, env, block_u, block_v):
     """The intra block sizes: a CellLayout's own blocks are authoritative
     (its tiles are block-granular). A layout built for another user count
-    would give wrong answers silently, so it is refused."""
+    would give wrong answers silently, so it is refused, and so is a fleet
+    env: a layout is one environment's."""
     if layout is None:
         return block_u, block_v
+    if env.fleet is not None:
+        raise ValueError(
+            f"a CellLayout is one environment's; got a fleet of {env.fleet} "
+            "(run fleets without a layout, on the dense schedule)")
     if layout.n_users != env.n_users:
         raise ValueError(
             f"CellLayout built for U={layout.n_users}, env has "
@@ -61,7 +68,8 @@ def _layout_blocks(layout, env, block_u, block_v):
 
 def _inputs(env: NetworkEnv, uplink: bool):
     """Kernel inputs of the (used) env: own-AP gains, the raw gains (uplink
-    (U, N, M), downlink (N, U, M)) and the int32 AP ids."""
+    (U, N, M), downlink (N, U, M)) and the int32 AP ids, each with the
+    env's leading member dim when it is a fleet."""
     own = (env.own_gain_up() if uplink else env.own_gain_dn()).float().contiguous()
     g_raw = (env.g_up if uplink else env.g_dn).float().contiguous()
     return own, g_raw, env.ap.to(torch.int32).contiguous()

@@ -182,6 +182,8 @@ def _imports(path: Path):
 def test_port_never_imports_jax_or_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    assert {"scenario.py", "fading.py", "mobility.py", "churn.py", "presets.py"} <= {
+        f.name for f in files if f.parent.name == "scenarios"}
     bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, f"the port imports JAX or the JAX package: {bad}"

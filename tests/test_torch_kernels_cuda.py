@@ -7,7 +7,9 @@ card (the repo's conftest imports JAX, which that machine lacks) with
     python -m pytest -q --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 Shapes cover ragged U/M/N, block_u != block_v, one AP, and CellLayout
-schedules. The kernel and its twin sum the same float32 terms in another
+schedules. Fleet launches (a leading member dim) are held member by member
+to single launches on each member with torch.equal: the launch geometry
+depends on (U, N, M) alone, so the bits must be the same. The kernel and its twin sum the same float32 terms in another
 order: each element's error is held to 1e-5 of the sum of the magnitudes
 of its terms (the twin on absolute weights), never of the largest output,
 under which a far user's rows would hide.
@@ -32,7 +34,8 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import noma_rates as nr  # noqa: E402
 from repro_torch.kernels import rg_lru as rl  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
-from repro_torch.planning import PlannerEngine  # noqa: E402
+from repro_torch.core import li_gd  # noqa: E402
+from repro_torch.planning import PlannerEngine, stack_envs  # noqa: E402
 from repro_torch.runtime.serve import make_split_serve  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -363,3 +366,67 @@ def test_split_serve_on_the_card_is_bit_equal_and_counts_launches(cuda):
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     want, _, _ = cpu(tokens.cpu())
     _close(full.cpu(), want, want.abs().amax(-1, keepdim=True), 1e-2)
+
+
+# (B, U, N, M): ragged U/M, one AP, the planner's N and M, B up to 4.
+FLEET_SHAPES = [(3, 37, 5, 45), (2, 64, 1, 32), (4, 300, 16, 250), (3, 101, 7, 70)]
+
+
+@pytest.mark.parametrize("b,u,n,m", FLEET_SHAPES)
+@pytest.mark.parametrize("uplink", [True, False])
+def test_fleet_launch_members_bit_equal_single_launches(cuda, b, u, n, m, uplink):
+    """One launch of each kernel over a fleet, counted once, against a
+    single launch on each member (torch.equal) and the plain twin."""
+    fleet = stack_envs([make_env(u, n, m, seed=u + i, device=cuda) for i in range(b)])
+    own, g_raw, ap = ops._inputs(fleet, uplink)
+    g = torch.Generator(device=cuda).manual_seed(b + u)
+    tx = torch.rand((b, u, m), device=cuda, generator=g) * 0.3
+    cot = torch.randn((2, b, u, m), device=cuda, generator=g)
+    w_in = (tx * own).contiguous() if uplink else tx
+    calls = {
+        "intra fwd": (nr.noma_cell_intra_dense, nr.noma_cell_intra_dense_plain,
+                      (own, own, w_in, ap, ap), (n, uplink), 2),
+        "intra bwd": (nr.noma_cell_intra_dense, nr.noma_cell_intra_dense_plain,
+                      (own, own, cot[0].contiguous(), ap, ap), (n, not uplink), 2),
+        "per_ap": (nr.noma_per_ap, nr.noma_per_ap_plain,
+                   (ap, tx if uplink else cot[1].contiguous(), g_raw), (uplink,), 1),
+        "contract": (nr.noma_ap_contract, nr.noma_ap_contract_plain,
+                     (ap, nr.segment_table(cot[1] if uplink else tx, ap, n).contiguous(),
+                      g_raw), (uplink,), 1),
+    }
+    for name, (kernel, plain, tensors, rest, w_pos) in calls.items():
+        before = dict(nr.LAUNCHES)
+        got = kernel(*tensors, *rest)
+        torch.cuda.synchronize()
+        assert sum(nr.LAUNCHES.values()) == sum(before.values()) + 1, name
+        abs_tensors = tuple(t.abs() if i == w_pos else t for i, t in enumerate(tensors))
+        _close(got, plain(*tensors, *rest), plain(*abs_tensors, *rest))
+        for i in range(b):
+            one = kernel(*(t[i] for t in tensors), *rest)
+            assert torch.equal(got[i], one), (name, i)
+    too_many = 65536                                 # grid z holds 65,535
+    with pytest.raises(ValueError, match="fleet members"):
+        nr.noma_per_ap(torch.zeros((too_many, 2), dtype=torch.int32, device=cuda),
+                       torch.zeros((too_many, 2, 3), device=cuda),
+                       torch.zeros((too_many, 2, 2, 3), device=cuda))
+
+
+def test_plan_many_on_the_card(cuda):
+    """plan_many over 3 envs on the card: 6 / 3 / 3 launches a fleet GD step
+    whatever B, each member's utility near its single plan's."""
+    envs = [make_env(48, 4, 16, seed=s, device=cuda) for s in range(3)]
+    cfg = GdConfig(optimizer="adam", max_iters=40)
+    eng = PlannerEngine(profiles.nin(), cfg=cfg, sinr_backend="kernel")
+    nr.reset_launches()
+    li_gd.reset_counts()
+    state = eng.plan_many(envs)
+    steps, splits = li_gd.COUNTS["steps"], profiles.nin().n_layers + 1
+    n_evals = steps + splits + 2
+    assert nr.LAUNCHES == {"noma_cell_intra": 4 * steps + 2 * n_evals,
+                           "noma_per_ap": 2 * steps + n_evals,
+                           "noma_ap_contract": 2 * steps + n_evals}
+    assert state.plan.s.shape == (3,) and bool(torch.isfinite(state.plan.utility).all())
+    for i, env in enumerate(envs):
+        one = eng.plan(env)
+        np.testing.assert_allclose(float(state.plan.utility[i]), float(one.plan.utility),
+                                   rtol=1e-3)
