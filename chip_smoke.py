@@ -59,10 +59,30 @@ Phases, each fatal on failure (no phase catches its own error):
                  step) and every member's plan feasible; members 0 and 1
                  planned alone beside the fleet (utility gate); 40 fixed GD
                  steps of the fleet against member 0 alone; 40 fleet GD steps
-                 under torch.profiler.
+                 under torch.profiler;
+  8. compare  -- planner.compare_all, the paper's six arms (ECC-NOMA, ECC-OMA,
+                 Device-Only, Edge-Only, Neurosurgeon, DNN-Surgery), for NiN on
+                 phase 4's env with the figure harness's GdConfig and the NOMA
+                 kernels as the SINR backend: finite positive T and E, the
+                 reference's invariants, ECC-NOMA's outcome under the kernels
+                 against the same plan under einsum (at s* and at s = 0),
+                 exact NOMA launch counts
+                 around each arm (none for the OMA arms and Device-Only);
+                 the per-arm table (mean T and E, speed-up and E-reduction
+                 against Device-Only, s*, wall);
+  9. online   -- an OnlineSplitServer over recurrentgemma-9b at full width and
+                 depth (phase 6's model) planning on the arch's profile on a
+                 Scenario at the paper's width: 3 scheduled epochs, a forced
+                 epoch with a measured profile that moves s*, a NaN profile
+                 (rejected, the last good plan held) and a user-count change
+                 (cold reset); exact NOMA launch counts around each replan,
+                 and after each re-cut the programs' logits on a request of
+                 ONLINE_S tokens equal to the unsplit forward's, with 12
+                 flash_attention and 26 rg_lru launches.
 The last lines are the kernels JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
+import dataclasses
 import json
 import os
 import statistics
@@ -127,6 +147,14 @@ SERVE_ARCH = "recurrentgemma-9b"
 SERVE_B, SERVE_S = 4, 3072         # 4 requests of 3072 tokens
 SERVE_SPLIT = 19                   # the second split point held to the bit
 DECODE_STEPS = 8
+# Phase 8: the paper-figure harness's GdConfig (plain GD, step 5e-3).
+COMPARE_MAX_ITERS = 250
+ARMS = ("ecc_noma", "ecc_oma", "device_only", "edge_only", "neurosurgeon", "dnn_surgery")
+# NOMA launches of one forward evaluation of the rates (user_rates): the
+# uplink's intra and per_ap, the downlink's intra and contract.
+FORWARD_EVAL_LAUNCHES = {"noma_cell_intra": 2, "noma_per_ap": 1, "noma_ap_contract": 1}
+# Phase 9: tokens of the request served after each re-cut.
+ONLINE_S = 512
 # TPU kernel each CUDA kernel replaces, and its source in this repo.
 NOMA_SOURCE = "src/repro_torch/kernels/csrc/noma_rates.cu"
 TPU_KERNELS = {
@@ -543,15 +571,11 @@ def main() -> int:
               f"wall_s={wall:.3f} steps_run={n_steps} host_reads={n_reads} "
               f"utility={float(plan.utility):.6g}")
     print(f"main launches: {launches}")
-    # Every utility evaluation goes through the kernels: per GD step one
-    # value_and_grad (2 forward + 2 backward pairwise calls) and one
-    # re-evaluation (2 forward); per split one start evaluation; per plan
-    # two discrete-utility evaluations; per replan split two warm probes.
+    # Every utility evaluation goes through the kernels (plan_launches): per
+    # split one start evaluation; per plan two discrete-utility
+    # evaluations; per replan split two warm probes.
     total_steps = sum(steps)
-    n_evals = total_steps + splits * 3 + 2 * 3 + 2 * splits * 2
-    expect = {"noma_cell_intra": 4 * total_steps + 2 * n_evals,
-              "noma_per_ap": 2 * total_steps + n_evals,
-              "noma_ap_contract": 2 * total_steps + n_evals}
+    expect = plan_launches(total_steps, splits * 3 + 2 * 3 + 2 * splits * 2)
     print(f"main launches expected from {total_steps} steps: {expect}; per GD step "
           f"intra 6, per_ap 3, contract 3")
     for k, v in launches.items():
@@ -623,7 +647,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 6. serve recurrentgemma-9b --------------------------------------------
-    serve_rows, serve_launches = serve_phase(dev, kind, smi, errs)
+    serve_rows, serve_launches, model = serve_phase(dev, kind, smi, errs)
     rows.update(serve_rows)
     launches.update(serve_launches)
 
@@ -631,6 +655,14 @@ def main() -> int:
     fleet_rows = fleet_phase(dev, smi, rows, eng.cfg)
     for name, fr in fleet_rows.items():
         rows[name].update(fr)
+
+    # -- 8. the paper's comparison arms ---------------------------------------
+    compare_phase(env, smi)
+
+    # -- 9. the online split server over phase 6's model ----------------------
+    online_phase(dev, smi, model, eng.cfg)
+    del model
+    torch.cuda.empty_cache()
 
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": tpu,
                 "launches": launches[name], "max_abs_err": errs[name], **rows[name]}
@@ -645,7 +677,8 @@ def main() -> int:
 
 def serve_phase(dev, kind: str, smi: str, errs: dict):
     """Phase 6. Returns (timing rows, main-path launch counts) of the two
-    served kernels; adds their worst errors to errs."""
+    served kernels and the full-size model (phase 9 serves it again); adds
+    the kernels' worst errors to errs."""
     import torch
     import torch.nn.functional as F
     from repro_torch import configs
@@ -912,7 +945,7 @@ def serve_phase(dev, kind: str, smi: str, errs: dict):
         print(f"profile kernel {e.self_device_time_total / 1e3:9.2f} ms "
               f"{e.self_device_time_total / max(busy_us, 1):6.1%} {e.count:6d} launches  "
               f"{e.key[:80]}")
-    del model, prof, rows_k
+    del prof, rows_k     # the model stays for phase 9
     torch.cuda.empty_cache()
 
     # 6.6 a small input against the plain twins on the CPU
@@ -936,7 +969,8 @@ def serve_phase(dev, kind: str, smi: str, errs: dict):
           f"({B * S / (t_dev + t_edge):.1f} tokens/s through both halves); "
           f"forward_s={fwd_s:.4f}; main wall_s={main_wall:.3f}")
     launches = {k: main_launches[k] for k in ("flash_attention", "rg_lru")}
-    return rows, launches
+    del m_card, m_cpu, got, want
+    return rows, launches, model
 
 
 def fleet_phase(dev, smi: str, rows: dict, cfg) -> dict:
@@ -1079,10 +1113,7 @@ def fleet_phase(dev, smi: str, rows: dict, cfg) -> dict:
         print(f"fleet {name}: used_warm per member {used}")
         print(f"fleet {name}: utility {[f'{x:.7g}' for x in st.plan.utility.tolist()]}")
     total_steps = sum(steps)
-    n_evals = total_steps + splits * 3 + 2 * 3 + 2 * splits * 2
-    expect = {"noma_cell_intra": 4 * total_steps + 2 * n_evals,
-              "noma_per_ap": 2 * total_steps + n_evals,
-              "noma_ap_contract": 2 * total_steps + n_evals}
+    expect = plan_launches(total_steps, splits * 3 + 2 * 3 + 2 * splits * 2)
     print(f"fleet launches: {launches}; expected from {total_steps} fleet GD steps: {expect} "
           f"(6 / 3 / 3 a fleet step, whatever B)")
     for k, v in launches.items():
@@ -1160,6 +1191,278 @@ def fleet_phase(dev, smi: str, rows: dict, cfg) -> dict:
     del prof_run, rows_k
     torch.cuda.empty_cache()
     return fleet
+
+
+def plan_launches(steps: int, evals: int) -> dict:
+    """NOMA launches of a solve: per GD step one value_and_grad (2 forward,
+    2 backward pairwise calls) and one re-evaluation (2 forward), and one
+    forward pair for each of `evals` further utility evaluations."""
+    return {k: (6 if k == "noma_cell_intra" else 3) * steps + n * evals
+            for k, n in FORWARD_EVAL_LAUNCHES.items()}
+
+
+def compare_phase(env, smi: str) -> None:
+    """Phase 8: planner.compare_all at the paper's width, each arm's launch
+    counts, wall and GD steps read around it."""
+    import torch
+    from repro_torch.core import GdConfig, baselines, channel, li_gd, make_weights, planner
+    from repro_torch.core import profiles
+    from repro_torch.kernels import noma_rates as nr
+
+    prof = profiles.nin()
+    w = make_weights(U, 0.5, device=env.device)
+    cfg = GdConfig(step_size=5e-3, max_iters=COMPARE_MAX_ITERS, sinr_backend="kernel")
+    # Each arm's counters and wall, read around the calls compare_all makes
+    # (the entry point runs as a user calls it; the wrappers only read).
+    seen, originals = {}, []
+
+    def instrument(module, fn_name, arm):
+        fn = getattr(module, fn_name)
+        originals.append((module, fn_name, fn))
+
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            before = (dict(nr.LAUNCHES), dict(li_gd.COUNTS), dict(baselines.COUNTS))
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seen[arm] = dict(
+                wall=time.perf_counter() - t0, out=out,
+                launches={k: v - before[0][k] for k, v in nr.LAUNCHES.items()},
+                steps=li_gd.COUNTS["steps"] - before[1]["steps"],
+                host_reads=li_gd.COUNTS["host_reads"] - before[1]["host_reads"],
+                oma_steps=baselines.COUNTS["steps"] - before[2]["steps"],
+                oma_reads=baselines.COUNTS["host_reads"] - before[2]["host_reads"])
+            return out
+        setattr(module, fn_name, wrapped)
+
+    instrument(planner, "plan", "plan")
+    for arm, fn_name in (("ecc_noma", "evaluate_plan"), ("ecc_oma", "ecc_oma"),
+                         ("device_only", "device_only"), ("edge_only", "edge_only"),
+                         ("neurosurgeon", "neurosurgeon"), ("dnn_surgery", "dnn_surgery")):
+        instrument(baselines, fn_name, arm)
+    prev = channel.set_sinr_backend("kernel")
+    try:
+        nr.reset_launches()
+        t0 = time.perf_counter()
+        res = planner.compare_all(env, prof, w, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        channel.set_sinr_backend(prev)
+        for module, fn_name, fn in originals:
+            setattr(module, fn_name, fn)
+    print(f"compare: planner.compare_all(nin, U={U} N={N} M={M}, GdConfig(step_size=5e-3, "
+          f"max_iters={COMPARE_MAX_ITERS}, sinr_backend='kernel')) wall_s={wall:.3f} | {smi}")
+    if tuple(res) != ARMS:
+        fail(f"compare_all returned {tuple(res)}, expected {ARMS}")
+    for arm, o in res.items():
+        for field in ("T", "E"):
+            x = getattr(o, field)
+            if tuple(x.shape) != (U,) or not bool(torch.isfinite(x).all()) or \
+                    not bool((x > 0).all()):
+                fail(f"compare {arm}: {field} not finite and positive for every user")
+
+    # The reference's own invariants (tests/test_core_baselines.py).
+    dev_o, ns, ds = res["device_only"], res["neurosurgeon"], res["dnn_surgery"]
+    want_t = float(prof.fl.double().sum()) / env.comp.c_device
+    dev_err = float((dev_o.T.double() - want_t).abs().max()) / want_t
+    print(f"check device_only T = sum(fl) / c_device = {want_t:.9g} s: relative error "
+          f"{dev_err:.3e} (tol 1e-06)")
+    if dev_err > 1e-6:
+        fail("device_only T differs from sum(fl) / c_device")
+    if not bool((ns.T <= dev_o.T + 1e-9).all()):
+        fail("neurosurgeon is slower than device_only for some user")
+    if not float(ds.T.mean()) >= float(ns.T.mean()) - 1e-9:
+        fail("dnn_surgery is faster on average than neurosurgeon")
+    print("check neurosurgeon T <= device_only T for every user; mean dnn_surgery T >= mean "
+          "neurosurgeon T: True")
+
+    # ECC-NOMA's outcome under the kernels against the same plan under einsum.
+    plan = seen["plan"]["out"]
+    prev = channel.set_sinr_backend("einsum")
+    try:
+        ref = baselines.evaluate_plan(env, prof, plan, w)
+    finally:
+        channel.set_sinr_backend(prev)
+    for field in ("T", "E"):
+        want = getattr(ref, field)
+        check(f"compare ecc_noma {field}: kernel vs einsum", getattr(res["ecc_noma"], field),
+              want, PATH_RTOL, want.abs())
+    # At s* = F nothing crosses the radio (w[F] = m_down[F] = 0), so the
+    # same allocation is also priced at s = 0, where every user's T and E
+    # hang on its rates.
+    at0 = {}
+    for backend in ("kernel", "einsum"):
+        prev = channel.set_sinr_backend(backend)
+        try:
+            at0[backend] = baselines.evaluate_plan(env, prof, dataclasses.replace(
+                plan, s=torch.zeros_like(plan.s)), w)
+        finally:
+            channel.set_sinr_backend(prev)
+    for field in ("T", "E"):
+        want = getattr(at0["einsum"], field)
+        check(f"compare ecc_noma allocation at s=0 {field}: kernel vs einsum",
+              getattr(at0["kernel"], field), want, PATH_RTOL, want.abs())
+
+    # Launch counts around each arm.
+    splits = prof.n_layers + 1
+    want = {arm: {k: 0 for k in nr.LAUNCHES} for arm in ARMS}
+    want["edge_only"] = want["ecc_noma"] = dict(FORWARD_EVAL_LAUNCHES)
+    # the plan: every GD step, one start evaluation a split, two discrete
+    # evaluations in the best-of rounding
+    want["plan"] = plan_launches(seen["plan"]["steps"], splits + 2)
+    for arm, counts in want.items():
+        if seen[arm]["launches"] != counts:
+            fail(f"compare {arm}: NOMA launches {seen[arm]['launches']}, expected {counts}")
+    print(f"check compare launch counts exact: plan {seen['plan']['launches']} for "
+          f"{seen['plan']['steps']} GD steps ({seen['plan']['host_reads']} host reads); "
+          f"ecc_noma and edge_only {FORWARD_EVAL_LAUNCHES} each; none for ecc_oma, "
+          "device_only, neurosurgeon, dnn_surgery")
+    print(f"compare plan: s*={int(plan.s)} iters={plan.iters.tolist()} "
+          f"wall_s={seen['plan']['wall']:.3f}")
+    print(f"compare ecc_oma: {seen['ecc_oma']['oma_steps']} GD steps executed, "
+          f"{seen['ecc_oma']['oma_reads']} host reads, s*={int(res['ecc_oma'].s)}")
+
+    # The figures' table (examples/quickstart.py): normalized to Device-Only.
+    dev_t, dev_e = float(dev_o.T.double().mean()), float(dev_o.E.double().mean())
+    print(f"compare table ({smi}):")
+    print("  method          mean T (ms)   mean E (mJ)   speed-up   E-reduction   s    wall s")
+    for arm, o in res.items():
+        t, e = float(o.T.double().mean()), float(o.E.double().mean())
+        if o.s.ndim:
+            hist = torch.bincount(o.s.long(), minlength=prof.n_layers + 1).tolist()
+            split = "per user " + str({i: c for i, c in enumerate(hist) if c})
+        else:
+            split = str(int(o.s))
+        arm_wall = seen[arm]["wall"] + (seen["plan"]["wall"] if arm == "ecc_noma" else 0.0)
+        print(f"  {arm:15s} {t * 1e3:12.4f} {e * 1e3:13.4f} {dev_t / t:10.4f} "
+              f"{dev_e / e:13.4f}   {split}   {arm_wall:.4f}")
+
+
+def online_phase(dev, smi: str, model, cfg) -> None:
+    """Phase 9: the online split server over the full-size model."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import li_gd, make_env, profiles
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import noma_rates as nr
+    from repro_torch.kernels import rg_lru as rl
+    from repro_torch.models import stages_for
+    from repro_torch.planning import PlannerEngine
+    from repro_torch.runtime import OnlineSplitServer
+    from repro_torch.scenarios import Scenario, ScenarioConfig
+
+    arch = configs.get(SERVE_ARCH)
+    prof = profiles.from_arch_config(arch, seq=SERVE_S, batch=SERVE_B)
+    eng = PlannerEngine(prof, cfg=cfg, sinr_backend="kernel")
+    srv = OnlineSplitServer(eng, model=model, replan_every=1)
+    splits = prof.n_layers + 1
+    n_attn = sum(sp.n_layers for sp in stages_for(arch) if sp.kind == "attn")
+    n_rec = arch.n_layers - n_attn
+    tokens = make_batch(0, 0, 1, ONLINE_S, arch.vocab_size, device=dev)["tokens"]
+    full, _, _ = model(tokens)
+    torch.cuda.synchronize()
+    sc = Scenario(ScenarioConfig(**FLEET_SCENARIO))
+    print(f"online: OnlineSplitServer(replan_every=1) over {SERVE_ARCH} ({arch.n_layers} "
+          f"layers, {splits} splits; profile at seq={SERVE_S}, batch={SERVE_B}) on "
+          f"{FLEET_SCENARIO['name']} seed 0 (U={U} N={N} M={M}), GdConfig({cfg.optimizer}, "
+          f"max_iters={cfg.max_iters}, kernel) | {smi}")
+    changes = 0
+
+    def observe(label, env, **kw):
+        nonlocal changes
+        held_state, held_progs, cold = srv.state, srv.programs, srv.state is None
+        resets, last_s = srv.cold_resets, srv.split_layer
+        iters0 = srv.total_iters
+        torch.cuda.synchronize()
+        nr.reset_launches()
+        steps0 = li_gd.COUNTS["steps"]
+        t0 = time.perf_counter()
+        progs = srv.observe(env, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = li_gd.COUNTS["steps"] - steps0
+        cold = cold or srv.cold_resets > resets
+        # a cold plan evaluates once a split; a warm one adds two warm probes
+        expect = plan_launches(steps, (1 if cold else 3) * splits + 2)
+        got = dict(nr.LAUNCHES)
+        rho = None if not srv.last_plan_ok or srv.state.warm_rho is None \
+            else round(float(srv.state.warm_rho), 6)
+        print(f"online {label}: wall_s={wall:.3f} s*={srv.split_layer} "
+              f"plan_ok={srv.last_plan_ok} {'cold' if cold else 'warm'} GD iterations="
+              f"{srv.total_iters - iters0} steps_run={steps} warm_rho={rho} launches={got}")
+        if got != expect:
+            fail(f"online {label}: NOMA launches {got}, expected {expect}")
+        if srv.last_plan_ok and srv.split_layer != last_s:
+            changes += 1
+            for reset in (fa.reset_launches, rl.reset_launches):
+                reset()
+            logits = progs.edge_fn(progs.device_fn(tokens))
+            torch.cuda.synchronize()
+            n_fa, n_rl = fa.LAUNCHES["flash_attention"], rl.LAUNCHES["rg_lru"]
+            same = torch.equal(logits, full)
+            print(f"online {label}: re-cut at s={srv.split_layer}; logits on 1 x {ONLINE_S} "
+                  f"tokens equal to the unsplit forward: {same}; launches flash_attention="
+                  f"{n_fa} rg_lru={n_rl}")
+            if not same:
+                fail(f"online {label}: re-cut logits differ from the unsplit forward")
+            if (n_fa, n_rl) != (n_attn, n_rec):
+                fail(f"online {label}: {n_fa} / {n_rl} launches a split forward, expected "
+                     f"{n_attn} / {n_rec}")
+            del logits
+        if srv.recuts != changes:
+            fail(f"online {label}: {srv.recuts} re-cuts for {changes} changes of s*")
+        return held_state, held_progs
+
+    state = sc.init(0)
+    env = sc.env(state)
+    for epoch in range(3):
+        if epoch:
+            state = sc.step(0, state)
+            env = sc.env(state)
+        observe(f"epoch {epoch} (scheduled)", env)
+        check_plan(f"online epoch {epoch}", srv.state, env, prof.n_layers)
+
+    # A measured profile that moves s*: with 1e3x the FLOPs compute dominates
+    # the utility and the edge (a third of the device's energy per FLOP at
+    # its smallest allocation) takes the layers; with 1e3x the transfers, the
+    # device keeps them.
+    s_before = srv.split_layer
+    scale = (1e3, 1.0) if s_before > 0 else (1.0, 1e3)
+    measured = prof.like(eng.prof.fl * scale[0], eng.prof.w * scale[1],
+                         eng.prof.m_down * scale[1])
+    print(f"online measured profile: fl x {scale[0]:g}, w and m_down x {scale[1]:g} "
+          f"(s* was {s_before})")
+    observe("epoch 3 (forced, measured profile)", env, prof=measured, force=True)
+    check_plan("online epoch 3", srv.state, env, prof.n_layers)
+    if srv.split_layer == s_before:
+        fail(f"online: the measured profile did not move s* from {s_before}")
+
+    # A NaN profile: the plan is rejected, the last good state held.
+    p = eng.prof
+    held_state, held_progs = observe("epoch 4 (NaN profile)", env,
+                                     prof=p.like(p.fl * float("nan"), p.w, p.m_down))
+    ok = (srv.bad_plans == 1 and srv.last_plan_ok is False and srv.state is held_state
+          and srv.programs is held_progs)
+    print(f"check online NaN profile: bad_plans={srv.bad_plans} last_plan_ok="
+          f"{srv.last_plan_ok}, state and programs held: {ok}")
+    if not ok:
+        fail("online: the NaN plan was not rejected with the last good state held")
+
+    # Another user count: the warm state no longer fits, a cold plan.
+    env2 = make_env(1000, N, M, seed=1, device=dev)
+    observe("epoch 5 (1000 users)", env2)
+    check_plan("online epoch 5", srv.state, env2, prof.n_layers)
+    if srv.cold_resets != 1:
+        fail(f"online: {srv.cold_resets} cold resets after one shape change")
+    m = srv.metrics()
+    attrs = {k: getattr(srv, k) for k in m}
+    print(f"online metrics: {m}")
+    # replan_every=1: every epoch is scheduled, so none counts as forced
+    if m != attrs or m["epoch"] != 6 or m["replans"] != 6 or m["forced_replans"] != 0:
+        fail(f"online: metrics() {m} disagree with the attributes {attrs}")
 
 
 if __name__ == "__main__":

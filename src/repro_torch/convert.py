@@ -1,8 +1,8 @@
 """State carried across from the JAX reference.
 
 Turns the reference's objects, given as numpy arrays plus constants, into
-the port's: a NetworkEnv, a ModelProfile, EccWeights, a PlanState (one
-scenario's or a fleet's) and a ScenarioState, so a plan made by the
+the port's: a NetworkEnv, a ModelProfile, EccWeights, a SplitPlan, a
+PlanState (one scenario's or a fleet's) and a ScenarioState, so a plan made by the
 reference can warm-start the port's replan / replan_many and a reference
 scenario can be stepped on by the port. Constants may
 be any object with the fields of RadioConstants / ComputeConstants (the
@@ -22,6 +22,7 @@ from repro_torch.core.types import (
     ModelProfile,
     NetworkEnv,
     RadioConstants,
+    SplitPlan,
 )
 from repro_torch.device import resolve_device
 from repro_torch.planning.engine import PlanState
@@ -75,6 +76,20 @@ def profile_from_numpy(fl, w, m_down, name: str = "model", device=None) -> Model
 
 def weights_from_numpy(w_T, w_E, device=None) -> EccWeights:
     return EccWeights(w_T=tensor(w_T, device), w_E=tensor(w_E, device))
+
+
+def split_plan_from_numpy(s, sub_up, sub_dn, p_up, p_dn, r, utility, per_layer_utility,
+                          iters, rounding_violations, device=None) -> SplitPlan:
+    """A reference SplitPlan, its fields given as numpy arrays or scalars
+    under their own names, as tensors on ``device``: s, the subchannels and
+    iters int32, the rest float32."""
+    return SplitPlan(s=tensor(s, device), sub_up=tensor(sub_up, device),
+                     sub_dn=tensor(sub_dn, device), p_up=tensor(p_up, device),
+                     p_dn=tensor(p_dn, device), r=tensor(r, device),
+                     utility=tensor(utility, device),
+                     per_layer_utility=tensor(per_layer_utility, device),
+                     iters=tensor(iters, device),
+                     rounding_violations=tensor(rounding_violations, device))
 
 
 def plan_state_from_numpy(norms: dict, moms=None, opt_steps=None, gains=None,

@@ -34,6 +34,8 @@ from repro_torch.core.li_gd import (  # noqa: F401
     gd_solve,
     greedy_round_dn,
     greedy_round_up,
+    li_gd_loop,
+    plain_gd_loop,
     project_simplex,
     project_simplex_floor,
     rho_estimate,
@@ -41,4 +43,4 @@ from repro_torch.core.li_gd import (  # noqa: F401
     solve,
     to_physical,
 )
-from repro_torch.core import profiles  # noqa: F401
+from repro_torch.core import baselines, planner, profiles  # noqa: F401

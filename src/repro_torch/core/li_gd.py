@@ -365,6 +365,17 @@ def gd_loop(env: NetworkEnv, prof: ModelProfile, w: EccWeights, cfg: GdConfig,
     )
 
 
+def li_gd_loop(env: NetworkEnv, prof: ModelProfile, w: EccWeights,
+               cfg: GdConfig) -> LoopResult:
+    return gd_loop(env, prof, w, cfg, chain=True)
+
+
+def plain_gd_loop(env: NetworkEnv, prof: ModelProfile, w: EccWeights,
+                  cfg: GdConfig) -> LoopResult:
+    """Cold-start GD per split point (the paper's 'traditional GD' baseline)."""
+    return gd_loop(env, prof, w, cfg, chain=False)
+
+
 # --------------------------------------------------------------------------
 # rounding (Table I lines 17-20 + Corollary 5) and plan assembly
 # --------------------------------------------------------------------------

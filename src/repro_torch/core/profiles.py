@@ -121,6 +121,9 @@ def vgg16() -> ModelProfile:
     return _conv_chain(layers, (32, 32, 3), RESULT_BITS_CLS, "vgg16")
 
 
+PAPER_MODELS = {"nin": nin, "yolov2": yolov2, "vgg16": vgg16}
+
+
 # --------------------------------------------------------------------------
 # LM architecture profiles (per-transformer-block)
 # --------------------------------------------------------------------------

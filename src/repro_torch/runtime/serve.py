@@ -8,8 +8,10 @@ and `transfer_seconds` reports the simulated link time. Both halves run the
 same kernels on the same shapes in the same order as Model.forward, so the
 split logits equal the unsplit ones to the bit.
 
-The mesh-bound jit_* programs, the masked decode step and the online
-server wait for the online slice of the port.
+OnlineSplitServer couples a PlannerEngine to split serving across a
+time-evolving scenario: it re-plans every epoch (or on demand) and re-cuts
+the model only when s* moves. The mesh-bound jit_* programs and the masked
+decode step wait for the port of runtime/sharding and the online batcher.
 """
 from __future__ import annotations
 
@@ -19,8 +21,10 @@ from typing import Callable, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.faults import guards
 from repro_torch.models import Model
 from repro_torch.models.layers import COMPUTE_DTYPE, embed_lookup, logits_out
+from repro_torch.planning import WarmStateShapeError
 
 
 class SplitPrograms(NamedTuple):
@@ -95,3 +99,178 @@ def planned_transfer_seconds(env, prof, plan):
     r_up = torch.sum(channel.uplink_rates(env, beta_up, plan.p_up), dim=-1)
     bits = prof.w[plan.s]
     return bits / torch.clamp_min(r_up, 1e-9)
+
+
+# --------------------------------------------------------------------------
+# online split-serve: re-plan as the scenario evolves, re-cut when s* moves
+# --------------------------------------------------------------------------
+class OnlineSplitServer:
+    """Couples a PlannerEngine to split serving across a time-evolving
+    scenario.
+
+    Every ``replan_every`` epochs the engine warm-start re-plans against the
+    newly observed NetworkEnv; the re-cut (make_split_serve) happens only
+    when the planned split layer moves. ``observe(env)`` returns the current
+    SplitPrograms.
+
+    The epoch loop stays on the device: the engine's replan keeps its rho
+    gate and warm payload on the device, GD-iteration accounting
+    accumulates in a device scalar (read it through ``total_iters``), and
+    the one host read a replan is the planned split layer s*, packed with
+    the plan's health (faults.guards.plan_word): whether to re-cut the
+    model is a host decision.
+
+    ``model`` is the port's Model, an nn.Module that holds its own weights;
+    ``params`` stays in the signature in the reference's position and must
+    be None. With model None (planning-only runs) the re-cut is recorded
+    but no programs are built.
+
+    The PlanState carried across epochs holds the whole warm-start payload
+    (normalized optima, Adam moments and step counts, the epoch's gains for
+    the rho gate). A network shape change (user or subchannel count)
+    invalidates it: observe() catches the engine's WarmStateShapeError,
+    drops the warm state and plans cold; ``cold_resets`` counts these.
+
+    With ``guard_plans=True`` (the default) the same one-scalar read also
+    traps non-finite or infeasible plans: a bad plan is rejected and the
+    last good PlanState held (``bad_plans`` counts these). A NaN measured
+    profile otherwise flows through replan into a served plan: the utility
+    goes NaN while the powers can stay finite, so the guard checks the
+    whole plan.
+    """
+
+    def __init__(self, engine, model: Model | None = None, params=None,
+                 replan_every: int = 1, guard_plans: bool = True):
+        if replan_every < 1:
+            raise ValueError(f"replan_every must be >= 1, got {replan_every}")
+        if params is not None:
+            raise ValueError("the port's Model holds its own weights: pass params=None")
+        self.engine = engine
+        self.model = model
+        self.replan_every = replan_every
+        self.guard_plans = bool(guard_plans)
+        self.state = None               # planning.PlanState of the last good re-plan
+        self.programs: SplitPrograms | None = None
+        self.split_layer: int | None = None
+        self.epoch = 0
+        self.recuts = 0
+        self.cold_resets = 0
+        self.replans = 0                # scheduled + forced engine dispatches
+        self.forced_replans = 0         # the off-schedule (force=True) subset
+        self.bad_plans = 0              # guarded replans rejected (held last good)
+        self.last_plan_ok: bool | None = None   # outcome of the last dispatch
+        self.last_replanned = False     # did the last observe() dispatch?
+        self._iters_acc = torch.zeros((), dtype=torch.int32, device=engine.device)
+
+    @property
+    def total_iters(self) -> int:
+        """Total GD iterations across all re-plans. Reading it reads the
+        device accumulator; the serving loop itself never does."""
+        return int(self._iters_acc)
+
+    def metrics(self) -> dict:
+        """Counters of the server's control plane: epochs seen, replans
+        dispatched (and how many were forced off-schedule), re-cuts of the
+        served model, cold resets after network shape changes, rejected
+        plans and total GD iterations (this read syncs the accumulator)."""
+        return {
+            "epoch": self.epoch,
+            "replans": self.replans,
+            "forced_replans": self.forced_replans,
+            "recuts": self.recuts,
+            "cold_resets": self.cold_resets,
+            "bad_plans": self.bad_plans,
+            "split_layer": self.split_layer,
+            "total_iters": self.total_iters,
+        }
+
+    def export_host(self) -> dict:
+        """The server's host-side control-plane state as JSON scalars. The
+        device-resident pieces (the PlanState and the GD-iteration
+        accumulator) travel separately."""
+        return {
+            "epoch": self.epoch,
+            "recuts": self.recuts,
+            "cold_resets": self.cold_resets,
+            "replans": self.replans,
+            "forced_replans": self.forced_replans,
+            "bad_plans": self.bad_plans,
+            "split_layer": self.split_layer,
+            "last_plan_ok": self.last_plan_ok,
+            "last_replanned": self.last_replanned,
+        }
+
+    def import_host(self, state: dict, iters_acc) -> None:
+        """Inverse of export_host. ``iters_acc`` is the restored device
+        scalar. With a model attached, the programs are re-cut at the
+        restored split layer (they are functions of (model, s) alone)."""
+        self.epoch = int(state["epoch"])
+        self.recuts = int(state["recuts"])
+        self.cold_resets = int(state["cold_resets"])
+        self.replans = int(state["replans"])
+        self.forced_replans = int(state["forced_replans"])
+        self.bad_plans = int(state["bad_plans"])
+        sl = state["split_layer"]
+        self.split_layer = None if sl is None else int(sl)
+        ok = state["last_plan_ok"]
+        self.last_plan_ok = None if ok is None else bool(ok)
+        self.last_replanned = bool(state["last_replanned"])
+        self._iters_acc = torch.as_tensor(iters_acc, dtype=torch.int32,
+                                          device=self.engine.device)
+        if self.model is not None and self.split_layer is not None:
+            self.programs = make_split_serve(self.model, self.split_layer)
+
+    def reset_warm(self) -> None:
+        """Drop the warm-start payload: the next replan goes cold (after a
+        run of rejected plans the carried optima are themselves suspect)."""
+        self.state = None
+
+    def _sync_plan(self, env, plan) -> tuple[int, int]:
+        """The one host read a replan: (health, s). A guarded server packs
+        both into one scalar on the device (faults.guards.plan_word)."""
+        if not self.guard_plans:
+            return 0, int(plan.s)
+        word = guards.plan_word(plan, n_sub=env.n_sub, p_up_max=env.radio.p_up_max_w,
+                                p_dn_max=env.radio.p_dn_max_w, r_max=env.comp.r_max)
+        return guards.split_plan_word(int(word))
+
+    def observe(self, env, prof=None, force: bool = False,
+                hold: bool = False) -> SplitPrograms | None:
+        """Advance one epoch: re-plan on schedule (or at once when ``force``
+        is set), re-cut if s* moved. ``prof`` substitutes a measured profile
+        (validated against the engine's static one; None plans against the
+        static profile). ``hold`` skips the replan while still advancing
+        the epoch clock."""
+        self.last_replanned = False
+        if not hold and (force or self.epoch % self.replan_every == 0):
+            prev_state = self.state
+            try:
+                new_state = self.engine.replan(self.state, env, prof=prof)
+            except WarmStateShapeError:
+                # The warm-start state no longer fits this network: drop it
+                # and plan cold. Other ValueErrors propagate, so a bad
+                # profile is never swallowed.
+                prev_state = self.state = None
+                self.cold_resets += 1
+                new_state = self.engine.plan(env, prof=prof)
+            self.replans += 1
+            self.last_replanned = True
+            self.forced_replans += int(force and self.epoch % self.replan_every != 0)
+            self._iters_acc = self._iters_acc + new_state.total_iters
+            health, s = self._sync_plan(env, new_state.plan)
+            if health:
+                # Never serve a corrupt plan: keep the last good state (warm
+                # payload included).
+                self.bad_plans += 1
+                self.last_plan_ok = False
+                self.state = prev_state
+            else:
+                self.last_plan_ok = True
+                self.state = new_state
+                if s != self.split_layer:
+                    self.split_layer = s
+                    self.recuts += 1
+                    if self.model is not None:
+                        self.programs = make_split_serve(self.model, s)
+        self.epoch += 1
+        return self.programs

@@ -27,7 +27,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import configs  # noqa: E402
-from repro_torch.core import GdConfig, channel, make_env, profiles  # noqa: E402
+from repro_torch.core import GdConfig, channel, make_env, make_weights, profiles  # noqa: E402
 from repro_torch.data import make_batch  # noqa: E402
 from repro_torch.kernels import build_cell_layout, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -430,3 +430,35 @@ def test_plan_many_on_the_card(cuda):
         one = eng.plan(env)
         np.testing.assert_allclose(float(state.plan.utility[i]), float(one.plan.utility),
                                    rtol=1e-3)
+
+
+def test_compare_all_on_the_card(cuda):
+    """The comparison arms on the card: the OMA arms and Device-Only launch
+    no NOMA kernel; Edge-Only and ECC-NOMA's evaluation launch one forward
+    evaluation each (2 intra, 1 per_ap, 1 contract) under the kernel
+    backend; s agrees with the CPU run of the same env."""
+    from repro_torch.core import baselines, planner
+    env = make_env(48, 4, 16, seed=5, device=cuda)
+    prof = profiles.nin()
+    w = make_weights(env.n_users, device=cuda)
+    prev = channel.set_sinr_backend("kernel")
+    try:
+        for arm, fn in (("device_only", baselines.device_only),
+                        ("neurosurgeon", baselines.neurosurgeon),
+                        ("dnn_surgery", baselines.dnn_surgery),
+                        ("ecc_oma", lambda e, p: baselines.ecc_oma(e, p, w)),
+                        ("edge_only", baselines.edge_only)):
+            nr.reset_launches()
+            out = fn(env, prof)
+            torch.cuda.synchronize()
+            want = {"noma_cell_intra": 2, "noma_per_ap": 1, "noma_ap_contract": 1} \
+                if arm == "edge_only" else {k: 0 for k in nr.LAUNCHES}
+            assert dict(nr.LAUNCHES) == want, arm
+            assert out.T.device == cuda and bool(torch.isfinite(out.T).all()), arm
+        res = planner.compare_all(env, prof, w, GdConfig(max_iters=40, sinr_backend="kernel"))
+        cpu = planner.compare_all(env.to("cpu"), prof, w.to("cpu"),
+                                  GdConfig(max_iters=40, sinr_backend="kernel"))
+    finally:
+        channel.set_sinr_backend(prev)
+    for arm in res:
+        assert torch.equal(res[arm].s.cpu(), cpu[arm].s), arm
