@@ -78,7 +78,22 @@ Phases, each fatal on failure (no phase catches its own error):
                  (cold reset); exact NOMA launch counts around each replan,
                  and after each re-cut the programs' logits on a request of
                  ONLINE_S tokens equal to the unsplit forward's, with 12
-                 flash_attention and 26 rg_lru launches.
+                 flash_attention and 26 rg_lru launches;
+ 10. loop     -- the closed online loop (online.OnlineLoop): 10.1 the three
+                 NOMA kernels against their twins on phase 4's env with one
+                 AP blacked out and a fifth of the users faded by 1e-6 (both
+                 links, forward and backward; the dead cell's intra terms
+                 exactly 0, its users' rates at the 1e-9 floor); 10.2 the
+                 hardened loop (faults, ladder, feedback) on
+                 "paper_scale_urban" for 20 epochs with exact NOMA launch
+                 counts and host reads each epoch and every served plan
+                 finite, requests conserved, one non-replan epoch under
+                 torch.profiler; 10.3 the unguarded arm on the same traffic
+                 and faults for 10 epochs (launch counts gated only); 10.4
+                 DecodeBatcher and EdgeBatcher over phase 6's model: 12 / 26
+                 launches an admission, none a decode step, a masked slot's
+                 caches frozen, logits within 0.05 * max(1, max |logits|) of
+                 each request's own serving.
 The last lines are the kernels JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
@@ -155,6 +170,23 @@ ARMS = ("ecc_noma", "ecc_oma", "device_only", "edge_only", "neurosurgeon", "dnn_
 FORWARD_EVAL_LAUNCHES = {"noma_cell_intra": 2, "noma_per_ap": 1, "noma_ap_contract": 1}
 # Phase 9: tokens of the request served after each re-cut.
 ONLINE_S = 512
+# Phase 10: the closed online loop at the paper's width, the chaos
+# benchmark's operating point (benchmarks/chaos_serve.py: 6 users x 30 Hz x
+# 0.02 s = 3.6 requests an epoch) with the population raised to U=1250, so
+# 0.144 Hz a user; the "full" fault mix at a 20 % link-outage rate.
+LOOP_GD = dict(step_size=3e-2, eps=1e-4, max_iters=60, optimizer="adam")
+LOOP_STREAM = dict(arrival_rate_hz=0.144, epoch_dt_s=0.02, deadline_s=0.2)
+LOOP_SERVICE = dict(edge_capacity=4, queue_depth=32, load_gain=4.0, replan_every=5,
+                    max_work_epochs=200)
+LOOP_LADDER = dict(quarantine_epochs=15, baseline_after=2)
+LOOP_FAULTS = dict(link_outage_rate=0.2, fade_depth=1e-6, ap_outage_rate=0.05,
+                   telemetry_drop_rate=0.1, telemetry_spike_rate=0.05, service_spike_rate=0.02)
+LOOP_EPOCHS, UNGUARDED_EPOCHS = 20, 10
+# 10.1: the AP blacked out and the share of users faded by 1e-6.
+DEAD_AP, FADED_SHARE = 3, 0.2
+# 10.4: slot batching over phase 6's model; logits within the JAX package's
+# bound 0.05 * max(1, max |logits|) of each request's own serving.
+BATCH_SLOTS, BATCH_STEPS, BATCH_TOL = 4, 4, 0.05
 # TPU kernel each CUDA kernel replaces, and its source in this repo.
 NOMA_SOURCE = "src/repro_torch/kernels/csrc/noma_rates.cu"
 TPU_KERNELS = {
@@ -661,6 +693,9 @@ def main() -> int:
 
     # -- 9. the online split server over phase 6's model ----------------------
     online_phase(dev, smi, model, eng.cfg)
+
+    # -- 10. the closed online loop -------------------------------------------
+    loop_phase(dev, smi, model, env, errs)
     del model
     torch.cuda.empty_cache()
 
@@ -1463,6 +1498,381 @@ def online_phase(dev, smi: str, model, cfg) -> None:
     # replan_every=1: every epoch is scheduled, so none counts as forced
     if m != attrs or m["epoch"] != 6 or m["replans"] != 6 or m["forced_replans"] != 0:
         fail(f"online: metrics() {m} disagree with the attributes {attrs}")
+
+
+def fault_kernel_phase(dev, env, errs: dict) -> None:
+    """Phase 10.1: the NOMA kernels on fault-masked gains, with the operands
+    the main path gives them (ops._Pairwise), against their plain twins."""
+    import torch
+    from repro_torch.core import channel
+    from repro_torch.faults import FaultConfig, apply_env_faults, injectors
+    from repro_torch.kernels import noma_rates as nr
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    rates = FaultConfig(**LOOP_FAULTS).rates(dev)
+    faded = torch.rand(U, device=dev, generator=gen) < FADED_SHARE
+    ap_down = torch.arange(N, device=dev) == DEAD_AP
+    draw = injectors.FaultDraw(link_down=faded, ap_down=ap_down,
+                               tel_drop=torch.zeros((), dtype=torch.bool, device=dev),
+                               tel_spike=torch.zeros((), dtype=torch.bool, device=dev),
+                               svc_mult=torch.ones(U, device=dev))
+    menv = apply_env_faults(env, draw, rates)
+    dead = menv.ap == DEAD_AP
+    print(f"loop 10.1: phase 4's env with AP {DEAD_AP} blacked out ({int(dead.sum())} users) "
+          f"and {int(faded.sum())} of {U} users faded by {LOOP_FAULTS['fade_depth']:g}")
+    e = torch.empty((U, M), device=dev).exponential_(generator=gen)
+    beta = e / e.sum(1, keepdim=True)
+    p = {True: 1e-3 + 0.3 * torch.rand(U, device=dev, generator=gen),
+         False: 0.1 + 9.9 * torch.rand(U, device=dev, generator=gen)}
+    cot = torch.randn((2, U, M), device=dev, generator=gen)
+    for uplink in (True, False):
+        link = "uplink" if uplink else "downlink"
+        own, g_raw, ap = ops._inputs(menv, uplink)
+        tx = (beta * p[uplink][:, None]).contiguous()
+        w_fwd = (tx * own).contiguous() if uplink else tx
+        # the intra term, forward (w_intra) and backward (a cotangent, the
+        # comparison flipped): the dead cell has no SIC pair, so exactly 0
+        for role, w, desc in (("forward", w_fwd, uplink), ("backward", cot[0], not uplink)):
+            got = nr.noma_cell_intra_dense(own, own, w, ap, ap, N, desc)
+            want = nr.noma_cell_intra_dense_plain(own, own, w, ap, ap, N, desc)
+            scale = nr.noma_cell_intra_dense_plain(own, own, w.abs(), ap, ap, N, desc)
+            check(f"loop masked intra {link} {role}", got, want, KERNEL_RTOL, scale, errs,
+                  "noma_cell_intra")
+            if not bool((got[dead] == 0).all()):
+                fail(f"loop masked intra {link} {role}: the blacked-out cell is not 0")
+        # the inter term: per_ap builds uplink A and downlink D, contract
+        # consumes downlink B and uplink C (gain-free segment tables)
+        fwd_w, bwd_w = tx, cot[1]
+        for role, w in (("forward", fwd_w), ("backward", bwd_w)):
+            if uplink == (role == "forward"):
+                got = nr.noma_per_ap(ap, w.contiguous(), g_raw, uplink)
+                want = nr.noma_per_ap_plain(ap, w, g_raw, uplink)
+                scale = nr.noma_per_ap_plain(ap, w.abs(), g_raw, uplink)
+                check(f"loop masked per_ap {link} {role}", got, want, KERNEL_RTOL, scale, errs,
+                      "noma_per_ap")
+            else:
+                tab = nr.segment_table(w, ap, N)
+                got = nr.noma_ap_contract(ap, tab, g_raw, uplink)
+                want = nr.noma_ap_contract_plain(ap, tab, g_raw, uplink)
+                scale = nr.noma_ap_contract_plain(ap, nr.segment_table(w.abs(), ap, N), g_raw,
+                                                  uplink)
+                check(f"loop masked contract {link} {role}", got, want, KERNEL_RTOL, scale,
+                      errs, "noma_ap_contract")
+    r_up, r_dn = channel.user_rates(menv, beta, beta, p[True], p[False], backend="kernel")
+    floor = r_up.new_tensor(1e-9)
+    for name, r in (("uplink", r_up), ("downlink", r_dn)):
+        ok = (bool(torch.isfinite(r).all()) and bool((r[dead] == floor).all())
+              and bool((r >= floor).all()))
+        print(f"check loop masked {name} rates: finite, the blacked-out cell's at the 1e-9 "
+              f"floor, none below it: {ok} (faded users' median "
+              f"{float(r[faded & ~dead].median()):.4g} bit/s)")
+        if not ok:
+            fail(f"loop masked {name} rates")
+
+
+class HostReads:
+    """Counts Python-level reads of CUDA tensor values (bool, int, float,
+    index, item, tolist) while active: the host reads a loop epoch makes."""
+
+    NAMES = ("__bool__", "__int__", "__float__", "__index__", "item", "tolist")
+
+    def __enter__(self):
+        import torch
+        self.n, self.saved = 0, {}
+        for name in self.NAMES:
+            orig = self.saved[name] = getattr(torch.Tensor, name)
+
+            def wrap(t, *a, _orig=orig, **k):
+                self.n += t.is_cuda
+                return _orig(t, *a, **k)
+            setattr(torch.Tensor, name, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        for name, orig in self.saved.items():
+            setattr(torch.Tensor, name, orig)
+        return False
+
+
+def loop_epochs(loop, n_epochs: int, label: str, splits: int) -> list:
+    """Drive n_epochs of an OnlineLoop, gating each epoch's NOMA launches and
+    host reads exactly; returns one row of host-side readings an epoch."""
+    import warnings
+
+    import torch
+    from repro_torch.core import li_gd
+    from repro_torch.kernels import noma_rates as nr
+    from repro_torch.online import loop as looplib
+    from repro_torch.runtime import serve
+
+    rows = []
+    hardened = loop.ladder is not None
+    for _ in range(n_epochs):
+        prev_state = loop.server.state
+        cold0 = loop.ladder.cold_replans if hardened else 0
+        before = (dict(li_gd.COUNTS), dict(looplib.COUNTS), dict(serve.COUNTS))
+        torch.cuda.synchronize()
+        nr.reset_launches()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as syncs, HostReads() as reads:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out, trigger = loop.step_epoch()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = li_gd.COUNTS["steps"] - before[0]["steps"]
+        gd_reads = li_gd.COUNTS["host_reads"] - before[0]["host_reads"]
+        loop_reads = looplib.COUNTS["host_reads"] - before[1]["host_reads"]
+        fallbacks = looplib.COUNTS["fallback_plans"] - before[1]["fallback_plans"]
+        plan_reads = serve.COUNTS["host_reads"] - before[2]["host_reads"]
+        replanned = loop.server.last_replanned
+        cold = prev_state is None or (hardened and loop.ladder.cold_replans > cold0)
+        # the service model's two rate evaluations, each fallback plan's
+        # pricing, and a replan's solve (a cold plan evaluates once a split;
+        # a warm one adds two warm probes; two discrete evaluations)
+        want = {k: n * (1 + fallbacks) for k, n in FORWARD_EVAL_LAUNCHES.items()}
+        if replanned:
+            solve = plan_launches(steps, (1 if cold else 3) * splits + 2)
+            want = {k: want[k] + solve[k] for k in want}
+        got = dict(nr.LAUNCHES)
+        budget = 1 + hardened
+        t = loop.host_epoch - 1
+        if got != want:
+            fail(f"{label} epoch {t}: NOMA launches {got}, expected {want}")
+        if loop_reads != budget or plan_reads != int(replanned):
+            fail(f"{label} epoch {t}: {loop_reads} loop reads and {plan_reads} plan words, "
+                 f"expected {budget} and {int(replanned)}")
+        if reads.n != loop_reads + plan_reads + gd_reads:
+            fail(f"{label} epoch {t}: {reads.n} host reads of device values, expected "
+                 f"{loop_reads} (loop) + {plan_reads} (plan word) + {gd_reads} (GD stop flags)")
+        finite = bool(torch.isfinite(loop._plan.utility))
+        row = dict(epoch=t, wall=wall, replanned=replanned, cold=cold, steps=steps,
+                   stage=loop.ladder.stage if hardened else "-", s=int(loop._plan.s),
+                   health=int(out.health), trigger=trigger, finite=finite,
+                   fallbacks=fallbacks, reads=reads.n, syncs=len(syncs),
+                   completed=int(out.completed), occupancy=int(out.occupancy),
+                   backlog=int(out.backlog), faulted=int(out.faulted))
+        rows.append(row)
+        print(f"{label} epoch {t:2d}: wall_s={wall:.4f} replanned={int(replanned)}"
+              f"{' cold' if replanned and cold else ''} gd_steps={steps} stage={row['stage']} "
+              f"s*={row['s']} health={row['health']} trigger={int(trigger)} "
+              f"plan_finite={finite} fallbacks={fallbacks} host_reads={reads.n} "
+              f"blocking_syncs={len(syncs)} completed={row['completed']} "
+              f"occupancy={row['occupancy']} backlog={row['backlog']} faulted={row['faulted']}")
+    return rows
+
+
+def loop_phase(dev, smi: str, model, env, errs: dict) -> None:
+    """Phase 10: the closed online loop at the paper's width (10.1-10.3) and
+    slot batching over the full-size model (10.4)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import GdConfig, channel, profiles
+    from repro_torch.faults import FaultConfig, LadderConfig
+    from repro_torch.online import OnlineLoop, ServiceConfig, StreamConfig
+    from repro_torch.planning import PlannerEngine
+    from repro_torch.scenarios import Scenario, ScenarioConfig
+
+    t_phase = time.perf_counter()
+    fault_kernel_phase(dev, env, errs)
+
+    prof = profiles.nin()
+    splits = prof.n_layers + 1
+
+    def build(degrade):
+        eng = PlannerEngine(prof, cfg=GdConfig(**LOOP_GD), sinr_backend="kernel")
+        return OnlineLoop(Scenario(ScenarioConfig(**FLEET_SCENARIO)), eng,
+                          StreamConfig(**LOOP_STREAM), ServiceConfig(**LOOP_SERVICE),
+                          feedback=True, faults=FaultConfig(**LOOP_FAULTS),
+                          degrade=degrade)
+
+    prev = channel.set_sinr_backend("kernel")
+    try:
+        # -- 10.2 the hardened loop ----------------------------------------------
+        loop = build(LadderConfig(**LOOP_LADDER))
+        print(f"loop 10.2: OnlineLoop(feedback, faults, ladder) on {FLEET_SCENARIO['name']} "
+              f"seed 0 (U={U} N={N} M={M}), NiN, GdConfig{tuple(LOOP_GD.values())}, "
+              f"kernel; {LOOP_STREAM}, {LOOP_SERVICE}, ladder {LOOP_LADDER}, faults "
+              f"{LOOP_FAULTS} | {smi}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop.reset(0)
+        torch.cuda.synchronize()
+        print(f"loop 10.2 reset (cold plan): wall_s={time.perf_counter() - t0:.4f} "
+              f"s*={int(loop._plan.s)}")
+        rows = loop_epochs(loop, LOOP_EPOCHS, "loop 10.2", splits)
+        m = loop.metrics()
+        bt = loop._bt
+        in_flight, queued = int(bt.active.sum()), int(bt.q_size)
+        conserved = m["offered"] == (m["completed"] + m["dropped"] + m["shed"] + in_flight
+                                     + queued)
+        availability = sum(r["finite"] for r in rows) / len(rows)
+        print(f"check loop 10.2 requests conserved (offered {m['offered']} = completed "
+              f"{m['completed']} + dropped {m['dropped']} + shed {m['shed']} + in flight "
+              f"{in_flight} + queued {queued}): {conserved}; every served plan finite: "
+              f"{availability == 1.0}")
+        if not conserved or availability != 1.0:
+            fail("loop 10.2: requests not conserved or a non-finite plan served")
+        walls = {k: [r["wall"] for r in rows if r["replanned"] == k] for k in (True, False)}
+        print(f"loop 10.2 metrics: goodput_per_s={m['goodput_per_s']} availability="
+              f"{availability} recoveries={m['recoveries']} bad_plans={m['bad_plans']} "
+              f"shed={m['shed']} quarantines={m['quarantines']} holds={m['holds']} "
+              f"baseline_fallbacks={m['baseline_fallbacks']} cold_replans="
+              f"{m['ladder_cold_replans']} replans={m['replans']} qos_triggers="
+              f"{m['qos_triggers']} completed={m['completed']} deadline_missed="
+              f"{m['deadline_missed']} | {smi}")
+        print(f"loop 10.2 epoch walls: replan epochs {len(walls[True])} median "
+              f"{statistics.median(walls[True]) if walls[True] else float('nan'):.4f} s, "
+              f"others {len(walls[False])} median "
+              f"{statistics.median(walls[False]) if walls[False] else float('nan'):.4f} s")
+
+        # one epoch that does not replan, under torch.profiler
+        for _ in range(3):
+            if loop.server.epoch % loop.server.replan_every:
+                break
+            loop.step_epoch()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
+            t0 = time.perf_counter()
+            loop.step_epoch()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows_k = [e for e in pr.key_averages() if e.device_type == DeviceType.CUDA]
+        busy_us = sum(e.self_device_time_total for e in rows_k)
+        if busy_us <= 0:
+            fail("loop 10.2: torch.profiler recorded no device time")
+        print(f"profile loop epoch (replanned={int(loop.server.last_replanned)}): "
+              f"wall_s={wall:.4f} device_busy_s={busy_us / 1e6:.6f} busy_share="
+              f"{busy_us / 1e6 / wall:.4f} kernel_launches={sum(e.count for e in rows_k)}")
+        for e in sorted(rows_k, key=lambda e: -e.self_device_time_total)[:8]:
+            print(f"profile loop kernel {e.self_device_time_total / 1e3:9.3f} ms "
+                  f"{e.self_device_time_total / busy_us:6.1%} {e.count:6d} launches  "
+                  f"{e.key[:80]}")
+        del pr, rows_k
+
+        # -- 10.3 the unguarded arm ---------------------------------------------
+        arm = build(None)
+        print(f"loop 10.3: the unguarded arm (degrade=None), same traffic and faults")
+        arm.reset(0)
+        rows_u = loop_epochs(arm, UNGUARDED_EPOCHS, "loop 10.3", splits)
+        mu = arm.metrics()
+        hard10 = sum(r["completed"] for r in rows[:UNGUARDED_EPOCHS])
+        print(f"loop 10.3 metrics: goodput_per_s={mu['goodput_per_s']} (hardened, "
+              f"{LOOP_EPOCHS} epochs: {m['goodput_per_s']}) availability="
+              f"{sum(r['finite'] for r in rows_u) / len(rows_u)} served a non-finite plan: "
+              f"{not all(r['finite'] for r in rows_u)} bad_plans={mu['bad_plans']} "
+              f"completed={mu['completed']} (hardened's first 10 epochs: {hard10}) | {smi}")
+    finally:
+        channel.set_sinr_backend(prev)
+    del loop, arm
+    torch.cuda.empty_cache()
+    batch_phase(dev, smi, model)
+    print(f"loop: phase 10 took {time.perf_counter() - t_phase:.1f} s | {smi}")
+
+
+def batch_phase(dev, smi: str, model) -> None:
+    """Phase 10.4: DecodeBatcher and EdgeBatcher over phase 6's model."""
+    import torch
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import noma_rates as nr
+    from repro_torch.kernels import rg_lru as rl
+    from repro_torch.models import stages_for
+    from repro_torch.online import DecodeBatcher, EdgeBatcher
+    from repro_torch.runtime import make_split_serve
+
+    arch = model.cfg
+    n_attn = sum(sp.n_layers for sp in stages_for(arch) if sp.kind == "attn")
+    n_rec = arch.n_layers - n_attn
+    b, max_len = BATCH_SLOTS, ONLINE_S + 8
+    toks = make_batch(10, 0, b, ONLINE_S, arch.vocab_size, device=dev)["tokens"]
+
+    def counted(fn):
+        for reset in (fa.reset_launches, rl.reset_launches, nr.reset_launches):
+            reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, (fa.LAUNCHES["flash_attention"],
+                                               rl.LAUNCHES["rg_lru"], sum(nr.LAUNCHES.values()))
+
+    def near(got, want, what):
+        tol = BATCH_TOL * max(1.0, float(want.abs().max()))
+        err = float((got.float() - want.float()).abs().max())
+        print(f"check {what}: max_abs_err={err:.4e} bound={tol:.4e}")
+        if not err <= tol:
+            fail(f"{what}: {err:.4e} above {tol:.4e}")
+
+    # each request served alone: its prefill and greedy decode steps
+    refs = []
+    for i in range(b):
+        logits, caches = model.prefill({"tokens": toks[i:i + 1]}, max_len)
+        steps = [logits[0]]
+        for _ in range(BATCH_STEPS):
+            tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+            logits, caches = model.decode_step(caches, tok)
+            steps.append(logits[0])
+        refs.append(steps)
+        del caches
+    db = DecodeBatcher(model, None, capacity=b, max_len=max_len)
+    print(f"loop 10.4: DecodeBatcher(capacity={b}, max_len={max_len}) over {SERVE_ARCH} "
+          f"({arch.n_layers} layers), {b} requests of {ONLINE_S} tokens | {smi}")
+    for i in range(b):
+        logits, wall, (n_fa, n_rl, n_nr) = counted(lambda i=i: db.admit(i, toks[i:i + 1]))
+        print(f"loop 10.4 admit slot {i}: wall_s={wall:.4f} launches flash_attention={n_fa} "
+              f"rg_lru={n_rl}")
+        if (n_fa, n_rl, n_nr) != (n_attn, n_rec, 0):
+            fail(f"loop 10.4 admit: {n_fa} / {n_rl} / {n_nr} launches, expected "
+                 f"{n_attn} / {n_rec} / 0")
+        near(logits, refs[i][0], f"loop 10.4 slot {i} prefill vs its own")
+
+    def slot_leaves(i):
+        out = [db.caches["pos"][i]]
+        for st in db.caches["stages"]:
+            for leaf in next(iter(st.values())).values():
+                out.append(leaf[:, i].clone())
+        return out
+
+    for k in range(BATCH_STEPS):
+        active = torch.tensor([True, True, k < 2, True], device=dev)
+        tok = torch.stack([torch.argmax(r[k]) for r in refs])[:, None].to(torch.int32)
+        frozen = slot_leaves(2) if k >= 2 else None
+        logits, wall, launched = counted(lambda: db.step(tok, active))
+        print(f"loop 10.4 decode step {k}: wall_s={wall:.4f} active={active.tolist()} "
+              f"launches={launched}")
+        if launched != (0, 0, 0):
+            fail(f"loop 10.4 decode step {k} launched kernels {launched}")
+        for i in range(b):
+            if bool(active[i]):
+                near(logits[i], refs[i][k + 1], f"loop 10.4 step {k} slot {i} vs its own")
+        if frozen is not None:
+            same = all(torch.equal(a, b_) for a, b_ in zip(frozen, slot_leaves(2)))
+            print(f"check loop 10.4 step {k}: inactive slot 2's caches unchanged: {same}")
+            if not same:
+                fail("loop 10.4: an inactive slot's caches changed")
+    del db, refs
+
+    progs = make_split_serve(model, SERVE_SPLIT)
+    acts = [progs.device_fn(toks[i:i + 1]) for i in range(b)]
+    eb = EdgeBatcher(b, ONLINE_S, arch.d_model, dtype=acts[0].dtype, device=dev)
+    buf = eb.buf
+    for i, a in enumerate(acts):
+        buf = eb.write(buf, i, a)
+    batched, wall, launched = counted(lambda: eb.run(progs.edge_fn, buf))
+    print(f"loop 10.4 EdgeBatcher.run at s={SERVE_SPLIT}: wall_s={wall:.4f} launches "
+          f"flash_attention={launched[0]} rg_lru={launched[1]}")
+    for i, a in enumerate(acts):
+        near(batched[i], progs.edge_fn(a)[0], f"loop 10.4 edge batch slot {i} vs alone")
+    del batched, acts, buf
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -2,9 +2,11 @@
 
 Turns the reference's objects, given as numpy arrays plus constants, into
 the port's: a NetworkEnv, a ModelProfile, EccWeights, a SplitPlan, a
-PlanState (one scenario's or a fleet's) and a ScenarioState, so a plan made by the
-reference can warm-start the port's replan / replan_many and a reference
-scenario can be stepped on by the port. Constants may
+PlanState (one scenario's or a fleet's), a ScenarioState, and the online
+loop's StreamState, BatchState, QosState, TelemetryState and FaultState, so
+a plan made by the reference can warm-start the port's replan /
+replan_many, a reference scenario can be stepped on by the port, and a
+reference episode stopped at epoch k can go on in the port. Constants may
 be any object with the fields of RadioConstants / ComputeConstants (the
 reference's dataclasses qualify) or a dict. No JAX here: callers convert
 their arrays with np.asarray first. to_numpy goes the other way.
@@ -25,6 +27,11 @@ from repro_torch.core.types import (
     SplitPlan,
 )
 from repro_torch.device import resolve_device
+from repro_torch.faults.injectors import FaultState
+from repro_torch.online.batcher import BatchState
+from repro_torch.online.qos import QosState
+from repro_torch.online.streams import StreamState
+from repro_torch.online.telemetry import TelemetryState
 from repro_torch.planning.engine import PlanState
 from repro_torch.scenarios.mobility import MobilityState
 from repro_torch.scenarios.scenario import ScenarioState
@@ -128,6 +135,41 @@ def scenario_state_from_numpy(pos, waypoint, ap_pos, h_up, h_dn, epoch,
         mob=MobilityState(pos=tensor(pos, device), waypoint=tensor(waypoint, device)),
         ap_pos=tensor(ap_pos, device), h_up=tensor(h_up, device),
         h_dn=tensor(h_dn, device), epoch=int(epochs[0]))
+
+
+def _named(cls, fields: dict, device):
+    """A NamedTuple of tensors from numpy fields under the tuple's names."""
+    missing = set(cls._fields) - set(fields)
+    if missing:
+        raise ValueError(f"{cls.__name__}: missing fields {sorted(missing)}")
+    return cls(*(tensor(fields[f], device) for f in cls._fields))
+
+
+def stream_state_from_numpy(session, epoch, offered, device=None) -> StreamState:
+    """A reference StreamState: the (U,) session mask, the epoch (the
+    port's draws counter, a Python int) and the offered count."""
+    return StreamState(session=tensor(session, device), epoch=int(np.asarray(epoch)),
+                       offered=tensor(offered, device))
+
+
+def batch_state_from_numpy(device=None, **fields) -> BatchState:
+    """A reference BatchState, its fields as numpy arrays under their names."""
+    return _named(BatchState, fields, device)
+
+
+def qos_state_from_numpy(device=None, **fields) -> QosState:
+    """A reference QosState, its fields as numpy arrays under their names."""
+    return _named(QosState, fields, device)
+
+
+def telemetry_state_from_numpy(device=None, **fields) -> TelemetryState:
+    """A reference TelemetryState, its fields as numpy arrays under their
+    names."""
+    return _named(TelemetryState, fields, device)
+
+
+def fault_state_from_numpy(link_down, ap_down, device=None) -> FaultState:
+    return FaultState(link_down=tensor(link_down, device), ap_down=tensor(ap_down, device))
 
 
 def _layer(tree, i: int):

@@ -19,16 +19,21 @@ Bit layout (LSB first; 0 = healthy):
   6 telemetry      this epoch's observation non-finite
   7 service        this epoch's modeled service times non-finite
 
-Bits 0-3 are planner-side (checked at replan, ``PLAN_MASK``). Bits 4-7 are
-set by the online loop's telemetry and service guards, which this package
-does not hold yet; their positions are kept so the word's layout is the
-whole layout.
+Bits 0-3 are planner-side (checked at replan, ``PLAN_MASK``); bits 4-6 are
+the telemetry-quarantine trigger (``TELEMETRY_MASK``); bit 7 is
+informational (service corruption surfaces in shedding/QoS).
 """
 from __future__ import annotations
+
+from typing import TYPE_CHECKING
 
 import torch
 
 from repro_torch.core.types import SplitPlan, Tensor
+
+if TYPE_CHECKING:  # repro_torch.online imports the loop, which imports this
+    # package back: annotation-only here keeps the import acyclic
+    from repro_torch.online.telemetry import Observation, TelemetryState
 
 HEALTH_BITS: dict[str, int] = {
     "plan_utility": 0,
@@ -42,6 +47,8 @@ HEALTH_BITS: dict[str, int] = {
 }
 
 PLAN_MASK = 0b1111
+TELEMETRY_MASK = (1 << HEALTH_BITS["profile"]) | (1 << HEALTH_BITS["kappa"]) \
+    | (1 << HEALTH_BITS["telemetry"])
 
 # The planner's packed word: health in the high bits, s* in the low 16.
 PLAN_WORD_SHIFT = 16
@@ -94,3 +101,47 @@ def split_plan_word(word: int) -> tuple[int, int]:
     w = int(word)
     return w >> PLAN_WORD_SHIFT, w & ((1 << PLAN_WORD_SHIFT) - 1)
 
+
+
+def telemetry_health(state: TelemetryState, kappa_max: float) -> Tensor:
+    """() int32 over bits 4-5: is the measured profile still a sane planner
+    operand? A kappa past ``kappa_max`` is finite but no longer a credible
+    congestion estimate (a spiked sample landed): quarantine territory."""
+    bad_prof = ~_all_finite(state.fl, state.w, state.m_down, state.rate_dn,
+                            state.r_units)
+    bad_kappa = ~(torch.isfinite(state.kappa) & (state.kappa <= kappa_max))
+    return _bit(bad_prof, "profile") | _bit(bad_kappa, "kappa")
+
+
+def observation_health(obs: Observation) -> Tensor:
+    """() int32, bit 6: this epoch's telemetry sample arrived intact."""
+    bad = ~_all_finite(obs.t_layer, obs.t_up, obs.rate_up, obs.rate_dn,
+                       obs.r_units)
+    return _bit(bad, "telemetry")
+
+
+def service_health(service: Tensor) -> Tensor:
+    """() int32, bit 7: modeled service times are finite."""
+    return _bit(~_all_finite(service), "service")
+
+
+def pack_health(*words: Tensor) -> Tensor:
+    """OR component words into the epoch's single health scalar."""
+    out = torch.zeros((), dtype=torch.int32, device=words[0].device)
+    for w in words:
+        out = out | w
+    return out
+
+
+def decode_health(word: int) -> dict[str, bool]:
+    """Host-side: name -> bit set? (metrics and debugging; takes a Python
+    int, never a device tensor)."""
+    w = int(word)
+    return {name: bool(w & (1 << bit)) for name, bit in HEALTH_BITS.items()}
+
+
+def tree_select(keep_new: Tensor, new, old):
+    """Per-leaf where over matching named tuples of tensors: the device-side
+    quarantine gate (corrupt observation -> hold the previous telemetry
+    state)."""
+    return type(new)(*(torch.where(keep_new, a, b) for a, b in zip(new, old)))

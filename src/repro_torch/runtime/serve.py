@@ -10,8 +10,9 @@ split logits equal the unsplit ones to the bit.
 
 OnlineSplitServer couples a PlannerEngine to split serving across a
 time-evolving scenario: it re-plans every epoch (or on demand) and re-cuts
-the model only when s* moves. The mesh-bound jit_* programs and the masked
-decode step wait for the port of runtime/sharding and the online batcher.
+the model only when s* moves. The mesh-bound jit_* programs wait for the
+port of runtime/sharding; the masked decode step is
+online.batcher.DecodeBatcher.
 """
 from __future__ import annotations
 
@@ -25,6 +26,14 @@ from repro_torch.faults import guards
 from repro_torch.models import Model
 from repro_torch.models.layers import COMPUTE_DTYPE, embed_lookup, logits_out
 from repro_torch.planning import WarmStateShapeError
+
+# Host reads of the plan word (one a replan) since the last reset_counts().
+COUNTS = {"host_reads": 0}
+
+
+def reset_counts() -> None:
+    for k in COUNTS:
+        COUNTS[k] = 0
 
 
 class SplitPrograms(NamedTuple):
@@ -228,6 +237,7 @@ class OnlineSplitServer:
     def _sync_plan(self, env, plan) -> tuple[int, int]:
         """The one host read a replan: (health, s). A guarded server packs
         both into one scalar on the device (faults.guards.plan_word)."""
+        COUNTS["host_reads"] += 1
         if not self.guard_plans:
             return 0, int(plan.s)
         word = guards.plan_word(plan, n_sub=env.n_sub, p_up_max=env.radio.p_up_max_w,

@@ -21,13 +21,15 @@ import numpy as np
 import torch
 
 Tensor = torch.Tensor
+# sqrt(0.5) rounded to float32 (IEEE sqrt is correctly rounded, so numpy's
+# equals the device's), computed once: no tensor is read per call.
+_SQRT_HALF = float(np.sqrt(np.float32(0.5)))
 
 
 def coeffs_from(zr: Tensor, zi: Tensor) -> Tensor:
     """CN(0, 1) coefficients from two standard-normal draws: (zr + i zi) / sqrt(2)
     in float32 parts, complex64."""
-    scale = torch.tensor(0.5, dtype=torch.float32).sqrt().item()
-    return torch.complex(zr.float() * scale, zi.float() * scale)
+    return torch.complex(zr.float() * _SQRT_HALF, zi.float() * _SQRT_HALF)
 
 
 def normal_pair(gen: torch.Generator, shape) -> tuple[Tensor, Tensor]:

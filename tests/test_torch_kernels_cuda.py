@@ -462,3 +462,85 @@ def test_compare_all_on_the_card(cuda):
         channel.set_sinr_backend(prev)
     for arm in res:
         assert torch.equal(res[arm].s.cpu(), cpu[arm].s), arm
+
+
+@pytest.mark.parametrize("u,n,m,dead", [(300, 16, 250, 3), (90, 4, 40, 0)])
+@pytest.mark.parametrize("uplink", [True, False])
+def test_kernels_on_fault_masked_gains(cuda, u, n, m, dead, uplink):
+    """The online loop's fault injection on the kernels' inputs: one AP
+    blacked out (its gains exactly 0) and about a fifth of the users faded
+    by 1e-6. Each kernel on the operands the main path gives it, forward
+    and backward, against its twin; the dead cell's intra terms are exactly
+    0 (the SIC order is strict, so an all-zero cell has no pair), and its
+    users' rates sit at the 1e-9 floor."""
+    from repro_torch.faults import FaultConfig, apply_env_faults, injectors
+    env, beta, p, cot = _inputs(u, n, m, u + dead, cuda)
+    g = torch.Generator(device=cuda).manual_seed(u)
+    faded = torch.rand(u, device=cuda, generator=g) < 0.2
+    rates = FaultConfig(link_outage_rate=0.2, ap_outage_rate=0.05).rates(cuda)
+    draw = injectors.FaultDraw(link_down=faded, ap_down=torch.arange(n, device=cuda) == dead,
+                               tel_drop=torch.tensor(False, device=cuda),
+                               tel_spike=torch.tensor(False, device=cuda),
+                               svc_mult=torch.ones(u, device=cuda))
+    menv = apply_env_faults(env, draw, rates)
+    in_dead = menv.ap == dead
+    assert bool(in_dead.any())
+    own, g_raw, ap = ops._inputs(menv, uplink)
+    tx = (beta * p[:, None]).contiguous()
+    w_fwd = (tx * own).contiguous() if uplink else tx
+    for w, desc in ((w_fwd, uplink), (cot[0], not uplink)):
+        got = nr.noma_cell_intra_dense(own, own, w, ap, ap, n, desc)
+        _close(got, nr.noma_cell_intra_dense_plain(own, own, w, ap, ap, n, desc),
+               nr.noma_cell_intra_dense_plain(own, own, w.abs(), ap, ap, n, desc))
+        assert bool((got[in_dead] == 0).all())
+    for w, per_ap in ((tx, uplink), (cot[1].contiguous(), not uplink)):
+        if per_ap:
+            _close(nr.noma_per_ap(ap, w, g_raw, uplink), nr.noma_per_ap_plain(ap, w, g_raw, uplink),
+                   nr.noma_per_ap_plain(ap, w.abs(), g_raw, uplink))
+        else:
+            tab = nr.segment_table(w, ap, n)
+            _close(nr.noma_ap_contract(ap, tab, g_raw, uplink),
+                   nr.noma_ap_contract_plain(ap, tab, g_raw, uplink),
+                   nr.noma_ap_contract_plain(ap, nr.segment_table(w.abs(), ap, n), g_raw, uplink))
+    r = (channel.uplink_rates if uplink else channel.downlink_rates)(menv, beta, p,
+                                                                     backend="kernel")
+    r = torch.clamp_min(r.sum(-1), 1e-9)
+    assert bool(torch.isfinite(r).all()) and bool((r[in_dead] == r.new_tensor(1e-9)).all())
+
+
+def test_online_loop_on_the_card(cuda):
+    """A hardened OnlineLoop with the chaos mix on the card (U=48): each
+    epoch launches the service model's two rate evaluations (2 / 1 / 1)
+    plus a fallback's and a replan's, every served plan is finite, and the
+    epoch's draws live on the card."""
+    from repro_torch.faults import FaultConfig, LadderConfig
+    from repro_torch.online import OnlineLoop, ServiceConfig, StreamConfig
+    from repro_torch.online import loop as looplib
+    from repro_torch.scenarios import Scenario, ScenarioConfig
+    eng = PlannerEngine(profiles.nin(), cfg=GdConfig(step_size=3e-2, eps=1e-4, max_iters=40,
+                                                     optimizer="adam"), sinr_backend="kernel")
+    loop = OnlineLoop(Scenario(ScenarioConfig(n_users=48, n_aps=4, n_sub=16, fading_rho=0.95)),
+                      eng, StreamConfig(arrival_rate_hz=3.0, epoch_dt_s=0.02, deadline_s=0.2),
+                      ServiceConfig(edge_capacity=4, queue_depth=16, load_gain=4.0,
+                                    replan_every=3, max_work_epochs=200),
+                      faults=FaultConfig(link_outage_rate=0.2, ap_outage_rate=0.05,
+                                         telemetry_drop_rate=0.1, service_spike_rate=0.02),
+                      degrade=LadderConfig())
+    prev = channel.set_sinr_backend("kernel")
+    try:
+        loop.reset(1)
+        assert loop.epoch_draws(0)["fault"]["link_fail"].device == cuda
+        for _ in range(8):
+            nr.reset_launches()
+            fb = looplib.COUNTS["fallback_plans"]
+            loop.step_epoch()
+            torch.cuda.synchronize()
+            evals = 1 + looplib.COUNTS["fallback_plans"] - fb
+            if not loop.server.last_replanned:
+                assert dict(nr.LAUNCHES) == {"noma_cell_intra": 2 * evals,
+                                             "noma_per_ap": evals, "noma_ap_contract": evals}
+            assert bool(torch.isfinite(loop._plan.utility))
+    finally:
+        channel.set_sinr_backend(prev)
+    m = loop.metrics()
+    assert m["epochs"] == 8 and m["offered"] >= m["completed"]
