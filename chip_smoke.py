@@ -5,6 +5,9 @@
 
 Phases, each fatal on failure (no phase catches its own error):
   1. device   -- the card's name, and its name and power limit from nvidia-smi;
+                 memory that another process still holds on the card (one
+                 that is ending, say) is waited for, up to MEMORY_WAIT_S,
+                 until the script's peak fits beside it;
   2. build    -- compile the CUDA kernels from src/repro_torch/kernels/csrc;
   3. kernels  -- every kernel against its plain PyTorch twin at the paper's
                  scale (U=1250 users, N=16 APs, M=250 subchannels): both links,
@@ -72,7 +75,8 @@ Phases, each fatal on failure (no phase catches its own error):
                  against Device-Only, s*, wall);
   9. online   -- an OnlineSplitServer over recurrentgemma-9b at full width and
                  depth (phase 6's model) planning on the arch's profile on a
-                 Scenario at the paper's width: 3 scheduled epochs, a forced
+                 Scenario at the paper's width, with phase 4's GdConfig cut to
+                 max_iters 60: 3 scheduled epochs, a forced
                  epoch with a measured profile that moves s*, a NaN profile
                  (rejected, the last good plan held) and a user-count change
                  (cold reset); exact NOMA launch counts around each replan,
@@ -89,11 +93,32 @@ Phases, each fatal on failure (no phase catches its own error):
                  counts and host reads each epoch and every served plan
                  finite, requests conserved, one non-replan epoch under
                  torch.profiler; 10.3 the unguarded arm on the same traffic
-                 and faults for 10 epochs (launch counts gated only); 10.4
+                 and faults for 6 epochs (launch counts gated only); 10.4
                  DecodeBatcher and EdgeBatcher over phase 6's model: 12 / 26
                  launches an admission, none a decode step, a masked slot's
                  caches frozen, logits within 0.05 * max(1, max |logits|) of
-                 each request's own serving.
+                 each request's own serving;
+ 11. durable  -- durable serving (repro_torch.state) around the hardened loop
+                 at the recovery benchmark's operating point
+                 (benchmarks/recovery_serve.py) at U=1250, 24 epochs, a
+                 snapshot every 6, a crash before epoch 16: 11.1 two
+                 crash-free episodes (bare; asynchronous snapshots and a
+                 flight recorder) bit-equal leaf for leaf, with the
+                 snapshot's bytes, capture and write times and overhead;
+                 11.2 the crash and a durable resume, bit-equal to them,
+                 recovery within the cadence, the history rewound, exact
+                 launches and host reads in the re-executed epochs as in
+                 the original ones; 11.3 the no-checkpoint arm (a cold
+                 restart, the same goodput), goodput per wall second of
+                 both arms; 11.4 integrity: a flipped byte in the newest
+                 snapshot escalates to the previous one, all corrupt
+                 cold-starts, another configuration is refused by
+                 fingerprint, a stored leaf of the wrong dtype or shape is
+                 refused before anything loads; 11.5 replay of 11.2's
+                 journal without divergence, a tampered word caught, a
+                 torn tail read clean=False; 11.6 DecodeBatcher cache
+                 export / import over phase 6's model, the same decode
+                 steps bit-equal after the import.
 The last lines are the kernels JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
@@ -158,6 +183,12 @@ FLEET_SCENARIO = dict(n_users=1250, n_aps=16, n_sub=250, epoch_dt_s=0.01, dopple
 # per_ap up, per_ap dn, contract. Printed beside this run's.
 BEFORE_MEMBER_DIM_MS = {"noma_cell_intra": 0.027266, "noma_per_ap": 0.012206,
                         "noma_per_ap dn": 0.011464, "noma_ap_contract": 0.010245}
+# The script's peak in PyTorch's allocator is phase 6's, 53.8 GiB reserved on
+# an H100 80GB (19 GB of bf16 weights beside the split and the unsplit forward's
+# float32 logits, 12.6 GB each; printed at the end, by phase). With the CUDA
+# context and a margin it needs this much free at the start.
+MEMORY_NEED_BYTES = 56 << 30
+MEMORY_WAIT_S = 300.0              # the script takes 520-710 s of its 1200
 SERVE_ARCH = "recurrentgemma-9b"
 SERVE_B, SERVE_S = 4, 3072         # 4 requests of 3072 tokens
 SERVE_SPLIT = 19                   # the second split point held to the bit
@@ -168,8 +199,11 @@ ARMS = ("ecc_noma", "ecc_oma", "device_only", "edge_only", "neurosurgeon", "dnn_
 # NOMA launches of one forward evaluation of the rates (user_rates): the
 # uplink's intra and per_ap, the downlink's intra and contract.
 FORWARD_EVAL_LAUNCHES = {"noma_cell_intra": 2, "noma_per_ap": 1, "noma_ap_contract": 1}
-# Phase 9: tokens of the request served after each re-cut.
+# Phase 9: tokens of the request served after each re-cut, and the server's
+# GD cap (phase 4's GdConfig cut to the closed loop's max_iters: the NaN
+# epoch runs every one of the 39 splits to the cap).
 ONLINE_S = 512
+ONLINE_MAX_ITERS = 60
 # Phase 10: the closed online loop at the paper's width, the chaos
 # benchmark's operating point (benchmarks/chaos_serve.py: 6 users x 30 Hz x
 # 0.02 s = 3.6 requests an epoch) with the population raised to U=1250, so
@@ -181,12 +215,20 @@ LOOP_SERVICE = dict(edge_capacity=4, queue_depth=32, load_gain=4.0, replan_every
 LOOP_LADDER = dict(quarantine_epochs=15, baseline_after=2)
 LOOP_FAULTS = dict(link_outage_rate=0.2, fade_depth=1e-6, ap_outage_rate=0.05,
                    telemetry_drop_rate=0.1, telemetry_spike_rate=0.05, service_spike_rate=0.02)
-LOOP_EPOCHS, UNGUARDED_EPOCHS = 20, 10
+LOOP_EPOCHS, UNGUARDED_EPOCHS = 20, 6
 # 10.1: the AP blacked out and the share of users faded by 1e-6.
 DEAD_AP, FADED_SHARE = 3, 0.2
 # 10.4: slot batching over phase 6's model; logits within the JAX package's
 # bound 0.05 * max(1, max |logits|) of each request's own serving.
 BATCH_SLOTS, BATCH_STEPS, BATCH_TOL = 4, 4, 0.05
+# Phase 11: durable serving at the recovery benchmark's operating point
+# (benchmarks/recovery_serve.py: phase 10's stream, service and ladder, its
+# own fault mix, seed 7) at U=1250; cut in depth to 24 epochs, a snapshot
+# every 6 (3 kept), a crash before epoch 16.
+DURABLE_FAULTS = dict(link_outage_rate=0.1, fade_depth=1e-6, ap_outage_rate=0.02,
+                      telemetry_drop_rate=0.05, service_spike_rate=0.02)
+DURABLE_SEED, DURABLE_EPOCHS, DURABLE_EVERY, DURABLE_CRASH = 7, 24, 6, 16
+DURABLE_TAMPER_T = 3               # the journal epoch whose word 11.5 flips
 # TPU kernel each CUDA kernel replaces, and its source in this repo.
 NOMA_SOURCE = "src/repro_torch/kernels/csrc/noma_rates.cu"
 TPU_KERNELS = {
@@ -208,6 +250,29 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def wait_for_memory(torch) -> None:
+    """Wait, at most MEMORY_WAIT_S, until MEMORY_NEED_BYTES of the card are
+    free: a process that is ending may still hold most of its memory. Go on
+    after the wait either way, and say what was found."""
+    t0 = time.perf_counter()
+    free, total = torch.cuda.mem_get_info()
+    first = free
+    while free < MEMORY_NEED_BYTES and time.perf_counter() - t0 < MEMORY_WAIT_S:
+        time.sleep(2.0)
+        free, total = torch.cuda.mem_get_info()
+    waited = time.perf_counter() - t0
+    note = "" if free >= MEMORY_NEED_BYTES else (
+        f"; still short of the {MEMORY_NEED_BYTES / 2**30:.0f} GiB the script needs")
+    print(f"memory: {first / 2**30:.2f} GiB free of {total / 2**30:.2f} GiB at the start, "
+          f"{free / 2**30:.2f} GiB after {waited:.1f} s{note}")
+
+
+def memory_mark(torch, label: str, peaks: dict) -> None:
+    """Keep the allocator's peak reserve since the last mark under label."""
+    peaks[label] = torch.cuda.max_memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
 
 
 def row_scale(want):
@@ -332,6 +397,8 @@ def main() -> int:
     # -- 1. device ------------------------------------------------------------
     print(f"device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
+    wait_for_memory(torch)
+    peaks: dict = {}
 
     # -- 2. build: one nvcc per source, all at once ---------------------------
     t0 = time.perf_counter()
@@ -564,6 +631,7 @@ def main() -> int:
     del g_ups, g_dns, timing, mask
     torch.cuda.empty_cache()
 
+    memory_mark(torch, "1-3", peaks)
     # -- 4. the main path ------------------------------------------------------
     prof = profiles.nin()
     eng = PlannerEngine(prof, cfg=GdConfig(optimizer="adam", max_iters=MAX_ITERS),
@@ -646,6 +714,7 @@ def main() -> int:
     for k, gk in zip(li_gd.KEYS, vals["kernel"][1]):
         check(f"d utility/d {k} kernel vs einsum", gk, g_e[k], PATH_RTOL, scales[k])
 
+    memory_mark(torch, "4", peaks)
     # -- 5. where the time goes: 40 GD steps under torch.profiler -------------
     # A window of the step that dominates the path (a full replan yields
     # ~0.5 M kernel events, minutes of profiler post-processing).
@@ -678,31 +747,44 @@ def main() -> int:
     del prof, rows_k
     torch.cuda.empty_cache()
 
+    memory_mark(torch, "5", peaks)
     # -- 6. serve recurrentgemma-9b --------------------------------------------
     serve_rows, serve_launches, model = serve_phase(dev, kind, smi, errs)
     rows.update(serve_rows)
     launches.update(serve_launches)
 
+    memory_mark(torch, "6", peaks)
     # -- 7. a fleet ------------------------------------------------------------
     fleet_rows = fleet_phase(dev, smi, rows, eng.cfg)
     for name, fr in fleet_rows.items():
         rows[name].update(fr)
 
+    memory_mark(torch, "7", peaks)
     # -- 8. the paper's comparison arms ---------------------------------------
     compare_phase(env, smi)
 
+    memory_mark(torch, "8", peaks)
     # -- 9. the online split server over phase 6's model ----------------------
     online_phase(dev, smi, model, eng.cfg)
 
+    memory_mark(torch, "9", peaks)
     # -- 10. the closed online loop -------------------------------------------
     loop_phase(dev, smi, model, env, errs)
+
+    memory_mark(torch, "10", peaks)
+    # -- 11. durable serving ---------------------------------------------------
+    durable_phase(dev, smi, model)
     del model
     torch.cuda.empty_cache()
 
+    memory_mark(torch, "11", peaks)
+    print("memory: peak reserved by phase (GiB): " + ", ".join(
+        f"{k} {v / 2**30:.2f}" for k, v in peaks.items()))
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": tpu,
                 "launches": launches[name], "max_abs_err": errs[name], **rows[name]}
                for name, (tpu, src) in TPU_KERNELS.items()]
-    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all | {smi}")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, peak "
+          f"{max(peaks.values()) / 2**30:.2f} GiB reserved | {smi}")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1391,6 +1473,7 @@ def online_phase(dev, smi: str, model, cfg) -> None:
 
     arch = configs.get(SERVE_ARCH)
     prof = profiles.from_arch_config(arch, seq=SERVE_S, batch=SERVE_B)
+    cfg = dataclasses.replace(cfg, max_iters=ONLINE_MAX_ITERS)
     eng = PlannerEngine(prof, cfg=cfg, sinr_backend="kernel")
     srv = OnlineSplitServer(eng, model=model, replan_every=1)
     splits = prof.n_layers + 1
@@ -1597,8 +1680,19 @@ class HostReads:
 
 
 def loop_epochs(loop, n_epochs: int, label: str, splits: int) -> list:
-    """Drive n_epochs of an OnlineLoop, gating each epoch's NOMA launches and
-    host reads exactly; returns one row of host-side readings an epoch."""
+    """Drive n_epochs of an OnlineLoop through gated_epoch; returns one row
+    of host-side readings an epoch."""
+    rows = []
+    for _ in range(n_epochs):
+        rows.append(gated_epoch(loop, label, splits)[2])
+    return rows
+
+
+def gated_epoch(loop, label: str, splits: int, step=None) -> tuple:
+    """One epoch of an OnlineLoop (``step``: its step_epoch, by default the
+    loop's own), gating its NOMA launches and host reads exactly (an
+    attached flight recorder reads one word more); returns (out, trigger,
+    row of host-side readings)."""
     import warnings
 
     import torch
@@ -1607,64 +1701,65 @@ def loop_epochs(loop, n_epochs: int, label: str, splits: int) -> list:
     from repro_torch.online import loop as looplib
     from repro_torch.runtime import serve
 
-    rows = []
     hardened = loop.ladder is not None
-    for _ in range(n_epochs):
-        prev_state = loop.server.state
-        cold0 = loop.ladder.cold_replans if hardened else 0
-        before = (dict(li_gd.COUNTS), dict(looplib.COUNTS), dict(serve.COUNTS))
-        torch.cuda.synchronize()
-        nr.reset_launches()
-        t0 = time.perf_counter()
-        with warnings.catch_warnings(record=True) as syncs, HostReads() as reads:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                out, trigger = loop.step_epoch()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        steps = li_gd.COUNTS["steps"] - before[0]["steps"]
-        gd_reads = li_gd.COUNTS["host_reads"] - before[0]["host_reads"]
-        loop_reads = looplib.COUNTS["host_reads"] - before[1]["host_reads"]
-        fallbacks = looplib.COUNTS["fallback_plans"] - before[1]["fallback_plans"]
-        plan_reads = serve.COUNTS["host_reads"] - before[2]["host_reads"]
-        replanned = loop.server.last_replanned
-        cold = prev_state is None or (hardened and loop.ladder.cold_replans > cold0)
-        # the service model's two rate evaluations, each fallback plan's
-        # pricing, and a replan's solve (a cold plan evaluates once a split;
-        # a warm one adds two warm probes; two discrete evaluations)
-        want = {k: n * (1 + fallbacks) for k, n in FORWARD_EVAL_LAUNCHES.items()}
-        if replanned:
-            solve = plan_launches(steps, (1 if cold else 3) * splits + 2)
-            want = {k: want[k] + solve[k] for k in want}
-        got = dict(nr.LAUNCHES)
-        budget = 1 + hardened
-        t = loop.host_epoch - 1
-        if got != want:
-            fail(f"{label} epoch {t}: NOMA launches {got}, expected {want}")
-        if loop_reads != budget or plan_reads != int(replanned):
-            fail(f"{label} epoch {t}: {loop_reads} loop reads and {plan_reads} plan words, "
-                 f"expected {budget} and {int(replanned)}")
-        if reads.n != loop_reads + plan_reads + gd_reads:
-            fail(f"{label} epoch {t}: {reads.n} host reads of device values, expected "
-                 f"{loop_reads} (loop) + {plan_reads} (plan word) + {gd_reads} (GD stop flags)")
-        finite = bool(torch.isfinite(loop._plan.utility))
-        row = dict(epoch=t, wall=wall, replanned=replanned, cold=cold, steps=steps,
-                   stage=loop.ladder.stage if hardened else "-", s=int(loop._plan.s),
-                   health=int(out.health), trigger=trigger, finite=finite,
-                   fallbacks=fallbacks, reads=reads.n, syncs=len(syncs),
-                   completed=int(out.completed), occupancy=int(out.occupancy),
-                   backlog=int(out.backlog), faulted=int(out.faulted))
-        rows.append(row)
-        print(f"{label} epoch {t:2d}: wall_s={wall:.4f} replanned={int(replanned)}"
-              f"{' cold' if replanned and cold else ''} gd_steps={steps} stage={row['stage']} "
-              f"s*={row['s']} health={row['health']} trigger={int(trigger)} "
-              f"plan_finite={finite} fallbacks={fallbacks} host_reads={reads.n} "
-              f"blocking_syncs={len(syncs)} completed={row['completed']} "
-              f"occupancy={row['occupancy']} backlog={row['backlog']} faulted={row['faulted']}")
-    return rows
+    recorded = loop._recorder is not None
+    prev_state = loop.server.state
+    cold0 = loop.ladder.cold_replans if hardened else 0
+    before = (dict(li_gd.COUNTS), dict(looplib.COUNTS), dict(serve.COUNTS))
+    torch.cuda.synchronize()
+    nr.reset_launches()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as syncs, HostReads() as reads:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out, trigger = (step or loop.step_epoch)()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = li_gd.COUNTS["steps"] - before[0]["steps"]
+    gd_reads = li_gd.COUNTS["host_reads"] - before[0]["host_reads"]
+    loop_reads = looplib.COUNTS["host_reads"] - before[1]["host_reads"]
+    rec_reads = looplib.COUNTS["recorder_reads"] - before[1]["recorder_reads"]
+    fallbacks = looplib.COUNTS["fallback_plans"] - before[1]["fallback_plans"]
+    plan_reads = serve.COUNTS["host_reads"] - before[2]["host_reads"]
+    replanned = loop.server.last_replanned
+    cold = prev_state is None or (hardened and loop.ladder.cold_replans > cold0)
+    # the service model's two rate evaluations, each fallback plan's
+    # pricing, and a replan's solve (a cold plan evaluates once a split;
+    # a warm one adds two warm probes; two discrete evaluations)
+    want = {k: n * (1 + fallbacks) for k, n in FORWARD_EVAL_LAUNCHES.items()}
+    if replanned:
+        solve = plan_launches(steps, (1 if cold else 3) * splits + 2)
+        want = {k: want[k] + solve[k] for k in want}
+    got = dict(nr.LAUNCHES)
+    budget = 1 + hardened
+    t = loop.host_epoch - 1
+    if got != want:
+        fail(f"{label} epoch {t}: NOMA launches {got}, expected {want}")
+    if loop_reads != budget or plan_reads != int(replanned) or rec_reads != int(recorded):
+        fail(f"{label} epoch {t}: {loop_reads} loop reads, {plan_reads} plan words and "
+             f"{rec_reads} recorder words, expected {budget}, {int(replanned)} and "
+             f"{int(recorded)}")
+    if reads.n != loop_reads + plan_reads + gd_reads + rec_reads:
+        fail(f"{label} epoch {t}: {reads.n} host reads of device values, expected "
+             f"{loop_reads} (loop) + {plan_reads} (plan word) + {gd_reads} (GD stop flags) "
+             f"+ {rec_reads} (recorder)")
+    finite = bool(torch.isfinite(loop._plan.utility))
+    row = dict(epoch=t, wall=wall, replanned=replanned, cold=cold, steps=steps,
+               stage=loop.ladder.stage if hardened else "-", s=int(loop._plan.s),
+               health=int(out.health), trigger=trigger, finite=finite,
+               fallbacks=fallbacks, reads=reads.n, syncs=len(syncs),
+               completed=int(out.completed), occupancy=int(out.occupancy),
+               backlog=int(out.backlog), faulted=int(out.faulted))
+    print(f"{label} epoch {t:2d}: wall_s={wall:.4f} replanned={int(replanned)}"
+          f"{' cold' if replanned and cold else ''} gd_steps={steps} stage={row['stage']} "
+          f"s*={row['s']} health={row['health']} trigger={int(trigger)} "
+          f"plan_finite={finite} fallbacks={fallbacks} host_reads={reads.n} "
+          f"blocking_syncs={len(syncs)} completed={row['completed']} "
+          f"occupancy={row['occupancy']} backlog={row['backlog']} faulted={row['faulted']}")
+    return out, trigger, row
 
 
 def loop_phase(dev, smi: str, model, env, errs: dict) -> None:
@@ -1768,7 +1863,8 @@ def loop_phase(dev, smi: str, model, env, errs: dict) -> None:
               f"{LOOP_EPOCHS} epochs: {m['goodput_per_s']}) availability="
               f"{sum(r['finite'] for r in rows_u) / len(rows_u)} served a non-finite plan: "
               f"{not all(r['finite'] for r in rows_u)} bad_plans={mu['bad_plans']} "
-              f"completed={mu['completed']} (hardened's first 10 epochs: {hard10}) | {smi}")
+              f"completed={mu['completed']} (hardened's first {UNGUARDED_EPOCHS} epochs: "
+              f"{hard10}) | {smi}")
     finally:
         channel.set_sinr_backend(prev)
     del loop, arm
@@ -1872,6 +1968,400 @@ def batch_phase(dev, smi: str, model) -> None:
     for i, a in enumerate(acts):
         near(batched[i], progs.edge_fn(a)[0], f"loop 10.4 edge batch slot {i} vs alone")
     del batched, acts, buf
+    torch.cuda.empty_cache()
+
+
+def durable_phase(dev, smi: str, model) -> None:
+    """Phase 11: snapshots, crash supervision, integrity and replay around
+    the hardened loop at U=1250 (11.1-11.5); cache export / import over the
+    full-size model (11.6). Snapshots go to a temporary directory removed
+    at the end."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.core import GdConfig, channel, profiles
+    from repro_torch.core.types import tree_flatten
+    from repro_torch.faults import FaultConfig, LadderConfig
+    from repro_torch.online import OnlineLoop, ServiceConfig, StreamConfig
+    from repro_torch.planning import PlannerEngine
+    from repro_torch.scenarios import Scenario, ScenarioConfig
+    from repro_torch.state import (
+        CrashSupervisor,
+        FlightRecorder,
+        SimulatedCrash,
+        SnapshotConfig,
+        SnapshotIntegrityError,
+        SnapshotStore,
+        list_snapshots,
+        load_snapshot,
+        read_journal,
+        replay,
+    )
+    from repro_torch.state import snapshot as snaplib
+
+    t_phase = time.perf_counter()
+    prof = profiles.nin()
+    splits = prof.n_layers + 1
+    rows: dict[str, list] = {}
+    snap_cfg = SnapshotConfig(every=DURABLE_EVERY, keep_n=3, asynchronous=True)
+
+    def build(stream=None):
+        eng = PlannerEngine(prof, cfg=GdConfig(**LOOP_GD), sinr_backend="kernel")
+        return OnlineLoop(Scenario(ScenarioConfig(**FLEET_SCENARIO)), eng,
+                          StreamConfig(**(stream or LOOP_STREAM)),
+                          ServiceConfig(**LOOP_SERVICE), feedback=True,
+                          faults=FaultConfig(**DURABLE_FAULTS),
+                          degrade=LadderConfig(**LOOP_LADDER))
+
+    def factory(label: str):
+        """Loops whose every epoch runs through gated_epoch (exact launches
+        and host reads), its row kept under ``label``."""
+        def make():
+            loop = build()
+            step = loop.step_epoch
+
+            def gated(draws=None):
+                out, trigger, row = gated_epoch(loop, label, splits, step)
+                rows.setdefault(label, []).append(row)
+                return out, trigger
+            loop.step_epoch = gated
+            return loop
+        return make
+
+    def crash_once(at: int):
+        armed = [True]
+
+        def chaos(next_epoch: int) -> None:
+            if next_epoch == at and armed[0]:
+                armed[0] = False
+                raise SimulatedCrash(f"injected kill before epoch {at}")
+        return chaos
+
+    def state_of(loop) -> tuple:
+        dev_tree, host = loop.serving_state()
+        flat, treedef = tree_flatten(dev_tree)
+        return str(treedef), flat, json.loads(json.dumps(host))
+
+    def differ(a: tuple, b: tuple) -> list:
+        """Leaves (and parts) of two serving states that are not equal:
+        tensors torch.equal with equal dtypes, scalars, the host dicts."""
+        bad = [] if a[0] == b[0] and len(a[1]) == len(b[1]) else ["structure"]
+        for i, (x, y) in enumerate(zip(a[1], b[1])):
+            if isinstance(x, torch.Tensor):
+                ok = x.dtype == y.dtype and torch.equal(x, y)
+            else:
+                ok = type(x) is type(y) and x == y
+            if not ok:
+                bad.append(i)
+        return bad + ([] if a[2] == b[2] else ["host"])
+
+    def same_history(a: dict, b: dict) -> bool:
+        def eq(x, y):
+            return x == y or (isinstance(x, float) and isinstance(y, float) and x != x
+                              and y != y)
+        return a.keys() == b.keys() and all(
+            len(a[k]) == len(b[k]) and all(eq(x, y) for x, y in zip(a[k], b[k])) for k in a)
+
+    def run(sup, label, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = sup.run(DURABLE_SEED, DURABLE_EPOCHS, record=True, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        print(f"durable {label}: wall_s={wall:.4f} goodput={m['goodput']} "
+              f"goodput_per_wall_s={m['goodput'] / wall:.4f} restarts={m['restarts']} "
+              f"cold_restarts={m['cold_restarts']} restored_from={m['restored_from']} "
+              f"recovery_epochs={m['supervisor_recovery_epochs']} corrupt_snapshots="
+              f"{m['corrupt_snapshots']} snapshots_saved={m['snapshots_saved']} "
+              f"completed={m['completed']} replans={m['replans']} | {smi}")
+        return m, wall
+
+    def flip_byte(path: str) -> None:
+        with open(path, "r+b") as f:
+            f.seek(os.path.getsize(path) // 2)
+            b = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([b[0] ^ 0xFF]))
+
+    td = tempfile.mkdtemp(prefix="chip_smoke_durable_")
+    prev = channel.set_sinr_backend("kernel")
+    try:
+        print(f"durable 11: CrashSupervisor over OnlineLoop(feedback, faults, ladder) on "
+              f"{FLEET_SCENARIO['name']} seed {DURABLE_SEED} (U={U} N={N} M={M}), NiN, "
+              f"GdConfig{tuple(LOOP_GD.values())}, kernel; {LOOP_STREAM}, {LOOP_SERVICE}, "
+              f"ladder {LOOP_LADDER}, faults {DURABLE_FAULTS}; {DURABLE_EPOCHS} epochs, "
+              f"snapshot every {DURABLE_EVERY}, crash before epoch {DURABLE_CRASH} | {smi}")
+        # -- 11.1 determinism and the snapshot tax ----------------------------
+        sup0 = CrashSupervisor(factory("durable 11.1 bare"))
+        m_bare, wall_bare = run(sup0, "11.1 bare")
+        bare = state_of(sup0.loop)
+        del sup0
+        snaplib.reset_counts()
+        store1 = SnapshotStore(os.path.join(td, "snaps_11_1"), snap_cfg)
+        rec1 = FlightRecorder(os.path.join(td, "flight_11_1.jsonl"))
+        sup1 = CrashSupervisor(factory("durable 11.1 snapshots"), store=store1, recorder=rec1)
+        m_snap, wall_snap = run(sup1, "11.1 snapshots + recorder")
+        store1.wait()
+        rec1.close()
+        snapped = state_of(sup1.loop)
+        del sup1
+        bad = differ(snapped, bare)
+        n_bytes = snaplib.COUNTS["bytes"] // max(snaplib.COUNTS["captures"], 1)
+        overhead = 100.0 * (wall_snap - wall_bare) / wall_bare
+        on_thread = 100.0 * sum(store1.capture_s) / wall_bare
+        print(f"check durable 11.1 two crash-free episodes bit-equal ({len(bare[1])} leaves, "
+              f"host dicts, histories): "
+              f"{not bad and same_history(m_snap['history'], m_bare['history'])}"
+              f"{'' if not bad else f' (differ: {bad[:8]})'}")
+        if bad or not same_history(m_snap["history"], m_bare["history"]):
+            fail(f"durable 11.1: the two crash-free episodes differ at leaves {bad[:8]}")
+        print(f"durable 11.1 snapshot tax: {snaplib.COUNTS['captures']} snapshots of "
+              f"{n_bytes} bytes ({n_bytes / 2**20:.2f} MiB), capture_s="
+              f"{[round(x, 4) for x in store1.capture_s]} write_s="
+              f"{[round(x, 4) for x in store1.write_s]}, wall bare {wall_bare:.4f} s, with "
+              f"snapshots + recorder {wall_snap:.4f} s, overhead {overhead:.2f} % (the "
+              f"captures on the loop's thread: {on_thread:.3f} % of the bare wall) | {smi}")
+
+        # -- 11.2 crash and durable resume ------------------------------------
+        store2 = SnapshotStore(os.path.join(td, "snaps"), snap_cfg)
+        journal = os.path.join(td, "flight.jsonl")
+        rec2 = FlightRecorder(journal)
+        sup2 = CrashSupervisor(factory("durable 11.2"), store=store2, recorder=rec2)
+        m2, wall2 = run(sup2, "11.2 durable arm", chaos=crash_once(DURABLE_CRASH))
+        store2.wait()
+        rec2.close()
+        bad = differ(state_of(sup2.loop), bare)
+        r2 = rows["durable 11.2"]
+        cut = next(i for i in range(1, len(r2)) if r2[i]["epoch"] <= r2[i - 1]["epoch"])
+        orig, again = r2[:cut], r2[cut:]
+        keys = ("steps", "s", "health", "trigger", "replanned", "stage", "completed",
+                "occupancy", "backlog", "faulted", "reads")
+        same_rows = all({k: a[k] for k in keys} == {k: b[k] for k in keys}
+                        for a in orig for b in again if a["epoch"] == b["epoch"])
+        ok = (not bad and sup2.restarts == 1 and sup2.cold_restarts == 0
+              and sup2.restored_from == [2 * DURABLE_EVERY]
+              and sup2.recovery_epochs == DURABLE_CRASH - 1 - 2 * DURABLE_EVERY
+              and sup2.recovery_epochs <= DURABLE_EVERY
+              and all(len(c) == DURABLE_EPOCHS for c in m2["history"].values())
+              and same_history(m2["history"], m_bare["history"])
+              and [r["epoch"] for r in again] == list(range(2 * DURABLE_EVERY, DURABLE_EPOCHS))
+              and same_rows)
+        print(f"check durable 11.2 resume bit-equal to 11.1 and recovery within the cadence "
+              f"(restored from {sup2.restored_from}, {sup2.recovery_epochs} epochs re-executed, "
+              f"history of {len(m2['history']['s'])} epochs equal to 11.1's, re-executed "
+              f"epochs {again[0]['epoch']}-{again[-1]['epoch']} launch- and read-gated, "
+              f"those run twice read the same): {ok}{'' if not bad else f' (differ: {bad[:8]})'}")
+        if not ok:
+            fail("durable 11.2: the durable resume is not bit-exact or its accounting is off")
+        print(f"durable 11.2 restore: load_snapshot_s={[round(x, 4) for x in store2.restore_s]} "
+              f"recovery_s (new loop, reset, restore)={[round(x, 4) for x in sup2.recover_s]}; "
+              f"snapshots at {list_snapshots(store2.directory)}; capture_s="
+              f"{[round(x, 4) for x in store2.capture_s]} write_s="
+              f"{[round(x, 4) for x in store2.write_s]} | {smi}")
+
+        # -- 11.3 the no-checkpoint arm ---------------------------------------
+        sup3 = CrashSupervisor(factory("durable 11.3"))
+        m3, wall3 = run(sup3, "11.3 no-checkpoint arm", chaos=crash_once(DURABLE_CRASH))
+        bad = differ(state_of(sup3.loop), bare)
+        ok = (not bad and sup3.cold_restarts == 1 and sup3.restored_from == [0]
+              and sup3.recovery_epochs == DURABLE_CRASH - 1 and m3["goodput"] == m2["goodput"])
+        print(f"check durable 11.3 cold restart ({sup3.recovery_epochs} epochs re-executed), "
+              f"goodput {m3['goodput']} equal to 11.2's {m2['goodput']}, final state bit-equal: "
+              f"{ok}")
+        if not ok:
+            fail("durable 11.3: the no-checkpoint arm did not cold-start to the same episode")
+        print(f"durable 11.3 goodput per wall second: durable {m2['goodput'] / wall2:.4f} "
+              f"({wall2:.4f} s), no-checkpoint {m3['goodput'] / wall3:.4f} ({wall3:.4f} s), "
+              f"crash-free {m_bare['goodput'] / wall_bare:.4f} ({wall_bare:.4f} s) | {smi}")
+        del sup2, sup3
+
+        # -- 11.4 integrity ------------------------------------------------------
+        # Cases on files: 11.2's snapshots themselves (11.5 needs only its
+        # journal), and directories of meta.json copies beside leaves.npz
+        # files that are not zip archives, so no snapshot's bytes are copied.
+        kept = list_snapshots(store2.directory)
+
+        def meta_only(name: str, epochs) -> str:
+            d = os.path.join(td, name)
+            for e in epochs:
+                os.makedirs(os.path.join(d, f"snap_{e:08d}"))
+                shutil.copy(os.path.join(store2.directory, f"snap_{e:08d}", "meta.json"),
+                            os.path.join(d, f"snap_{e:08d}", "meta.json"))
+                with open(os.path.join(d, f"snap_{e:08d}", "leaves.npz"), "wb") as f:
+                    f.write(b"not a zip archive")
+            return d
+
+        flip_byte(os.path.join(store2.directory, f"snap_{kept[-1]:08d}", "leaves.npz"))
+        loop4 = factory("durable 11.4")()
+        loop4.reset(DURABLE_SEED)
+        restored, skipped = SnapshotStore(store2.directory,
+                                          snap_cfg).restore_newest_valid(loop4)
+        print(f"durable 11.4 newest snapshot {kept[-1]} with a flipped byte: restored "
+              f"{restored}, skipped {skipped}")
+        if restored != kept[-2] or skipped != [kept[-1]]:
+            fail(f"durable 11.4: restored {restored} skipping {skipped}, expected {kept[-2]} "
+                 f"skipping [{kept[-1]}]")
+        while loop4.host_epoch < DURABLE_EPOCHS:
+            loop4.step_epoch()
+        bad = differ(state_of(loop4), bare)
+        print(f"check durable 11.4 the previous snapshot resumed to epoch {DURABLE_EPOCHS} "
+              f"bit-equal to 11.1: {not bad}")
+        if bad:
+            fail(f"durable 11.4: resume from the previous snapshot differs at {bad[:8]}")
+
+        sup4 = CrashSupervisor(factory("durable 11.4 all corrupt"),
+                               store=SnapshotStore(meta_only("snaps_all_rot", kept), snap_cfg))
+        sup4.run(DURABLE_SEED, 1, chaos=crash_once(1))
+        ok = (sup4.cold_restarts == 1 and sup4.corrupt_snapshots == len(kept)
+              and sup4.restored_from == [0])
+        print(f"check durable 11.4 every snapshot corrupt: cold start "
+              f"(cold_restarts={sup4.cold_restarts}, skipped {sup4.corrupt_snapshots} of "
+              f"{len(kept)}): {ok}")
+        if not ok:
+            fail("durable 11.4: with every snapshot corrupt the supervisor did not cold-start")
+        del sup4
+
+        other = build(stream=dict(LOOP_STREAM, deadline_s=0.3))
+        try:
+            load_snapshot(store2.directory, other, kept[-1])
+            fail("durable 11.4: a loop of another configuration accepted the snapshot")
+        except SnapshotIntegrityError as e:
+            print(f"check durable 11.4 another configuration refused: {str(e)[-90:]}")
+            if "fingerprint" not in str(e):
+                fail(f"durable 11.4: refused, but not by fingerprint: {e}")
+        del other
+
+        before = state_of(loop4)
+        for what in ("dtype", "shape"):
+            bad_dir = meta_only(f"snaps_bad_{what}", kept[-1:])
+            path = os.path.join(bad_dir, f"snap_{kept[-1]:08d}")
+            with open(os.path.join(path, "meta.json")) as f:
+                meta = json.load(f)
+            i = meta["dtypes"].index("complex64")          # the scenario's h_up
+            if what == "dtype":
+                meta["dtypes"][i] = "complex128"
+            else:
+                meta["shapes"][i][-1] += 1
+            with open(os.path.join(path, "meta.json"), "w") as f:
+                json.dump(meta, f)
+            try:
+                load_snapshot(bad_dir, loop4, kept[-1])
+                fail(f"durable 11.4: a leaf of the wrong {what} was accepted")
+            except SnapshotIntegrityError as e:
+                refused = "live loop expects" in str(e)
+                print(f"check durable 11.4 leaf {i} of the wrong {what} refused before "
+                      f"leaves.npz (not a zip archive) is read: {refused} ({str(e)[-80:]})")
+                if not refused:
+                    fail(f"durable 11.4: the wrong {what} was not refused by the template: {e}")
+        bad = differ(state_of(loop4), before)
+        print(f"check durable 11.4 the refused loop unchanged: {not bad}")
+        if bad:
+            fail(f"durable 11.4: a refused restore changed the loop at {bad[:8]}")
+        del loop4, before
+
+        # -- 11.5 replay ---------------------------------------------------------
+        records, clean = read_journal(journal)
+        kinds = [r["kind"] for r in records]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = replay(records, factory("durable 11.5 replay"))
+        wall5 = time.perf_counter() - t0
+        ok = clean and res == {"epochs": DURABLE_EPOCHS, "divergence": None}
+        print(f"check durable 11.5 replay of 11.2's journal ({len(records)} records: "
+              f"{kinds.count('epoch')} epoch, {kinds.count('snapshot')} snapshot, "
+              f"{kinds.count('restore')} restore) without divergence: {ok} ({res}; "
+              f"wall_s={wall5:.4f})")
+        if not ok:
+            fail(f"durable 11.5: replay diverged or the journal is not clean: {res}")
+        tampered = [dict(r) for r in records]
+        victim = next(r for r in tampered if r["kind"] == "epoch" and r["t"] == DURABLE_TAMPER_T)
+        victim["word"] ^= 1
+        res = replay(tampered, factory("durable 11.5 tampered"))
+        ok = res["divergence"] is not None and res["divergence"]["t"] == DURABLE_TAMPER_T
+        print(f"check durable 11.5 a word changed at epoch {DURABLE_TAMPER_T} diverges there: "
+              f"{ok} ({res['divergence']})")
+        if not ok:
+            fail("durable 11.5: a tampered journal word was not caught")
+        torn = os.path.join(td, "torn.jsonl")
+        shutil.copy(journal, torn)
+        with open(torn, "a") as f:
+            f.write('{"kind": "epoch", "t": 25, "wo')
+        got, clean_t = read_journal(torn)
+        ok = not clean_t and got == records
+        print(f"check durable 11.5 a torn last line reads clean=False with all "
+              f"{len(records)} earlier records: {ok}")
+        if not ok:
+            fail("durable 11.5: a torn journal tail was not read as specified")
+    finally:
+        channel.set_sinr_backend(prev)
+        shutil.rmtree(td, ignore_errors=True)
+    torch.cuda.empty_cache()
+    cache_phase(dev, smi, model)
+    print(f"durable: phase 11 took {time.perf_counter() - t_phase:.1f} s | {smi}")
+
+
+def cache_phase(dev, smi: str, model) -> None:
+    """Phase 11.6: DecodeBatcher cache export / import over phase 6's model."""
+    import torch
+    from repro_torch.core.types import tree_flatten
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rg_lru as rl
+    from repro_torch.models import stages_for
+    from repro_torch.online import DecodeBatcher
+
+    arch = model.cfg
+    n_attn = sum(sp.n_layers for sp in stages_for(arch) if sp.kind == "attn")
+    n_rec = arch.n_layers - n_attn
+    b, max_len = BATCH_SLOTS, ONLINE_S + 8
+    toks = make_batch(11, 0, b, ONLINE_S, arch.vocab_size, device=dev)["tokens"]
+    db = DecodeBatcher(model, None, capacity=b, max_len=max_len)
+    print(f"durable 11.6: DecodeBatcher(capacity={b}, max_len={max_len}) over {SERVE_ARCH}, "
+          f"{b} requests of {ONLINE_S} tokens | {smi}")
+    for i in range(b):
+        fa.reset_launches()
+        rl.reset_launches()
+        db.admit(i, toks[i:i + 1])
+        launched = (fa.LAUNCHES["flash_attention"], rl.LAUNCHES["rg_lru"])
+        if launched != (n_attn, n_rec):
+            fail(f"durable 11.6 admit slot {i}: {launched} launches, expected "
+                 f"{(n_attn, n_rec)}")
+    print(f"check durable 11.6 {n_attn} / {n_rec} launches an admission: True")
+
+    def flat(tree):
+        return tree_flatten(tree)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = db.export_caches()
+    t_export = time.perf_counter() - t0
+    n_bytes = sum(x.numel() * x.element_size() for x in flat(snap)[0])
+    live = [x.clone() for x in flat(db.caches)[0]]
+    tok = torch.stack([toks[i, -1] for i in range(b)])[:, None].to(torch.int32)
+    active = torch.ones(b, dtype=torch.bool, device=dev)
+    first = [db.step(tok, active) for _ in range(2)]
+    after = [x.clone() for x in flat(db.caches)[0]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    db.import_caches(snap)
+    torch.cuda.synchronize()
+    t_import = time.perf_counter() - t0
+    restored = all(torch.equal(x, y) for x, y in zip(flat(db.caches)[0], live))
+    again = [db.step(tok, active) for _ in range(2)]
+    same = (restored and all(torch.equal(x, y) for x, y in zip(first, again))
+            and all(torch.equal(x, y) for x, y in zip(flat(db.caches)[0], after)))
+    print(f"check durable 11.6 export ({n_bytes / 2**20:.2f} MiB, {t_export:.4f} s), 2 decode "
+          f"steps, import ({t_import:.4f} s), the same 2 steps: logits and caches bit-equal: "
+          f"{same}")
+    if not same:
+        fail("durable 11.6: decode after a cache import differs from decode after the export")
+    try:
+        db.import_caches(dict(snap, pos=snap["pos"][:1]))
+        fail("durable 11.6: a cache of the wrong shape was imported")
+    except ValueError as e:
+        print(f"check durable 11.6 a cache of the wrong shape refused: {e}")
+    del db, snap, live, after, first, again
     torch.cuda.empty_cache()
 
 

@@ -3,10 +3,11 @@
 Turns the reference's objects, given as numpy arrays plus constants, into
 the port's: a NetworkEnv, a ModelProfile, EccWeights, a SplitPlan, a
 PlanState (one scenario's or a fleet's), a ScenarioState, and the online
-loop's StreamState, BatchState, QosState, TelemetryState and FaultState, so
-a plan made by the reference can warm-start the port's replan /
-replan_many, a reference scenario can be stepped on by the port, and a
-reference episode stopped at epoch k can go on in the port. Constants may
+loop's StreamState, BatchState, QosState, TelemetryState and FaultState,
+and a whole serving snapshot (serving_state_from_numpy), so a plan made by
+the reference can warm-start the port's replan / replan_many, a reference
+scenario can be stepped on by the port, and a reference episode stopped (or
+snapshotted) at epoch k can go on in the port. Constants may
 be any object with the fields of RadioConstants / ComputeConstants (the
 reference's dataclasses qualify) or a dict. No JAX here: callers convert
 their arrays with np.asarray first. to_numpy goes the other way.
@@ -27,8 +28,9 @@ from repro_torch.core.types import (
     SplitPlan,
 )
 from repro_torch.device import resolve_device
-from repro_torch.faults.injectors import FaultState
+from repro_torch.faults.injectors import FaultRates, FaultState
 from repro_torch.online.batcher import BatchState
+from repro_torch.online.loop import OnlineLoop
 from repro_torch.online.qos import QosState
 from repro_torch.online.streams import StreamState
 from repro_torch.online.telemetry import TelemetryState
@@ -170,6 +172,50 @@ def telemetry_state_from_numpy(device=None, **fields) -> TelemetryState:
 
 def fault_state_from_numpy(link_down, ap_down, device=None) -> FaultState:
     return FaultState(link_down=tensor(link_down, device), ap_down=tensor(ap_down, device))
+
+
+def _fields(obj) -> dict:
+    """The fields of a reference object (a NamedTuple, a dataclass or a
+    dict) by name."""
+    if isinstance(obj, dict):
+        return dict(obj)
+    if hasattr(obj, "_asdict"):
+        return obj._asdict()
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+
+
+def serving_state_from_numpy(device_tree: dict, host: dict, seed: int,
+                             device=None) -> tuple[dict, dict]:
+    """The reference OnlineLoop.serving_state(), its device tree as numpy
+    leaves in the reference's types (leaves.npz unflattened with the
+    reference's treedef), as the port's ``(device_tree, host)`` for
+    OnlineLoop.load_serving_state. The reference's PRNG ``key`` is not
+    carried: the packages draw from different generators, so the port's
+    episode goes on from ``seed``'s base seed (OnlineLoop.seeds)."""
+    d = device_tree
+    ps = _fields(d["server_state"])
+    state = plan_state_from_numpy(ps["norms"], ps["moms"], ps["opt_steps"], ps["gains"],
+                                  device)
+    state = dataclasses.replace(
+        state, plan=split_plan_from_numpy(**_fields(ps["plan"]), device=device),
+        total_iters=tensor(ps["total_iters"], device),
+        warm_rho=None if ps["warm_rho"] is None else tensor(ps["warm_rho"], device))
+    sc = _fields(d["sc"])
+    mob = _fields(sc.pop("mob"))
+    st = _fields(d["st"])
+    out = {
+        "plan": split_plan_from_numpy(**_fields(d["plan"]), device=device),
+        "rates": _named(FaultRates, _fields(d["rates"]), device),
+        "sc": scenario_state_from_numpy(mob["pos"], mob["waypoint"], device=device, **sc),
+        "st": stream_state_from_numpy(st["session"], st["epoch"], st["offered"], device),
+        "bt": batch_state_from_numpy(device, **_fields(d["bt"])),
+        "qs": qos_state_from_numpy(device, **_fields(d["qs"])),
+        "tel": telemetry_state_from_numpy(device, **_fields(d["tel"])),
+        "fs": fault_state_from_numpy(device=device, **_fields(d["fs"])),
+        "server_state": state,
+        "iters_acc": tensor(d["iters_acc"], device),
+    }
+    return out, dict(host, base=OnlineLoop.seeds(seed)["base"])
 
 
 def _layer(tree, i: int):

@@ -358,7 +358,7 @@ def gd_loop(env: NetworkEnv, prof: ModelProfile, w: EccWeights, cfg: GdConfig,
         gammas=torch.stack([r.gamma for r in results], 1),
         iters=iters,
         norms=_stack([r.norm for r in results]),
-        total_iters=torch.sum(iters, -1),
+        total_iters=torch.sum(iters, -1, dtype=torch.int32),   # int32, as the reference
         moms=(_stack([r.mom[0] for r in results]), _stack([r.mom[1] for r in results])),
         opt_steps=torch.stack([r.opt_steps for r in results], 1),
         used_warm=used_warm,

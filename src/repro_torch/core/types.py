@@ -41,6 +41,129 @@ def tree_map(fn, x):
     return x
 
 
+class TreeDef:
+    """The structure of a flattened tree (tree_flatten): node kinds, types,
+    field names and dict keys, with a leaf kind at each leaf. ``str`` gives a
+    stable, readable form (what a snapshot's meta.json records as
+    ``treedef``): ``*`` a tensor, ``int`` a Python int (a counter such as
+    ScenarioState.epoch), ``None`` a None; ``Name(field=..)`` a NamedTuple
+    or dataclass,
+    ``{'key': ..}`` a dict (keys sorted), ``(..)`` a tuple, ``[..]`` a list.
+    Two TreeDefs are equal when their strings are."""
+
+    def __init__(self, kind: str, node_type=None, keys: tuple = (), children: tuple = ()):
+        self.kind, self.node_type, self.keys, self.children = kind, node_type, keys, children
+
+    @property
+    def num_leaves(self) -> int:
+        return len(self.leaf_kinds())
+
+    def leaf_kinds(self) -> list[str]:
+        """The kind of each leaf in flatten order: "tensor" or "int"."""
+        if self.kind in ("tensor", "int"):
+            return [self.kind]
+        return [k for c in self.children for k in c.leaf_kinds()]
+
+    def __str__(self) -> str:
+        if self.kind == "tensor":
+            return "*"
+        if self.kind == "int":
+            return "int"
+        if self.kind == "none":
+            return "None"
+        inner = [str(c) for c in self.children]
+        if self.kind == "dict":
+            return "{" + ", ".join(f"{k!r}: {c}" for k, c in zip(self.keys, inner)) + "}"
+        if self.kind == "list":
+            return "[" + ", ".join(inner) + "]"
+        if self.kind == "tuple":
+            return "(" + ", ".join(inner) + ("," if len(inner) == 1 else "") + ")"
+        fields = ", ".join(f"{k}={c}" for k, c in zip(self.keys, inner))
+        return f"{self.node_type.__name__}({fields})"
+
+    __repr__ = __str__
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, TreeDef) and str(self) == str(other)
+
+
+def tree_flatten(tree) -> tuple[list, TreeDef]:
+    """(leaves, treedef) of a tree of dicts, lists, tuples, NamedTuples and
+    dataclasses over tensors, Python ints and None. Leaves come in a fixed
+    order: fields in declaration order, dict keys sorted. Anything else
+    (a bool or a float included) raises TypeError."""
+    leaves: list = []
+
+    def rec(x) -> TreeDef:
+        if isinstance(x, Tensor):
+            leaves.append(x)
+            return TreeDef("tensor")
+        if x is None:
+            return TreeDef("none")
+        if type(x) is int:
+            leaves.append(x)
+            return TreeDef("int")
+        if isinstance(x, dict):
+            keys = tuple(sorted(x))
+            return TreeDef("dict", dict, keys, tuple(rec(x[k]) for k in keys))
+        if hasattr(x, "_fields"):
+            return TreeDef("named", type(x), tuple(x._fields), tuple(rec(v) for v in x))
+        if isinstance(x, (tuple, list)):
+            kind = "list" if isinstance(x, list) else "tuple"
+            return TreeDef(kind, type(x), (), tuple(rec(v) for v in x))
+        if dataclasses.is_dataclass(x) and not isinstance(x, type):
+            names = tuple(f.name for f in dataclasses.fields(x))
+            return TreeDef("dataclass", type(x), names,
+                           tuple(rec(getattr(x, n)) for n in names))
+        raise TypeError(f"tree_flatten: unsupported node {type(x).__name__}")
+
+    treedef = rec(tree)
+    return leaves, treedef
+
+
+def tree_unflatten(treedef: TreeDef, leaves):
+    """The tree of ``treedef`` with ``leaves`` (in flatten order) at its
+    leaves. An int leaf given as a 0-d array or tensor becomes a Python int
+    again."""
+    it = iter(leaves)
+
+    def rec(td: TreeDef):
+        if td.kind == "tensor":
+            return next(it)
+        if td.kind == "int":
+            v = next(it)
+            return int(v.item() if hasattr(v, "item") else v)
+        if td.kind == "none":
+            return None
+        kids = [rec(c) for c in td.children]
+        if td.kind == "dict":
+            return dict(zip(td.keys, kids))
+        if td.kind == "named":
+            return td.node_type(*kids)
+        if td.kind == "dataclass":
+            return td.node_type(**dict(zip(td.keys, kids)))
+        return td.node_type(kids)
+
+    tree = rec(treedef)
+    if next(it, None) is not None:
+        raise ValueError(f"tree_unflatten: more leaves than {treedef.num_leaves}")
+    return tree
+
+
+def host_copies(tensors) -> list[Tensor]:
+    """CPU copies of ``tensors``, never views of them: CUDA tensors are
+    copied into pinned host memory without blocking and waited for once
+    (one sync for the lot), CPU tensors cloned."""
+    out = []
+    for x in tensors:
+        buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=x.is_cuda)
+        buf.copy_(x.detach(), non_blocking=x.is_cuda)
+        out.append(buf)
+    if any(x.is_cuda for x in tensors):
+        torch.cuda.current_stream().synchronize()
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class RadioConstants:
     """Paper Sec. VI.A constants (configurable)."""

@@ -36,7 +36,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.types import Tensor
+from repro_torch.core.types import Tensor, host_copies, tree_flatten, tree_unflatten
 from repro_torch.device import resolve_device
 
 
@@ -318,3 +318,27 @@ class DecodeBatcher:
         logits, new_caches = self.model.decode_step(self.caches, token)
         self.caches = slot_where(active, new_caches, self.caches)
         return logits
+
+    def export_caches(self):
+        """Host copies of the slot caches (a serving snapshot's batcher
+        leg), taken on the caller's thread with one sync: never a view of
+        the live caches."""
+        flat, treedef = tree_flatten(self.caches)
+        return tree_unflatten(treedef, host_copies(flat))
+
+    def import_caches(self, caches) -> None:
+        """Restore exported slot caches onto the live caches' device. The
+        structure, shapes and dtypes must match the live caches (same
+        model / capacity / max_len); a mismatch raises ValueError naming the
+        leaf."""
+        live, live_def = tree_flatten(self.caches)
+        new, new_def = tree_flatten(caches)
+        if new_def != live_def:
+            raise ValueError(f"cache treedef mismatch on import: got {new_def}, live "
+                             f"caches are {live_def}")
+        for i, (a, b) in enumerate(zip(new, live)):
+            if tuple(a.shape) != tuple(b.shape) or a.dtype != b.dtype:
+                raise ValueError(f"cache leaf {i}: got {a.dtype}{list(a.shape)}, live "
+                                 f"caches have {b.dtype}{list(b.shape)}")
+        self.caches = tree_unflatten(live_def, [a.to(b.device, copy=True)
+                                                for a, b in zip(new, live)])

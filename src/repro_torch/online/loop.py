@@ -26,7 +26,9 @@ epoch, ``OnlineLoop._epoch``) plus one host decision point:
 ``COUNTS["host_reads"]`` counts the loop's own reads (the trigger and the
 health word); ``runtime.serve.COUNTS`` counts the server's plan words and
 ``core.li_gd.COUNTS`` the solver's stop flags. ``record=True`` adds the
-history's reads on top; ``record=False`` adds none.
+history's reads on top; ``record=False`` adds none. An attached flight
+recorder reads the served (health << 16) | s* word once an epoch, counted
+apart under ``COUNTS["recorder_reads"]``.
 
 Randomness is counter-based. ``reset(seed)`` derives the scenario, stream
 and base seeds as ``fold_in(seed, 0 / 1 / 2)`` (the reference splits its key
@@ -54,10 +56,18 @@ without ``degrade=`` is the unguarded loop.
 The SINR backend of the service model (and of the fallback plan's pricing)
 is channel's module default (``channel.set_sinr_backend``); the planner's
 is the engine's own.
+
+Durable serving (repro_torch.state): ``serving_state()`` is the episode's
+complete state as (device tree, JSON host dict), ``load_serving_state``
+its inverse on a reset loop, ``state_template(kind)`` the restore-side
+validation target and ``config_fingerprint()`` what a snapshot must match.
+Since every epoch's draws are a function of (base seed, epoch), a restored
+loop's next epochs equal the uninterrupted run's.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import NamedTuple
 
 import torch
@@ -80,12 +90,14 @@ from repro_torch.online.streams import (
     stream_step_from,
 )
 from repro_torch.online.telemetry import Observation, Telemetry, TelemetryState, telemetry_update
+from repro_torch.planning.engine import plan_state_template
 from repro_torch.runtime.serve import OnlineSplitServer
 from repro_torch.scenarios.scenario import fold_in
 
 # Host reads of device values made by the loop itself (the QoS trigger and
-# the health word), and fallback plans built, since the last reset_counts().
-COUNTS = {"host_reads": 0, "fallback_plans": 0}
+# the health word), by an attached flight recorder (the served word), and
+# fallback plans built, since the last reset_counts().
+COUNTS = {"host_reads": 0, "recorder_reads": 0, "fallback_plans": 0}
 
 
 def reset_counts() -> None:
@@ -199,6 +211,7 @@ class OnlineLoop:
         self._plan: SplitPlan | None = None
         self._base: int | None = None        # the episode's base seed
         self._plan_template: SplitPlan | None = None   # an engine plan
+        self._recorder = None                # a state.FlightRecorder, or None
         self.host_epoch = 0
 
     # -- the epoch ------------------------------------------------------------
@@ -331,9 +344,27 @@ class OnlineLoop:
     # -- episode driving --------------------------------------------------------
     def set_fault_rates(self, cfg: FaultConfig) -> None:
         """Swap the fault mix mid-episode: the rates are operands of the
-        epoch, so this changes nothing else."""
+        epoch, so this changes nothing else. With a flight recorder
+        attached, the swap is journaled (it is host input the deterministic
+        replay cannot re-derive)."""
         self.fault_cfg = cfg
         self._rates = cfg.rates(self.device)
+        if self._recorder is not None:
+            self._recorder.record_rates(self.host_epoch, dataclasses.asdict(cfg))
+
+    def attach_recorder(self, recorder) -> None:
+        """Attach a repro_torch.state.FlightRecorder: every epoch's host trace
+        (the packed plan/health word, the QoS trigger, the ladder stage)
+        and every fault-rate swap are journaled for deterministic replay.
+        Recording reads one word an epoch (``COUNTS["recorder_reads"]``);
+        pass None to detach."""
+        self._recorder = recorder
+
+    def served_word(self, out: EpochOut) -> Tensor:
+        """() int32 ``(health << 16) | s*`` of the epoch ``out`` and the plan
+        now served: the journal's epoch word, packed on the device."""
+        return (out.health.to(torch.int32) << guards.PLAN_WORD_SHIFT) | self._plan.s.to(
+            torch.int32)
 
     def _fallback(self, env) -> SplitPlan:
         """The ladder's rung-3 plan, cast to the engine plan's dtypes."""
@@ -431,7 +462,107 @@ class OnlineLoop:
             if fired and self.ladder is not None:
                 self.ladder.on_timeout()
         self.host_epoch += 1
+        if self._recorder is not None:
+            health, s = guards.split_plan_word(int(self.served_word(out)))
+            COUNTS["recorder_reads"] += 1
+            self._recorder.record_epoch(
+                self.host_epoch, s=s, health=health, trigger=trigger,
+                stage=self.ladder.stage if self.ladder is not None else "normal")
         return out, trigger
+
+    # -- durable serving (repro_torch.state hooks) -------------------------------
+    def _plan_state_template(self, warm: bool, device):
+        cfg = self.scenario.cfg
+        return plan_state_template(cfg.n_users, cfg.n_aps, cfg.n_sub,
+                                   self.engine.prof.n_layers + 1, warm=warm, device=device)
+
+    def serving_state(self) -> tuple[dict, dict]:
+        """The loop's complete episode state as ``(device_tree, host)``.
+
+        ``device_tree`` holds every tensor state the epoch and the planner
+        thread through epochs (served plan, fault rates, scenario / stream /
+        batch / QoS / telemetry / fault state, the server's PlanState and
+        GD-iteration accumulator), with the scenario's and the stream's epoch
+        counters as int leaves. ``host`` holds the JSON-scalar control-plane
+        state (epoch clock, the episode's base seed, server counters, ladder
+        state machine). Restoring both via load_serving_state makes the next
+        epoch bit-identical to the uninterrupted run's: every epoch's draws
+        come from fold_in(base, epoch), and every host decision is a
+        deterministic function of the restored counters.
+
+        A server whose first plan was rejected (state None) snapshots a
+        zero-filled cold-shaped PlanState with ``plan_state_kind == "none"``,
+        so the device treedef stays one of two."""
+        if self._st is None:
+            raise RuntimeError("serving_state() before reset()")
+        if self.server.state is not None:
+            ps = self.server.state
+            kind = "warm" if ps.warm_rho is not None else "cold"
+        else:
+            kind = "none"
+            ps = self._plan_state_template(False, self.device)
+        device = {
+            "plan": self._plan, "rates": self._rates,
+            "sc": self._sc, "st": self._st, "bt": self._bt, "qs": self._qs,
+            "tel": self._tel, "fs": self._fs,
+            "server_state": ps, "iters_acc": self.server._iters_acc,
+        }
+        host = {
+            "host_epoch": self.host_epoch,
+            "base": self._base,
+            "plan_state_kind": kind,
+            "server": self.server.export_host(),
+            "ladder": (self.ladder.export_state()
+                       if self.ladder is not None else None),
+        }
+        return device, host
+
+    def state_template(self, kind: str) -> dict:
+        """serving_state()'s device tree for a snapshot whose PlanState kind
+        was ``kind`` ("cold", "warm" or "none"): the live episode tree with
+        the engine's PlanState of that kind, built from the shapes alone on
+        the meta device -- the restore-side validation target (structure,
+        dtypes, shapes)."""
+        if kind not in ("cold", "warm", "none"):
+            raise ValueError(f"kind must be cold, warm or none, got {kind!r}")
+        device, _ = self.serving_state()
+        device["server_state"] = self._plan_state_template(kind == "warm", "meta")
+        return device
+
+    def load_serving_state(self, device: dict, host: dict) -> None:
+        """Overwrite the episode with a restored serving_state(). The loop
+        must be reset() first (the configuration and the plan template come
+        from reset; the snapshot supplies only state)."""
+        if self._st is None:
+            raise RuntimeError("load_serving_state() before reset()")
+        self._plan = device["plan"]
+        self._rates = device["rates"]
+        self._sc = device["sc"]
+        self._st = device["st"]
+        self._bt = device["bt"]
+        self._qs = device["qs"]
+        self._tel = device["tel"]
+        self._fs = device["fs"]
+        self._base = int(host["base"])
+        self.host_epoch = int(host["host_epoch"])
+        self.server.import_host(host["server"], device["iters_acc"])
+        self.server.state = (None if host["plan_state_kind"] == "none"
+                             else device["server_state"])
+        if self.ladder is not None and host["ladder"] is not None:
+            self.ladder.import_state(host["ladder"])
+
+    def config_fingerprint(self) -> str:
+        """Hash of everything that shapes the epoch and the host policy. A
+        snapshot taken under one configuration must not restore into a loop
+        built under another; fault *rates* are excluded -- they are operands
+        and travel inside the snapshot."""
+        parts = repr((self.scenario.cfg, self.stream_cfg, self.service_cfg,
+                      self.qos_cfg, self.engine.cfg, self.engine.method,
+                      self.engine.rounding, self.engine.warm_rho_min,
+                      self.engine.warm_moment_decay,
+                      self.ladder.cfg if self.ladder is not None else None,
+                      self.feedback))
+        return hashlib.sha256(parts.encode()).hexdigest()[:16]
 
     def run(self, seed: int, n_epochs: int, record: bool = False) -> dict:
         """Drive a fresh episode for ``n_epochs``. With record=True, per-

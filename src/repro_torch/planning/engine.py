@@ -86,6 +86,36 @@ def member(tree, i: int):
     return tree_map(lambda x: x[i] if x.ndim > 0 else x, tree)
 
 
+def plan_state_template(n_users: int, n_aps: int, n_sub: int, n_splits: int, warm: bool,
+                        fleet: int | None = None, device=None) -> PlanState:
+    """A PlanState of zero tensors with the fields, shapes and dtypes of the
+    states plan() (``warm=False``) and replan() (``warm=True``) return for
+    (U, N, M) networks and F+1 = ``n_splits`` split points; a fleet's lead
+    with B = ``fleet``. Built from the shapes alone (no solve), on
+    ``device`` (``"meta"`` allocates nothing). Both optimizers carry the
+    Adam moments and step counts (zeros under plain GD); only a warm state
+    has ``warm_rho``."""
+    dev = resolve_device(device)
+    lead = () if fleet is None else (int(fleet),)
+    u, n, m, f1 = int(n_users), int(n_aps), int(n_sub), int(n_splits)
+
+    def z(shape, dtype=torch.float32):
+        return torch.zeros(lead + tuple(shape), dtype=dtype, device=dev)
+
+    i32 = torch.int32
+    plan = SplitPlan(s=z((), i32), sub_up=z((u,), i32), sub_dn=z((u,), i32),
+                     p_up=z((u,)), p_dn=z((u,)), r=z((u,)), utility=z(()),
+                     per_layer_utility=z((f1,)), iters=z((f1,), i32),
+                     rounding_violations=z((), i32))
+
+    def norms():
+        return {k: z((f1, u, m) if k.startswith("beta") else (f1, u)) for k in li_gd.KEYS}
+
+    return PlanState(plan=plan, norms=norms(), total_iters=z((), i32),
+                     moms=(norms(), norms()), opt_steps=z((f1,), i32), gains=z((u, n, m)),
+                     warm_rho=z(()) if warm else None)
+
+
 def _state(env, loop, plan, rho=None) -> PlanState:
     return PlanState(plan=plan, norms=loop.norms, total_iters=loop.total_iters,
                      moms=loop.moms, opt_steps=loop.opt_steps, gains=env.g_up,

@@ -129,9 +129,23 @@ class TestRunWithRetries:
                              retryable=(RuntimeError,))
 
 
-def test_same_behaviour_as_the_reference():
+class _Clock:
+    """A stand-in for a module's ``time``: each monotonic() call advances 1 s,
+    every 10th call 10 s, so a retry loop sees the same step times (some of
+    them stragglers) whatever the host's load."""
+
+    def __init__(self):
+        self.calls, self.now = 0, 0.0
+
+    def monotonic(self) -> float:
+        self.calls += 1
+        self.now += 10.0 if self.calls % 10 == 0 else 1.0
+        return self.now
+
+
+def test_same_behaviour_as_the_reference(monkeypatch):
     """Both modules' detectors flag the same steps and their retry loops
-    return the same counts on the same scripted failures."""
+    return the same counts on the same scripted failures and step times."""
     from repro.runtime import ft as jft
 
     from repro_torch.runtime import ft
@@ -143,6 +157,7 @@ def test_same_behaviour_as_the_reference():
         assert (a.straggler_steps, a.times) == (b.straggler_steps, b.times)
 
     def scripted(mod, fail_at):
+        monkeypatch.setattr(mod, "time", _Clock())
         calls = {"n": 0}
 
         def step(i):
@@ -151,5 +166,9 @@ def test_same_behaviour_as_the_reference():
                 raise mod.StepTimeout("scripted")
         return mod.run_with_retries(step, 6, restore_fn=lambda: 2), calls["n"]
 
+    stragglers = 0
     for fail_at in ((), (2,), (1, 4, 7)):
-        assert scripted(ft, fail_at) == scripted(jft, fail_at)
+        got = scripted(ft, fail_at)
+        assert got == scripted(jft, fail_at)
+        stragglers += got[0][2]
+    assert stragglers > 0
