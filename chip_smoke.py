@@ -26,13 +26,18 @@ Phases, each fatal on failure (no phase catches its own error):
                  kernel, which must beat it);
   4. main path -- PlannerEngine(nin, sinr_backend="kernel").plan on a sampled
                  env, then two replans on gains perturbed by a few percent, with
-                 the kernel launch counters read around them; the plan is
+                 the kernel launch counters read around them (the engine's
+                 programs: each GD step and the plan assembly CUDA graphs,
+                 captured on the first call of a kind and replayed after; the
+                 counters count replays); the plan is
                  checked for finiteness and feasibility, and at the cold start
                  of one split the utility and its gradient under "kernel" are
-                 held against "einsum";
-  5. profile  -- 40 GD steps of one split under torch.profiler: wall time
-                 per step, device busy time and share, and the top kernels
-                 by device time;
+                 held against "einsum"; each program's graphs, capture
+                 seconds and the graph pool's bytes;
+  5. profile  -- 40 GD steps of one split under torch.profiler, eagerly and
+                 as replays of the engine's captured step: wall time per
+                 step, device busy time and share, and the top kernels by
+                 device time;
   6. serve    -- split serving of recurrentgemma-9b at full width and depth
                  (38 layers, 8.5e9 parameters, random weights from a seed):
                  the flash_attention and rg_lru kernels against their plain
@@ -62,7 +67,8 @@ Phases, each fatal on failure (no phase catches its own error):
                  step) and every member's plan feasible; members 0 and 1
                  planned alone beside the fleet (utility gate); 40 fixed GD
                  steps of the fleet against member 0 alone; 40 fleet GD steps
-                 under torch.profiler;
+                 under torch.profiler, eagerly and as replays of the fleet
+                 program's captured step; the fleet programs' graphs and pool;
   8. compare  -- planner.compare_all, the paper's six arms (ECC-NOMA, ECC-OMA,
                  Device-Only, Edge-Only, Neurosurgeon, DNN-Surgery), for NiN on
                  phase 4's env with the figure harness's GdConfig and the NOMA
@@ -90,7 +96,9 @@ Phases, each fatal on failure (no phase catches its own error):
                  exactly 0, its users' rates at the 1e-9 floor); 10.2 the
                  hardened loop (faults, ladder, feedback) on
                  "paper_scale_urban" for 20 epochs with exact NOMA launch
-                 counts and host reads each epoch and every served plan
+                 counts and host reads each epoch, no program built once the
+                 engine holds its plan and replan programs (compile_log; in
+                 every gated epoch of 10 and 11), and every served plan
                  finite, requests conserved, one non-replan epoch under
                  torch.profiler; 10.3 the unguarded arm on the same traffic
                  and faults for 6 epochs (launch counts gated only); 10.4
@@ -118,7 +126,18 @@ Phases, each fatal on failure (no phase catches its own error):
                  journal without divergence, a tampered word caught, a
                  torn tail read clean=False; 11.6 DecodeBatcher cache
                  export / import over phase 6's model, the same decode
-                 steps bit-equal after the import.
+                 steps bit-equal after the import;
+ 12. programs -- the engine's CUDA graphs against the eager path
+                 (programs.solve_state / resolve_state without a runner:
+                 li_gd.gd_loop + assemble_plan) on the same inputs, leaf for
+                 leaf with torch.equal and with the same launches and GD
+                 steps: 12.1 phase 4's plan and two replans; 12.2 the plan and
+                 the first replan again (pure replays: bit-equal to the
+                 capturing calls, exact launches, no blocking sync inside a
+                 replayed step, the others' origins printed); 12.3 phase 7's
+                 plan_many and first replan_many (the eager fleet runs once);
+                 12.4 graphs, capture seconds and pool bytes; the walls of
+                 both paths.
 The last lines are the kernels JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
@@ -183,12 +202,13 @@ FLEET_SCENARIO = dict(n_users=1250, n_aps=16, n_sub=250, epoch_dt_s=0.01, dopple
 # per_ap up, per_ap dn, contract. Printed beside this run's.
 BEFORE_MEMBER_DIM_MS = {"noma_cell_intra": 0.027266, "noma_per_ap": 0.012206,
                         "noma_per_ap dn": 0.011464, "noma_ap_contract": 0.010245}
-# The script's peak in PyTorch's allocator is phase 6's, 53.8 GiB reserved on
+# The script's peak in PyTorch's allocator is phase 6's, 54.3 GiB reserved on
 # an H100 80GB (19 GB of bf16 weights beside the split and the unsplit forward's
-# float32 logits, 12.6 GB each; printed at the end, by phase). With the CUDA
-# context and a margin it needs this much free at the start.
+# float32 logits, 12.6 GB each, and phase 4's engine with its graph pool;
+# printed at the end, by phase). With the CUDA context and a margin it needs
+# this much free at the start.
 MEMORY_NEED_BYTES = 56 << 30
-MEMORY_WAIT_S = 300.0              # the script takes 520-710 s of its 1200
+MEMORY_WAIT_S = 300.0              # the script takes 350-710 s of its 1200
 SERVE_ARCH = "recurrentgemma-9b"
 SERVE_B, SERVE_S = 4, 3072         # 4 requests of 3072 tokens
 SERVE_SPLIT = 19                   # the second split point held to the bit
@@ -369,6 +389,68 @@ def device_ms(fns, reps: int = 20, trials: int = 7) -> float:
         times.append(start.elapsed_time(end) / reps)
     del graph
     return statistics.median(times)
+
+
+def pool_bytes(torch, pool) -> int | None:
+    """Bytes of the allocator's segments in one graph memory pool (None if
+    this torch's memory snapshot does not name pools)."""
+    segs = torch.cuda.memory_snapshot()
+    if any("segment_pool_id" not in seg for seg in segs):
+        return None
+    return sum(seg["total_size"] for seg in segs if tuple(seg["segment_pool_id"]) == tuple(pool))
+
+
+def program_report(label: str, eng, smi: str) -> dict:
+    """Print each compiled program of an engine (kind, env shape, graphs,
+    capture seconds) and the engine's graph pool; return them."""
+    import torch
+    progs = [dict(kind=key[0], shape=key[1], graphs=prog.graph_count,
+                  capture_s=prog.capture_s) for key, prog in eng._cache.items()]
+    report = dict(programs=progs, pool_bytes=pool_bytes(torch, eng._pool))
+    for p in progs:
+        print(f"{label} program {p['kind']} {p['shape']}: {p['graphs']} CUDA graphs, "
+              f"capture_s={p['capture_s']:.4f}")
+    print(f"{label} graph pool: {report['pool_bytes']} bytes | {smi}")
+    return report
+
+
+def profile_graph_steps(eng, kind: str, env, n_steps: int, label: str, eager: tuple,
+                        smi: str) -> None:
+    """n_steps replays of the engine's captured GD step of split 4 (the
+    program of (kind, env), already built) in gd_solve's chunks, one read
+    of the stop flag a chunk, under torch.profiler; printed beside the
+    eager (ms a step, busy share)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import li_gd
+    prog = eng.program(kind, env)
+    step_graph = prog._graphs[(4, env.radio, env.comp)]
+    done = prog._live["done"]
+    chunks, k = [], 1
+    while sum(chunks) < n_steps:
+        chunks.append(min(k, n_steps - sum(chunks)))
+        k = min(2 * k, li_gd.SYNC_EVERY)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_g:
+        t0 = time.perf_counter()
+        for k in chunks:
+            for _ in range(k):
+                step_graph.replay()
+            bool(done.all())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof_g.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in rows) / 1e6
+    if busy <= 0:
+        fail(f"{label}: torch.profiler recorded no device time for the graphed steps")
+    kernels = sum(e.count for e in rows)
+    print(f"{label} {n_steps} step replays in chunks {chunks} (profiled): wall_s={wall:.4f} "
+          f"per_step_ms={wall / n_steps * 1e3:.4f} device_busy_s={busy:.4f} "
+          f"busy_ms_per_step={busy / n_steps * 1e3:.4f} busy_share={busy / wall:.4f} "
+          f"kernels_per_step={kernels / n_steps:.1f}; eager per_step_ms="
+          f"{eager[0] * 1e3:.3f} busy_share={eager[1]:.4f} | {smi}")
 
 
 def main() -> int:
@@ -649,16 +731,17 @@ def main() -> int:
     torch.cuda.synchronize()
     nr.reset_launches()
     li_gd.reset_counts()
-    walls, states, steps, reads = [], [], [], []
+    walls, states, steps, reads, call_launches = [], [], [], [], []
     prev = None
     for e_i in (env, env1, env2):
         t0 = time.perf_counter()
-        before = dict(li_gd.COUNTS)
+        before, l0 = dict(li_gd.COUNTS), dict(nr.LAUNCHES)
         prev = eng.plan(e_i) if prev is None else eng.replan(prev, e_i)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         steps.append(li_gd.COUNTS["steps"] - before["steps"])
         reads.append(li_gd.COUNTS["host_reads"] - before["host_reads"])
+        call_launches.append({k: v - l0[k] for k, v in nr.LAUNCHES.items()})
         states.append(prev)
     launches = dict(nr.LAUNCHES)
     splits = prof.n_layers + 1
@@ -688,6 +771,9 @@ def main() -> int:
         check_plan(name, st, env, prof.n_layers)
     print("main plan checks: finite, beta rows on the floored simplex, powers and r in "
           "their boxes, subchannels in range")
+    graphs = program_report("main", eng, smi)
+    main = dict(eng=eng, envs=(env, env1, env2), states=states, walls=walls, steps=steps,
+                launches=call_launches, graphs=graphs)
 
     # The utility and its gradient at the cold start of split 3: kernel vs einsum.
     norm0 = li_gd._project(li_gd.cold_init(env), env.radio.beta_min)
@@ -743,8 +829,10 @@ def main() -> int:
     for e in sorted(rows_k, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"profile kernel {e.self_device_time_total / 1e3:9.2f} ms "
               f"{e.self_device_time_total / busy_us:6.1%} {e.count:6d} launches  {e.key[:80]}")
-
+    eager_step = (wall / n_steps, busy_us / 1e6 / wall)
     del prof, rows_k
+    profile_graph_steps(eng, "plan", env, n_steps, "profile graphed gd_solve split 4",
+                        eager_step, smi)
     torch.cuda.empty_cache()
 
     memory_mark(torch, "5", peaks)
@@ -755,7 +843,7 @@ def main() -> int:
 
     memory_mark(torch, "6", peaks)
     # -- 7. a fleet ------------------------------------------------------------
-    fleet_rows = fleet_phase(dev, smi, rows, eng.cfg)
+    fleet_rows, fleet_path = fleet_phase(dev, smi, rows, eng.cfg)
     for name, fr in fleet_rows.items():
         rows[name].update(fr)
 
@@ -778,6 +866,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     memory_mark(torch, "11", peaks)
+    # -- 12. the engine's compiled programs against the eager path -------------
+    programs_phase(dev, smi, main, fleet_path)
+    del main, fleet_path
+    torch.cuda.empty_cache()
+
+    memory_mark(torch, "12", peaks)
     print("memory: peak reserved by phase (GiB): " + ", ".join(
         f"{k} {v / 2**30:.2f}" for k, v in peaks.items()))
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": tpu,
@@ -1205,11 +1299,11 @@ def fleet_phase(dev, smi: str, rows: dict, cfg) -> dict:
     torch.cuda.synchronize()
     nr.reset_launches()
     li_gd.reset_counts()
-    walls, fleet_states, steps, env_list = [], [], [], []
+    walls, fleet_states, steps, env_list, call_launches = [], [], [], [], []
     prev = None
     for epoch in range(3):
         t0 = time.perf_counter()
-        before = li_gd.COUNTS["steps"]
+        before, l0 = li_gd.COUNTS["steps"], dict(nr.LAUNCHES)
         if epoch:
             states = sc.step_many(seeds, states)
             envs = sc.env_many(states)
@@ -1217,9 +1311,11 @@ def fleet_phase(dev, smi: str, rows: dict, cfg) -> dict:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         steps.append(li_gd.COUNTS["steps"] - before)
+        call_launches.append({k: v - l0[k] for k, v in nr.LAUNCHES.items()})
         fleet_states.append(prev)
         env_list.append(envs)
     launches = dict(nr.LAUNCHES)
+    graphs = program_report("fleet", eng, smi)
     splits = prof.n_layers + 1
     for name, st, wall, n_steps in zip(("plan_many", "replan_many1", "replan_many2"),
                                        fleet_states, walls, steps):
@@ -1306,8 +1402,15 @@ def fleet_phase(dev, smi: str, rows: dict, cfg) -> dict:
         print(f"profile fleet kernel {e.self_device_time_total / 1e3:9.2f} ms "
               f"{e.self_device_time_total / busy_us:6.1%} {e.count:6d} launches  {e.key[:80]}")
     del prof_run, rows_k
+    profile_graph_steps(eng, "plan_many", env_list[0], n_steps,
+                        f"profile graphed fleet gd_solve split 4, B={b},",
+                        (wall / n_steps, busy_us / 1e6 / wall), smi)
     torch.cuda.empty_cache()
-    return fleet
+    # Phase 12 holds the graphed plan_many and first replan_many against the
+    # eager path; the rest goes with the engine.
+    path = dict(cfg=cfg, envs=env_list[:2], states=fleet_states[:2], walls=walls[:2],
+                steps=steps[:2], launches=call_launches[:2], graphs=graphs)
+    return fleet, path
 
 
 def plan_launches(steps: int, evals: int) -> dict:
@@ -1699,8 +1802,12 @@ def gated_epoch(loop, label: str, splits: int, step=None) -> tuple:
     from repro_torch.core import li_gd
     from repro_torch.kernels import noma_rates as nr
     from repro_torch.online import loop as looplib
+    from repro_torch.planning import compile_log
     from repro_torch.runtime import serve
 
+    # Once the engine holds its plan and replan programs (the reset's cold
+    # plan and the first replan built them), an epoch builds nothing.
+    steady = {k[0] for k in loop.engine.cache_keys()} >= {"plan", "replan"}
     hardened = loop.ladder is not None
     recorded = loop._recorder is not None
     prev_state = loop.server.state
@@ -1709,7 +1816,8 @@ def gated_epoch(loop, label: str, splits: int, step=None) -> tuple:
     torch.cuda.synchronize()
     nr.reset_launches()
     t0 = time.perf_counter()
-    with warnings.catch_warnings(record=True) as syncs, HostReads() as reads:
+    with warnings.catch_warnings(record=True) as syncs, HostReads() as reads, \
+            compile_log() as built:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
@@ -1746,19 +1854,22 @@ def gated_epoch(loop, label: str, splits: int, step=None) -> tuple:
         fail(f"{label} epoch {t}: {reads.n} host reads of device values, expected "
              f"{loop_reads} (loop) + {plan_reads} (plan word) + {gd_reads} (GD stop flags) "
              f"+ {rec_reads} (recorder)")
+    if steady and built:
+        fail(f"{label} epoch {t}: the engine built {built} in the steady state")
     finite = bool(torch.isfinite(loop._plan.utility))
     row = dict(epoch=t, wall=wall, replanned=replanned, cold=cold, steps=steps,
                stage=loop.ladder.stage if hardened else "-", s=int(loop._plan.s),
                health=int(out.health), trigger=trigger, finite=finite,
                fallbacks=fallbacks, reads=reads.n, syncs=len(syncs),
                completed=int(out.completed), occupancy=int(out.occupancy),
-               backlog=int(out.backlog), faulted=int(out.faulted))
+               backlog=int(out.backlog), faulted=int(out.faulted), built=built)
     print(f"{label} epoch {t:2d}: wall_s={wall:.4f} replanned={int(replanned)}"
           f"{' cold' if replanned and cold else ''} gd_steps={steps} stage={row['stage']} "
           f"s*={row['s']} health={row['health']} trigger={int(trigger)} "
           f"plan_finite={finite} fallbacks={fallbacks} host_reads={reads.n} "
           f"blocking_syncs={len(syncs)} completed={row['completed']} "
-          f"occupancy={row['occupancy']} backlog={row['backlog']} faulted={row['faulted']}")
+          f"occupancy={row['occupancy']} backlog={row['backlog']} faulted={row['faulted']} "
+          f"built={built}")
     return out, trigger, row
 
 
@@ -2363,6 +2474,146 @@ def cache_phase(dev, smi: str, model) -> None:
         print(f"check durable 11.6 a cache of the wrong shape refused: {e}")
     del db, snap, live, after, first, again
     torch.cuda.empty_cache()
+
+
+def programs_phase(dev, smi: str, main: dict, fleet: dict) -> None:
+    """Phase 12: the engine's compiled programs (CUDA graphs) against the
+    eager path on the same inputs (programs.solve_state / resolve_state
+    without a runner: li_gd.gd_loop + assemble_plan). 12.1 phase 4's plan
+    and two replans, 12.2 replays of the plan and the first replan with the
+    blocking syncs counted inside the replayed steps, 12.3 phase 7's
+    plan_many and first replan_many; leaf for leaf with torch.equal, and
+    the same NOMA launches, GD steps and host reads."""
+    import collections
+    import gc
+    import warnings
+
+    import torch
+    from repro_torch.core import li_gd
+    from repro_torch.core.types import tree_flatten
+    from repro_torch.kernels import noma_rates as nr
+    from repro_torch.planning import PlannerEngine, programs
+
+    def eager(eng, kind, env, prev=None):
+        args = eng.program_args(kind, env, prev=prev)
+        if kind.startswith("plan"):
+            return programs.solve_state(*args, eng.cfg, eng.method, eng.rounding)
+        return programs.resolve_state(*args, eng.cfg, eng.rounding, eng.warm_rho_min,
+                                      eng.warm_moment_decay)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        nr.reset_launches()
+        li_gd.reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, dict(nr.LAUNCHES), dict(li_gd.COUNTS)
+
+    def differ(a, b) -> list:
+        la, ta = tree_flatten(a)
+        lb, tb = tree_flatten(b)
+        if str(ta) != str(tb):
+            return ["structure"]
+        return [i for i, (x, y) in enumerate(zip(la, lb))
+                if x.dtype != y.dtype or not torch.equal(x, y)]
+
+    def hold(label, got, want, launches, steps, wall_g, wall_e, e_launch, e_count):
+        bad = differ(got, want)
+        same = launches == e_launch and steps == e_count["steps"]
+        print(f"check programs {label}: graphed bit-equal to eager: {not bad} "
+              f"({len(tree_flatten(got)[0])} leaves); launches {launches} and {steps} GD "
+              f"steps, eager {e_launch} and {e_count['steps']}: {same}; wall graphed "
+              f"{wall_g:.4f} s, eager {wall_e:.4f} s ({wall_e / wall_g:.2f}x) | {smi}")
+        if bad:
+            fail(f"programs {label}: leaves {bad[:8]} differ from the eager path")
+        if not same:
+            fail(f"programs {label}: launches or GD steps differ from the eager path")
+
+    def syncs_of(fn):
+        """fn() under set_sync_debug_mode("warn"): its result, the blocking
+        syncs inside Program.advance (the replayed steps) and the origins
+        of the others."""
+        inside, where, depth = [0], collections.Counter(), [0]
+        advance = programs.Program.advance
+
+        def counted_advance(self, step, n):
+            depth[0] += 1
+            try:
+                return advance(self, step, n)
+            finally:
+                depth[0] -= 1
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            if "called a synchronizing CUDA operation" not in str(message):
+                return       # the mode's one-time prototype notice, say
+            if depth[0]:
+                inside[0] += 1
+            else:
+                where[f"{Path(filename).name}:{lineno}"] += 1
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            programs.Program.advance = counted_advance
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                programs.Program.advance = advance
+        return out, inside[0], where
+
+    t_phase = time.perf_counter()
+    eng = main["eng"]
+    env, env1, env2 = main["envs"]
+    states = main["states"]
+    # -- 12.1 phase 4's calls against the eager path --------------------------------
+    calls = (("plan", "plan (captures)", env, None), ("replan", "replan1 (captures)", env1,
+                                                      states[0]),
+             ("replan", "replan2 (replays)", env2, states[1]))
+    for i, (kind, label, e_i, prev) in enumerate(calls):
+        want, wall, e_launch, e_count = counted(lambda: eager(eng, kind, e_i, prev))
+        hold(f"12.1 {label}", states[i], want, main["launches"][i], main["steps"][i],
+             main["walls"][i], wall, e_launch, e_count)
+        del want
+    # -- 12.2 replays, blocking syncs counted ---------------------------------------
+    for kind, label, e_i, prev, want in (("plan", "plan", env, None, states[0]),
+                                         ("replan", "replan1", env1, states[0], states[1])):
+        call = (lambda: eng.plan(e_i)) if prev is None else (lambda: eng.replan(prev, e_i))
+        gc.collect()     # destroying dead engines' graphs syncs: not in the window
+        (got, inside, where), wall, launch, count = counted(lambda: syncs_of(call))
+        bad = differ(got, want)
+        reads = count["host_reads"]
+        print(f"check programs 12.2 {label} replayed: bit-equal to its capturing call: "
+              f"{not bad}; wall {wall:.4f} s, {count['steps']} GD steps "
+              f"({wall / count['steps'] * 1e3:.4f} ms a step), launches {launch}; blocking "
+              f"syncs inside the replayed steps: {inside}; outside: {dict(where)} "
+              f"({reads} host reads of the stop flags) | {smi}")
+        if bad:
+            fail(f"programs 12.2 {label}: a replay differs from the capturing call at {bad[:8]}")
+        if inside:
+            fail(f"programs 12.2 {label}: {inside} blocking syncs inside replayed GD steps")
+        if launch != plan_launches(count["steps"], (1 if kind == "plan" else 3)
+                                   * (eng.prof.n_layers + 1) + 2):
+            fail(f"programs 12.2 {label}: launches {launch} across replays are not exact")
+        del got
+    # -- 12.3 the fleet: phase 7's plan_many and first replan_many -------------------
+    feng = PlannerEngine(eng.prof, cfg=fleet["cfg"], sinr_backend="kernel")
+    f_calls = (("plan_many", "plan_many (captures)", fleet["envs"][0], None),
+               ("replan_many", "replan_many1 (captures)", fleet["envs"][1],
+                fleet["states"][0]))
+    for i, (kind, label, e_i, prev) in enumerate(f_calls):
+        want, wall, e_launch, e_count = counted(lambda: eager(feng, kind, e_i, prev))
+        hold(f"12.3 fleet of {FLEET_B} {label}", fleet["states"][i], want,
+             fleet["launches"][i], fleet["steps"][i], fleet["walls"][i], wall, e_launch,
+             e_count)
+        del want
+    for name, rep in (("main (phase 4)", main["graphs"]), ("fleet (phase 7)", fleet["graphs"])):
+        print(f"programs 12.4 {name}: " + "; ".join(
+            f"{p['kind']} {p['shape']} {p['graphs']} graphs captured in {p['capture_s']:.4f} s"
+            for p in rep["programs"]) + f"; graph pool {rep['pool_bytes']} bytes | {smi}")
+    print(f"programs: phase 12 took {time.perf_counter() - t_phase:.1f} s | {smi}")
 
 
 if __name__ == "__main__":

@@ -163,17 +163,24 @@ def downlink_rates(env: NetworkEnv, beta_dn: Tensor, p_dn: Tensor,
     return beta_dn * bw * torch.log1p(sinr) / LOG2
 
 
+def _rate_floor(like: Tensor) -> Tensor:
+    """The 1e-9 rate floor as a 0-d tensor of like's dtype and device, made
+    by a fill kernel (no blocking host-to-device copy)."""
+    return torch.full((), 1e-9, dtype=like.dtype, device=like.device)
+
+
 def user_rates(env: NetworkEnv, beta_up: Tensor, beta_dn: Tensor, p_up: Tensor,
                p_dn: Tensor, backend: str | None = None,
                layout=None) -> tuple[Tensor, Tensor]:
     """Total uplink/downlink rate per user (bit/s), floored at 1e-9. The
     floor is a binary maximum, whose gradient splits evenly at a tie, as
-    the reference's does."""
+    the reference's does; it is built by a fill (_rate_floor), not copied
+    from the host."""
     r_up = torch.sum(uplink_rates(env, beta_up, p_up, backend=backend,
                                   layout=layout), dim=-1)
     r_dn = torch.sum(downlink_rates(env, beta_dn, p_dn, backend=backend,
                                     layout=layout), dim=-1)
-    floor = r_up.new_tensor(1e-9)
+    floor = _rate_floor(r_up)
     return torch.maximum(r_up, floor), torch.maximum(r_dn, floor)
 
 
@@ -191,5 +198,5 @@ def oma_rates(env: NetworkEnv, p_up: Tensor, p_dn: Tensor) -> tuple[Tensor, Tens
     snr_dn = p_dn * g_dn / (env.noise_dn * env.n_sub)
     r_up = bw_up * torch.log1p(snr_up) / LOG2
     r_dn = bw_dn * torch.log1p(snr_dn) / LOG2
-    floor = r_up.new_tensor(1e-9)
+    floor = _rate_floor(r_up)
     return torch.maximum(r_up, floor), torch.maximum(r_dn, floor)

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -93,13 +94,19 @@ def project_simplex(y: Tensor, total: float = 1.0) -> Tensor:
 
 
 def project_simplex_floor(y: Tensor, floor: float) -> Tensor:
-    """Projection onto {x >= floor, sum x = 1} (rows). A floor above 1/m is
-    clamped to 1/m (the set is then the single point ones/m)."""
+    """Projection onto {x >= floor, sum x = 1} (rows) of a float32 y. A
+    floor above 1/m is clamped to 1/m (the set is then the single point
+    ones/m). The floor f and the budget 1 - m*f are float32 values computed
+    on the host (as the reference computes them on the device) and enter
+    the ops as Python floats: no host-to-device copy, so the step that
+    calls this can be captured in a CUDA graph."""
+    if y.dtype != torch.float32:
+        raise TypeError(f"project_simplex_floor takes float32, got {y.dtype}")
     m = y.shape[-1]
-    f = torch.minimum(torch.tensor(floor, dtype=y.dtype, device=y.device),
-                      torch.tensor(1.0 / m, dtype=y.dtype, device=y.device))
-    z = project_simplex(y - f, total=1.0 - m * f)
-    return z + f
+    f = min(np.float32(floor), np.float32(1.0 / m))
+    total = np.float32(1.0) - np.float32(m) * f
+    z = project_simplex(y - float(f), total=float(total))
+    return z + float(f)
 
 
 def _project(norm: dict, beta_min: float) -> dict:
@@ -184,23 +191,29 @@ def zeros_like(t: dict) -> dict:
 
 def gd_solve(env: NetworkEnv, prof: ModelProfile, s: int, w: EccWeights,
              init_norm: dict, cfg: GdConfig, init_mom: tuple | None = None,
-             init_steps: Tensor | None = None) -> GdResult:
+             init_steps: Tensor | None = None, runner=None) -> GdResult:
     """Projected (Adam-)GD for one split point.
 
     init_mom/init_steps resume a previous solve's optimizer state: the Adam
     moments keep their history and the bias correction continues from
     init_steps instead of restarting at t=1. For a fleet env every input
-    and output leads with B, and each member stops on its own."""
+    and output leads with B, and each member stops on its own.
+
+    The solver's state (norms, moments, gamma, iteration counts, stop flags,
+    starting step counts) is one tree, and a step maps it to the next. With
+    ``runner`` None the steps run eagerly; a compiled program's runner
+    (planning.programs.Program) holds the state in its static buffers
+    (``enter``) and runs ``advance(step, n)``: on the card, replays of one
+    CUDA graph a step. Either way the host reads the stop flags once a
+    chunk, and nothing in a step reads or copies from the host."""
     if cfg.stop_rule not in ("pgd", "raw"):
         raise ValueError(f"stop_rule must be 'pgd' or 'raw', got {cfg.stop_rule!r}")
     if env.fleet is None:
         return _drop(gd_solve(_lift(env), prof, s, w, _lift(init_norm), cfg,
-                              _lift(init_mom), _lift(init_steps)))
+                              _lift(init_mom), _lift(init_steps), runner))
     beta_min = env.radio.beta_min
     adam = cfg.optimizer == "adam"
     dev = env.device
-    steps0 = (torch.zeros(env.fleet, dtype=torch.int32, device=dev) if init_steps is None
-              else init_steps.to(torch.int32))
 
     def gamma_fn(norm):
         return _utility(env, prof, s, to_physical(norm, env), w,
@@ -215,7 +228,7 @@ def gd_solve(env: NetworkEnv, prof: ModelProfile, s: int, w: EccWeights,
             grads = torch.autograd.grad(gamma.sum(), [x[k] for k in KEYS])
         return gamma.detach(), dict(zip(KEYS, grads))
 
-    def body(norm, mom, it):
+    def body(norm, mom, it, steps0):
         gamma, g = value_and_grad(norm)
         if adam:
             m1, m2 = mom
@@ -244,33 +257,50 @@ def gd_solve(env: NetworkEnv, prof: ModelProfile, s: int, w: EccWeights,
                 | (_tree_maxdiff(new, norm) < cfg.eps))
         return new, mom, gamma_new, done
 
+    def step(st: dict) -> dict:
+        """One GD step of the state tree; a stopped member stays frozen."""
+        new, new_mom, gamma_new, new_done = body(st["norm"], st["mom"], st["it"],
+                                                 st["steps0"])
+        live = ~st["done"]
+        norm = _where(live, new, st["norm"])
+        mom = st["mom"]
+        if adam:
+            mom = (_where(live, new_mom[0], mom[0]), _where(live, new_mom[1], mom[1]))
+        return {"norm": norm, "mom": mom,
+                "gamma": torch.where(live, gamma_new, st["gamma"]),
+                "it": st["it"] + live.to(torch.int32),
+                "done": st["done"] | new_done, "steps0": st["steps0"]}
+
     with torch.no_grad():
         norm = _project(init_norm, beta_min)
-        mom = (zeros_like(init_norm), zeros_like(init_norm)) if init_mom is None \
-            else init_mom
-        gamma = gamma_fn(norm)
-        it = torch.zeros(env.fleet, dtype=torch.int32, device=dev)
-        done = torch.zeros(env.fleet, dtype=torch.bool, device=dev)
+        st = {"norm": norm,
+              "mom": ((zeros_like(init_norm), zeros_like(init_norm)) if init_mom is None
+                      else init_mom),
+              "gamma": gamma_fn(norm),
+              "it": torch.zeros(env.fleet, dtype=torch.int32, device=dev),
+              "done": torch.zeros(env.fleet, dtype=torch.bool, device=dev),
+              "steps0": (torch.zeros(env.fleet, dtype=torch.int32, device=dev)
+                         if init_steps is None else init_steps.to(torch.int32))}
+        if runner is not None:
+            st = runner.enter(s, st)
         executed, chunk = 0, 1
         while executed < cfg.max_iters:
             n = min(chunk, cfg.max_iters - executed)
-            for _ in range(n):
-                new, new_mom, gamma_new, new_done = body(norm, mom, it)
-                live = ~done
-                norm = _where(live, new, norm)
-                if adam:
-                    mom = (_where(live, new_mom[0], mom[0]),
-                           _where(live, new_mom[1], mom[1]))
-                gamma = torch.where(live, gamma_new, gamma)
-                it = it + live.to(torch.int32)
-                done = done | new_done
+            if runner is None:
+                for _ in range(n):
+                    st = step(st)
+            else:
+                runner.advance(step, n)
             executed += n
             COUNTS["steps"] += n
             COUNTS["host_reads"] += 1
-            if bool(done.all()):      # the one host read of this chunk
+            if bool(st["done"].all()):      # the one host read of this chunk
                 break
             chunk = min(2 * chunk, SYNC_EVERY)
-    return GdResult(norm=norm, gamma=gamma, iters=it, mom=mom, opt_steps=steps0 + it)
+        if runner is not None:
+            st = tree_map(torch.clone, st)     # the buffers serve the next split
+    return GdResult(norm=st["norm"], gamma=st["gamma"], iters=st["it"], mom=st["mom"],
+                    opt_steps=st["steps0"] + st["it"])
 
 
 # --------------------------------------------------------------------------
@@ -294,7 +324,7 @@ def _stack(dicts: list[dict]) -> dict:
 def gd_loop(env: NetworkEnv, prof: ModelProfile, w: EccWeights, cfg: GdConfig,
             *, chain: bool = True, warm: dict | None = None,
             warm_mom: tuple | None = None, warm_steps: Tensor | None = None,
-            use_warm: Tensor | bool = True) -> LoopResult:
+            use_warm: Tensor | bool = True, runner=None) -> LoopResult:
     """Solve all F+1 split points with one warm-start policy.
 
     For a fleet env every input leads with B (warm leaves (B, F+1, ...),
@@ -311,11 +341,13 @@ def gd_loop(env: NetworkEnv, prof: ModelProfile, w: EccWeights, cfg: GdConfig,
                                temporal start is chosen. use_warm (a device
                                bool) False makes the solve exactly the
                                chained Li-GD.
+    runner: passed to every gd_solve (a compiled program's; None runs
+    eagerly).
     """
     if env.fleet is None:
         return _drop(gd_loop(_lift(env), prof, w, cfg, chain=chain, warm=_lift(warm),
                              warm_mom=_lift(warm_mom), warm_steps=_lift(warm_steps),
-                             use_warm=_lift(use_warm)))
+                             use_warm=_lift(use_warm), runner=runner))
     n_splits = prof.n_layers + 1
     b, dev = env.fleet, env.device
     init = cold_init(env)
@@ -340,7 +372,8 @@ def gd_loop(env: NetworkEnv, prof: ModelProfile, w: EccWeights, cfg: GdConfig,
             mom0 = tuple({k: torch.where(_bcast(pick, m[k][:, s]), m[k][:, s], 0.0)
                           for k in KEYS} for m in warm_mom)
             steps = torch.where(pick, warm_steps[:, s], 0)
-            res = gd_solve(env, prof, s, w, start, cfg, init_mom=mom0, init_steps=steps)
+            res = gd_solve(env, prof, s, w, start, cfg, init_mom=mom0, init_steps=steps,
+                           runner=runner)
             carry = res.norm
             results.append(res)
             picks.append(pick)
@@ -348,7 +381,7 @@ def gd_loop(env: NetworkEnv, prof: ModelProfile, w: EccWeights, cfg: GdConfig,
     else:
         carry = init
         for s in range(n_splits):
-            res = gd_solve(env, prof, s, w, carry, cfg)
+            res = gd_solve(env, prof, s, w, carry, cfg, runner=runner)
             if chain:
                 carry = res.norm
             results.append(res)

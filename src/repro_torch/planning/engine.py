@@ -13,7 +13,16 @@ device.
                         the step counts per member.
 
 All return a PlanState: the discrete SplitPlan plus the solver state that
-warm-starts the next epoch (a fleet's leaves lead with B). The warm gate -- the epoch-to-epoch channel
+warm-starts the next epoch (a fleet's leaves lead with B).
+
+The entry points share a cache of compiled programs (planning.programs),
+keyed as the JAX engine keys its jitted ones: (entry kind, env shape,
+GdConfig, method, rounding, warm_rho_min, warm_moment_decay). On the card a
+program is a set of CUDA graphs (one GD step a split point, the plan
+assembly) captured once and replayed on every later call, so a serving loop
+that re-plans every epoch captures once per network shape; compile_log()
+records each build. cache_size / cache_keys / program / program_args expose
+the cache. The warm gate -- the epoch-to-epoch channel
 correlation between the stored and the observed gains, below
 ``warm_rho_min`` the temporal starts are disabled and the solve is the exact
 cold Li-GD chain -- and the Adam-moment decay are computed on the device, so
@@ -39,27 +48,17 @@ from repro_torch.core.types import (
     tree_map,
 )
 from repro_torch.device import resolve_device
+from repro_torch.planning.programs import PlanState, Program, compile_log  # noqa: F401
+
+# The program kinds of the cache; the JAX engine's *_sharded kinds wait for
+# runtime/sharding.
+KINDS = ("plan", "plan_many", "replan", "replan_many")
 
 
 class WarmStateShapeError(ValueError):
     """A warm-start PlanState does not fit the observed network shape (user,
     AP or subchannel count changed, or a fleet state was handed to the
     single-scenario entry point and vice versa); plan cold instead."""
-
-
-@dataclasses.dataclass(frozen=True)
-class PlanState:
-    """A plan plus the solver state needed to warm-start the next epoch.
-    Every tensor stays on the device; a fleet's lead with B."""
-
-    plan: SplitPlan | None
-    norms: dict                     # per-split normalized optima, ([B,] F+1, ...)
-    total_iters: Tensor | None = None  # ([B],) GD iterations spent on this plan
-    moms: tuple | None = None       # per-split Adam moments (m1, m2), ([B,] F+1, ...)
-    opt_steps: Tensor | None = None  # ([B,] F+1) int32 optimizer steps behind `moms`
-    gains: Tensor | None = None     # g_up of the planned epoch (rho estimation)
-    warm_rho: Tensor | None = None  # ([B],) rho estimate behind the warm gate
-                                    # (None when the state came from a plan)
 
 
 def stack_envs(envs: Sequence[NetworkEnv]) -> NetworkEnv:
@@ -116,12 +115,6 @@ def plan_state_template(n_users: int, n_aps: int, n_sub: int, n_splits: int, war
                      warm_rho=z(()) if warm else None)
 
 
-def _state(env, loop, plan, rho=None) -> PlanState:
-    return PlanState(plan=plan, norms=loop.norms, total_iters=loop.total_iters,
-                     moms=loop.moms, opt_steps=loop.opt_steps, gains=env.g_up,
-                     warm_rho=rho)
-
-
 class PlannerEngine:
     """Unified planning API for one model profile on one device.
 
@@ -136,6 +129,12 @@ class PlannerEngine:
     device: None resolves to the card and raises without CUDA; pass
         device='cpu' for the plain versions on the CPU. Envs handed to the
         entry points must live on this device.
+
+    cfg, method, rounding, warm_rho_min and warm_moment_decay are read at
+    each call and are part of the cache key: assigning one on a live engine
+    builds new programs instead of changing the ones already built. The
+    programs of one engine capture and replay on one stream of its own and
+    share one graph memory pool.
     """
 
     def __init__(
@@ -171,6 +170,10 @@ class PlannerEngine:
         self.rounding = rounding
         self.warm_rho_min = warm_rho_min
         self.warm_moment_decay = warm_moment_decay
+        self._cache: dict[tuple, Program] = {}
+        graphed = self.device.type == "cuda"
+        self._stream = torch.cuda.Stream(self.device) if graphed else None
+        self._pool = torch.cuda.graph_pool_handle() if graphed else None
 
     @property
     def prof(self) -> ModelProfile:
@@ -209,9 +212,54 @@ class PlannerEngine:
             return self._weights
         return make_weights(env.n_users, device=self.device)
 
-    def _assemble(self, env, loop, prof, w) -> SplitPlan:
-        return li_gd.assemble_plan(env, loop, prof, rounding=self.rounding, w=w,
-                                   backend=self.cfg.sinr_backend)
+    # -- compiled-program cache ------------------------------------------
+    def _compiled(self, kind: str, env: NetworkEnv) -> Program:
+        # warm_rho_min / warm_moment_decay are constants of the replan
+        # programs, so they belong in the key: retuning them on a live
+        # engine builds new programs, not silently keeps the old gate.
+        if kind not in KINDS:
+            raise KeyError(kind)
+        key = (kind, tuple(env.g_up.shape), self.cfg, self.method, self.rounding,
+               self.warm_rho_min, self.warm_moment_decay)
+        prog = self._cache.get(key)
+        if prog is None:
+            prog = self._cache[key] = Program(
+                kind, self.cfg, self.method, self.rounding, self.warm_rho_min,
+                self.warm_moment_decay, self.device, stream=self._stream, pool=self._pool)
+        return prog
+
+    def cache_size(self) -> int:
+        return len(self._cache)
+
+    def cache_keys(self) -> list[tuple]:
+        """The compiled-program cache keys, for cache-discipline audits:
+        (kind, env shape, GdConfig, method, rounding, warm_rho_min,
+        warm_moment_decay). Read-only snapshot."""
+        return list(self._cache)
+
+    def program(self, kind: str, env: NetworkEnv) -> Program:
+        """The program this engine dispatches for (kind, env), built and
+        cached on first access exactly as the entry points do; call it with
+        program_args(kind, env, ...)."""
+        return self._compiled(kind, env)
+
+    def program_args(self, kind: str, env: NetworkEnv, prev: PlanState | None = None,
+                     weights: EccWeights | None = None,
+                     prof: ModelProfile | None = None) -> tuple:
+        """The positional arguments program(kind, env) is called with: (env,
+        prof, w) for the plan kinds, plus the warm payload (norms, moms,
+        steps, prev_gains) of ``prev`` for the replan kinds. ``env`` is one
+        environment for plan / replan and a stacked fleet for the *_many
+        kinds. ``prof`` substitutes a measured profile, as the entry points
+        do (validated; the same program)."""
+        w = self._w(env, weights)
+        prof = self._prof_arg(prof)
+        if kind.startswith("plan"):
+            return (env, prof, w)
+        if prev is None:
+            raise ValueError(f"program_args({kind!r}) needs prev= (a PlanState) to "
+                             "assemble the warm payload")
+        return (env, prof, w, *self._warm_args(prev, env.g_up))
 
     # -- entry points ----------------------------------------------------
     @torch.no_grad()
@@ -220,7 +268,8 @@ class PlannerEngine:
         """One-shot solve of a static environment. ``prof`` substitutes a
         measured profile, validated against the static one."""
         self._check_env(env)
-        return self._solve(env, weights, prof)
+        return self._compiled("plan", env)(*self.program_args("plan", env, weights=weights,
+                                                              prof=prof))
 
     @torch.no_grad()
     def plan_many(self, envs: NetworkEnv | Sequence[NetworkEnv],
@@ -236,13 +285,8 @@ class PlannerEngine:
                 f"plan_many expects stacked envs with g_up (B, U, N, M); got "
                 f"{tuple(envs.g_up.shape)} -- use plan() for a single scenario")
         self._check_device(envs)
-        return self._solve(envs, weights, prof)
-
-    def _solve(self, env: NetworkEnv, weights, prof) -> PlanState:
-        """The cold solve of plan / plan_many."""
-        prof, w = self._prof_arg(prof), self._w(env, weights)
-        loop = li_gd.gd_loop(env, prof, w, self.cfg, chain=(self.method == "li_gd"))
-        return _state(env, loop, self._assemble(env, loop, prof, w))
+        return self._compiled("plan_many", envs)(
+            *self.program_args("plan_many", envs, weights=weights, prof=prof))
 
     @staticmethod
     def _fleet(envs, entry: str) -> NetworkEnv:
@@ -303,7 +347,8 @@ class PlannerEngine:
                 f"new env has {tuple(env.g_up.shape)}; scenario shapes (users, "
                 "APs, subchannels) must stay static across epochs (use plan() "
                 "after a shape change)")
-        return self._resolve(prev, env, weights, prof)
+        return self._compiled("replan", env)(
+            *self.program_args("replan", env, prev, weights=weights, prof=prof))
 
     @torch.no_grad()
     def replan_many(self, prev: PlanState | None,
@@ -341,19 +386,5 @@ class PlannerEngine:
                 f"{tuple(envs.g_up.shape)}; fleet and scenario shapes must "
                 "stay static across epochs (use plan_many() after a shape "
                 "change)")
-        return self._resolve(prev, envs, weights, prof)
-
-    def _resolve(self, prev: PlanState, env: NetworkEnv, weights, prof) -> PlanState:
-        """The warm solve of replan / replan_many: rho gate, moment decay,
-        warm Li-GD and plan assembly, all on the device."""
-        prof, w = self._prof_arg(prof), self._w(env, weights)
-        norms, moms, steps, prev_gains = self._warm_args(prev, env.g_up)
-        norms = {k: v.to(self.device) for k, v in norms.items()}
-        rho = li_gd.rho_estimate(prev_gains.to(self.device), env.g_up)
-        # rho is in [0, 1], so warm_rho_min <= 0 keeps the gate always open.
-        use_warm = rho >= self.warm_rho_min
-        moms = tuple({k: self.warm_moment_decay * m[k].to(self.device)
-                      for k in li_gd.KEYS} for m in moms)
-        loop = li_gd.gd_loop(env, prof, w, self.cfg, warm=norms, warm_mom=moms,
-                             warm_steps=steps.to(self.device), use_warm=use_warm)
-        return _state(env, loop, self._assemble(env, loop, prof, w), rho)
+        return self._compiled("replan_many", envs)(
+            *self.program_args("replan_many", envs, prev, weights=weights, prof=prof))
