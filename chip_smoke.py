@@ -137,7 +137,33 @@ Phases, each fatal on failure (no phase catches its own error):
                  replayed step, the others' origins printed); 12.3 phase 7's
                  plan_many and first replan_many (the eager fleet runs once);
                  12.4 graphs, capture seconds and pool bytes; the walls of
-                 both paths.
+                 both paths;
+ 13. moe/xlstm -- the MoE and xLSTM families at full width and depth,
+                 random weights from a seed, 4 requests of 3072 tokens:
+                 13.1 deepseek-moe-16b (28 layers, 16.3e9 parameters, built
+                 at the serving driver's capacity 4.0): flash_attention
+                 against its twin at its shape (hd 128, G = 1, full causal)
+                 and timed beside scaled_dot_product_attention (is_causal)
+                 and its bound; the serving entry point with exact launch
+                 counts (28 flash_attention a forward); split logits at s*
+                 and s=14 equal to the unsplit forward's to the bit; two runs
+                 of the forward bit-equal (the combine adds without
+                 atomics); the slots dropped at capacity 4.0, printed;
+                 sorted MoE against dense on the first MoE layer's input of
+                 1024 served tokens at capacity E; prefill + 8 cached decode
+                 steps against the forward at a capacity where no slot can
+                 drop, with free routing (printed, with the top-6 choices
+                 that moved) and with each layer's experts pinned to the
+                 forward's (held to 0.05 * max(1, max |logits|)); one
+                 forward under torch.profiler (busy share; expert bmm,
+                 dispatch and flash shares); 13.2 xlstm-125m (12 layers,
+                 mLSTM / sLSTM): the entry point (no TPU kernel on its
+                 path), split logits at s* and s=6 bit-equal, prefill of
+                 11 chunks + 8 decode steps against the forward, a
+                 DecodeBatcher's caches exported after 8 steps and
+                 imported into a fresh one, 4 more steps bit-equal to the
+                 live batcher's, and a profiled forward of 4 x 512 tokens
+                 (the sLSTM loop's launch rate).
 The last lines are the kernels JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
@@ -205,8 +231,9 @@ BEFORE_MEMBER_DIM_MS = {"noma_cell_intra": 0.027266, "noma_per_ap": 0.012206,
 # The script's peak in PyTorch's allocator is phase 6's, 54.3 GiB reserved on
 # an H100 80GB (19 GB of bf16 weights beside the split and the unsplit forward's
 # float32 logits, 12.6 GB each, and phase 4's engine with its graph pool;
-# printed at the end, by phase). With the CUDA context and a margin it needs
-# this much free at the start.
+# printed at the end, by phase); phase 13.1's is 46.3 GiB (32.6 GB of
+# deepseek-moe-16b's weights, two 5.0 GB logit tensors, the MoE buffers).
+# With the CUDA context and a margin it needs this much free at the start.
 MEMORY_NEED_BYTES = 56 << 30
 MEMORY_WAIT_S = 300.0              # the script takes 350-710 s of its 1200
 SERVE_ARCH = "recurrentgemma-9b"
@@ -249,6 +276,12 @@ DURABLE_FAULTS = dict(link_outage_rate=0.1, fade_depth=1e-6, ap_outage_rate=0.02
                       telemetry_drop_rate=0.05, service_spike_rate=0.02)
 DURABLE_SEED, DURABLE_EPOCHS, DURABLE_EVERY, DURABLE_CRASH = 7, 24, 6, 16
 DURABLE_TAMPER_T = 3               # the journal epoch whose word 11.5 flips
+# Phase 13: the MoE and xLSTM families at full width and depth, 4 requests of
+# 3072 tokens as phase 6; the second split point each holds to the bit, and
+# the served tokens on which sorted MoE is held to dense.
+MOE_ARCH, XLSTM_ARCH = "deepseek-moe-16b", "xlstm-125m"
+MOE_SPLIT, XLSTM_SPLIT = 14, 6
+MOE_DENSE_TOKENS = 1024
 # TPU kernel each CUDA kernel replaces, and its source in this repo.
 NOMA_SOURCE = "src/repro_torch/kernels/csrc/noma_rates.cu"
 TPU_KERNELS = {
@@ -872,6 +905,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     memory_mark(torch, "12", peaks)
+    # -- 13. MoE and xLSTM serving ---------------------------------------------
+    moe_row, moe_launches = moe_phase(dev, smi, errs)
+    rows["flash_attention"]["deepseek"] = moe_row
+    launches["flash_attention"] += moe_launches
+    memory_mark(torch, "13.1", peaks)
+    xlstm_phase(dev, smi)
+
+    memory_mark(torch, "13.2", peaks)
     print("memory: peak reserved by phase (GiB): " + ", ".join(
         f"{k} {v / 2**30:.2f}" for k, v in peaks.items()))
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": tpu,
@@ -1140,24 +1181,8 @@ def serve_phase(dev, kind: str, smi: str, errs: dict):
     torch.cuda.empty_cache()
 
     # 6.5 where a forward's time goes: one forward under torch.profiler
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model(tokens)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows_k = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in rows_k)
-    print(f"profile forward (4 x 3072 tokens, profiled): wall_s={wall:.4f} "
-          f"device_busy_s={busy_us / 1e6:.4f} busy_share={busy_us / 1e6 / wall:.4f} "
-          f"kernel_launches={sum(e.count for e in rows_k)}")
-    for e in sorted(rows_k, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"profile kernel {e.self_device_time_total / 1e3:9.2f} ms "
-              f"{e.self_device_time_total / max(busy_us, 1):6.1%} {e.count:6d} launches  "
-              f"{e.key[:80]}")
-    del prof, rows_k     # the model stays for phase 9
-    torch.cuda.empty_cache()
+    profile_forward(lambda: model(tokens), f"profile forward ({B} x {S} tokens)", smi)
+    torch.cuda.empty_cache()     # the model stays for phase 9
 
     # 6.6 a small input against the plain twins on the CPU
     small = configs.get(SERVE_ARCH).reduced()
@@ -2614,6 +2639,484 @@ def programs_phase(dev, smi: str, main: dict, fleet: dict) -> None:
             f"{p['kind']} {p['shape']} {p['graphs']} graphs captured in {p['capture_s']:.4f} s"
             for p in rep["programs"]) + f"; graph pool {rep['pool_bytes']} bytes | {smi}")
     print(f"programs: phase 12 took {time.perf_counter() - t_phase:.1f} s | {smi}")
+
+
+def profile_forward(fn, label: str, smi: str, ops: dict | None = None) -> dict:
+    """One call of fn under torch.profiler: wall, device busy time and
+    share, kernel count, the top kernels, and for each group of ``ops``
+    (label -> aten op names, or a kernel-name fragment after "kernel:") its
+    share of the busy time. Returns the numbers."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    avg = prof.key_averages()
+    rows_k = [e for e in avg if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in rows_k)
+    if busy_us <= 0:
+        fail(f"{label}: torch.profiler recorded no device time")
+    n_kernels = sum(e.count for e in rows_k)
+    print(f"{label} (profiled): wall_s={wall:.4f} device_busy_s={busy_us / 1e6:.4f} "
+          f"busy_share={busy_us / 1e6 / wall:.4f} kernel_launches={n_kernels} | {smi}")
+    shares = {}
+    for group, names in (ops or {}).items():
+        if isinstance(names, str):      # "kernel:<fragment>"
+            us = sum(e.self_device_time_total for e in rows_k if names[7:] in e.key)
+        else:                           # aten ops: their kernels' device time
+            us = sum(e.device_time_total for e in avg
+                     if e.device_type == DeviceType.CPU and e.key in names)
+        shares[group] = us / busy_us
+        print(f"{label} share {group}: {us / 1e3:.3f} ms, {us / busy_us:.4f} of the busy time")
+    for e in sorted(rows_k, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"{label} kernel {e.self_device_time_total / 1e3:9.2f} ms "
+              f"{e.self_device_time_total / busy_us:6.1%} {e.count:6d} launches  {e.key[:80]}")
+    return dict(wall_s=wall, busy_s=busy_us / 1e6, busy_share=busy_us / 1e6 / wall,
+                kernels=n_kernels, shares=shares)
+
+
+def split_checks(model, tokens, full, splits, label: str, want_flash: int, smi: str) -> dict:
+    """Split logits at each split point against the unsplit forward's, to
+    the bit, with want_flash flash_attention launches through both halves.
+    Returns {s: (device_s, edge_s)}."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.runtime.serve import make_split_serve
+    times = {}
+    for s in splits:
+        progs = make_split_serve(model, s)
+        fa.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        act = progs.device_fn(tokens)
+        torch.cuda.synchronize()
+        t_dev = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        logits = progs.edge_fn(act)
+        torch.cuda.synchronize()
+        times[s] = (t_dev, time.perf_counter() - t0)
+        n_fa = fa.LAUNCHES["flash_attention"]
+        n_diff = int((logits != full).any(-1).sum())
+        print(f"{label} split s={s}: device_s={times[s][0]:.4f} edge_s={times[s][1]:.4f}; "
+              f"flash_attention launches {n_fa}; positions whose logits differ from the "
+              f"forward's: {n_diff} | {smi}")
+        if n_diff or not torch.equal(logits, full):
+            fail(f"{label} split s={s}: logits at {n_diff} positions differ from the forward")
+        if n_fa != want_flash:
+            fail(f"{label} split s={s}: {n_fa} flash_attention launches, expected {want_flash}")
+        del act, logits, progs
+        torch.cuda.empty_cache()
+    return times
+
+
+class Routes:
+    """Within a with-block, moe._router records each call's expert choices
+    in ``seen``; given ``pin`` (a list of (N, k) choices consumed in call
+    order) it takes those experts instead, the gates then being the call's
+    own router probabilities at them, normalized as the router does."""
+
+    def __init__(self, pin=None):
+        self.pin = None if pin is None else list(pin)
+        self.seen = []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self.moe, self.orig = moe, moe._router
+
+        def router(p, xt, cfg):
+            gates, idx, aux = self.orig(p, xt, cfg)
+            if self.pin is not None:
+                idx = self.pin.pop(0)
+                probs = torch.softmax((xt @ p["router"].to(moe.COMPUTE_DTYPE)).float(), -1)
+                g = probs.gather(1, idx)
+                gates = g / torch.clamp_min(g.sum(-1, keepdim=True), 1e-9)
+            self.seen.append(idx)
+            return gates, idx, aux
+
+        moe._router = router
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._router = self.orig
+
+
+def decode_checks(model, tokens, ref, p_len: int, absmax: float, label: str, smi: str,
+                  gate: bool = True):
+    """Prefill the first p_len tokens, then DECODE_STEPS cached decode
+    steps, each against the forward's logits (ref: its positions p_len - 1
+    to p_len + DECODE_STEPS - 1) within 0.05 * max(1, max |logits|)
+    (printed; a failure unless gate is False). Returns (prefill s, median
+    decode ms a step, the worst error)."""
+    import torch
+    from repro_torch.models import moe
+    tol = 0.05 * max(1.0, absmax)
+    b, s = tokens.shape
+    torch.cuda.synchronize()
+    with moe.drop_log() as drops:
+        t0 = time.perf_counter()
+        last, caches = model.prefill({"tokens": tokens[:, :p_len]}, max_len=s)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        errs_dec = [float((last - ref[:, 0]).abs().max())]
+        step_s = []
+        for i in range(DECODE_STEPS):
+            t0 = time.perf_counter()
+            logits, caches = model.decode_step(caches, tokens[:, p_len + i:p_len + i + 1])
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            errs_dec.append(float((logits - ref[:, i + 1]).abs().max()))
+    dropped = sum(int(d) for d in drops)
+    worst = max(errs_dec)
+    print(f"{label} decode: prefill {b}x{p_len} tokens then {DECODE_STEPS} steps; max |decode - "
+          f"forward| per step {[f'{e:.4f}' for e in errs_dec]}; worst {worst:.4f}, "
+          f"{worst / tol:.3f} of the bound 0.05*max(1, max|logits|) = {tol:.4f}; MoE slots "
+          f"dropped {dropped} | {smi}")
+    if dropped:
+        fail(f"{label} decode: {dropped} MoE slots dropped: decode cannot match the forward")
+    if gate and not worst <= tol:
+        fail(f"{label}: cached decode differs from the forward by {worst:.4f} > {tol:.4f}")
+    return prefill_s, statistics.median(step_s) * 1e3, worst
+
+
+def moe_phase(dev, smi: str, errs: dict) -> tuple[dict, int]:
+    """Phase 13.1: deepseek-moe-16b at full width and depth. Returns the
+    flash_attention timing row at its shape and the serving main path's
+    flash_attention launches; adds the flash check's error to errs."""
+    import gc
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import configs
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import noma_rates as nr
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import Model, moe
+
+    t_phase = time.perf_counter()
+    cfg = configs.get(MOE_ARCH)
+    B, S = SERVE_B, SERVE_S
+    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    # the flash kernel at this model's prefill shape (G = 1, hd 128, causal)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    q, k, v = (torch.randn((B * H, S, HD), device=dev, generator=gen).bfloat16()
+               for _ in range(3))
+    args = (H // KV, True, 0)
+    got = fa.flash_attention(q, k, v, *args)
+    torch.cuda.synchronize()
+    check(f"flash_attention {MOE_ARCH} B={B} S={S} H={H}/{KV} hd={HD} causal",
+          got.float(), fa.flash_attention_plain(q, k, v, *args).float(), FLASH_RTOL,
+          fa.flash_attention_plain(q, k, v.abs(), *args).float(), errs, "flash_attention")
+    del got
+    qs, ks, vs = (t.view(B, H, S, HD) for t in (q, k, v))
+    pairs = S * (S + 1) // 2
+    flash_ops = 4 * HD * pairs * B * H
+    flash_bytes = 2 * (2 * B * H * S * HD + 2 * B * KV * S * HD)
+    t_bytes = flash_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flash_ops / BF16_OPS_PER_S * 1e3
+    row = {
+        "ms": device_ms([lambda: fa.flash_attention(q, k, v, *args)], reps=5),
+        "plain_ms": device_ms([lambda: fa.flash_attention_plain(q, k, v, *args)], reps=1,
+                              trials=3),
+        "library_ms": device_ms([lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True)], reps=5),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    print(f"time flash_attention at {MOE_ARCH}'s shape ({B * H}, {S}, {HD}) G=1 causal: "
+          + " ".join(f"{k}={v}" for k, v in row.items())
+          + f" ({flash_ops:.4e} FLOP, {flash_bytes / 1e6:.1f} MB; library: "
+          f"scaled_dot_product_attention, is_causal) | {smi}")
+    del q, k, v, qs, ks, vs
+    torch.cuda.empty_cache()
+
+    # the main path: the serving entry point, plan + cut + serve
+    n_attn = cfg.n_layers
+    for reset in (nr.reset_launches, fa.reset_launches):
+        reset()
+    argv = ["--arch", MOE_ARCH, "--requests", str(B), "--seq", str(S), "--new-tokens", "2",
+            "--seed", "0"]
+    print(f"moe 13.1 main: python -m repro_torch.launch.serve {' '.join(argv)}")
+    t0 = time.perf_counter()
+    out = launch_serve.main(argv)
+    torch.cuda.synchronize()
+    main_wall = time.perf_counter() - t0
+    main_launches = {**nr.LAUNCHES, **fa.LAUNCHES}
+    s_star = out["split"]
+    print(f"moe 13.1 main: s*={s_star} wall_s={main_wall:.3f} device_s={out['device_s']:.4f} "
+          f"edge_s={out['edge_s']:.4f} link_s={out['link_s']:.4f} (simulated) "
+          f"launches={main_launches}")
+    if not 0 <= s_star <= cfg.n_layers:
+        fail(f"moe 13.1: s*={s_star} out of range")
+    for name, n in main_launches.items():
+        if n <= 0:
+            fail(f"moe 13.1: {name} was not launched on the serving main path")
+    if main_launches["flash_attention"] != 2 * n_attn:
+        fail(f"moe 13.1: {main_launches['flash_attention']} flash_attention launches on the "
+             f"serving main path, expected {2 * n_attn}")
+    new_toks = out["new_tokens"]
+    if tuple(new_toks.shape) != (B, 2) or int(new_toks.min()) < 0 or \
+            int(new_toks.max()) >= cfg.vocab_size:
+        fail(f"moe 13.1: new tokens {new_toks.tolist()} outside the vocabulary")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same weights again
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, moe_capacity=launch_serve.MOE_CAPACITY).init(
+        torch.Generator(device=dev).manual_seed(launch_serve.PARAM_SEED))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"moe 13.1 model: {MOE_ARCH} {cfg.n_layers} layers ({cfg.first_dense_layers} dense, "
+          f"{cfg.n_layers - cfg.first_dense_layers} MoE: {cfg.n_experts} experts top-"
+          f"{cfg.top_k}, {cfg.n_shared_experts} shared), {n_params} parameters, "
+          f"{model.param_bytes()} bytes on the card, init {time.perf_counter() - t0:.2f} s, "
+          f"capacity factor {model.moe_capacity}")
+    tokens = make_batch(0, 0, B, S, cfg.vocab_size, device=dev)["tokens"]
+    fa.reset_launches()
+    with moe.drop_log() as drops:
+        t0 = time.perf_counter()
+        full, _, aux = model(tokens)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+    dropped = sum(int(d) for d in drops)
+    if tuple(full.shape) != (B, S, model.vocab_padded) or not bool(torch.isfinite(full).all()):
+        fail(f"moe 13.1 forward logits: shape {tuple(full.shape)} or not finite")
+    absmax = float(full[..., :cfg.vocab_size].abs().max())    # past the vocab: -1e30
+    print(f"moe 13.1 forward: logits {tuple(full.shape)} finite, max |logit| {absmax:.4f}, "
+          f"aux loss {float(aux):.6f}, {fwd_s:.3f} s; flash_attention launches "
+          f"{fa.LAUNCHES['flash_attention']}; MoE slots dropped at the served capacity "
+          f"{dropped} of {len(drops) * B * S * cfg.top_k} in {len(drops)} layers, by layer "
+          f"{[int(d) for d in drops]}")
+    if fa.LAUNCHES["flash_attention"] != n_attn:
+        fail(f"moe 13.1 forward: {fa.LAUNCHES['flash_attention']} flash_attention launches, "
+             f"expected {n_attn}")
+    split_times = split_checks(model, tokens, full, (s_star, MOE_SPLIT), "moe 13.1", n_attn,
+                               smi)
+    again, _, _ = model(tokens)
+    same = torch.equal(again, full)
+    print(f"check moe 13.1 two runs of the same forward bit-equal: {same}")
+    if not same:
+        fail("moe 13.1: two runs of the same forward differ (the combine must not use atomics)")
+    del again, full
+    torch.cuda.empty_cache()
+
+    # sorted against dense on the first MoE layer's input of 1024 served tokens
+    taken = []
+    apply = moe.moe_apply
+
+    def capture(p, x, c, **kw):
+        if not taken:
+            taken.append((p, x.clone()))
+        return apply(p, x, c, **kw)
+
+    moe.moe_apply = capture
+    try:
+        model(tokens[:, :MOE_DENSE_TOKENS // B])
+    finally:
+        moe.moe_apply = apply
+    p1, x1 = taken[0]
+    with moe.drop_log() as drops:
+        y_s, aux_s = moe.moe_apply(p1, x1, cfg, impl="sorted", capacity_factor=cfg.n_experts)
+    y_d, aux_d = moe.moe_apply(p1, x1, cfg, impl="dense")
+    diff = (y_s.float() - y_d.float()).abs()
+    ok = bool((diff <= 0.03 + 0.05 * y_d.float().abs()).all()) and int(drops[0]) == 0 and \
+        abs(float(aux_s) - float(aux_d)) <= 1e-5 * abs(float(aux_d))
+    print(f"check moe 13.1 sorted vs dense on layer 1's input ({MOE_DENSE_TOKENS} served "
+          f"tokens, capacity factor {cfg.n_experts}, {int(drops[0])} dropped): max_abs_err="
+          f"{float(diff.max()):.3e} (max |y| {float(y_d.abs().max()):.3e}; atol 0.03, rtol "
+          f"0.05); aux {float(aux_s):.6f} vs {float(aux_d):.6f}: {ok}")
+    if not ok:
+        fail("moe 13.1: sorted and dense MoE differ beyond atol 0.03 / rtol 0.05")
+    del taken, p1, x1, y_s, y_d, diff
+
+    # Decode against the forward needs both to drop no slot: the capacity is
+    # a function of the token count, so a prefill and a decode step would
+    # drop other slots than the forward. At E / k every expert holds all N
+    # tokens and none can drop.
+    model.moe_capacity = cfg.n_experts / cfg.top_k
+    with moe.drop_log() as drops, Routes() as fwd_routes:
+        full, _, _ = model(tokens)
+    dropped_none = sum(int(d) for d in drops)
+    print(f"moe 13.1 decode reference: the forward at capacity factor {model.moe_capacity:.4f} "
+          f"(every expert holds all {B * S} tokens): MoE slots dropped {dropped_none}")
+    if dropped_none:
+        fail(f"moe 13.1: {dropped_none} slots dropped at a capacity where none can")
+    p_len = S - DECODE_STEPS
+    ref = full[:, p_len - 1:].clone()
+    absmax_ref = float(full[..., :cfg.vocab_size].abs().max())
+    del full
+    torch.cuda.empty_cache()
+    # Free routing: a bf16 ulp between the decode path (single-pass
+    # attention, 4-row GEMMs) and the forward moves a router logit across a
+    # near-tie of the top 6 of 64, and the token's later layers follow
+    # another expert. Printed with the choices that moved; then the same
+    # decode with each layer's experts pinned to the forward's choices for
+    # that token (the gates still its own), held to the bound.
+    k = cfg.top_k
+    per_layer = [r.view(B, S, k) for r in fwd_routes.seen]
+    n_moe = len(per_layer)
+    with Routes() as free:
+        prefill_s, dec_ms, worst_free = decode_checks(
+            model, tokens, ref, p_len, absmax_ref, "moe 13.1 free routing", smi, gate=False)
+    moved = [sum(int((torch.sort(free.seen[n_moe * (i + 1) + l], -1)[0] != torch.sort(
+        per_layer[l][:, p_len + i], -1)[0]).any(-1).sum()) for l in range(n_moe))
+        for i in range(DECODE_STEPS)]
+    print(f"moe 13.1 free routing: (request, layer) choices of the decoded tokens whose top-{k} "
+          f"set differs from the forward's, by step: {moved} of {B * n_moe} each")
+    pin = [r[:, :p_len].reshape(-1, k) for r in per_layer]
+    pin += [r[:, p_len + i] for i in range(DECODE_STEPS) for r in per_layer]
+    with Routes(pin=pin):
+        decode_checks(model, tokens, ref, p_len, absmax_ref, "moe 13.1 routing pinned", smi)
+    model.moe_capacity = launch_serve.MOE_CAPACITY
+    del ref, fwd_routes, per_layer, free, pin
+    torch.cuda.empty_cache()
+    prof = profile_forward(lambda: model(tokens), f"moe 13.1 profile forward ({B} x {S})", smi,
+                           {"expert bmm": {"aten::bmm"},
+                            "dispatch and combine (sort, searchsorted, gathers, index_put)":
+                            {"aten::sort", "aten::searchsorted", "aten::index",
+                             "aten::index_put_", "aten::gather"},
+                            "flash_attention": "kernel:flash_wgmma"})
+    t_dev, t_edge = split_times[s_star]
+    print(f"moe 13.1 times ({smi}): prefill_s={prefill_s:.4f} ({B}x{p_len} "
+          f"tokens); decode_ms_per_step={dec_ms:.3f}; split s*={s_star} device_s={t_dev:.4f} "
+          f"edge_s={t_edge:.4f}; forward_s={fwd_s:.4f}; busy_share={prof['busy_share']:.4f}; "
+          f"free-routing decode worst {worst_free:.4f}; main wall_s={main_wall:.3f}; "
+          f"phase 13.1 {time.perf_counter() - t_phase:.1f} s")
+    del model, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["launches"] = main_launches["flash_attention"]
+    return row, main_launches["flash_attention"]
+
+
+def xlstm_phase(dev, smi: str) -> None:
+    """Phase 13.2: xlstm-125m at full width and depth (no TPU kernel on its
+    path): the entry point, split logits to the bit, cached decode, and a
+    DecodeBatcher's caches exported and imported mid-run."""
+    import gc
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.types import tree_flatten
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import noma_rates as nr
+    from repro_torch.kernels import rg_lru as rl
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import Model, xlstm
+    from repro_torch.online import DecodeBatcher
+
+    t_phase = time.perf_counter()
+    cfg = configs.get(XLSTM_ARCH)
+    B, S = SERVE_B, SERVE_S
+    for reset in (nr.reset_launches, fa.reset_launches, rl.reset_launches):
+        reset()
+    argv = ["--arch", XLSTM_ARCH, "--requests", str(B), "--seq", str(S), "--new-tokens", "1",
+            "--seed", "0"]
+    print(f"xlstm 13.2 main: python -m repro_torch.launch.serve {' '.join(argv)}")
+    t0 = time.perf_counter()
+    out = launch_serve.main(argv)
+    torch.cuda.synchronize()
+    main_wall = time.perf_counter() - t0
+    launched = {**nr.LAUNCHES, **fa.LAUNCHES, **rl.LAUNCHES}
+    s_star = out["split"]
+    print(f"xlstm 13.2 main: s*={s_star} wall_s={main_wall:.3f} device_s={out['device_s']:.4f} "
+          f"edge_s={out['edge_s']:.4f} link_s={out['link_s']:.4f} (simulated) "
+          f"launches={launched}")
+    if not 0 <= s_star <= cfg.n_layers:
+        fail(f"xlstm 13.2: s*={s_star} out of range")
+    if launched["flash_attention"] or launched["rg_lru"] or not launched["noma_cell_intra"]:
+        fail(f"xlstm 13.2: launches {launched}: the plan runs the NOMA kernels, the model none")
+    new_toks = out["new_tokens"]
+    if tuple(new_toks.shape) != (B, 1) or int(new_toks.min()) < 0 or \
+            int(new_toks.max()) >= cfg.vocab_size:
+        fail(f"xlstm 13.2: new tokens {new_toks.tolist()} outside the vocabulary")
+    del out
+    gc.collect()
+
+    model = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(launch_serve.PARAM_SEED))
+    print(f"xlstm 13.2 model: {XLSTM_ARCH} {cfg.n_layers} layers (mlstm, slstm alternating), "
+          f"{sum(p.numel() for p in model.parameters())} parameters, {model.param_bytes()} "
+          f"bytes on the card")
+    tokens = make_batch(0, 0, B, S, cfg.vocab_size, device=dev)["tokens"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full, _, _ = model(tokens)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    if tuple(full.shape) != (B, S, model.vocab_padded) or not bool(torch.isfinite(full).all()):
+        fail(f"xlstm 13.2 forward logits: shape {tuple(full.shape)} or not finite")
+    absmax = float(full[..., :cfg.vocab_size].abs().max())    # past the vocab: -1e30
+    print(f"xlstm 13.2 forward: logits {tuple(full.shape)} finite, max |logit| {absmax:.4f}, "
+          f"{fwd_s:.3f} s")
+    split_times = split_checks(model, tokens, full, (s_star, XLSTM_SPLIT), "xlstm 13.2", 0, smi)
+    # a prefill is a whole number of mLSTM chunks (the reference asserts it)
+    p_len = S - xlstm.CHUNK
+    ref = full[:, p_len - 1:p_len + DECODE_STEPS].clone()
+    del full
+    prefill_s, dec_ms, _ = decode_checks(model, tokens, ref, p_len, absmax, "xlstm 13.2", smi)
+    del ref
+
+    # DecodeBatcher: 8 steps, the caches exported, 4 more steps on the live
+    # batcher and on a fresh one that imported the export
+    b, max_len = BATCH_SLOTS, ONLINE_S + 16
+    toks = make_batch(13, 0, b, ONLINE_S, cfg.vocab_size, device=dev)["tokens"]
+    db = DecodeBatcher(model, None, capacity=b, max_len=max_len)
+    for i in range(b):
+        db.admit(i, toks[i:i + 1])
+    gen = torch.Generator(device=dev).manual_seed(13)
+    steps = [torch.randint(0, cfg.vocab_size, (b, 1), device=dev, generator=gen,
+                           dtype=torch.int32) for _ in range(12)]
+    masks = [torch.tensor([j != i % (b + 1) for j in range(b)], device=dev)
+             for i in range(12)]
+    t_steps = []
+    for i in range(8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        db.step(steps[i], masks[i])
+        torch.cuda.synchronize()
+        t_steps.append(time.perf_counter() - t0)
+    snap = db.export_caches()
+    fresh = DecodeBatcher(model, None, capacity=b, max_len=max_len)
+    fresh.import_caches(snap)
+    same = True
+    for i in range(8, 12):
+        same &= torch.equal(db.step(steps[i], masks[i]), fresh.step(steps[i], masks[i]))
+    same &= all(torch.equal(x, y) for x, y in zip(tree_flatten(db.caches)[0],
+                                                  tree_flatten(fresh.caches)[0]))
+    n_bytes = sum(x.numel() * x.element_size() for x in tree_flatten(snap)[0])
+    print(f"check xlstm 13.2 DecodeBatcher(capacity={b}) {b} admissions of {ONLINE_S} tokens, "
+          f"8 masked steps ({statistics.median(t_steps) * 1e3:.3f} ms a step), export "
+          f"({n_bytes / 2**20:.2f} MiB) -> import into a fresh batcher, 4 more steps: logits "
+          f"and caches bit-equal to the uninterrupted batcher's: {same}")
+    if not same:
+        fail("xlstm 13.2: the batcher after an export / import differs from the live one")
+    del db, fresh, snap
+    prof = profile_forward(lambda: model(tokens[:, :ONLINE_S]),
+                           f"xlstm 13.2 profile forward ({B} x {ONLINE_S})", smi)
+    n_slstm = sum(sp.n_layers for sp in model.stages if sp.kind == "slstm")
+    t_dev, t_edge = split_times[s_star]
+    print(f"xlstm 13.2 times ({smi}): prefill_s={prefill_s:.4f} ({B}x{p_len} "
+          f"tokens; {n_slstm} sLSTM layers x {p_len} steps, "
+          f"{prefill_s / (n_slstm * p_len) * 1e6:.1f} us a layer-step); "
+          f"decode_ms_per_step={dec_ms:.3f}; split s*={s_star} device_s={t_dev:.4f} "
+          f"edge_s={t_edge:.4f}; forward_s={fwd_s:.4f}; profiled {B}x{ONLINE_S} forward: "
+          f"busy_share={prof['busy_share']:.4f}, {prof['kernels']} kernels, "
+          f"{prof['kernels'] / prof['wall_s']:.0f} launches a second; main wall_s="
+          f"{main_wall:.3f}; phase 13.2 {time.perf_counter() - t_phase:.1f} s")
+    del model, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

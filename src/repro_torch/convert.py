@@ -4,12 +4,13 @@ Turns the reference's objects, given as numpy arrays plus constants, into
 the port's: a NetworkEnv, a ModelProfile, EccWeights, a SplitPlan, a
 PlanState (one scenario's or a fleet's), a ScenarioState, and the online
 loop's StreamState, BatchState, QosState, TelemetryState and FaultState,
-and a whole serving snapshot (serving_state_from_numpy), so a plan made by
-the reference can warm-start the port's replan / replan_many, a reference
-scenario can be stepped on by the port, and a reference episode stopped (or
-snapshotted) at epoch k can go on in the port. Constants may
-be any object with the fields of RadioConstants / ComputeConstants (the
-reference's dataclasses qualify) or a dict. No JAX here: callers convert
+a whole serving snapshot (serving_state_from_numpy), the served LM's
+parameters (model_params_from_numpy) and its caches (caches_from_numpy),
+so a plan made by the reference can warm-start the port's replan /
+replan_many, a reference scenario can be stepped on by the port, and a
+reference episode stopped (or snapshotted) at epoch k can go on in the
+port. Constants may be any object with the fields of RadioConstants /
+ComputeConstants (the reference's dataclasses qualify) or a dict. No JAX here: callers convert
 their arrays with np.asarray first. to_numpy goes the other way.
 """
 from __future__ import annotations
@@ -232,7 +233,9 @@ def model_params_from_numpy(model, tree: dict):
     """Load the reference Model.init pytree, given as numpy arrays, into the
     port's Model: top leaves as they are, each stage's stacked leaves
     [L, ...] split into its L layers. Every leaf is cast to the port's
-    storage dtype on the model's device. Returns the model."""
+    storage dtype on the model's device (bf16, or float32 where the
+    reference uses it so: norms and the RG-LRU and xLSTM gates). Returns the
+    model."""
     dev = model.device
     model.top.load_(_from_numpy({k: v for k, v in tree.items() if k != "stages"}, dev))
     if len(tree["stages"]) != len(model.stage_layers):
@@ -242,6 +245,26 @@ def model_params_from_numpy(model, tree: dict):
         for i, blk in enumerate(layers):
             blk.p.load_(_from_numpy(_layer(st, i), dev))
     return model
+
+
+def caches_from_numpy(tree, like):
+    """The reference's serving caches (Model.prefill / make_caches: KV,
+    RG-LRU and xLSTM stage caches and "pos"), given as numpy arrays, as the
+    port's: each leaf in the dtype and on the device of the matching leaf of
+    ``like`` (a port cache tree of the same model, batch and max_len, e.g.
+    Model.make_caches). A leaf of another shape raises ValueError."""
+    if isinstance(like, dict):
+        if set(tree) != set(like):
+            raise ValueError(f"cache keys {sorted(tree)}, expected {sorted(like)}")
+        return {k: caches_from_numpy(tree[k], like[k]) for k in like}
+    if isinstance(like, list):
+        return [caches_from_numpy(t, v) for t, v in zip(tree, like, strict=True)]
+    a = np.asarray(tree)
+    if tuple(a.shape) != tuple(like.shape):
+        raise ValueError(f"cache leaf of shape {tuple(a.shape)}, expected {tuple(like.shape)}")
+    # bf16 arrays from JAX widen exactly to float32 on the way
+    a = a.astype(np.float32) if like.is_floating_point() else np.array(a)
+    return torch.from_numpy(a).to(device=like.device, dtype=like.dtype)
 
 
 def to_numpy(x):

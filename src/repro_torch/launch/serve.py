@@ -7,6 +7,8 @@ device and edge halves, and reports per-phase times including the
 simulated NOMA uplink. Runs on the card unless --device says otherwise.
 
   python -m repro_torch.launch.serve --arch recurrentgemma-9b
+  python -m repro_torch.launch.serve --arch deepseek-moe-16b --seq 3072 --new-tokens 2
+  python -m repro_torch.launch.serve --arch xlstm-125m --seq 3072 --new-tokens 1
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b \\
       --reduced --device cpu --requests 2 --seq 48 --new-tokens 2
 """
@@ -27,6 +29,7 @@ from repro_torch.planning import PlannerEngine
 from repro_torch.runtime.serve import SplitPrograms, make_split_serve, transfer_seconds
 
 PARAM_SEED = 1   # the weights' generator seed, as the JAX driver's PRNGKey(1)
+MOE_CAPACITY = 4.0
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -115,8 +118,9 @@ def main(argv=None) -> dict:
     print(f"[plan] split layer s*={s}/{cfg.n_layers}, uplink rate {rate0 / 1e6:.2f} Mb/s, "
           f"utility {float(plan.utility):.4f}")
 
-    # 2. cut the model at s*
-    model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(PARAM_SEED))
+    # 2. cut the model at s* (MoE capacity 4.0, as the JAX driver's)
+    model = Model(cfg, device=dev, moe_capacity=MOE_CAPACITY).init(
+        torch.Generator(device=dev).manual_seed(PARAM_SEED))
     progs = make_split_serve(model, s)
 
     # 3. serve the batch of requests

@@ -11,7 +11,7 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, blocks, recurrent
+from repro_torch.models import attention, blocks, recurrent, xlstm
 from repro_torch.models.layers import (
     ParamDef,
     Params,
@@ -46,16 +46,21 @@ def _stack(trees: list):
 
 
 class Model(nn.Module):
-    """The served LM of one ArchConfig (dense and hybrid families) on one
-    device. ``device=None`` means the card and raises without CUDA; the
-    parameters are allocated there uninitialised until init() or a load."""
+    """The served LM of one ArchConfig (dense, moe, hybrid and ssm families)
+    on one device. ``device=None`` means the card and raises without CUDA;
+    the parameters are allocated there uninitialised until init() or a
+    load. ``moe_impl`` and ``moe_capacity`` reach every MoE block (the
+    reference's defaults)."""
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, moe_impl: str = "sorted",
+                 moe_capacity: float = 1.25):
         super().__init__()
         self.cfg = cfg
         self.stages = blocks.stages_for(cfg)
         self.vocab_padded = pad_vocab(cfg.vocab_size)
         self.device = resolve_device(device)
+        self.moe_impl = moe_impl
+        self.moe_capacity = moe_capacity
         self.top = Params(self._top_defs(), self.device)
         self.stage_layers = nn.ModuleList(
             nn.ModuleList(Block(cfg, spec, self.device) for _ in range(spec.n_layers))
@@ -102,6 +107,12 @@ class Model(nn.Module):
     def _positions(self, b: int, s: int):
         return torch.arange(s, dtype=torch.int32, device=self.device)[None].expand(b, s)
 
+    def aux(self, positions) -> dict:
+        """What every block gets beside its input: positions and the MoE
+        options."""
+        return {"pos": positions, "moe_impl": self.moe_impl,
+                "moe_capacity": self.moe_capacity}
+
     @torch.no_grad()
     def forward(self, tokens, caches=None, positions=None):
         """tokens (B, S) int. Returns (logits float32 (B, S, Vp), new caches
@@ -110,7 +121,7 @@ class Model(nn.Module):
         if positions is None:
             positions = self._positions(b, s)
         x = embed_lookup(self.top.embed, tokens)
-        aux = {"pos": positions}
+        aux = self.aux(positions)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         stage_caches = caches["stages"] if caches is not None else [None] * len(self.stages)
         new_stage_caches = []
@@ -147,8 +158,12 @@ class Model(nn.Module):
             if spec.cache == "kv":
                 stage_caches.append({"kv": attention.make_cache(
                     self.cfg, batch, max_len, spec.n_layers, spec.window, self.device)})
-            else:
+            elif spec.cache == "rglru":
                 stage_caches.append({"rglru": recurrent.make_rglru_state(
                     self.cfg, batch, spec.n_layers, self.device)})
+            else:       # mlstm | slstm
+                n_m, n_s = (spec.n_layers, 0) if spec.cache == "mlstm" else (0, spec.n_layers)
+                st = xlstm.make_xlstm_state(self.cfg, batch, n_m, n_s, self.device)
+                stage_caches.append({spec.cache: st[spec.cache]})
         return {"stages": stage_caches,
                 "pos": torch.zeros((batch,), dtype=torch.int32, device=self.device)}

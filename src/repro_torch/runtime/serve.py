@@ -72,7 +72,7 @@ def make_split_serve(model: Model, s: int) -> SplitPrograms:
     def device_fn(tokens):
         b, sl = tokens.shape
         x = embed_lookup(model.top.embed, tokens)
-        aux = {"pos": model._positions(b, sl)}
+        aux = model.aux(model._positions(b, sl))
         for spec, layers in a_stages:
             x, _, _ = model._run_stage(spec, layers, x, aux, None)
         return x.to(COMPUTE_DTYPE)
@@ -80,7 +80,7 @@ def make_split_serve(model: Model, s: int) -> SplitPrograms:
     @torch.no_grad()
     def edge_fn(x):
         b, sl, _ = x.shape
-        aux = {"pos": model._positions(b, sl)}
+        aux = model.aux(model._positions(b, sl))
         for spec, layers in b_stages:
             x, _, _ = model._run_stage(spec, layers, x, aux, None)
         x = model._final_norm(x)

@@ -14,7 +14,14 @@ slot_where) on the reduced recurrentgemma-9b and qwen1.5-0.5b, on the CPU.
     (uniform across the batch, models/attention.py), so a slot admitted
     mid-decode is held to the reference's batcher on that case as well;
   * slot_update / slot_where write and select exactly the slot axis of the
-    port's cache layout (stage leaves (L, B, ...), "pos" (B,)).
+    port's cache layout (stage leaves (L, B, ...), "pos" (B,));
+  * the MoE and xLSTM families (reduced deepseek-moe-16b and xlstm-125m):
+    both packages' DecodeBatcher on the reference's parameters, every
+    logits row within the same bound, with the port's caches exported and
+    imported into a fresh batcher mid-run (the steps after it bit-equal to
+    an uninterrupted batcher's), and slot_update / slot_where over the
+    mLSTM C leaf (L, B, H, hd, hd) and the sLSTM stabilizer m, which starts
+    at -1e30.
 """
 import numpy as np
 import pytest
@@ -197,3 +204,53 @@ def test_decode_batcher_matches_reference_batcher(jx):
         want = jdb.step(jnp.asarray(tok), jnp.asarray(mask))
         for i in np.flatnonzero(mask):
             _assert_near(got[i], want[i], ("after re-admit", mask, i))
+
+
+@pytest.mark.parametrize("name", ["deepseek-moe-16b", "xlstm-125m"])
+def test_decode_batcher_of_the_new_families_matches_the_reference(jx, name):
+    jax, jnp = jx["jax"], jx["jax"].numpy
+    jm = jx["Model"](jx["configs"].get(name).reduced(), remat=False)
+    params = jm.init(jax.random.PRNGKey(0))
+    model = convert.model_params_from_numpy(Model(configs.get(name).reduced(), device="cpu"),
+                                            jax.tree.map(np.asarray, params))
+    toks = _tokens(model.cfg, 1)
+    jdb = jx["DecodeBatcher"](jm, params, capacity=B, max_len=S_LEN + 8)
+    db = DecodeBatcher(model, None, capacity=B, max_len=S_LEN + 8)
+    for i in range(B):
+        _assert_near(db.admit(i, toks[i:i + 1]), jdb.admit(i, jnp.asarray(toks[i:i + 1].numpy())),
+                     (name, "admit", i))
+    rng = np.random.default_rng(0)
+    masks = [[True] * 3, [True, False, True], [True, True, True], [False, True, True]]
+    steps = [(rng.integers(0, model.cfg.vocab_size, (B, 1)).astype(np.int32), m) for m in masks]
+    resumed = None
+    for k, (tok, mask) in enumerate(steps):
+        if k == 2:      # a snapshot's batcher leg, into a fresh batcher
+            resumed = DecodeBatcher(model, None, capacity=B, max_len=S_LEN + 8)
+            resumed.import_caches(db.export_caches())
+        got = db.step(torch.from_numpy(tok), torch.tensor(mask))
+        want = jdb.step(jnp.asarray(tok), jnp.asarray(mask))
+        for i in np.flatnonzero(mask):
+            _assert_near(got[i], want[i], (name, "step", k, i))
+        if resumed is not None:
+            assert torch.equal(resumed.step(torch.from_numpy(tok), torch.tensor(mask)), got)
+    assert all(torch.equal(a, b) for a, b in zip(_slot(resumed.caches, 0), _slot(db.caches, 0)))
+
+
+def test_slot_update_and_where_over_xlstm_caches():
+    model = _model("xlstm-125m")
+    cfg = model.cfg
+    full = model.make_caches(4, 16)
+    assert full["stages"][0]["mlstm"]["C"].shape == (1, 4, cfg.n_heads, cfg.hd, cfg.hd)
+    assert bool((full["stages"][1]["slstm"]["m"] == -1e30).all())
+    _, one = model.prefill({"tokens": _tokens(cfg, 3, 1)}, 16)
+    upd = slot_update(full, 2, one)
+    m = upd["stages"][1]["slstm"]["m"]
+    assert bool((m[:, [0, 1, 3]] == -1e30).all()) and bool((m[:, 2] > -1e30).all())
+    for i in range(4):
+        want = _slot(one, 0) if i == 2 else _slot(full, i)
+        assert all(torch.equal(a, b) for a, b in zip(_slot(upd, i), want)), i
+    mask = torch.tensor([False, False, True, True])
+    sel = slot_where(mask, upd, full)
+    for i in range(4):
+        src = upd if mask[i] else full
+        assert all(torch.equal(a, b) for a, b in zip(_slot(sel, i), _slot(src, i)))

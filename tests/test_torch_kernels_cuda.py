@@ -212,6 +212,43 @@ def test_flash_attention_bf16_tensor_core_shapes(cuda, b, sq, sk, h, kv, hd, cau
     _close(got.float(), want.float(), scale, 1e-2)
 
 
+def test_flash_attention_at_the_moe_served_shape(cuda):
+    """deepseek-moe-16b's prefill attention: B = 4, H = KV = 16 (G = 1),
+    hd 128, S = 3072, full causal."""
+    b, s, h, hd = 4, 3072, 16, 128
+    g = torch.Generator(device=cuda).manual_seed(20)
+    q, k, v = (torch.randn((b * h, s, hd), device=cuda, generator=g).bfloat16()
+               for _ in range(3))
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, 1, True, 0)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    want = fa.flash_attention_plain(q, k, v, 1, True, 0)
+    scale = fa.flash_attention_plain(q, k, v.abs(), 1, True, 0).float()
+    _close(got.float(), want.float(), scale, 1e-2)
+
+
+def test_moe_layer_on_the_card_sorted_equals_dense_and_repeats(cuda):
+    """One deepseek-moe-16b MoE layer at reduced width on the card: sorted
+    equal to dense at capacity E (nothing drops; tests/test_models.py's
+    atol 0.03, rtol 0.05), and two sorted calls bit-equal (the combine adds
+    each token's contributions in a fixed order, no atomics)."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import init_params
+    cfg = configs.get("deepseek-moe-16b").reduced()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    p = init_params(moe.moe_defs(cfg), g)
+    x = (0.1 * torch.randn((2, 512, cfg.d_model), device=cuda, generator=g)).bfloat16()
+    with moe.drop_log() as drops:
+        y_s, aux_s = moe.moe_apply(p, x, cfg, impl="sorted", capacity_factor=cfg.n_experts)
+    y_d, aux_d = moe.moe_apply(p, x, cfg, impl="dense")
+    assert int(drops[0]) == 0
+    np.testing.assert_allclose(y_s.float().cpu().numpy(), y_d.float().cpu().numpy(),
+                               atol=0.03, rtol=0.05)
+    np.testing.assert_allclose(float(aux_s), float(aux_d), rtol=1e-5)
+    assert torch.equal(moe.moe_apply(p, x, cfg)[0], moe.moe_apply(p, x, cfg)[0])
+
+
 def _skewed_ap(ap, n, skew):
     """natural (nearest AP); giant: half the users in cell 0 and cell n-1
     empty; empty: cells 1 and 3 emptied into cell 0."""

@@ -222,9 +222,15 @@ def test_stage_lists():
     assert rg[1].kind == "attn" and rg[1].n_layers == 1 and rg[1].window == 2048
     assert sum(s.n_layers for s in rg if s.kind == "attn") == 12
     assert [s.cache for s in rg[:2]] == ["rglru", "kv"]
-    for name in ("xlstm-125m", "whisper-small", "llama-3.2-vision-11b", "deepseek-moe-16b"):
+    xl = stages_for(configs.get("xlstm-125m"))
+    assert sum(s.n_layers for s in xl) == 12
+    assert {s.kind for s in xl} == {"mlstm", "slstm"}
+    ds = stages_for(configs.get("deepseek-moe-16b"))
+    assert ds[0].moe is False and ds[0].n_layers == 1
+    assert ds[1].moe is True and ds[1].n_layers == 27
+    for name in ("whisper-small", "llama-3.2-vision-11b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            stages_for(configs.get(name)) if name != "deepseek-moe-16b" else \
+            stages_for(configs.get(name)) if name != "whisper-small" else \
                 Model(configs.get(name).reduced(), device="cpu")
 
 

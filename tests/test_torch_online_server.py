@@ -280,3 +280,23 @@ def test_recut_programs_equal_make_split_serve_and_forward():
     back.import_host(srv.export_host(), srv._iters_acc)
     assert back.programs.split_layer == srv.split_layer
     assert torch.equal(back.programs.edge_fn(back.programs.device_fn(tokens)), full)
+
+
+def test_recut_programs_of_a_moe_model():
+    """The same re-cuts over the reduced deepseek-moe-16b (a dense layer,
+    then two MoE layers): the programs' logits equal the unsplit forward's
+    to the bit at each planned split."""
+    cfg = configs.get("deepseek-moe-16b").reduced()
+    model = Model(cfg, device="cpu").init(torch.Generator().manual_seed(4))
+    prof = profiles.from_arch_config(cfg, seq=32)
+    srv = OnlineSplitServer(_engine(prof, **EPISODE_CFG), model=model)
+    tokens = make_batch(0, 0, 1, 32, cfg.vocab_size, device="cpu")["tokens"]
+    full, _, _ = model(tokens)
+    env = _env(8, 2, 4, seed=2)
+    seen = []
+    for measured in (None, prof.like(prof.fl * 1e3, prof.w, prof.m_down)):
+        progs = srv.observe(env, prof=measured, force=True)
+        seen.append(srv.split_layer)
+        assert progs.split_layer == srv.split_layer
+        assert torch.equal(progs.edge_fn(progs.device_fn(tokens)), full)
+    assert seen[0] != seen[1] and srv.recuts == 2, seen

@@ -12,7 +12,12 @@
     planned_transfer_seconds within 1e-5 relative (float32 rates) on one
     plan handed to both;
   * make_batch's tokens equal the JAX package's exactly;
-  * the serving entry point runs end to end on the CPU."""
+  * the serving entry point runs end to end on the CPU;
+  * the MoE and xLSTM families (reduced deepseek-moe-16b,
+    llama4-scout-17b-a16e and xlstm-125m): split serving at every split
+    equal to the forward to the bit, the MoE options reaching both halves,
+    and the entry point on the CPU for deepseek-moe-16b and xlstm-125m
+    (the MoE model built at capacity 4.0, as the JAX driver builds it)."""
 import types
 
 import numpy as np
@@ -24,7 +29,7 @@ from repro_torch import configs, convert  # noqa: E402
 from repro_torch.core import profiles  # noqa: E402
 from repro_torch.data import make_batch  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
-from repro_torch.models import Model  # noqa: E402
+from repro_torch.models import Model, moe  # noqa: E402
 from repro_torch.runtime.serve import (  # noqa: E402
     make_split_serve,
     planned_transfer_seconds,
@@ -147,3 +152,40 @@ def test_entry_points_default_to_the_card():
                  lambda: launch_serve.main(["--arch", "recurrentgemma-9b", "--reduced"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+@pytest.mark.parametrize("name", ["deepseek-moe-16b", "llama4-scout-17b-a16e", "xlstm-125m"])
+def test_split_serve_of_the_new_families_equals_forward_at_every_split(name):
+    """At capacity 0.5 half the MoE slots drop; both halves run the model's
+    capacity (the drop counts of the split and the unsplit passes equal)."""
+    cfg = configs.get(name).reduced()
+    model = Model(cfg, device="cpu", moe_capacity=0.5).init(torch.Generator().manual_seed(4))
+    s_len = 256 if cfg.family == "ssm" else 64
+    tokens = make_batch(0, 0, 2, s_len, cfg.vocab_size, device="cpu")["tokens"]
+    with moe.drop_log() as full_drops:
+        full, _, _ = model(tokens)
+    for s in range(cfg.n_layers + 1):
+        progs = make_split_serve(model, s)
+        with moe.drop_log() as drops:
+            logits = progs.edge_fn(progs.device_fn(tokens))
+        assert torch.equal(logits, full), (name, s)
+        assert [int(d) for d in drops] == [int(d) for d in full_drops], (name, s)
+    assert len(full_drops) == sum(sp.n_layers for sp in model.stages if sp.moe)
+    if full_drops:
+        assert sum(int(d) for d in full_drops) > 0
+
+
+@pytest.mark.parametrize("name,seq", [("deepseek-moe-16b", 48), ("xlstm-125m", 256)])
+def test_serve_entry_point_runs_the_new_families_on_the_cpu(name, seq, capsys, monkeypatch):
+    built = []
+    monkeypatch.setattr(launch_serve, "Model",
+                        lambda *a, **k: built.append(k) or Model(*a, **k))
+    out = launch_serve.main(["--arch", name, "--reduced", "--device", "cpu",
+                             "--requests", "2", "--seq", str(seq), "--new-tokens", "1"])
+    printed = capsys.readouterr().out
+    assert "[plan] split layer s*=" in printed and "[serve] generated 1" in printed
+    assert built[0]["moe_capacity"] == 4.0
+    n_layers = configs.get(name).reduced().n_layers
+    assert 0 <= out["split"] <= n_layers
+    assert out["new_tokens"].shape == (2, 1)
+    assert 0 <= int(out["new_tokens"].min()) and int(out["new_tokens"].max()) < 512
