@@ -163,7 +163,30 @@ Phases, each fatal on failure (no phase catches its own error):
                  DecodeBatcher's caches exported after 8 steps and
                  imported into a fresh one, 4 more steps bit-equal to the
                  live batcher's, and a profiled forward of 4 x 512 tokens
-                 (the sLSTM loop's launch rate).
+                 (the sLSTM loop's launch rate);
+ 14. vlm/audio -- the vision and audio families at full size, random
+                 weights from a seed, each with a make_batch frontend:
+                 14.1 llama-3.2-vision-11b (40 layers: 8 groups of 4 attn +
+                 1 cross, 9.8e9 parameters, every xgate at 0.5): the flash
+                 kernel against its twin at its self-attention (hd 128,
+                 G = 4, causal) and cross-attention (3072 queries over 1601
+                 keys, no mask) shapes, each timed beside
+                 scaled_dot_product_attention (enable_gqa) and its bound;
+                 the entry point with exact launch counts (40 flash a
+                 forward; no frontend, as the JAX entry point); a forward over a
+                 1601 x 4096 frontend (40 launches) whose logits a redrawn
+                 frontend moves; split logits at s* and s=22 (inside a
+                 group) bit-equal to it; prefill + 8 cached decode steps
+                 against it; a profiled forward (busy share, GEMM and flash
+                 shares); 14.2 whisper-small (12 enc + 12 dec, 4 x 448
+                 decoder tokens over 1500 frames): the kernel at the
+                 encoder (hd 64, bidirectional), decoder self and decoder
+                 cross shapes; the entry point (36 flash a forward); a
+                 forward with the frontend (36), prefill + 8 decode steps
+                 through the enc_out cache against it; the reference's
+                 split (the encoder over the token embeddings, cross
+                 attention to the raw frontend) bit-equal between s* and
+                 s=18; a profiled forward.
 The last lines are the kernels JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
@@ -232,7 +255,9 @@ BEFORE_MEMBER_DIM_MS = {"noma_cell_intra": 0.027266, "noma_per_ap": 0.012206,
 # an H100 80GB (19 GB of bf16 weights beside the split and the unsplit forward's
 # float32 logits, 12.6 GB each, and phase 4's engine with its graph pool;
 # printed at the end, by phase); phase 13.1's is 46.3 GiB (32.6 GB of
-# deepseek-moe-16b's weights, two 5.0 GB logit tensors, the MoE buffers).
+# deepseek-moe-16b's weights, two 5.0 GB logit tensors, the MoE buffers);
+# phase 14.1's is 47.9 GiB (the flash twin's float32 scores at 128 x 3072 x
+# 3072 captured in a timing graph).
 # With the CUDA context and a margin it needs this much free at the start.
 MEMORY_NEED_BYTES = 56 << 30
 MEMORY_WAIT_S = 300.0              # the script takes 350-710 s of its 1200
@@ -282,6 +307,15 @@ DURABLE_TAMPER_T = 3               # the journal epoch whose word 11.5 flips
 MOE_ARCH, XLSTM_ARCH = "deepseek-moe-16b", "xlstm-125m"
 MOE_SPLIT, XLSTM_SPLIT = 14, 6
 MOE_DENSE_TOKENS = 1024
+# Phase 14: the vision and audio families. llama-3.2-vision-11b serves 4 x
+# 3072 tokens over its 1601 image tokens with every cross block's gate at
+# VLM_XGATE, and is held to the bit at a split inside a group of 4 attn + 1
+# cross layers; whisper-small serves 4 x 448 decoder tokens (its published
+# text context, n_text_ctx) over 1500 frames, and its reference-shaped split
+# is held to the bit between s* and a split inside the decoder.
+VLM_ARCH, AUDIO_ARCH = "llama-3.2-vision-11b", "whisper-small"
+VLM_SPLIT, VLM_XGATE = 22, 0.5
+AUDIO_S, AUDIO_SPLIT = 448, 18
 # TPU kernel each CUDA kernel replaces, and its source in this repo.
 NOMA_SOURCE = "src/repro_torch/kernels/csrc/noma_rates.cu"
 TPU_KERNELS = {
@@ -913,6 +947,12 @@ def main() -> int:
     xlstm_phase(dev, smi)
 
     memory_mark(torch, "13.2", peaks)
+    # -- 14. vision and audio serving -----------------------------------------
+    for label, phase in (("14.1", vlm_phase), ("14.2", audio_phase)):
+        phase_rows, phase_launches = phase(dev, smi, errs)
+        rows["flash_attention"].update(phase_rows)
+        launches["flash_attention"] += phase_launches
+        memory_mark(torch, label, peaks)
     print("memory: peak reserved by phase (GiB): " + ", ".join(
         f"{k} {v / 2**30:.2f}" for k, v in peaks.items()))
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": tpu,
@@ -2679,33 +2719,37 @@ def profile_forward(fn, label: str, smi: str, ops: dict | None = None) -> dict:
                 kernels=n_kernels, shares=shares)
 
 
-def split_checks(model, tokens, full, splits, label: str, want_flash: int, smi: str) -> dict:
-    """Split logits at each split point against the unsplit forward's, to
-    the bit, with want_flash flash_attention launches through both halves.
-    Returns {s: (device_s, edge_s)}."""
+def split_checks(model, tokens, full, splits, label: str, want_flash: int, smi: str,
+                 frontend=None) -> dict:
+    """Split logits at each split point against ``full`` (the unsplit
+    forward's; None: the first split's, for a split that is not the
+    forward), to the bit, with want_flash flash_attention launches through
+    both halves, which get ``frontend``. Returns {s: (device_s, edge_s)}."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.runtime.serve import make_split_serve
-    times = {}
+    times, what = {}, "the forward's"
     for s in splits:
         progs = make_split_serve(model, s)
         fa.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        act = progs.device_fn(tokens)
+        act = progs.device_fn(tokens, frontend)
         torch.cuda.synchronize()
         t_dev = time.perf_counter() - t0
         t0 = time.perf_counter()
-        logits = progs.edge_fn(act)
+        logits = progs.edge_fn(act, frontend)
         torch.cuda.synchronize()
         times[s] = (t_dev, time.perf_counter() - t0)
         n_fa = fa.LAUNCHES["flash_attention"]
+        if full is None:
+            full, what = logits, f"s={s}'s"
         n_diff = int((logits != full).any(-1).sum())
         print(f"{label} split s={s}: device_s={times[s][0]:.4f} edge_s={times[s][1]:.4f}; "
-              f"flash_attention launches {n_fa}; positions whose logits differ from the "
-              f"forward's: {n_diff} | {smi}")
+              f"flash_attention launches {n_fa}; positions whose logits differ from "
+              f"{what}: {n_diff} | {smi}")
         if n_diff or not torch.equal(logits, full):
-            fail(f"{label} split s={s}: logits at {n_diff} positions differ from the forward")
+            fail(f"{label} split s={s}: logits at {n_diff} positions differ from {what}")
         if n_fa != want_flash:
             fail(f"{label} split s={s}: {n_fa} flash_attention launches, expected {want_flash}")
         del act, logits, progs
@@ -2746,12 +2790,12 @@ class Routes:
 
 
 def decode_checks(model, tokens, ref, p_len: int, absmax: float, label: str, smi: str,
-                  gate: bool = True):
-    """Prefill the first p_len tokens, then DECODE_STEPS cached decode
-    steps, each against the forward's logits (ref: its positions p_len - 1
-    to p_len + DECODE_STEPS - 1) within 0.05 * max(1, max |logits|)
-    (printed; a failure unless gate is False). Returns (prefill s, median
-    decode ms a step, the worst error)."""
+                  gate: bool = True, frontend=None):
+    """Prefill the first p_len tokens (with ``frontend`` when given), then
+    DECODE_STEPS cached decode steps, each against the forward's logits
+    (ref: its positions p_len - 1 to p_len + DECODE_STEPS - 1) within 0.05 *
+    max(1, max |logits|) (printed; a failure unless gate is False). Returns
+    (prefill s, median decode ms a step, the worst error)."""
     import torch
     from repro_torch.models import moe
     tol = 0.05 * max(1.0, absmax)
@@ -2759,7 +2803,10 @@ def decode_checks(model, tokens, ref, p_len: int, absmax: float, label: str, smi
     torch.cuda.synchronize()
     with moe.drop_log() as drops:
         t0 = time.perf_counter()
-        last, caches = model.prefill({"tokens": tokens[:, :p_len]}, max_len=s)
+        batch = {"tokens": tokens[:, :p_len]}
+        if frontend is not None:
+            batch["frontend"] = frontend
+        last, caches = model.prefill(batch, max_len=s)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
         errs_dec = [float((last - ref[:, 0]).abs().max())]
@@ -2783,6 +2830,91 @@ def decode_checks(model, tokens, ref, p_len: int, absmax: float, label: str, smi
     return prefill_s, statistics.median(step_s) * 1e3, worst
 
 
+def flash_row(dev, label: str, b: int, h: int, kv: int, sq: int, sk: int, hd: int,
+              causal: bool, errs: dict, smi: str, seed: int) -> dict:
+    """The bf16 flash kernel at one served shape, q (b*h, sq, hd) over k/v
+    (b*kv, sk, hd), no window (causal only at sq == sk): against its plain
+    twin within FLASH_RTOL of the twin on |v|, then its time beside the
+    twin's, one scaled_dot_product_attention call's (is_causal, or no mask;
+    enable_gqa where G > 1) and its bound, the larger of 4 hd FLOP an
+    unmasked (q, k) pair at the bf16 rate and the bytes of q, k, v and the
+    output once at the HBM rate. Returns the timing row; adds the check's
+    error to errs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b * h, sq, hd), device=dev, generator=gen).bfloat16()
+    k, v = (torch.randn((b * kv, sk, hd), device=dev, generator=gen).bfloat16()
+            for _ in range(2))
+    args = (h // kv, causal, 0)
+    mask = "causal" if causal else "no mask"
+    got = fa.flash_attention(q, k, v, *args)
+    torch.cuda.synchronize()
+    check(f"flash_attention {label} B={b} Sq={sq} Sk={sk} H={h}/{kv} hd={hd} {mask}",
+          got.float(), fa.flash_attention_plain(q, k, v, *args).float(), FLASH_RTOL,
+          fa.flash_attention_plain(q, k, v.abs(), *args).float(), errs, "flash_attention")
+    del got
+    qs, ks, vs = q.view(b, h, sq, hd), k.view(b, kv, sk, hd), v.view(b, kv, sk, hd)
+    pairs = sq * (sq + 1) // 2 if causal else sq * sk
+    flash_ops = 4 * hd * pairs * b * h
+    flash_bytes = 2 * (2 * b * h * sq * hd + 2 * b * kv * sk * hd)
+    t_bytes = flash_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flash_ops / BF16_OPS_PER_S * 1e3
+    gqa = h != kv
+    row = {
+        "ms": device_ms([lambda: fa.flash_attention(q, k, v, *args)], reps=5),
+        "plain_ms": device_ms([lambda: fa.flash_attention_plain(q, k, v, *args)], reps=1,
+                              trials=3),
+        "library_ms": device_ms([lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=causal, enable_gqa=gqa)], reps=5),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    print(f"time flash_attention at {label}'s shape ({b * h}, {sq}, {hd}) over ({b * kv}, {sk}) "
+          f"G={h // kv} {mask}: " + " ".join(f"{k}={v}" for k, v in row.items())
+          + f" ({flash_ops:.4e} FLOP, {flash_bytes / 1e6:.1f} MB; library: "
+          f"scaled_dot_product_attention, {'is_causal' if causal else 'no mask'}"
+          f"{', enable_gqa' if gqa else ''}) | {smi}")
+    return row
+
+
+def flash_rows(dev, arch: str, b: int, h: int, kv: int, hd: int, shapes: dict, errs: dict,
+               smi: str, seed: int) -> tuple[dict, dict]:
+    """flash_row at each of ``shapes`` (label -> (sq, sk, causal)). Returns
+    the rows, named "<arch> <label>", and each row's key in
+    flash_attention.SHAPES."""
+    rows, keys = {}, {}
+    for i, (label, (sq, sk, causal)) in enumerate(shapes.items()):
+        name = f"{arch} {label}"
+        rows[name] = flash_row(dev, name, b, h, kv, sq, sk, hd, causal, errs, smi, seed + i)
+        keys[name] = (b * h, sq, sk, hd, h // kv, causal, 0, sk)
+    return rows, keys
+
+
+def attach_launches(rows: dict, keys: dict, paths: dict, label: str) -> int:
+    """Gives each row the flash_attention launches at its shape on each of
+    ``paths`` (name -> a flash_attention.SHAPES snapshot taken over that
+    path alone): "launches" their sum, "launches_by_path" each. Fails where
+    a path launched a shape that no row checked, or a row's shape was
+    launched on none of them. Returns the launches over all the paths."""
+    checked = set(keys.values())
+    for path, shapes in paths.items():
+        unchecked = sorted(k for k in shapes if k not in checked)
+        if unchecked:
+            fail(f"{label}: the {path} launched flash_attention at shapes no check covers "
+                 f"(query rows, Sq, Sk, hd, G, causal, window, kv_len): {unchecked}")
+    for name, key in keys.items():
+        by_path = {path: shapes.get(key, 0) for path, shapes in paths.items()}
+        rows[name]["launches"] = sum(by_path.values())
+        rows[name]["launches_by_path"] = by_path
+        print(f"{label} flash_attention launches at {name}'s shape: {by_path}")
+        if not rows[name]["launches"]:
+            fail(f"{label}: no path launched flash_attention at {name}'s shape")
+    return sum(sum(shapes.values()) for shapes in paths.values())
+
+
 def moe_phase(dev, smi: str, errs: dict) -> tuple[dict, int]:
     """Phase 13.1: deepseek-moe-16b at full width and depth. Returns the
     flash_attention timing row at its shape and the serving main path's
@@ -2790,11 +2922,9 @@ def moe_phase(dev, smi: str, errs: dict) -> tuple[dict, int]:
     import gc
 
     import torch
-    import torch.nn.functional as F
     from repro_torch import configs
     from repro_torch.data import make_batch
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import noma_rates as nr
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models import Model, moe
 
@@ -2804,68 +2934,13 @@ def moe_phase(dev, smi: str, errs: dict) -> tuple[dict, int]:
     H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.hd
 
     # the flash kernel at this model's prefill shape (G = 1, hd 128, causal)
-    gen = torch.Generator(device=dev).manual_seed(13)
-    q, k, v = (torch.randn((B * H, S, HD), device=dev, generator=gen).bfloat16()
-               for _ in range(3))
-    args = (H // KV, True, 0)
-    got = fa.flash_attention(q, k, v, *args)
-    torch.cuda.synchronize()
-    check(f"flash_attention {MOE_ARCH} B={B} S={S} H={H}/{KV} hd={HD} causal",
-          got.float(), fa.flash_attention_plain(q, k, v, *args).float(), FLASH_RTOL,
-          fa.flash_attention_plain(q, k, v.abs(), *args).float(), errs, "flash_attention")
-    del got
-    qs, ks, vs = (t.view(B, H, S, HD) for t in (q, k, v))
-    pairs = S * (S + 1) // 2
-    flash_ops = 4 * HD * pairs * B * H
-    flash_bytes = 2 * (2 * B * H * S * HD + 2 * B * KV * S * HD)
-    t_bytes = flash_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flash_ops / BF16_OPS_PER_S * 1e3
-    row = {
-        "ms": device_ms([lambda: fa.flash_attention(q, k, v, *args)], reps=5),
-        "plain_ms": device_ms([lambda: fa.flash_attention_plain(q, k, v, *args)], reps=1,
-                              trials=3),
-        "library_ms": device_ms([lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=True)], reps=5),
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-    }
-    row["bound_share"] = row["bound_ms"] / row["ms"]
-    print(f"time flash_attention at {MOE_ARCH}'s shape ({B * H}, {S}, {HD}) G=1 causal: "
-          + " ".join(f"{k}={v}" for k, v in row.items())
-          + f" ({flash_ops:.4e} FLOP, {flash_bytes / 1e6:.1f} MB; library: "
-          f"scaled_dot_product_attention, is_causal) | {smi}")
-    del q, k, v, qs, ks, vs
+    row = flash_row(dev, MOE_ARCH, B, H, KV, S, S, HD, True, errs, smi, 13)
     torch.cuda.empty_cache()
 
     # the main path: the serving entry point, plan + cut + serve
     n_attn = cfg.n_layers
-    for reset in (nr.reset_launches, fa.reset_launches):
-        reset()
-    argv = ["--arch", MOE_ARCH, "--requests", str(B), "--seq", str(S), "--new-tokens", "2",
-            "--seed", "0"]
-    print(f"moe 13.1 main: python -m repro_torch.launch.serve {' '.join(argv)}")
-    t0 = time.perf_counter()
-    out = launch_serve.main(argv)
-    torch.cuda.synchronize()
-    main_wall = time.perf_counter() - t0
-    main_launches = {**nr.LAUNCHES, **fa.LAUNCHES}
-    s_star = out["split"]
-    print(f"moe 13.1 main: s*={s_star} wall_s={main_wall:.3f} device_s={out['device_s']:.4f} "
-          f"edge_s={out['edge_s']:.4f} link_s={out['link_s']:.4f} (simulated) "
-          f"launches={main_launches}")
-    if not 0 <= s_star <= cfg.n_layers:
-        fail(f"moe 13.1: s*={s_star} out of range")
-    for name, n in main_launches.items():
-        if n <= 0:
-            fail(f"moe 13.1: {name} was not launched on the serving main path")
-    if main_launches["flash_attention"] != 2 * n_attn:
-        fail(f"moe 13.1: {main_launches['flash_attention']} flash_attention launches on the "
-             f"serving main path, expected {2 * n_attn}")
-    new_toks = out["new_tokens"]
-    if tuple(new_toks.shape) != (B, 2) or int(new_toks.min()) < 0 or \
-            int(new_toks.max()) >= cfg.vocab_size:
-        fail(f"moe 13.1: new tokens {new_toks.tolist()} outside the vocabulary")
-    del out
+    main = serve_main(MOE_ARCH, B, S, "moe 13.1", 2 * n_attn)
+    main_wall, main_launches, s_star = main["wall_s"], main["launches"], main["split"]
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3117,6 +3192,301 @@ def xlstm_phase(dev, smi: str) -> None:
     del model, tokens
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def serve_main(arch: str, b: int, s: int, label: str, want_flash: int) -> dict:
+    """The serving entry point (plan s*, cut, serve b requests of s tokens,
+    one greedy continuation) with the launch counters set to 0 just before
+    it and read just after: the NOMA kernels launched by the plan,
+    want_flash flash_attention launches over both passes. Returns the
+    entry point's split, its wall, its launches and its flash_attention
+    launches by shape."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import noma_rates as nr
+    from repro_torch.launch import serve as launch_serve
+    cfg = configs.get(arch)
+    for reset in (nr.reset_launches, fa.reset_launches):
+        reset()
+    argv = ["--arch", arch, "--requests", str(b), "--seq", str(s), "--new-tokens", "2",
+            "--seed", "0"]
+    print(f"{label} main: python -m repro_torch.launch.serve {' '.join(argv)}")
+    t0 = time.perf_counter()
+    out = launch_serve.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {**nr.LAUNCHES, **fa.LAUNCHES}
+    shapes = dict(fa.SHAPES)
+    print(f"{label} main: s*={out['split']} wall_s={wall:.3f} device_s={out['device_s']:.4f} "
+          f"edge_s={out['edge_s']:.4f} link_s={out['link_s']:.4f} (simulated) "
+          f"launches={launched}")
+    if not 0 <= out["split"] <= cfg.n_layers:
+        fail(f"{label}: s*={out['split']} out of range")
+    for name, n in launched.items():
+        if n <= 0:
+            fail(f"{label}: {name} was not launched on the serving main path")
+    if launched["flash_attention"] != want_flash:
+        fail(f"{label}: {launched['flash_attention']} flash_attention launches on the serving "
+             f"main path, expected {want_flash}")
+    new_toks = out["new_tokens"]
+    if tuple(new_toks.shape) != (b, 2) or int(new_toks.min()) < 0 or \
+            int(new_toks.max()) >= cfg.vocab_size:
+        fail(f"{label}: new tokens {new_toks.tolist()} outside the vocabulary")
+    return dict(split=out["split"], wall_s=wall, launches=launched, shapes=shapes)
+
+
+def frontend_forward(model, tokens, frontend, label: str, want_flash: int):
+    """One forward with a frontend: finite logits of the full shape and
+    exactly want_flash flash_attention launches. Returns (logits, the
+    largest |logit| in the vocabulary, seconds, the flash_attention
+    launches by shape)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    b, s = tokens.shape
+    fa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full, _, _ = model(tokens, frontend)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    if tuple(full.shape) != (b, s, model.vocab_padded) or not bool(torch.isfinite(full).all()):
+        fail(f"{label} forward logits: shape {tuple(full.shape)} or not finite")
+    absmax = float(full[..., :model.cfg.vocab_size].abs().max())
+    n_fa = fa.LAUNCHES["flash_attention"]
+    print(f"{label} forward with a frontend {tuple(frontend.shape)}: logits {tuple(full.shape)} "
+          f"finite, max |logit| {absmax:.4f}, {fwd_s:.3f} s; flash_attention launches {n_fa}")
+    if n_fa != want_flash:
+        fail(f"{label} forward: {n_fa} flash_attention launches, expected {want_flash}")
+    return full, absmax, fwd_s, dict(fa.SHAPES)
+
+
+class SinglePassAttention:
+    """Within a with-block, ops.flash_attention computes what a decode step
+    computes instead: the models' single pass (attention._single_pass,
+    scores rounded to bf16) over the whole sequence, 256 queries at a time.
+    A forward then rounds its attention where the cached decode does."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import ops
+        from repro_torch.models import attention
+        self.ops, self.orig = ops, ops.flash_attention
+
+        def single(q, k, v, causal=True, window=0):
+            b, sq, h, hd = q.shape
+            sk, kv = k.shape[1], k.shape[2]
+            k, v = k.to(attention.COMPUTE_DTYPE), v.to(attention.COMPUTE_DTYPE)
+            k_pos = torch.arange(sk, dtype=torch.int32, device=q.device)[None].expand(b, sk)
+            outs = []
+            for i in range(0, sq, 256):
+                qc = q[:, i:i + 256]
+                n = qc.shape[1]
+                q_pos = torch.arange(i, i + n, dtype=torch.int32, device=q.device)[None]
+                outs.append(attention._single_pass(
+                    qc.reshape(b, n, kv, h // kv, hd), k, v, q_pos.expand(b, n), k_pos,
+                    causal, window).reshape(b, n, h, hd))
+            return torch.cat(outs, 1)
+
+        ops.flash_attention = single
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention = self.orig
+
+
+def vlm_phase(dev, smi: str, errs: dict) -> tuple[dict, int]:
+    """Phase 14.1: llama-3.2-vision-11b at full width and depth, its cross
+    blocks' gates set to VLM_XGATE (the reference starts them at 0, where a
+    cross block adds nothing). Returns the flash timing rows at every shape
+    its paths launch and the flash_attention launches of the serving main
+    path, the forward with a frontend and the prefill; adds the flash
+    checks' errors to errs."""
+    import gc
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import Model
+
+    t_phase = time.perf_counter()
+    cfg = configs.get(VLM_ARCH)
+    B, S, SF = SERVE_B, SERVE_S, cfg.frontend_tokens
+    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    p_len = S - DECODE_STEPS
+    # the entry point has no frontend (the reference's has none), so each
+    # cross block attends over its own input, unmasked; its second pass is the
+    # greedy continuation's, one token longer
+    rows, keys = flash_rows(dev, VLM_ARCH, B, H, KV, HD, {
+        "self-attention": (S, S, True),
+        "self-attention, continuation": (S + 1, S + 1, True),
+        "self-attention, prefill": (p_len, p_len, True),
+        "cross block over its own input": (S, S, False),
+        "cross block over its own input, continuation": (S + 1, S + 1, False),
+        "cross-attention": (S, SF, False),
+        "cross-attention, prefill": (p_len, SF, False)}, errs, smi, 140)
+    torch.cuda.empty_cache()
+
+    n_blocks = cfg.n_layers
+    main = serve_main(VLM_ARCH, B, S, "vlm 14.1", 2 * n_blocks)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(launch_serve.PARAM_SEED))
+    for spec, layers in zip(model.stages, model.stage_layers):
+        if spec.kind == "cross":
+            for blk in layers:
+                blk.p.xgate.fill_(VLM_XGATE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"vlm 14.1 model: {VLM_ARCH} {n_blocks} layers "
+          f"({[(sp.kind, sp.n_layers) for sp in model.stages[:2]]} x {len(model.stages) // 2}), "
+          f"{n_params} parameters, {model.param_bytes()} bytes on the card, init "
+          f"{time.perf_counter() - t0:.2f} s, xgate {VLM_XGATE}")
+    batch = make_batch(0, 0, B, S, cfg.vocab_size, frontend_shape=(SF, cfg.d_model), device=dev)
+    tokens, frontend = batch["tokens"], batch["frontend"]
+    full, absmax, fwd_s, fwd_shapes = frontend_forward(model, tokens, frontend, "vlm 14.1",
+                                                       n_blocks)
+    # the cross path is live: a redrawn frontend moves the logits
+    other = make_batch(1, 0, B, 1, cfg.vocab_size, frontend_shape=(SF, cfg.d_model),
+                       device=dev)["frontend"]
+    moved, _, _ = model(tokens, other)
+    diff = (moved - full).abs()
+    share = float((diff.amax(-1) > 0).float().mean())
+    print(f"check vlm 14.1 a redrawn frontend moves the logits: max |diff| "
+          f"{float(diff.max()):.4f}, at {share:.4f} of the positions")
+    if not share >= 0.5:
+        fail(f"vlm 14.1: a redrawn frontend moves the logits at only {share:.4f} of the "
+             "positions: the cross path is not live")
+    del moved, diff, other
+    torch.cuda.empty_cache()
+    split_times = split_checks(model, tokens, full, (main["split"], VLM_SPLIT), "vlm 14.1",
+                               n_blocks, smi, frontend)
+    ref = full[:, p_len - 1:].clone()
+    del full
+    torch.cuda.empty_cache()
+    # a witness for the size of rounding noise: request 0's forward alone (the
+    # same function, its GEMMs a quarter as tall)
+    alone = float((model(tokens[:1], frontend[:1])[0][0, p_len - 1:] - ref[0]).abs().max())
+    torch.cuda.empty_cache()
+    fa.reset_launches()
+    prefill_s, dec_ms, worst = decode_checks(model, tokens, ref, p_len, absmax, "vlm 14.1", smi,
+                                             frontend=frontend)
+    pre_shapes = dict(fa.SHAPES)
+    # a witness for the decode's distance from the forward: the same forward,
+    # prefill and decode with every attention taking the decode's single pass
+    with SinglePassAttention():
+        sp_full, _, _ = model(tokens, frontend)
+        sp_ref = sp_full[:, p_len - 1:].clone()
+        del sp_full
+        torch.cuda.empty_cache()
+        gap = float((sp_ref - ref).abs().max())
+        _, _, sp_worst = decode_checks(model, tokens, sp_ref, p_len, absmax,
+                                       "vlm 14.1 witness, single-pass attention throughout",
+                                       smi, gate=False, frontend=frontend)
+    tol = 0.05 * max(1.0, absmax)
+    print(f"vlm 14.1 witness: request 0's forward alone against the batch's at the last "
+          f"{DECODE_STEPS + 1} positions {alone:.4f} ({alone / tol:.3f} of the bound); the "
+          f"single-pass forward against the kernel's {gap:.4f} ({gap / tol:.3f}); decode "
+          f"against the kernel's forward {worst:.4f} ({worst / tol:.3f}), against the "
+          f"single-pass forward {sp_worst:.4f} ({sp_worst / tol:.3f}) | {smi}")
+    del ref, sp_ref
+    prof = profile_forward(lambda: model(tokens, frontend),
+                           f"vlm 14.1 profile forward ({B} x {S}, frontend {SF})", smi,
+                           {"GEMMs (aten::mm)": {"aten::mm"},
+                            "flash_attention": "kernel:flash_wgmma"})
+    t_dev, t_edge = split_times[main["split"]]
+    print(f"vlm 14.1 times ({smi}): prefill_s={prefill_s:.4f} ({B}x{p_len} tokens); "
+          f"decode_ms_per_step={dec_ms:.3f}; split s*={main['split']} device_s={t_dev:.4f} "
+          f"edge_s={t_edge:.4f}; forward_s={fwd_s:.4f}; busy_share={prof['busy_share']:.4f}; "
+          f"main wall_s={main['wall_s']:.3f}; phase 14.1 {time.perf_counter() - t_phase:.1f} s")
+    del model, tokens, frontend, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = attach_launches(rows, keys, {"entry point": main["shapes"],
+                                            "forward with a frontend": fwd_shapes,
+                                            "prefill and decode": pre_shapes}, "vlm 14.1")
+    return rows, launches
+
+
+def audio_phase(dev, smi: str, errs: dict) -> tuple[dict, int]:
+    """Phase 14.2: whisper-small at full size, 4 requests of AUDIO_S decoder
+    tokens over a frontend of its 1500 frames. Returns the flash timing
+    rows at every shape its paths launch and the flash_attention launches
+    of the serving main path, the forward with a frontend and the prefill;
+    adds the flash checks' errors to errs."""
+    import gc
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import Model
+
+    t_phase = time.perf_counter()
+    cfg = configs.get(AUDIO_ARCH)
+    B, S, SF = SERVE_B, AUDIO_S, cfg.frontend_tokens
+    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    p_len = S - DECODE_STEPS
+    # the entry point runs the reference's split: the encoder's blocks over the
+    # token embeddings and the decoder's cross-attention over its own input,
+    # both unmasked over S tokens; its second pass is one token longer
+    rows, keys = flash_rows(dev, AUDIO_ARCH, B, H, KV, HD, {
+        "encoder": (SF, SF, False),
+        "decoder self-attention": (S, S, True),
+        "decoder self-attention, continuation": (S + 1, S + 1, True),
+        "decoder self-attention, prefill": (p_len, p_len, True),
+        "decoder cross-attention": (S, SF, False),
+        "decoder cross-attention, prefill": (p_len, SF, False),
+        "split over its own input": (S, S, False),
+        "split over its own input, continuation": (S + 1, S + 1, False)}, errs, smi, 160)
+    torch.cuda.empty_cache()
+
+    n_flash = cfg.encoder_layers + 2 * cfg.n_layers
+    main = serve_main(AUDIO_ARCH, B, S, "audio 14.2", 2 * n_flash)
+    gc.collect()
+
+    model = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(launch_serve.PARAM_SEED))
+    print(f"audio 14.2 model: {AUDIO_ARCH} {[(sp.kind, sp.n_layers) for sp in model.stages]}, "
+          f"{sum(p.numel() for p in model.parameters())} parameters, {model.param_bytes()} "
+          f"bytes on the card")
+    batch = make_batch(0, 0, B, S, cfg.vocab_size, frontend_shape=(SF, cfg.d_model), device=dev)
+    tokens, frontend = batch["tokens"], batch["frontend"]
+    full, absmax, fwd_s, fwd_shapes = frontend_forward(model, tokens, frontend, "audio 14.2",
+                                                       n_flash)
+    fa.reset_launches()
+    prefill_s, dec_ms, _ = decode_checks(model, tokens, full[:, p_len - 1:].clone(), p_len,
+                                         absmax, "audio 14.2 (decode through enc_out)", smi,
+                                         frontend=frontend)
+    pre_shapes = dict(fa.SHAPES)
+    del full
+    # the reference's split (not its forward): the second split point bit-equal
+    # to the first
+    split_times = split_checks(model, tokens, None, (main["split"], AUDIO_SPLIT),
+                               "audio 14.2 reference-shaped", n_flash, smi, frontend)
+    prof = profile_forward(lambda: model(tokens, frontend),
+                           f"audio 14.2 profile forward ({B} x {S}, frontend {SF})", smi,
+                           {"GEMMs (aten::mm)": {"aten::mm"},
+                            "flash_attention": "kernel:flash_wgmma"})
+    t_dev, t_edge = split_times[main["split"]]
+    print(f"audio 14.2 times ({smi}): prefill_s={prefill_s:.4f} ({B}x{p_len} tokens and the "
+          f"encoder over {SF} frames); decode_ms_per_step={dec_ms:.3f}; split s*="
+          f"{main['split']} device_s={t_dev:.4f} edge_s={t_edge:.4f}; forward_s={fwd_s:.4f}; "
+          f"busy_share={prof['busy_share']:.4f}; main wall_s={main['wall_s']:.3f}; "
+          f"phase 14.2 {time.perf_counter() - t_phase:.1f} s")
+    del model, tokens, frontend, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = attach_launches(rows, keys, {"entry point": main["shapes"],
+                                            "forward with a frontend": fwd_shapes,
+                                            "prefill and decode": pre_shapes}, "audio 14.2")
+    return rows, launches
 
 
 if __name__ == "__main__":

@@ -234,8 +234,8 @@ def model_params_from_numpy(model, tree: dict):
     port's Model: top leaves as they are, each stage's stacked leaves
     [L, ...] split into its L layers. Every leaf is cast to the port's
     storage dtype on the model's device (bf16, or float32 where the
-    reference uses it so: norms and the RG-LRU and xLSTM gates). Returns the
-    model."""
+    reference uses it so: norms, the cross blocks' xgate and the RG-LRU and
+    xLSTM gates). Returns the model."""
     dev = model.device
     model.top.load_(_from_numpy({k: v for k, v in tree.items() if k != "stages"}, dev))
     if len(tree["stages"]) != len(model.stage_layers):
@@ -249,10 +249,16 @@ def model_params_from_numpy(model, tree: dict):
 
 def caches_from_numpy(tree, like):
     """The reference's serving caches (Model.prefill / make_caches: KV,
-    RG-LRU and xLSTM stage caches and "pos"), given as numpy arrays, as the
-    port's: each leaf in the dtype and on the device of the matching leaf of
-    ``like`` (a port cache tree of the same model, batch and max_len, e.g.
+    RG-LRU and xLSTM stage caches, None for a stage without one, "pos", and
+    "enc_out" / "frontend"), given as numpy arrays, as the port's: each leaf
+    in the dtype and on the device of the matching leaf of ``like`` (a port
+    cache tree of the same model, batch and max_len, e.g.
     Model.make_caches). A leaf of another shape raises ValueError."""
+    if like is None or tree is None:
+        if like is not None or tree is not None:
+            raise ValueError(f"cache entry {type(tree).__name__}, expected "
+                             f"{type(like).__name__}")
+        return None
     if isinstance(like, dict):
         if set(tree) != set(like):
             raise ValueError(f"cache keys {sorted(tree)}, expected {sorted(like)}")

@@ -13,10 +13,13 @@ from repro_torch.device import resolve_device
 
 
 def make_batch(seed: int, step: int, batch: int, seq: int, vocab: int,
-               process_index: int = 0, process_count: int = 1, device=None) -> dict:
+               frontend_shape=None, process_index: int = 0, process_count: int = 1,
+               device=None) -> dict:
     """Markov-ish synthetic LM stream (not uniform noise: loss can improve).
-    tokens and targets are int32 (local, seq). The frontend stream of the
-    audio and vision archs waits for their slice of the port."""
+    tokens and targets are int32 (local, seq). With frontend_shape (Sf, D),
+    "frontend" (local, Sf, D) bf16 is 0.1 * standard normal, drawn after the
+    tokens from the same numpy generator: the audio and vision archs'
+    stand-in for a conv or image encoder's output."""
     dev = resolve_device(device)
     local = batch // process_count
     rng = np.random.default_rng(
@@ -32,4 +35,7 @@ def make_batch(seed: int, step: int, batch: int, seq: int, vocab: int,
         "tokens": torch.from_numpy(toks).to(dev),
         "targets": torch.from_numpy(np.roll(toks, -1, axis=1)).to(dev),
     }
+    if frontend_shape is not None:
+        f = rng.standard_normal((local, *frontend_shape)).astype(np.float32)
+        out["frontend"] = torch.from_numpy(0.1 * f).to(dev).to(torch.bfloat16)
     return out

@@ -6,17 +6,22 @@ Layout, as the JAX package's kernel: q (B*KV*G, Sq, hd) with query head row
 bh = (b*KV + kv)*G + g, k/v (B*KV, Sk, hd); the KV row of bh is bh // G.
 Query and key positions are 0..Sq-1 and 0..Sk-1 (fresh sequences).
 
-For CUDA tensors the wrapper launches the kernel (counted in LAUNCHES) or
-raises; for CPU tensors it computes flash_attention_plain, which is also
+For CUDA tensors the wrapper launches the kernel (counted in LAUNCHES, and
+by shape in SHAPES) or raises; for CPU tensors it computes flash_attention_plain, which is also
 what the kernel is held against on the card.
 """
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
 from repro_torch.kernels import build
 
 LAUNCHES = {"flash_attention": 0}
+# the same launches by shape: (query head rows, Sq, Sk, hd, group, causal,
+# window, kv_len) -> count
+SHAPES: Counter = Counter()
 
 # -- Hopper block table (csrc/flash_attention.cu) -------------------------------
 # bf16 (tensor cores): one thread block of two warpgroups per (query head
@@ -56,6 +61,7 @@ def smem_bytes(hd: int, dtype: torch.dtype) -> int:
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    SHAPES.clear()
 
 
 def attention_mask(sq: int, sk: int, causal: bool, window: int, kv_len: int, device):
@@ -109,6 +115,7 @@ def flash_attention(q, k, v, group: int, causal: bool = True, window: int = 0,
         dev.index, build.stream(dev))
     build.raise_on(rc, "flash_attention")
     LAUNCHES["flash_attention"] += 1
+    SHAPES[(bh, sq, sk, hd, group, bool(causal), window, kv_len)] += 1
     return out
 
 

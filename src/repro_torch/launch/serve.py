@@ -5,10 +5,15 @@ radio resource allocation for a fleet of devices sharing a NOMA cell; the
 runtime then cuts the model at s*, serves a batch of requests through the
 device and edge halves, and reports per-phase times including the
 simulated NOMA uplink. Runs on the card unless --device says otherwise.
+The vision and audio archs run as the JAX entry point runs them, with no
+frontend: their cross attention reads the token stream itself
+(runtime.serve.make_split_serve).
 
   python -m repro_torch.launch.serve --arch recurrentgemma-9b
   python -m repro_torch.launch.serve --arch deepseek-moe-16b --seq 3072 --new-tokens 2
   python -m repro_torch.launch.serve --arch xlstm-125m --seq 3072 --new-tokens 1
+  python -m repro_torch.launch.serve --arch llama-3.2-vision-11b --seq 3072 --new-tokens 2
+  python -m repro_torch.launch.serve --arch whisper-small --seq 448 --new-tokens 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b \\
       --reduced --device cpu --requests 2 --seq 48 --new-tokens 2
 """

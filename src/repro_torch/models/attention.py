@@ -5,7 +5,10 @@ Attention over a fresh sequence (no cache, or a prefill) runs through
 ops.flash_attention: the CUDA kernel on the card, its plain twin on the CPU.
 It is the function the JAX package's jnp online-softmax core computes and
 its Pallas kernel replaces on a TPU. Decode against the cache is the JAX
-package's single-pass path, plain tensor code.
+package's single-pass path, plain tensor code. Cross attention (kv_src)
+projects K and V from another sequence, rotates neither q nor k and masks
+nothing: Sq > 8 queries go through the kernel (Sq != Sk), a few queries (a
+decode step) through the single-pass path, as the JAX core splits them.
 
 The flat tensor-parallel layout waits for runtime/sharding.
 """
@@ -56,10 +59,12 @@ def _single_pass(q, k, v, q_pos, k_pos, causal: bool, window: int):
     return out.permute(0, 3, 1, 2, 4).to(COMPUTE_DTYPE)
 
 
-def attn_apply(p: dict, x, cfg, q_pos, cache: dict | None = None,
+def attn_apply(p: dict, x, cfg, q_pos, kv_src=None, cache: dict | None = None,
                causal: bool = True, window: int = 0):
     """x (B, S, D), q_pos (B, S). Returns (out (B, S, D), updated cache).
 
+    kv_src (B, Sk, D) or None: cross attention over it (keys at positions
+    0..Sk-1, no rotation, never a cache); the caller passes causal=False.
     cache: {"k", "v": (B, size, KV, hd), "pos": (B, size), "len": (B,)} or
     None. Without a cache, and for a prefill (S > 1), the queries and keys
     sit at positions 0..S-1 and attention runs through the kernel; a decode
@@ -67,16 +72,28 @@ def attn_apply(p: dict, x, cfg, q_pos, cache: dict | None = None,
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     g = h // kv
+    src = x if kv_src is None else kv_src
     q = x @ p["wq"]
-    kproj = x @ p["wk"]
-    vproj = x @ p["wv"]
+    kproj = src @ p["wk"]
+    vproj = src @ p["wv"]
     if "bq" in p:
         q = q + p["bq"]
         kproj = kproj + p["bk"]
         vproj = vproj + p["bv"]
-    q = rope(q.view(b, s, h, hd), q_pos, cfg.rope_theta)
-    kproj = rope(kproj.view(b, s, kv, hd), q_pos, cfg.rope_theta)
-    vproj = vproj.view(b, s, kv, hd)
+    q = q.view(b, s, h, hd)
+    kproj = kproj.view(b, -1, kv, hd)
+    vproj = vproj.view(b, -1, kv, hd)
+    if kv_src is not None:
+        sk = kproj.shape[1]
+        if s <= 8:   # the JAX core's single pass for a few queries
+            k_pos = torch.arange(sk, dtype=torch.int32, device=x.device)[None].expand(b, sk)
+            out = _single_pass(q.view(b, s, kv, g, hd), kproj, vproj, q_pos, k_pos,
+                               causal, window)
+        else:
+            out = ops.flash_attention(q, kproj, vproj, causal=causal, window=window)
+        return out.reshape(b, s, h * hd) @ p["wo"], None
+    q = rope(q, q_pos, cfg.rope_theta)
+    kproj = rope(kproj, q_pos, cfg.rope_theta)
 
     if cache is None or s > 1:
         out = ops.flash_attention(q, kproj, vproj, causal=causal, window=window)

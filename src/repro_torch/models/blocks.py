@@ -1,17 +1,22 @@
 """Residual blocks: one param-def + apply pair per block kind.
 
-Kinds ported:
+Kinds:
   attn    pre-norm GQA self-attention + MLP (optionally MoE, optionally
           local-window)
+  cross   cross-attention block over the frontend, its residual gated by
+          tanh(xgate) (the VLM's image layers)
+  enc     bidirectional attention + MLP, LayerNorm (whisper encoder)
+  dec     causal self-attn + cross-attn over the frontend + MLP, LayerNorm
+          (whisper decoder)
   rec     RG-LRU temporal-mixing block + MLP (recurrentgemma)
   mlstm / slstm   xLSTM blocks
-and stage lists for the dense, moe, hybrid and ssm families. The cross /
-enc / dec kinds and the audio and vlm families wait for their slice of the
-port (ROADMAP queue 1, item 4) and raise NotImplementedError.
+and stage lists for every family. The audio family's norms are LayerNorms
+(weight ones, bias zeros); every other family's are Gemma RMSNorms.
 
 block_apply(cfg, spec, p, x, aux, cache) -> (x, new_cache, aux_loss)
-`aux` carries {"pos": (B, S)} and, for MoE blocks, "moe_impl" and
-"moe_capacity" (defaults "sorted" and 1.25, the reference's).
+`aux` carries {"pos": (B, S), "frontend": (B, Sf, D) or None} and, for MoE
+blocks, "moe_impl" and "moe_capacity" (defaults "sorted" and 1.25, the
+reference's).
 """
 from __future__ import annotations
 
@@ -20,9 +25,7 @@ import dataclasses
 import torch
 
 from repro_torch.models import attention, moe, recurrent, xlstm
-from repro_torch.models.layers import ParamDef, mlp_apply, mlp_defs, rms_norm
-
-_LATER = "ROADMAP.md queue 1, item 4: {} is not ported yet"
+from repro_torch.models.layers import ParamDef, layer_norm, mlp_apply, mlp_defs, rms_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,31 +39,37 @@ class StageSpec:
 
 
 def _norm_defs(cfg, name):
-    return {f"{name}_w": ParamDef((cfg.d_model,), ("embed",), init="zeros",
-                                  dtype=torch.float32)}
+    f32 = torch.float32
+    if cfg.family == "audio":
+        return {f"{name}_w": ParamDef((cfg.d_model,), ("embed",), init="ones", dtype=f32),
+                f"{name}_b": ParamDef((cfg.d_model,), ("embed",), init="zeros", dtype=f32)}
+    return {f"{name}_w": ParamDef((cfg.d_model,), ("embed",), init="zeros", dtype=f32)}
 
 
 def _norm(cfg, p, name, x):
+    if cfg.family == "audio":
+        return layer_norm(x, p[f"{name}_w"], p[f"{name}_b"], cfg.norm_eps)
     return rms_norm(x, p[f"{name}_w"], cfg.norm_eps)
 
 
-def _check_kind(cfg, spec: StageSpec) -> None:
-    if cfg.family == "audio":
-        raise NotImplementedError(_LATER.format("the audio family (LayerNorm blocks)"))
-    if spec.kind not in ("attn", "rec", "mlstm", "slstm"):
-        raise NotImplementedError(_LATER.format(f"block kind {spec.kind!r}"))
-
-
 def block_defs(cfg, spec: StageSpec) -> dict:
-    _check_kind(cfg, spec)
+    if spec.kind not in ("attn", "enc", "dec", "cross", "rec", "mlstm", "slstm"):
+        raise ValueError(spec.kind)
     d: dict = _norm_defs(cfg, "ln1")
     if spec.kind in ("mlstm", "slstm"):
         d[spec.kind] = (xlstm.mlstm_defs if spec.kind == "mlstm" else xlstm.slstm_defs)(cfg)
         return d
-    if spec.kind == "attn":
-        d["attn"] = attention.attn_defs(cfg)
-    else:
+    if spec.kind == "cross":
+        d["xattn"] = attention.attn_defs(cfg, cross=True)
+        # float32, as the reference casts it at use
+        d["xgate"] = ParamDef((1,), (None,), init="zeros", dtype=torch.float32)
+    elif spec.kind == "rec":
         d["rglru"] = recurrent.rglru_defs(cfg)
+    else:
+        d["attn"] = attention.attn_defs(cfg)
+        if spec.kind == "dec":
+            d.update(_norm_defs(cfg, "lnx"))
+            d["xattn"] = attention.attn_defs(cfg, cross=True)
     d.update(_norm_defs(cfg, "ln2"))
     if spec.moe:
         d["moe"] = moe.moe_defs(cfg)
@@ -71,25 +80,34 @@ def block_defs(cfg, spec: StageSpec) -> dict:
 
 def block_apply(cfg, spec: StageSpec, p: dict, x, aux: dict, cache=None):
     """Returns (x, new_cache, aux_loss); aux_loss is 0 but for MoE blocks."""
-    _check_kind(cfg, spec)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.kind in ("mlstm", "slstm"):
         apply = xlstm.mlstm_apply if spec.kind == "mlstm" else xlstm.slstm_apply
         h, st = apply(p[spec.kind], _norm(cfg, p, "ln1", x), cfg,
                       state=None if cache is None else cache.get(spec.kind))
         return x + h, (None if st is None else {spec.kind: st}), zero
-    if spec.kind == "attn":
+    if spec.kind == "cross":
+        hx, _ = attention.attn_apply(p["xattn"], _norm(cfg, p, "ln1", x), cfg, aux["pos"],
+                                     kv_src=aux.get("frontend"), causal=False)
+        x = x + torch.tanh(p["xgate"].float()).to(x.dtype) * hx
+        y = mlp_apply(p["mlp"], _norm(cfg, p, "ln2", x), cfg.act)
+        return x + y, None, zero     # a cross stage holds no cache
+    if spec.kind == "rec":
+        h, st = recurrent.rglru_apply(
+            p["rglru"], _norm(cfg, p, "ln1", x), cfg,
+            state=None if cache is None else cache.get("rglru"))
+        new_cache = None if st is None else {"rglru": st}
+    else:
         h, kv_cache = attention.attn_apply(
             p["attn"], _norm(cfg, p, "ln1", x), cfg, aux["pos"],
             cache=None if cache is None else cache.get("kv"),
             causal=spec.causal, window=spec.window)
         new_cache = None if kv_cache is None else {"kv": kv_cache}
-    else:
-        h, st = recurrent.rglru_apply(
-            p["rglru"], _norm(cfg, p, "ln1", x), cfg,
-            state=None if cache is None else cache.get("rglru"))
-        new_cache = None if st is None else {"rglru": st}
     x = x + h
+    if spec.kind == "dec":
+        hx, _ = attention.attn_apply(p["xattn"], _norm(cfg, p, "lnx", x), cfg, aux["pos"],
+                                     kv_src=aux.get("frontend"), causal=False)
+        x = x + hx
     if spec.moe:
         y, aux_l = moe.moe_apply(p["moe"], _norm(cfg, p, "ln2", x), cfg,
                                  impl=aux.get("moe_impl", "sorted"),
@@ -111,7 +129,7 @@ def _grouped(specs) -> list[StageSpec]:
 
 def stages_for(cfg) -> list[StageSpec]:
     """The stage list (consecutive same-kind blocks grouped) that realizes
-    the architecture's topology: dense, moe, hybrid and ssm families."""
+    the architecture's topology."""
     fam = cfg.family
     if fam == "dense":
         return [StageSpec("attn", cfg.n_layers)]
@@ -121,8 +139,26 @@ def stages_for(cfg) -> list[StageSpec]:
             stages.append(StageSpec("attn", cfg.first_dense_layers, moe=False))
         stages.append(StageSpec("attn", cfg.n_layers - cfg.first_dense_layers, moe=True))
         return stages
+    if fam == "vlm":
+        # every cross_attn_every-th layer is a cross block after the group's
+        # self-attention layers
+        n_cross = cfg.n_layers // cfg.cross_attn_every
+        n_self = cfg.n_layers - n_cross
+        stages, done = [], 0
+        for _ in range(n_cross):
+            take = min(cfg.cross_attn_every - 1, n_self - done)
+            if take:
+                stages.append(StageSpec("attn", take))
+                done += take
+            stages.append(StageSpec("cross", 1, cache=None))
+        if done < n_self:
+            stages.append(StageSpec("attn", n_self - done))
+        return stages
+    if fam == "audio":
+        return [StageSpec("enc", cfg.encoder_layers, causal=False, cache=None),
+                StageSpec("dec", cfg.n_layers)]
     if fam not in ("hybrid", "ssm"):
-        raise NotImplementedError(_LATER.format(f"the {fam!r} family"))
+        raise ValueError(fam)
     # tile block_pattern (e.g. rec,rec,attn) over depth, grouping runs
     kinds = [cfg.block_pattern[i % len(cfg.block_pattern)] for i in range(cfg.n_layers)]
     if fam == "hybrid":

@@ -220,13 +220,17 @@ class ContinuousBatcher:
 # --------------------------------------------------------------------------
 # real-model edge batching: slot-masked steps over the serving caches
 # --------------------------------------------------------------------------
-# The port's caches are {"stages": [{"kv": {...}} | {"rglru": {...}}],
-# "pos": (B,)}. A stage cache's leaves are stacked over the stage's layers
-# first, (L, B, ...), so their slot axis is 1; "pos" leads with B.
+# The port's caches are {"stages": [{"kv": {...}} | {"rglru": {...}} | None],
+# "pos": (B,)} and, for the audio / vlm families, "enc_out" / "frontend"
+# (B, Sf, D). A stage cache's leaves are stacked over the stage's layers
+# first, (L, B, ...), so their slot axis is 1; the other leaves lead with B.
+# A stage without a cache (cross, encoder) is None, and stays None.
 def _map_caches(fn, caches: dict, *others: dict) -> dict:
     """fn(leaf, *other leaves, slot_axis) over a cache tree and trees of its
     structure."""
     def rec(x, ys, ax):
+        if x is None:
+            return None
         if isinstance(x, dict):
             return {k: rec(x[k], [y[k] for y in ys], ax) for k in x}
         if isinstance(x, list):

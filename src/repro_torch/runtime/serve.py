@@ -37,8 +37,8 @@ def reset_counts() -> None:
 
 
 class SplitPrograms(NamedTuple):
-    device_fn: Callable   # tokens (B, S) -> activation (B, S, D) bf16
-    edge_fn: Callable     # activation (B, S, D) -> logits float32 (B, S, Vp)
+    device_fn: Callable   # tokens (B, S)[, frontend] -> activation (B, S, D) bf16
+    edge_fn: Callable     # activation (B, S, D)[, frontend] -> logits float32 (B, S, Vp)
     split_layer: int
     act_bytes_per_token: int
 
@@ -63,24 +63,36 @@ def _split_params(model: Model, s: int):
 
 
 def make_split_serve(model: Model, s: int) -> SplitPrograms:
-    """Device and edge programs for split point s (decoder-only archs)."""
-    if not 0 <= s <= model.cfg.n_layers:
-        raise ValueError(f"split point {s} outside [0, {model.cfg.n_layers}]")
+    """Device and edge programs for split point s, a global block index in
+    [0, number of blocks].
+
+    Both halves run their blocks over the token stream as the JAX package's
+    do: for whisper (audio) the encoder stage's blocks run over the token
+    embeddings with no position table, and the decoder's cross attention
+    reads ``frontend`` itself, not an encoder output. A cross attention
+    given no frontend attends over its own input, rotated and unmasked."""
+    n_blocks = sum(spec.n_layers for spec in model.stages)
+    if not 0 <= s <= n_blocks:
+        raise ValueError(f"split point {s} outside [0, {n_blocks}]")
     a_stages, b_stages = _split_params(model, s)
 
+    def frontend_aux(b, sl, frontend):
+        return model.aux(model._positions(b, sl),
+                         None if frontend is None else frontend.to(COMPUTE_DTYPE))
+
     @torch.no_grad()
-    def device_fn(tokens):
+    def device_fn(tokens, frontend=None):
         b, sl = tokens.shape
         x = embed_lookup(model.top.embed, tokens)
-        aux = model.aux(model._positions(b, sl))
+        aux = frontend_aux(b, sl, frontend)
         for spec, layers in a_stages:
             x, _, _ = model._run_stage(spec, layers, x, aux, None)
         return x.to(COMPUTE_DTYPE)
 
     @torch.no_grad()
-    def edge_fn(x):
+    def edge_fn(x, frontend=None):
         b, sl, _ = x.shape
-        aux = model.aux(model._positions(b, sl))
+        aux = frontend_aux(b, sl, frontend)
         for spec, layers in b_stages:
             x, _, _ = model._run_stage(spec, layers, x, aux, None)
         x = model._final_norm(x)

@@ -20,7 +20,8 @@ and p is rounded to bf16 before the AV product; in float32 only the order
 of the sums differs. rg_lru: within 1e-5 of the twin on (log_a, |b|, |h0|),
 the float32 summation bound of the recurrence. The reduced model on the
 card against itself on the CPU: within 1e-2 of each position's largest
-logit (bf16 matmuls with other summation orders)."""
+logit (bf16 matmuls with other summation orders); so are the reduced
+vision and audio models, with a frontend."""
 import numpy as np
 import pytest
 
@@ -226,6 +227,67 @@ def test_flash_attention_at_the_moe_served_shape(cuda):
     want = fa.flash_attention_plain(q, k, v, 1, True, 0)
     scale = fa.flash_attention_plain(q, k, v.abs(), 1, True, 0).float()
     _close(got.float(), want.float(), scale, 1e-2)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,causal", [
+    (4, 3072, 3072, 32, 8, 128, True),    # llama-3.2-vision-11b self-attention
+    (4, 3072, 1601, 32, 8, 128, False),   # its cross-attention: Sq > Sk, 1 key in the last block
+    (4, 1500, 1500, 12, 12, 64, False),   # whisper-small's encoder, hd 64
+    (4, 448, 448, 12, 12, 64, True),      # its decoder self-attention: 3.5 query blocks
+    (4, 448, 1500, 12, 12, 64, False),    # its decoder cross-attention
+    # the serving entry point's shapes (no frontend, a continuation pass one token longer)
+    (4, 3072, 3072, 32, 8, 128, False),   # a vlm cross block over its own input
+    (4, 3073, 3073, 32, 8, 128, False),   # the same, continuation: 1 query in the last block
+    (4, 3073, 3073, 32, 8, 128, True),    # vlm self-attention, continuation
+    (4, 448, 448, 12, 12, 64, False),     # whisper's split: enc blocks and dec cross over 448
+    (4, 449, 449, 12, 12, 64, False),     # the same, continuation
+    (4, 449, 449, 12, 12, 64, True),      # whisper decoder self-attention, continuation
+    # the prefills' (8 tokens short of the served length)
+    (4, 3064, 3064, 32, 8, 128, True),    # vlm self-attention
+    (4, 3064, 1601, 32, 8, 128, False),   # vlm cross-attention
+    (4, 440, 440, 12, 12, 64, True),      # whisper decoder self-attention
+    (4, 440, 1500, 12, 12, 64, False),    # whisper decoder cross-attention
+])
+def test_flash_attention_at_the_vlm_and_audio_served_shapes(cuda, b, sq, sk, h, kv, hd, causal):
+    g = torch.Generator(device=cuda).manual_seed(sq + sk + hd)
+    q = torch.randn((b * h, sq, hd), device=cuda, generator=g).bfloat16()
+    k, v = (torch.randn((b * kv, sk, hd), device=cuda, generator=g).bfloat16() for _ in range(2))
+    args = (h // kv, causal, 0)
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, *args)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    want = fa.flash_attention_plain(q, k, v, *args)
+    scale = fa.flash_attention_plain(q, k, v.abs(), *args).float()
+    assert bool(torch.isfinite(got).all())
+    _close(got.float(), want.float(), scale, 1e-2)
+
+
+@pytest.mark.parametrize("name,want_flash", [("llama-3.2-vision-11b", 4), ("whisper-small", 6)])
+def test_vlm_and_audio_forward_on_the_card_counts_launches(cuda, name, want_flash):
+    """The reduced models with a frontend (xgate 0.5): one flash launch per
+    attention of a forward (vlm: 2 attn + 2 cross; whisper: 2 enc + 2 dec
+    self + 2 dec cross), split logits bit-equal at every split, and the
+    card's logits within 1e-2 of each position's largest on the CPU's."""
+    cfg = configs.get(name).reduced()
+    model = Model(cfg, device=cuda).init(torch.Generator(device=cuda).manual_seed(1))
+    for spec, layers in zip(model.stages, model.stage_layers):
+        for blk in layers if spec.kind == "cross" else ():
+            blk.p.xgate.fill_(0.5)
+    batch = make_batch(0, 0, 2, 96, cfg.vocab_size,
+                       frontend_shape=(cfg.frontend_tokens, cfg.d_model), device=cuda)
+    tokens, frontend = batch["tokens"], batch["frontend"]
+    fa.reset_launches()
+    full, _, _ = model(tokens, frontend)
+    assert fa.LAUNCHES["flash_attention"] == want_flash
+    if cfg.family == "vlm":
+        for s in range(sum(sp.n_layers for sp in model.stages) + 1):
+            progs = make_split_serve(model, s)
+            assert torch.equal(progs.edge_fn(progs.device_fn(tokens, frontend), frontend), full)
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    want, _, _ = cpu(tokens.cpu(), frontend.cpu())
+    _close(full.cpu(), want, want.abs().amax(-1, keepdim=True), 1e-2)
 
 
 def test_moe_layer_on_the_card_sorted_equals_dense_and_repeats(cuda):

@@ -29,7 +29,8 @@ Tolerances, each element at its own scale:
 The parity tests run the JAX package on the CPU and skip where JAX's
 backend is another. The tests at the end (stage lists, decode against
 forward, long decode past the window) need no JAX and run on the card
-when there is one."""
+when there is one. The vision and audio families are held against the JAX
+package in test_torch_vlm_audio.py."""
 import dataclasses
 
 import numpy as np
@@ -228,10 +229,11 @@ def test_stage_lists():
     ds = stages_for(configs.get("deepseek-moe-16b"))
     assert ds[0].moe is False and ds[0].n_layers == 1
     assert ds[1].moe is True and ds[1].n_layers == 27
-    for name in ("whisper-small", "llama-3.2-vision-11b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            stages_for(configs.get(name)) if name != "whisper-small" else \
-                Model(configs.get(name).reduced(), device="cpu")
+    vl = stages_for(configs.get("llama-3.2-vision-11b"))
+    assert sum(s.n_layers for s in vl) == 40
+    assert sum(s.n_layers for s in vl if s.kind == "cross") == 8
+    ws = stages_for(configs.get("whisper-small"))
+    assert [s.kind for s in ws] == ["enc", "dec"]
 
 
 @pytest.mark.parametrize("name", ARCHS)
