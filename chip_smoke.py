@@ -29,7 +29,8 @@ Phases, each fatal on failure (no phase catches its own error):
                  the kernel launch counters read around them (the engine's
                  programs: each GD step and the plan assembly CUDA graphs,
                  captured on the first call of a kind and replayed after; the
-                 counters count replays); the plan is
+                 counters count replays, by what each graph's capture
+                 counted, held to the device trace in 5); the plan is
                  checked for finiteness and feasibility, and at the cold start
                  of one split the utility and its gradient under "kernel" are
                  held against "einsum"; each program's graphs, capture
@@ -37,7 +38,8 @@ Phases, each fatal on failure (no phase catches its own error):
   5. profile  -- 40 GD steps of one split under torch.profiler, eagerly and
                  as replays of the engine's captured step: wall time per
                  step, device busy time and share, and the top kernels by
-                 device time;
+                 device time; the NOMA kernels on the replays' device trace
+                 equal to the launches their bookkeeping counted;
   6. serve    -- split serving of recurrentgemma-9b at full width and depth
                  (38 layers, 8.5e9 parameters, random weights from a seed):
                  the flash_attention and rg_lru kernels against their plain
@@ -53,7 +55,15 @@ Phases, each fatal on failure (no phase catches its own error):
                  around it; split logits at s* and at s=19 equal to the
                  unsplit forward's to the bit, 12 flash_attention and 26
                  rg_lru launches a forward; prefill + 8 cached decode steps
-                 against the forward; one forward under torch.profiler; the
+                 against the forward; the same prefill and decode through
+                 the compiled serve steps (graph_serve_checks: jit_prefill
+                 captured and replayed, 8 jit_decode_step and 8
+                 jit_masked_decode_step steps, each bit-equal to the eager
+                 step with its launches, one replay of each program
+                 profiled and its device trace's kernels held to the
+                 eager call's launches, no blocking sync in a program
+                 call, ms a step and busy share graphed and eager, capture
+                 seconds and pool bytes); one forward under torch.profiler; the
                  reduced model on the card against its plain twins on the
                  CPU; and the serving times;
   7. fleet    -- B=8 members of a Scenario at the paper's width (U=1250, N=16,
@@ -100,12 +110,22 @@ Phases, each fatal on failure (no phase catches its own error):
                  engine holds its plan and replan programs (compile_log; in
                  every gated epoch of 10 and 11), and every served plan
                  finite, requests conserved, one non-replan epoch under
-                 torch.profiler; 10.3 the unguarded arm on the same traffic
+                 torch.profiler; every gated epoch of 10-11 also holds the
+                 online_epoch program (a CUDA graph after the loop's first
+                 epoch, which builds it) to the eager epoch on the same
+                 draws and state, leaf for leaf, with no blocking sync
+                 inside a program call; 10.2 times epochs without a
+                 replan graphed and eager in turns and profiles one of
+                 each (the NOMA kernels on its device trace equal to the
+                 counted launches); 10.3 the unguarded arm on the same traffic
                  and faults for 6 epochs (launch counts gated only); 10.4
-                 DecodeBatcher and EdgeBatcher over phase 6's model: 12 / 26
-                 launches an admission, none a decode step, a masked slot's
-                 caches frozen, logits within 0.05 * max(1, max |logits|) of
-                 each request's own serving;
+                 DecodeBatcher and EdgeBatcher over phase 6's model:
+                 prompts of 512, 448 and 384 tokens, 12 / 26 launches an
+                 admission, none a decode step, a masked slot's caches
+                 frozen, logits within 0.05 * max(1, max |logits|) of each
+                 request's own serving, the batcher's admission program one
+                 CUDA graph a prompt length (its pool printed after each
+                 admission) and its masked step one;
  11. durable  -- durable serving (repro_torch.state) around the hardened loop
                  at the recovery benchmark's operating point
                  (benchmarks/recovery_serve.py) at U=1250, 24 epochs, a
@@ -156,14 +176,17 @@ Phases, each fatal on failure (no phase catches its own error):
                  that moved) and with each layer's experts pinned to the
                  forward's (held to 0.05 * max(1, max |logits|)); one
                  forward under torch.profiler (busy share; expert bmm,
-                 dispatch and flash shares); 13.2 xlstm-125m (12 layers,
+                 dispatch and flash shares); the compiled serve steps as
+                 in 6, their MoE dropped-slot counts equal to eager;
+                 13.2 xlstm-125m (12 layers,
                  mLSTM / sLSTM): the entry point (no TPU kernel on its
                  path), split logits at s* and s=6 bit-equal, prefill of
                  11 chunks + 8 decode steps against the forward, a
                  DecodeBatcher's caches exported after 8 steps and
                  imported into a fresh one, 4 more steps bit-equal to the
-                 live batcher's, and a profiled forward of 4 x 512 tokens
-                 (the sLSTM loop's launch rate);
+                 live batcher's, the compiled serve steps as in 6 on a
+                 prompt of 512 tokens, and a profiled forward of 4 x 512
+                 tokens (the sLSTM loop's launch rate);
  14. vlm/audio -- the vision and audio families at full size, random
                  weights from a seed, each with a make_batch frontend:
                  14.1 llama-3.2-vision-11b (40 layers: 8 groups of 4 attn +
@@ -186,7 +209,10 @@ Phases, each fatal on failure (no phase catches its own error):
                  through the enc_out cache against it; the reference's
                  split (the encoder over the token embeddings, cross
                  attention to the raw frontend) bit-equal between s* and
-                 s=18; a profiled forward.
+                 s=18; a profiled forward. 14.1 and 14.2 also run the
+                 compiled serve steps as in 6, with the frontend, the
+                 compiled prefill's flash shapes among the checked ones
+                 (not counted on the kernels line: a check, not a path).
 The last lines are the kernels JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
@@ -251,16 +277,17 @@ FLEET_SCENARIO = dict(n_users=1250, n_aps=16, n_sub=250, epoch_dt_s=0.01, dopple
 # per_ap up, per_ap dn, contract. Printed beside this run's.
 BEFORE_MEMBER_DIM_MS = {"noma_cell_intra": 0.027266, "noma_per_ap": 0.012206,
                         "noma_per_ap dn": 0.011464, "noma_ap_contract": 0.010245}
-# The script's peak in PyTorch's allocator is phase 6's, 54.3 GiB reserved on
-# an H100 80GB (19 GB of bf16 weights beside the split and the unsplit forward's
-# float32 logits, 12.6 GB each, and phase 4's engine with its graph pool;
-# printed at the end, by phase); phase 13.1's is 46.3 GiB (32.6 GB of
-# deepseek-moe-16b's weights, two 5.0 GB logit tensors, the MoE buffers);
-# phase 14.1's is 47.9 GiB (the flash twin's float32 scores at 128 x 3072 x
-# 3072 captured in a timing graph).
+# The script's peak in PyTorch's allocator is 56.8 GiB reserved on an H100
+# 80GB, in phase 13.1 (32.6 GB of deepseek-moe-16b's weights, its compiled
+# prefill's 10.3 GB graph pool, the eager prefill's caches and a replay's
+# own copy of them, 2.8 GB each); phase 6's is 54.2 GiB (19 GB of bf16
+# weights beside the split and the unsplit forward's float32 logits, 12.6
+# GB each, and phase 4's engine with its graph pool) and phase 14.1's 50.1
+# GiB (the flash twin's float32 scores at 128 x 3072 x 3072 captured in a
+# timing graph). Printed at the end, by phase.
 # With the CUDA context and a margin it needs this much free at the start.
-MEMORY_NEED_BYTES = 56 << 30
-MEMORY_WAIT_S = 300.0              # the script takes 350-710 s of its 1200
+MEMORY_NEED_BYTES = 58 << 30
+MEMORY_WAIT_S = 300.0              # the script takes 450-710 s of its 1200
 SERVE_ARCH = "recurrentgemma-9b"
 SERVE_B, SERVE_S = 4, 3072         # 4 requests of 3072 tokens
 SERVE_SPLIT = 19                   # the second split point held to the bit
@@ -307,6 +334,8 @@ DURABLE_TAMPER_T = 3               # the journal epoch whose word 11.5 flips
 MOE_ARCH, XLSTM_ARCH = "deepseek-moe-16b", "xlstm-125m"
 MOE_SPLIT, XLSTM_SPLIT = 14, 6
 MOE_DENSE_TOKENS = 1024
+# 13.2's graphed serve steps: a prompt of two mLSTM chunks
+XLSTM_GRAPH_S = 512
 # Phase 14: the vision and audio families. llama-3.2-vision-11b serves 4 x
 # 3072 tokens over its 1601 image tokens with every cross block's gate at
 # VLM_XGATE, and is held to the bit at a split inside a group of 4 attn + 1
@@ -486,12 +515,15 @@ def profile_graph_steps(eng, kind: str, env, n_steps: int, label: str, eager: tu
     """n_steps replays of the engine's captured GD step of split 4 (the
     program of (kind, env), already built) in gd_solve's chunks, one read
     of the stop flag a chunk, under torch.profiler; printed beside the
-    eager (ms a step, busy share)."""
+    eager (ms a step, busy share). The NOMA kernels on the device trace
+    must equal what the replays' bookkeeping added to the counters."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch import graphs
     from repro_torch.core import li_gd
+    from repro_torch.kernels import noma_rates as nr
     prog = eng.program(kind, env)
     step_graph = prog._graphs[(4, env.radio, env.comp)]
     done = prog._live["done"]
@@ -500,6 +532,7 @@ def profile_graph_steps(eng, kind: str, env, n_steps: int, label: str, eager: tu
         chunks.append(min(k, n_steps - sum(chunks)))
         k = min(2 * k, li_gd.SYNC_EVERY)
     torch.cuda.synchronize()
+    nr.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_g:
         t0 = time.perf_counter()
         for k in chunks:
@@ -513,6 +546,11 @@ def profile_graph_steps(eng, kind: str, env, n_steps: int, label: str, eager: tu
     if busy <= 0:
         fail(f"{label}: torch.profiler recorded no device time for the graphed steps")
     kernels = sum(e.count for e in rows)
+    seen = {k: n for k, n in graphs.kernel_launches(prof_g).items() if k in nr.LAUNCHES}
+    print(f"check {label}: NOMA kernels on the device trace of the replays {seen}, counted "
+          f"by the replays {dict(nr.LAUNCHES)}: {seen == nr.LAUNCHES}")
+    if seen != nr.LAUNCHES or not sum(seen.values()):
+        fail(f"{label}: the replays ran {seen} on the device but counted {dict(nr.LAUNCHES)}")
     print(f"{label} {n_steps} step replays in chunks {chunks} (profiled): wall_s={wall:.4f} "
           f"per_step_ms={wall / n_steps * 1e3:.4f} device_busy_s={busy:.4f} "
           f"busy_ms_per_step={busy / n_steps * 1e3:.4f} busy_share={busy / wall:.4f} "
@@ -1219,6 +1257,10 @@ def serve_phase(dev, kind: str, smi: str, errs: dict):
         fail(f"cached decode differs from the forward by {worst:.4f} > {tol:.4f}")
     del caches, ref, last, logits
     torch.cuda.empty_cache()
+    # the same prefill and decode steps through the compiled serve steps
+    graphed = graph_serve_checks(
+        model, {"tokens": tokens[:, :p_len]},
+        [tokens[:, p_len + i:p_len + i + 1] for i in range(DECODE_STEPS)], S, "serve 6.4", smi)
 
     # 6.5 where a forward's time goes: one forward under torch.profiler
     profile_forward(lambda: model(tokens), f"profile forward ({B} x {S} tokens)", smi)
@@ -1243,7 +1285,8 @@ def serve_phase(dev, kind: str, smi: str, errs: dict):
           f"({B / dec_ms * 1e3:.1f} tokens/s over {B} requests); split s*={s_star} "
           f"device_s={t_dev:.4f} edge_s={t_edge:.4f} "
           f"({B * S / (t_dev + t_edge):.1f} tokens/s through both halves); "
-          f"forward_s={fwd_s:.4f}; main wall_s={main_wall:.3f}")
+          f"forward_s={fwd_s:.4f}; main wall_s={main_wall:.3f}; graphed: prefill_s="
+          f"{graphed['prefill_s']:.4f} decode_ms_per_step={graphed['decode_ms']:.3f}")
     launches = {k: main_launches[k] for k in ("flash_attention", "rg_lru")}
     del m_card, m_cpu, got, want
     return rows, launches, model
@@ -1859,15 +1902,19 @@ def loop_epochs(loop, n_epochs: int, label: str, splits: int) -> list:
 def gated_epoch(loop, label: str, splits: int, step=None) -> tuple:
     """One epoch of an OnlineLoop (``step``: its step_epoch, by default the
     loop's own), gating its NOMA launches and host reads exactly (an
-    attached flight recorder reads one word more); returns (out, trigger,
-    row of host-side readings)."""
-    import warnings
-
+    attached flight recorder reads one word more), its builds (the loop's
+    online_epoch program on its first epoch, nothing else once the engine
+    holds its plan and replan programs), no blocking sync inside a program
+    call (the epoch and fallback programs' calls whole, and the engine's
+    replayed GD steps), and the epoch program's results against the eager
+    epoch on the same draws and state, leaf for leaf; returns (out,
+    trigger, row of host-side readings)."""
     import torch
+    from repro_torch import graphs
     from repro_torch.core import li_gd
     from repro_torch.kernels import noma_rates as nr
     from repro_torch.online import loop as looplib
-    from repro_torch.planning import compile_log
+    from repro_torch.planning import compile_log, programs
     from repro_torch.runtime import serve
 
     # Once the engine holds its plan and replan programs (the reset's cold
@@ -1878,17 +1925,15 @@ def gated_epoch(loop, label: str, splits: int, step=None) -> tuple:
     prev_state = loop.server.state
     cold0 = loop.ladder.cold_replans if hardened else 0
     before = (dict(li_gd.COUNTS), dict(looplib.COUNTS), dict(serve.COUNTS))
+    first = not loop.epoch_program.keys()
+    # the epoch's operands, for the eager epoch after the gates
+    operands = (loop.epoch_draws(loop._st.epoch), *loop.epoch_args())
     torch.cuda.synchronize()
     nr.reset_launches()
     t0 = time.perf_counter()
-    with warnings.catch_warnings(record=True) as syncs, HostReads() as reads, \
-            compile_log() as built:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            out, trigger = (step or loop.step_epoch)()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+    with HostReads() as reads, compile_log() as built:
+        (out, trigger), inside, outside = graphs.blocking_syncs(
+            step or loop.step_epoch, program_calls(graphs, programs))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     steps = li_gd.COUNTS["steps"] - before[0]["steps"]
@@ -1919,20 +1964,35 @@ def gated_epoch(loop, label: str, splits: int, step=None) -> tuple:
         fail(f"{label} epoch {t}: {reads.n} host reads of device values, expected "
              f"{loop_reads} (loop) + {plan_reads} (plan word) + {gd_reads} (GD stop flags) "
              f"+ {rec_reads} (recorder)")
-    if steady and built:
-        fail(f"{label} epoch {t}: the engine built {built} in the steady state")
+    epoch_built = [k for k in built if k == "online_epoch"]
+    if epoch_built != (["online_epoch"] if first else []):
+        fail(f"{label} epoch {t}: the epoch program built {epoch_built} on "
+             f"{'its first' if first else 'a later'} epoch")
+    rest = [k for k in built if k != "online_epoch"]
+    if steady and rest:
+        fail(f"{label} epoch {t}: {rest} built in the steady state")
+    if inside:
+        fail(f"{label} epoch {t}: {inside} blocking syncs inside program calls")
+    with torch.no_grad():
+        want = loop._epoch(*operands)
+    got = (loop._sc, loop._st, loop._bt, loop._qs, loop._tel, loop._fs, out)
+    bad = graphs.differing(got, want)
+    if bad or (want[0].epoch, want[1].epoch) != (got[0].epoch, got[1].epoch):
+        fail(f"{label} epoch {t}: the epoch program's leaves {bad} differ from the eager "
+             "epoch's on the same draws and state")
     finite = bool(torch.isfinite(loop._plan.utility))
     row = dict(epoch=t, wall=wall, replanned=replanned, cold=cold, steps=steps,
                stage=loop.ladder.stage if hardened else "-", s=int(loop._plan.s),
                health=int(out.health), trigger=trigger, finite=finite,
-               fallbacks=fallbacks, reads=reads.n, syncs=len(syncs),
+               fallbacks=fallbacks, reads=reads.n, syncs=inside + sum(outside.values()),
                completed=int(out.completed), occupancy=int(out.occupancy),
                backlog=int(out.backlog), faulted=int(out.faulted), built=built)
     print(f"{label} epoch {t:2d}: wall_s={wall:.4f} replanned={int(replanned)}"
           f"{' cold' if replanned and cold else ''} gd_steps={steps} stage={row['stage']} "
           f"s*={row['s']} health={row['health']} trigger={int(trigger)} "
           f"plan_finite={finite} fallbacks={fallbacks} host_reads={reads.n} "
-          f"blocking_syncs={len(syncs)} completed={row['completed']} "
+          f"blocking_syncs={row['syncs']} (in program calls {inside}) "
+          f"graphed_epoch={not first} eager_epoch_equal=True completed={row['completed']} "
           f"occupancy={row['occupancy']} backlog={row['backlog']} faulted={row['faulted']} "
           f"built={built}")
     return out, trigger, row
@@ -1945,8 +2005,10 @@ def loop_phase(dev, smi: str, model, env, errs: dict) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch import graphs
     from repro_torch.core import GdConfig, channel, profiles
     from repro_torch.faults import FaultConfig, LadderConfig
+    from repro_torch.kernels import noma_rates as nr
     from repro_torch.online import OnlineLoop, ServiceConfig, StreamConfig
     from repro_torch.planning import PlannerEngine
     from repro_torch.scenarios import Scenario, ScenarioConfig
@@ -2004,29 +2066,64 @@ def loop_phase(dev, smi: str, model, env, errs: dict) -> None:
               f"others {len(walls[False])} median "
               f"{statistics.median(walls[False]) if walls[False] else float('nan'):.4f} s")
 
-        # one epoch that does not replan, under torch.profiler
-        for _ in range(3):
-            if loop.server.epoch % loop.server.replan_every:
-                break
-            loop.step_epoch()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
-            t0 = time.perf_counter()
-            loop.step_epoch()
+        prog = loop.epoch_program
+        print(f"loop 10.2 online_epoch program: {prog.graph_count} CUDA graph, capture_s="
+              f"{prog.capture_s:.4f}, pool_bytes={pool_bytes(torch, prog.pool)}; "
+              f"fallback_plan program: {loop.fallback_program.graph_count} CUDA graph, "
+              f"capture_s={loop.fallback_program.capture_s:.4f}, pool_bytes="
+              f"{pool_bytes(torch, loop.fallback_program.pool)}")
+        if prog.graph_count != 1:
+            fail(f"loop 10.2: the epoch program holds {prog.graph_count} graphs, expected 1")
+        # epoch walls without a replan, the epoch graphed and eager in turns
+        walls_by = {"graphed": [], "eager": []}
+        for mode in ("graphed", "eager", "graphed", "eager"):
+            loop.epoch_program = prog if mode == "graphed" else prog.eager()
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loop.step_epoch()
+                torch.cuda.synchronize()
+                if not loop.server.last_replanned:
+                    walls_by[mode].append(time.perf_counter() - t0)
+        print(f"loop 10.2 epoch walls without a replan (ms), in turns graphed, eager, graphed, "
+              f"eager: graphed {[round(w * 1e3, 3) for w in walls_by['graphed']]} median "
+              f"{statistics.median(walls_by['graphed']) * 1e3:.3f}; eager "
+              f"{[round(w * 1e3, 3) for w in walls_by['eager']]} median "
+              f"{statistics.median(walls_by['eager']) * 1e3:.3f} | {smi}")
+        # one epoch that does not replan under torch.profiler, each way
+        for mode in ("graphed", "eager"):
+            loop.epoch_program = prog if mode == "graphed" else prog.eager()
+            for _ in range(3):
+                if loop.server.epoch % loop.server.replan_every:
+                    break
+                loop.step_epoch()
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rows_k = [e for e in pr.key_averages() if e.device_type == DeviceType.CUDA]
-        busy_us = sum(e.self_device_time_total for e in rows_k)
-        if busy_us <= 0:
-            fail("loop 10.2: torch.profiler recorded no device time")
-        print(f"profile loop epoch (replanned={int(loop.server.last_replanned)}): "
-              f"wall_s={wall:.4f} device_busy_s={busy_us / 1e6:.6f} busy_share="
-              f"{busy_us / 1e6 / wall:.4f} kernel_launches={sum(e.count for e in rows_k)}")
-        for e in sorted(rows_k, key=lambda e: -e.self_device_time_total)[:8]:
-            print(f"profile loop kernel {e.self_device_time_total / 1e3:9.3f} ms "
-                  f"{e.self_device_time_total / busy_us:6.1%} {e.count:6d} launches  "
-                  f"{e.key[:80]}")
-        del pr, rows_k
+            nr.reset_launches()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
+                t0 = time.perf_counter()
+                loop.step_epoch()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            rows_k = [e for e in pr.key_averages() if e.device_type == DeviceType.CUDA]
+            busy_us = sum(e.self_device_time_total for e in rows_k)
+            if busy_us <= 0:
+                fail("loop 10.2: torch.profiler recorded no device time")
+            seen = {k: n for k, n in graphs.kernel_launches(pr).items() if k in nr.LAUNCHES}
+            print(f"check loop 10.2 {mode} epoch: NOMA kernels on the device trace {seen}, "
+                  f"counted {dict(nr.LAUNCHES)}: {seen == nr.LAUNCHES}")
+            if seen != nr.LAUNCHES or not sum(seen.values()):
+                fail(f"loop 10.2 {mode} epoch: {seen} on the device trace, counted "
+                     f"{dict(nr.LAUNCHES)}")
+            print(f"profile loop epoch, {mode} (replanned={int(loop.server.last_replanned)}): "
+                  f"wall_s={wall:.4f} device_busy_s={busy_us / 1e6:.6f} busy_share="
+                  f"{busy_us / 1e6 / wall:.4f} kernel_launches={sum(e.count for e in rows_k)}"
+                  f" | {smi}")
+            for e in sorted(rows_k, key=lambda e: -e.self_device_time_total)[:8]:
+                print(f"profile loop kernel ({mode}) {e.self_device_time_total / 1e3:9.3f} ms "
+                      f"{e.self_device_time_total / busy_us:6.1%} {e.count:6d} launches  "
+                      f"{e.key[:80]}")
+            del pr, rows_k
+        loop.epoch_program = prog
 
         # -- 10.3 the unguarded arm ---------------------------------------------
         arm = build(None)
@@ -2083,10 +2180,13 @@ def batch_phase(dev, smi: str, model) -> None:
         if not err <= tol:
             fail(f"{what}: {err:.4e} above {tol:.4e}")
 
-    # each request served alone: its prefill and greedy decode steps
+    # prompts of three lengths (three prefill graphs in the batcher's
+    # admission program); each request served alone: its prefill and greedy
+    # decode steps
+    lens = [ONLINE_S - 64 * (i % 3) for i in range(b)]
     refs = []
     for i in range(b):
-        logits, caches = model.prefill({"tokens": toks[i:i + 1]}, max_len)
+        logits, caches = model.prefill({"tokens": toks[i:i + 1, :lens[i]]}, max_len)
         steps = [logits[0]]
         for _ in range(BATCH_STEPS):
             tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
@@ -2096,18 +2196,21 @@ def batch_phase(dev, smi: str, model) -> None:
         del caches
     db = DecodeBatcher(model, None, capacity=b, max_len=max_len)
     print(f"loop 10.4: DecodeBatcher(capacity={b}, max_len={max_len}) over {SERVE_ARCH} "
-          f"({arch.n_layers} layers), {b} requests of {ONLINE_S} tokens | {smi}")
+          f"({arch.n_layers} layers), {b} requests of {lens} tokens | {smi}")
     for i in range(b):
-        logits, wall, (n_fa, n_rl, n_nr) = counted(lambda i=i: db.admit(i, toks[i:i + 1]))
-        print(f"loop 10.4 admit slot {i}: wall_s={wall:.4f} launches flash_attention={n_fa} "
-              f"rg_lru={n_rl}")
+        logits, wall, (n_fa, n_rl, n_nr) = counted(
+            lambda i=i: db.admit(i, toks[i:i + 1, :lens[i]]))
+        print(f"loop 10.4 admit slot {i} ({lens[i]} tokens): wall_s={wall:.4f} launches "
+              f"flash_attention={n_fa} rg_lru={n_rl}; the admission program's pool "
+              f"{pool_bytes(torch, db.programs[0].pool)} bytes over "
+              f"{db.programs[0].graph_count} graph(s)")
         if (n_fa, n_rl, n_nr) != (n_attn, n_rec, 0):
             fail(f"loop 10.4 admit: {n_fa} / {n_rl} / {n_nr} launches, expected "
                  f"{n_attn} / {n_rec} / 0")
         near(logits, refs[i][0], f"loop 10.4 slot {i} prefill vs its own")
 
     def slot_leaves(i):
-        out = [db.caches["pos"][i]]
+        out = [db.caches["pos"][i].clone()]
         for st in db.caches["stages"]:
             for leaf in next(iter(st.values())).values():
                 out.append(leaf[:, i].clone())
@@ -2130,6 +2233,7 @@ def batch_phase(dev, smi: str, model) -> None:
             print(f"check loop 10.4 step {k}: inactive slot 2's caches unchanged: {same}")
             if not same:
                 fail("loop 10.4: an inactive slot's caches changed")
+    batcher_programs(db, "loop 10.4", smi, len(set(lens)))
     del db, refs
 
     progs = make_split_serve(model, SERVE_SPLIT)
@@ -2144,6 +2248,23 @@ def batch_phase(dev, smi: str, model) -> None:
     for i, a in enumerate(acts):
         near(batched[i], progs.edge_fn(a)[0], f"loop 10.4 edge batch slot {i} vs alone")
     del batched, acts, buf
+    torch.cuda.empty_cache()
+
+
+def batcher_programs(db, label: str, smi: str, lengths: int = 1) -> None:
+    """A DecodeBatcher's admission and masked-step programs: one CUDA graph
+    a prompt length and one, their capture seconds and pool bytes; then
+    released."""
+    import torch
+    for name, prog, want in zip(("admission", "masked decode step"), db.programs,
+                                (lengths, 1)):
+        print(f"{label} DecodeBatcher {name} program: {prog.graph_count} CUDA graph(s), "
+              f"capture_s={prog.capture_s:.4f}, pool_bytes={pool_bytes(torch, prog.pool)} | "
+              f"{smi}")
+        if prog.graph_count != want:
+            fail(f"{label}: the batcher's {name} program holds {prog.graph_count} graphs, "
+                 f"expected {want}")
+    db.release()
     torch.cuda.empty_cache()
 
 
@@ -2537,6 +2658,7 @@ def cache_phase(dev, smi: str, model) -> None:
         fail("durable 11.6: a cache of the wrong shape was imported")
     except ValueError as e:
         print(f"check durable 11.6 a cache of the wrong shape refused: {e}")
+    batcher_programs(db, "durable 11.6", smi)
     del db, snap, live, after, first, again
     torch.cuda.empty_cache()
 
@@ -2549,11 +2671,10 @@ def programs_phase(dev, smi: str, main: dict, fleet: dict) -> None:
     blocking syncs counted inside the replayed steps, 12.3 phase 7's
     plan_many and first replan_many; leaf for leaf with torch.equal, and
     the same NOMA launches, GD steps and host reads."""
-    import collections
     import gc
-    import warnings
 
     import torch
+    from repro_torch import graphs
     from repro_torch.core import li_gd
     from repro_torch.core.types import tree_flatten
     from repro_torch.kernels import noma_rates as nr
@@ -2595,40 +2716,6 @@ def programs_phase(dev, smi: str, main: dict, fleet: dict) -> None:
         if not same:
             fail(f"programs {label}: launches or GD steps differ from the eager path")
 
-    def syncs_of(fn):
-        """fn() under set_sync_debug_mode("warn"): its result, the blocking
-        syncs inside Program.advance (the replayed steps) and the origins
-        of the others."""
-        inside, where, depth = [0], collections.Counter(), [0]
-        advance = programs.Program.advance
-
-        def counted_advance(self, step, n):
-            depth[0] += 1
-            try:
-                return advance(self, step, n)
-            finally:
-                depth[0] -= 1
-
-        def show(message, category, filename, lineno, file=None, line=None):
-            if "called a synchronizing CUDA operation" not in str(message):
-                return       # the mode's one-time prototype notice, say
-            if depth[0]:
-                inside[0] += 1
-            else:
-                where[f"{Path(filename).name}:{lineno}"] += 1
-
-        with warnings.catch_warnings():
-            warnings.simplefilter("always")
-            warnings.showwarning = show
-            programs.Program.advance = counted_advance
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                out = fn()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-                programs.Program.advance = advance
-        return out, inside[0], where
-
     t_phase = time.perf_counter()
     eng = main["eng"]
     env, env1, env2 = main["envs"]
@@ -2647,7 +2734,8 @@ def programs_phase(dev, smi: str, main: dict, fleet: dict) -> None:
                                          ("replan", "replan1", env1, states[0], states[1])):
         call = (lambda: eng.plan(e_i)) if prev is None else (lambda: eng.replan(prev, e_i))
         gc.collect()     # destroying dead engines' graphs syncs: not in the window
-        (got, inside, where), wall, launch, count = counted(lambda: syncs_of(call))
+        (got, inside, where), wall, launch, count = counted(
+            lambda: graphs.blocking_syncs(call, ((programs.Program, "advance"),)))
         bad = differ(got, want)
         reads = count["host_reads"]
         print(f"check programs 12.2 {label} replayed: bit-equal to its capturing call: "
@@ -2830,6 +2918,247 @@ def decode_checks(model, tokens, ref, p_len: int, absmax: float, label: str, smi
     return prefill_s, statistics.median(step_s) * 1e3, worst
 
 
+def counted_call(fn):
+    """fn()'s result, its wall seconds (to a synchronize), and what it
+    launched: every kernel's count, flash_attention's by shape, and the MoE
+    dropped-slot counts (read after the call)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import noma_rates as nr
+    from repro_torch.kernels import rg_lru as rl
+    from repro_torch.models import moe
+    torch.cuda.synchronize()
+    for reset in (nr.reset_launches, fa.reset_launches, rl.reset_launches):
+        reset()
+    with moe.drop_log() as drops:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, wall, ({**nr.LAUNCHES, **fa.LAUNCHES, **rl.LAUNCHES}, dict(fa.SHAPES),
+                       [int(d) for d in drops])
+
+
+def program_calls(graphs, programs) -> tuple:
+    """The methods whose blocking syncs count as a program call's for
+    graphs.blocking_syncs: a compiled program's call, whole (operand
+    copies, the replay, the output copies), and the engine's replayed GD
+    steps."""
+    return ((graphs.Compiled, "__call__"), (programs.Program, "advance"))
+
+
+def profile_steps(step, n: int, label: str, smi: str) -> dict:
+    """n calls of step() under torch.profiler: ms a step, device busy ms a
+    step and busy share, kernels a step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in rows) / 1e6
+    if busy <= 0:
+        fail(f"{label}: torch.profiler recorded no device time")
+    kernels = sum(e.count for e in rows)
+    print(f"{label} {n} steps (profiled): ms_per_step={wall / n * 1e3:.4f} busy_ms_per_step="
+          f"{busy / n * 1e3:.4f} busy_share={busy / wall:.4f} kernels_per_step={kernels / n:.1f}"
+          f" | {smi}")
+    return dict(ms=wall / n * 1e3, busy_ms=busy / n * 1e3, busy_share=busy / wall,
+                kernels=kernels / n)
+
+
+def graph_serve_checks(model, batch: dict, toks: list, max_len: int, label: str,
+                       smi: str) -> dict:
+    """The compiled serve steps (runtime/serve.py) against the eager steps
+    on the same inputs, at the phase's full-size model: jit_prefill of
+    ``batch`` called three times (the first call runs eagerly and captures,
+    the others replay); jit_decode_step for len(toks) steps from the last
+    replay's caches and jit_masked_decode_step for as many more,
+    slot 1 idle every other step, from the decode's caches after 4
+    profiled steps (the eager reference takes the same 4). Each graph's
+    logits and caches equal Model.prefill / decode_step (slot_where over it
+    for the masked step) leaf for leaf with torch.equal. One replay of each
+    program runs under torch.profiler: the port's kernels its device trace
+    holds must equal what the eager call launched and what the replay's
+    bookkeeping added to the counters (graphs.traced_launches). Every
+    replay's by-shape flash counts and MoE dropped-slot counts equal the
+    eager call's, and no program call, whole, makes a blocking sync.
+    Prints admission seconds and ms a decode step graphed and eager
+    (median of the untraced replays and of the eager steps), 4 profiled
+    steps of each (busy share), and each program's graphs, capture seconds
+    and pool bytes; releases the programs. Returns the numbers and the
+    flash_attention shapes of the prefill program's first call (launched
+    by the wrapper as it ran eagerly)."""
+    import gc
+
+    import torch
+    from repro_torch import graphs
+    from repro_torch.online import slot_where
+    from repro_torch.runtime.serve import (
+        jit_decode_step,
+        jit_masked_decode_step,
+        jit_prefill,
+    )
+    b = batch["tokens"].shape[0]
+    out: dict = {}
+    syncs = {"n": 0}
+
+    def call(fn):
+        """fn() (one program call) through counted_call, its blocking
+        syncs added to syncs["n"]."""
+        (res, inside, where), wall, launched = counted_call(
+            lambda: graphs.blocking_syncs(fn, ((graphs.Compiled, "__call__"),)))
+        syncs["n"] += inside + sum(where.values())
+        return res, wall, launched
+
+    def traced(fn, what, eager):
+        """One replay under torch.profiler: the port's kernels on its
+        device trace against the eager call's launches and the replay's
+        own count."""
+        (res, _, booked), seen = graphs.traced_launches(lambda: counted_call(fn))
+        print(f"check {label} graphs {what} replay, traced: the port's kernels on the device "
+              f"{seen}; the eager call launched {eager[0]}; the replay counted {booked[0]}: "
+              f"{seen == eager[0] == booked[0]}")
+        if not seen == eager[0] == booked[0]:
+            fail(f"{label} graphs {what}: the replay ran {seen} on the device, the eager call "
+                 f"launched {eager[0]}, the replay counted {booked[0]}")
+        gate(what, True, eager, booked)
+        return res
+
+    def gate(what, same, eager, replay):
+        """Leaves equal, and the replay's by-shape flash counts and MoE
+        dropped-slot counts equal the eager call's."""
+        if same is not True or replay[1:] != eager[1:]:
+            fail(f"{label} graphs {what}: graphed differs from eager (leaves {same}) or its "
+                 f"flash shapes / MoE drops {replay[1:]} differ from eager's {eager[1:]}")
+
+    def report(name, prog):
+        out[name] = dict(graphs=prog.graph_count, capture_s=prog.capture_s,
+                         pool_bytes=pool_bytes(torch, prog.pool))
+        print(f"{label} graphs {name}: {prog.graph_count} CUDA graph(s), capture_s="
+              f"{prog.capture_s:.4f}, pool_bytes={out[name]['pool_bytes']}")
+
+    # prefill: eager, then the program's capturing call and two replays
+    (e_log, e_caches), e_wall, e_launched = counted_call(lambda: model.prefill(batch, max_len))
+    # the eager prefill's blocks go back to the card before the program's
+    # first call allocates its own (on its stream) and its graph's pool
+    torch.cuda.empty_cache()
+    pre, _ = jit_prefill(model, None, max_len)
+    (l1, c1), first_wall, first_launched = call(lambda: pre(None, batch))
+    bad = graphs.differing(c1, e_caches)
+    same = torch.equal(l1, e_log)
+    del c1, l1
+    torch.cuda.empty_cache()
+    (l2, caches), g_wall, g_launched = call(lambda: pre(None, batch))
+    bad += graphs.differing(caches, e_caches)
+    same = (same and torch.equal(l2, e_log) and not bad) or (bad or "logits")
+    gate("prefill", same, e_launched, g_launched)
+    del caches
+    torch.cuda.empty_cache()
+    l3, c3 = traced(lambda: pre(None, batch), "prefill", e_launched)
+    same = (torch.equal(l3, e_log) and not graphs.differing(c3, e_caches)) or "traced replay"
+    print(f"check {label} graphs prefill ({b} x {batch['tokens'].shape[1]} tokens): the "
+          f"capturing call and two replays equal the eager prefill leaf for leaf: {same is True}; "
+          f"launches {g_launched[0]} (eager {e_launched[0]}), MoE drops {sum(g_launched[2])} "
+          f"(eager {sum(e_launched[2])}); admission_s graphed={g_wall:.4f} eager={e_wall:.4f} "
+          f"capturing call={first_wall:.4f}; blocking syncs in the program calls {syncs['n']} "
+          f"| {smi}")
+    gate("prefill (traced replay)", same, e_launched, e_launched)
+    if syncs["n"]:
+        fail(f"{label} graphs prefill: {syncs['n']} blocking syncs in the program calls")
+    out.update(prefill_s=g_wall, prefill_eager_s=e_wall, prefill_shapes=first_launched[1])
+    report("prefill", pre.program)
+    del l2, l3, e_log
+    pre.program.release()
+    del pre
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # decode: len(toks) steps from the traced replay's caches (the program
+    # adopts them as its buffers); the first captures, the second is traced
+    dec, _, _ = jit_decode_step(model, None, b, max_len)
+    want, caches, e_ms, g_ms = e_caches, c3, [], []
+    del e_caches, c3
+    for k, tok in enumerate(toks):
+        (w_log, want), e_wall, e_launched = counted_call(lambda: model.decode_step(want, tok))
+        if k == 1:
+            log, caches = traced(lambda: dec(None, caches, tok), "decode step", e_launched)
+        else:
+            (log, caches), g_wall, g_launched = call(lambda: dec(None, caches, tok))
+            gate(f"decode step {k}", True, e_launched, g_launched)
+            if k:
+                g_ms.append(g_wall * 1e3)
+        e_ms.append(e_wall * 1e3)
+        if not torch.equal(log, w_log):
+            fail(f"{label} graphs decode step {k}: logits differ from the eager step's")
+    bad = graphs.differing(caches, want)
+    print(f"check {label} graphs decode: {len(toks)} steps (the first captures) logits equal "
+          f"the eager steps' and the caches after them leaf for leaf: {not bad}; blocking syncs "
+          f"in the program calls {syncs['n']}; ms a step graphed={statistics.median(g_ms):.4f} "
+          f"eager={statistics.median(e_ms):.4f} | {smi}")
+    if bad or syncs["n"]:
+        fail(f"{label} graphs decode: cache leaves {bad} differ, or {syncs['n']} blocking syncs")
+    out.update(decode_ms=statistics.median(g_ms), decode_eager_ms=statistics.median(e_ms))
+    report("decode_step", dec.program)
+    tok = toks[0]
+    state = {"c": caches, "w": want}
+    del caches, want
+
+    def graphed_step():
+        _, state["c"] = dec(None, state["c"], tok)
+
+    def eager_step():
+        _, state["w"] = model.decode_step(state["w"], tok)
+    out["decode_profile"] = profile_steps(graphed_step, 4, f"{label} graphs decode replays",
+                                          smi)
+    out["decode_eager_profile"] = profile_steps(eager_step, 4, f"{label} eager decode", smi)
+
+    # masked: slot 1 idle every other step, from the decode program's caches
+    # and the eager steps' (both 4 profiled steps on)
+    masked, _, _ = jit_masked_decode_step(model, None, b, max_len)
+    caches, want = state["c"], state["w"]
+    m_ms = []
+    for k, tok in enumerate(toks):
+        active = torch.tensor([i != 1 or k % 2 == 1 for i in range(b)], device=tok.device)
+
+        def eager():
+            logits, new = model.decode_step(want, torch.where(active[:, None], tok, 0))
+            return logits, slot_where(active, new, want)
+        (w_log, want), _, e_launched = counted_call(eager)
+        if k == 1:
+            log, caches = traced(lambda: masked(None, caches, tok, active), "masked step",
+                                 e_launched)
+        else:
+            (log, caches), g_wall, g_launched = call(lambda: masked(None, caches, tok, active))
+            gate(f"masked step {k}", True, e_launched, g_launched)
+            if k:
+                m_ms.append(g_wall * 1e3)
+        if k == 0:
+            dec.program.release()
+        bad = graphs.differing(caches, want)
+        if bad or not torch.equal(log, w_log):
+            fail(f"{label} graphs masked step {k}: cache leaves {bad} or the logits differ "
+                 "from eager")
+    print(f"check {label} graphs masked decode: {len(toks)} steps, slot 1 idle every other "
+          f"step, logits and caches leaf for leaf equal to decode_step + slot_where: True; "
+          f"blocking syncs in the program calls {syncs['n']}; ms a step graphed="
+          f"{statistics.median(m_ms):.4f} | {smi}")
+    if syncs["n"]:
+        fail(f"{label} graphs masked decode: {syncs['n']} blocking syncs in the program calls")
+    out["masked_ms"] = statistics.median(m_ms)
+    report("masked_decode_step", masked.program)
+    masked.program.release()
+    del dec, masked, caches, want, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def flash_row(dev, label: str, b: int, h: int, kv: int, sq: int, sk: int, hd: int,
               causal: bool, errs: dict, smi: str, seed: int) -> dict:
     """The bf16 flash kernel at one served shape, q (b*h, sq, hd) over k/v
@@ -2893,14 +3222,17 @@ def flash_rows(dev, arch: str, b: int, h: int, kv: int, hd: int, shapes: dict, e
     return rows, keys
 
 
-def attach_launches(rows: dict, keys: dict, paths: dict, label: str) -> int:
+def attach_launches(rows: dict, keys: dict, paths: dict, label: str,
+                    checks: dict | None = None) -> int:
     """Gives each row the flash_attention launches at its shape on each of
     ``paths`` (name -> a flash_attention.SHAPES snapshot taken over that
     path alone): "launches" their sum, "launches_by_path" each. Fails where
-    a path launched a shape that no row checked, or a row's shape was
-    launched on none of them. Returns the launches over all the paths."""
+    a path, or one of ``checks`` (runs that compare a path with another,
+    whose launches are not counted), launched a shape that no row checked,
+    or a row's shape was launched on none of the paths. Returns the
+    launches over all the paths."""
     checked = set(keys.values())
-    for path, shapes in paths.items():
+    for path, shapes in {**paths, **(checks or {})}.items():
         unchecked = sorted(k for k in shapes if k not in checked)
         if unchecked:
             fail(f"{label}: the {path} launched flash_attention at shapes no check covers "
@@ -3054,6 +3386,10 @@ def moe_phase(dev, smi: str, errs: dict) -> tuple[dict, int]:
     model.moe_capacity = launch_serve.MOE_CAPACITY
     del ref, fwd_routes, per_layer, free, pin
     torch.cuda.empty_cache()
+    # the compiled serve steps at the served capacity (free routing)
+    graphed = graph_serve_checks(
+        model, {"tokens": tokens[:, :p_len]},
+        [tokens[:, p_len + i:p_len + i + 1] for i in range(DECODE_STEPS)], S, "moe 13.1", smi)
     prof = profile_forward(lambda: model(tokens), f"moe 13.1 profile forward ({B} x {S})", smi,
                            {"expert bmm": {"aten::bmm"},
                             "dispatch and combine (sort, searchsorted, gathers, index_put)":
@@ -3064,8 +3400,9 @@ def moe_phase(dev, smi: str, errs: dict) -> tuple[dict, int]:
     print(f"moe 13.1 times ({smi}): prefill_s={prefill_s:.4f} ({B}x{p_len} "
           f"tokens); decode_ms_per_step={dec_ms:.3f}; split s*={s_star} device_s={t_dev:.4f} "
           f"edge_s={t_edge:.4f}; forward_s={fwd_s:.4f}; busy_share={prof['busy_share']:.4f}; "
-          f"free-routing decode worst {worst_free:.4f}; main wall_s={main_wall:.3f}; "
-          f"phase 13.1 {time.perf_counter() - t_phase:.1f} s")
+          f"free-routing decode worst {worst_free:.4f}; graphed: prefill_s="
+          f"{graphed['prefill_s']:.4f} decode_ms_per_step={graphed['decode_ms']:.3f}; main "
+          f"wall_s={main_wall:.3f}; phase 13.1 {time.perf_counter() - t_phase:.1f} s")
     del model, tokens
     gc.collect()
     torch.cuda.empty_cache()
@@ -3141,6 +3478,12 @@ def xlstm_phase(dev, smi: str) -> None:
     del full
     prefill_s, dec_ms, _ = decode_checks(model, tokens, ref, p_len, absmax, "xlstm 13.2", smi)
     del ref
+    # graphed against eager on a prompt of XLSTM_GRAPH_S tokens: capturing
+    # the sLSTM loop over p_len steps takes 9.2 s (PERF.md section 6)
+    graphed = graph_serve_checks(
+        model, {"tokens": tokens[:, :XLSTM_GRAPH_S]},
+        [tokens[:, XLSTM_GRAPH_S + i:XLSTM_GRAPH_S + i + 1] for i in range(DECODE_STEPS)], S,
+        "xlstm 13.2", smi)
 
     # DecodeBatcher: 8 steps, the caches exported, 4 more steps on the live
     # batcher and on a fresh one that imported the export
@@ -3184,8 +3527,11 @@ def xlstm_phase(dev, smi: str) -> None:
     print(f"xlstm 13.2 times ({smi}): prefill_s={prefill_s:.4f} ({B}x{p_len} "
           f"tokens; {n_slstm} sLSTM layers x {p_len} steps, "
           f"{prefill_s / (n_slstm * p_len) * 1e6:.1f} us a layer-step); "
-          f"decode_ms_per_step={dec_ms:.3f}; split s*={s_star} device_s={t_dev:.4f} "
-          f"edge_s={t_edge:.4f}; forward_s={fwd_s:.4f}; profiled {B}x{ONLINE_S} forward: "
+          f"decode_ms_per_step={dec_ms:.3f}; graphed ({B}x{XLSTM_GRAPH_S} prompt): prefill_s="
+          f"{graphed['prefill_s']:.4f} (eager {graphed['prefill_eager_s']:.4f}) "
+          f"decode_ms_per_step={graphed['decode_ms']:.3f}; split s*={s_star} "
+          f"device_s={t_dev:.4f} edge_s={t_edge:.4f}; forward_s={fwd_s:.4f}; profiled "
+          f"{B}x{ONLINE_S} forward: "
           f"busy_share={prof['busy_share']:.4f}, {prof['kernels']} kernels, "
           f"{prof['kernels'] / prof['wall_s']:.0f} launches a second; main wall_s="
           f"{main_wall:.3f}; phase 13.2 {time.perf_counter() - t_phase:.1f} s")
@@ -3377,6 +3723,9 @@ def vlm_phase(dev, smi: str, errs: dict) -> tuple[dict, int]:
     prefill_s, dec_ms, worst = decode_checks(model, tokens, ref, p_len, absmax, "vlm 14.1", smi,
                                              frontend=frontend)
     pre_shapes = dict(fa.SHAPES)
+    graphed = graph_serve_checks(
+        model, {"tokens": tokens[:, :p_len], "frontend": frontend},
+        [tokens[:, p_len + i:p_len + i + 1] for i in range(DECODE_STEPS)], S, "vlm 14.1", smi)
     # a witness for the decode's distance from the forward: the same forward,
     # prefill and decode with every attention taking the decode's single pass
     with SinglePassAttention():
@@ -3401,7 +3750,9 @@ def vlm_phase(dev, smi: str, errs: dict) -> tuple[dict, int]:
                             "flash_attention": "kernel:flash_wgmma"})
     t_dev, t_edge = split_times[main["split"]]
     print(f"vlm 14.1 times ({smi}): prefill_s={prefill_s:.4f} ({B}x{p_len} tokens); "
-          f"decode_ms_per_step={dec_ms:.3f}; split s*={main['split']} device_s={t_dev:.4f} "
+          f"decode_ms_per_step={dec_ms:.3f}; graphed: prefill_s={graphed['prefill_s']:.4f} "
+          f"decode_ms_per_step={graphed['decode_ms']:.3f}; split s*={main['split']} "
+          f"device_s={t_dev:.4f} "
           f"edge_s={t_edge:.4f}; forward_s={fwd_s:.4f}; busy_share={prof['busy_share']:.4f}; "
           f"main wall_s={main['wall_s']:.3f}; phase 14.1 {time.perf_counter() - t_phase:.1f} s")
     del model, tokens, frontend, batch
@@ -3409,7 +3760,8 @@ def vlm_phase(dev, smi: str, errs: dict) -> tuple[dict, int]:
     torch.cuda.empty_cache()
     launches = attach_launches(rows, keys, {"entry point": main["shapes"],
                                             "forward with a frontend": fwd_shapes,
-                                            "prefill and decode": pre_shapes}, "vlm 14.1")
+                                            "prefill and decode": pre_shapes},
+                               "vlm 14.1", {"compiled prefill": graphed["prefill_shapes"]})
     return rows, launches
 
 
@@ -3466,6 +3818,9 @@ def audio_phase(dev, smi: str, errs: dict) -> tuple[dict, int]:
                                          frontend=frontend)
     pre_shapes = dict(fa.SHAPES)
     del full
+    graphed = graph_serve_checks(
+        model, {"tokens": tokens[:, :p_len], "frontend": frontend},
+        [tokens[:, p_len + i:p_len + i + 1] for i in range(DECODE_STEPS)], S, "audio 14.2", smi)
     # the reference's split (not its forward): the second split point bit-equal
     # to the first
     split_times = split_checks(model, tokens, None, (main["split"], AUDIO_SPLIT),
@@ -3476,7 +3831,8 @@ def audio_phase(dev, smi: str, errs: dict) -> tuple[dict, int]:
                             "flash_attention": "kernel:flash_wgmma"})
     t_dev, t_edge = split_times[main["split"]]
     print(f"audio 14.2 times ({smi}): prefill_s={prefill_s:.4f} ({B}x{p_len} tokens and the "
-          f"encoder over {SF} frames); decode_ms_per_step={dec_ms:.3f}; split s*="
+          f"encoder over {SF} frames); decode_ms_per_step={dec_ms:.3f}; graphed: prefill_s="
+          f"{graphed['prefill_s']:.4f} decode_ms_per_step={graphed['decode_ms']:.3f}; split s*="
           f"{main['split']} device_s={t_dev:.4f} edge_s={t_edge:.4f}; forward_s={fwd_s:.4f}; "
           f"busy_share={prof['busy_share']:.4f}; main wall_s={main['wall_s']:.3f}; "
           f"phase 14.2 {time.perf_counter() - t_phase:.1f} s")
@@ -3485,7 +3841,8 @@ def audio_phase(dev, smi: str, errs: dict) -> tuple[dict, int]:
     torch.cuda.empty_cache()
     launches = attach_launches(rows, keys, {"entry point": main["shapes"],
                                             "forward with a frontend": fwd_shapes,
-                                            "prefill and decode": pre_shapes}, "audio 14.2")
+                                            "prefill and decode": pre_shapes},
+                               "audio 14.2", {"compiled prefill": graphed["prefill_shapes"]})
     return rows, launches
 
 

@@ -24,13 +24,15 @@ LOG2 = 0.6931471805599453
 
 
 def tree_map(fn, x):
-    """fn on every tensor of x: dicts, tuples, named tuples and dataclasses
-    are rebuilt around the results; anything else (floats, ints, None)
-    passes through."""
+    """fn on every tensor of x: dicts, lists, tuples, named tuples and
+    dataclasses are rebuilt around the results; anything else (floats,
+    ints, None) passes through."""
     if isinstance(x, Tensor):
         return fn(x)
     if isinstance(x, dict):
         return {k: tree_map(fn, v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [tree_map(fn, v) for v in x]
     if hasattr(x, "_fields"):
         return type(x)(*(tree_map(fn, v) for v in x))
     if isinstance(x, tuple):

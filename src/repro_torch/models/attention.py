@@ -42,8 +42,9 @@ def _single_pass(q, k, v, q_pos, k_pos, causal: bool, window: int):
     package's decode path): q (B, Sq, KV, G, hd) pre-scaled in bf16, k/v
     (B, Sk, KV, hd), slots with k_pos < 0 empty. Returns (B, Sq, KV, G, hd).
     The scale is rounded to bf16 before the product, as JAX rounds a
-    Python float that multiplies a bf16 array."""
-    scale = torch.tensor(q.shape[-1] ** -0.5, dtype=COMPUTE_DTYPE, device=q.device)
+    Python float that multiplies a bf16 array (a fill, not a copy from the
+    host: a CUDA graph may capture this)."""
+    scale = torch.full((), q.shape[-1] ** -0.5, dtype=COMPUTE_DTYPE, device=q.device)
     qf = (q * scale).to(COMPUTE_DTYPE)
     s = torch.einsum("bqkgd,bckd->bkgqc", qf, k).float()
     kp = k_pos[:, None, None, None, :]
@@ -60,7 +61,8 @@ def _single_pass(q, k, v, q_pos, k_pos, causal: bool, window: int):
 
 
 def attn_apply(p: dict, x, cfg, q_pos, kv_src=None, cache: dict | None = None,
-               causal: bool = True, window: int = 0):
+               causal: bool = True, window: int = 0, in_place: bool = False,
+               active=None):
     """x (B, S, D), q_pos (B, S). Returns (out (B, S, D), updated cache).
 
     kv_src (B, Sk, D) or None: cross attention over it (keys at positions
@@ -68,7 +70,14 @@ def attn_apply(p: dict, x, cfg, q_pos, kv_src=None, cache: dict | None = None,
     cache: {"k", "v": (B, size, KV, hd), "pos": (B, size), "len": (B,)} or
     None. Without a cache, and for a prefill (S > 1), the queries and keys
     sit at positions 0..S-1 and attention runs through the kernel; a decode
-    step (S == 1) writes slot len % size and attends over the cache."""
+    step (S == 1) writes slot len % size and attends over the cache.
+
+    in_place (a decode step of a compiled program): the ring write goes
+    into the cache's own k, v and pos (index_copy_), which the returned
+    cache holds, instead of into copies of them; attention reads the same
+    values either way. With ``active`` (B,) bool, an inactive slot's
+    entries at the written index are put back after attention (its lane's
+    output is garbage by contract, computed as without the mask)."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     g = h // kv
@@ -105,11 +114,19 @@ def attn_apply(p: dict, x, cfg, q_pos, kv_src=None, cache: dict | None = None,
         # then attention over the cache; slot is a device tensor (no sync)
         size = cache["k"].shape[1]
         slot = (cache["len"][:1] % size).long()
-        k_all = cache["k"].index_copy(1, slot, kproj.to(COMPUTE_DTYPE))
-        v_all = cache["v"].index_copy(1, slot, vproj.to(COMPUTE_DTYPE))
-        pos_all = cache["pos"].index_copy(1, slot, q_pos.to(cache["pos"].dtype))
+        new = (kproj.to(COMPUTE_DTYPE), vproj.to(COMPUTE_DTYPE), q_pos.to(cache["pos"].dtype))
+        ring = (cache["k"], cache["v"], cache["pos"])
+        if in_place:
+            old = [t.index_select(1, slot) for t in ring] if active is not None else None
+            k_all, v_all, pos_all = (t.index_copy_(1, slot, n) for t, n in zip(ring, new))
+        else:
+            k_all, v_all, pos_all = (t.index_copy(1, slot, n) for t, n in zip(ring, new))
         out = _single_pass(q.view(b, s, kv, g, hd), k_all, v_all, q_pos, pos_all,
                            causal, window)
+        if in_place and active is not None:
+            for t, n, o in zip(ring, new, old):
+                keep = active.view(b, *[1] * (n.ndim - 1))
+                t.index_copy_(1, slot, torch.where(keep, n, o))
         new_cache = {"k": k_all, "v": v_all, "pos": pos_all, "len": cache["len"] + s}
     return out.reshape(b, s, h * hd) @ p["wo"], new_cache
 

@@ -16,7 +16,8 @@ and stage lists for every family. The audio family's norms are LayerNorms
 block_apply(cfg, spec, p, x, aux, cache) -> (x, new_cache, aux_loss)
 `aux` carries {"pos": (B, S), "frontend": (B, Sf, D) or None} and, for MoE
 blocks, "moe_impl" and "moe_capacity" (defaults "sorted" and 1.25, the
-reference's).
+reference's); a compiled decode step adds "in_place" and "active"
+(attention.attn_apply).
 """
 from __future__ import annotations
 
@@ -101,7 +102,8 @@ def block_apply(cfg, spec: StageSpec, p: dict, x, aux: dict, cache=None):
         h, kv_cache = attention.attn_apply(
             p["attn"], _norm(cfg, p, "ln1", x), cfg, aux["pos"],
             cache=None if cache is None else cache.get("kv"),
-            causal=spec.causal, window=spec.window)
+            causal=spec.causal, window=spec.window,
+            in_place=aux.get("in_place", False), active=aux.get("active"))
         new_cache = None if kv_cache is None else {"kv": kv_cache}
     x = x + h
     if spec.kind == "dec":

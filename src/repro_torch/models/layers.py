@@ -120,7 +120,8 @@ def rope(x, positions, theta: float):
         return x
     hd = x.shape[-1]
     half = hd // 2
-    log_theta = torch.log(torch.tensor(theta, dtype=torch.float32, device=x.device))
+    # a fill, not a copy from the host: a CUDA graph may capture this
+    log_theta = torch.log(torch.full((), theta, dtype=torch.float32, device=x.device))
     freq = torch.exp(-torch.arange(half, dtype=torch.float32, device=x.device)
                      * (log_theta / half))
     ang = positions[..., None].float() * freq            # (..., S, half)

@@ -30,7 +30,7 @@ def _sinusoid(pos, d: int):
     (..., S, d) in COMPUTE_DTYPE, sines then cosines, the frequencies
     exp(-i * (log(10000) / half)) in float32 as the JAX package builds them."""
     half = d // 2
-    log_t = torch.log(torch.tensor(10000.0, dtype=torch.float32, device=pos.device))
+    log_t = torch.log(torch.full((), 10000.0, dtype=torch.float32, device=pos.device))
     freq = torch.exp(-torch.arange(half, dtype=torch.float32, device=pos.device)
                      * (log_t / half))
     ang = pos[..., None].float() * freq
@@ -51,6 +51,21 @@ class Block(nn.Module):
 
 def _index(tree, i: int):
     return {k: _index(v, i) for k, v in tree.items()} if isinstance(tree, dict) else tree[i]
+
+
+def _write_layer(view, new, active) -> None:
+    """Write a layer's new cache into its views of the stacked cache; a
+    leaf that already is its view (written in place) is left alone. With
+    ``active`` (B,) bool, inactive slots keep their values."""
+    if isinstance(view, dict):
+        for k in view:
+            _write_layer(view[k], new[k], active)
+        return
+    if new is view:
+        return
+    if active is not None:
+        new = torch.where(active.view(-1, *[1] * (new.ndim - 1)), new, view)
+    view.copy_(new)
 
 
 def _stack(trees: list):
@@ -109,15 +124,24 @@ class Model(nn.Module):
     # ---------------- stage runner ----------------
     def _run_stage(self, spec, layers, x, aux, cache_stacked):
         """Run one stage's layers in order. Returns (x, new stacked cache or
-        None, aux_loss)."""
+        None, aux_loss). With aux["in_place"] each layer's new cache is
+        written into cache_stacked (only the slots of aux["active"], when
+        given), which is returned: a compiled decode step's caches are its
+        static buffers, and restacking them would copy every layer."""
         aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+        in_place = aux.get("in_place", False) and cache_stacked is not None
         new = []
         for i, blk in enumerate(layers):
             cache = None if cache_stacked is None else _index(cache_stacked, i)
             x, new_cache, al = blk(x, aux, cache)
             aux_sum = aux_sum + al
-            new.append(new_cache)
-        return x, (None if cache_stacked is None else _stack(new)), aux_sum
+            if in_place:
+                _write_layer(cache, new_cache, aux.get("active"))
+            else:
+                new.append(new_cache)
+        if cache_stacked is None or in_place:
+            return x, cache_stacked, aux_sum
+        return x, _stack(new), aux_sum
 
     # ---------------- forward paths ----------------
     def _final_norm(self, x):
@@ -145,11 +169,18 @@ class Model(nn.Module):
         return x
 
     @torch.no_grad()
-    def forward(self, tokens, frontend=None, caches=None, positions=None):
+    def forward(self, tokens, frontend=None, caches=None, positions=None,
+                last: bool = False, in_place: bool = False, active=None):
         """tokens (B, S) int; frontend (B, Sf, D) or None: the audio
         encoder's input, or the image tokens a vlm cross-attends to. With
         caches and no frontend, the caches' enc_out / frontend stand in.
-        Returns (logits float32 (B, S, Vp), new caches or None, aux loss)."""
+        Returns (logits float32 (B, S, Vp), new caches or None, aux loss);
+        with ``last``, the logits of the last position only, (B, 1, Vp).
+
+        in_place / active (a compiled decode step, runtime/serve.py): the
+        stage caches are written in place, only the active slots' when
+        ``active`` is given, and the returned caches hold the same stage
+        tensors."""
         b, s = tokens.shape
         if positions is None:
             positions = self._positions(b, s)
@@ -176,12 +207,16 @@ class Model(nn.Module):
             if caches is not None and kv_src is not None:
                 caches = dict(caches, frontend=kv_src)
         aux = self.aux(positions, kv_src)
+        if in_place:
+            aux.update(in_place=True, active=active)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         new_stage_caches = []
         for spec, layers, c_st in zip(stages, stage_layers, stage_caches):
             x, new_c, al = self._run_stage(spec, layers, x, aux, c_st)
             aux_total = aux_total + al
             new_stage_caches.append(new_c)
+        if last:
+            x = x[:, -1:]
         x = self._final_norm(x)
         logits = logits_out(x, self.top.unembed, self.cfg.vocab_size)
         new_caches = None
@@ -197,14 +232,17 @@ class Model(nn.Module):
         given) and fill fresh caches of max_len. Returns (last-position logits
         (B, Vp), caches)."""
         caches = self.make_caches(batch["tokens"].shape[0], max_len)
-        logits, caches, _ = self(batch["tokens"], batch.get("frontend"), caches=caches)
+        logits, caches, _ = self(batch["tokens"], batch.get("frontend"), caches=caches,
+                                 last=True)
         return logits[:, -1], caches
 
-    def decode_step(self, caches: dict, token):
-        """token: (B, 1). One step with the KV / state caches."""
+    def decode_step(self, caches: dict, token, in_place: bool = False, active=None):
+        """token: (B, 1). One step with the KV / state caches; functional
+        unless ``in_place`` (forward)."""
         b = token.shape[0]
         pos = caches["pos"][:, None].expand(b, 1)
-        logits, caches, _ = self(token, caches=caches, positions=pos)
+        logits, caches, _ = self(token, caches=caches, positions=pos, in_place=in_place,
+                                 active=active)
         return logits[:, -1], caches
 
     # ---------------- caches ----------------

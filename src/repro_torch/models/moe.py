@@ -24,7 +24,8 @@ Two places where a direct translation would give other answers:
 
 The aux loss (load balance + 1e-3 z-loss) is returned as the reference
 does. ``drop_log()`` collects the dropped-slot count of every sorted
-dispatch run inside it.
+dispatch run inside it; a replayed CUDA graph appends the counts of its
+replay (repro_torch.graphs).
 """
 from __future__ import annotations
 
@@ -48,6 +49,12 @@ def drop_log():
         yield _DROP_LOG
     finally:
         _DROP_LOG = prev
+
+
+def log_drops(counts: list) -> None:
+    """Append dropped-slot counts to the active drop_log, if any."""
+    if _DROP_LOG is not None:
+        _DROP_LOG.extend(counts)
 
 
 def moe_defs(cfg) -> dict:
@@ -120,7 +127,7 @@ def _experts_sorted(p: dict, xt, gates, idx, cfg, capacity_factor: float = 1.25)
     cap = capacity(n, cfg, capacity_factor)
     order, dest, keep = dispatch(idx, e, cap)
     if _DROP_LOG is not None:
-        _DROP_LOG.append(torch.sum(~keep))
+        log_drops([torch.sum(~keep)])
     tok = order // k                                # source token per slot
 
     # One scratch row past the buffer takes every dropped slot.

@@ -24,11 +24,12 @@ Two consumers:
   delay model and occupancy converts to slot epochs.
 * Real split serving: ``DecodeBatcher`` keeps one capacity-sized KV/state
   cache (Model.make_caches) alive across requests, writes a per-request
-  prefill into its slot at admission (slot_update), and advances every
-  active slot with one masked decode step per epoch (inactive slots'
-  caches are frozen via slot_where and overwritten at their next
-  admission). ``EdgeBatcher`` is the single-shot analogue over stacked
-  split activations for the paper's CNN-style one-pass inference.
+  prefill into its slot at admission, and advances every active slot with
+  one masked decode step per epoch (inactive slots' caches are frozen and
+  overwritten at their next admission), both through the compiled serve
+  steps of runtime/serve.py. ``EdgeBatcher`` is the single-shot analogue
+  over stacked split activations for the paper's CNN-style one-pass
+  inference.
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ import torch
 
 from repro_torch.core.types import Tensor, host_copies, tree_flatten, tree_unflatten
 from repro_torch.device import resolve_device
+from repro_torch.runtime.serve import jit_masked_decode_step, jit_prefill_into
 
 
 class BatchState(NamedTuple):
@@ -287,13 +289,16 @@ class EdgeBatcher:
 
 
 class DecodeBatcher:
-    """Edge decode path with per-slot KV/state caches: one capacity-sized
-    cache from Model.make_caches, a per-request prefill written into its
-    slot at admission, one masked decode step per epoch for all active
-    slots. ``params`` stays in the reference's position and must be None:
-    the port's Model holds its own weights. The prefill runs the model's
-    kernels (flash_attention and rg_lru on the card); a decode step is
-    plain tensor code."""
+    """Edge decode path with per-slot KV/state caches, through the compiled
+    serve steps (runtime/serve.py): one capacity-sized cache, a per-request
+    prefill written straight into its slot at admission (jit_prefill_into
+    at batch 1, one graph per prompt length), one masked decode step
+    (jit_masked_decode_step) per epoch for all active slots. On the card
+    both are CUDA graphs after their first call. Both programs adopt the
+    live caches as their buffers, so admissions, steps and import_caches
+    all write them in place and nothing copies them. ``params`` stays in
+    the reference's position and must be None: the port's Model holds its
+    own weights."""
 
     def __init__(self, model, params, capacity: int, max_len: int):
         if params is not None:
@@ -303,24 +308,32 @@ class DecodeBatcher:
         self.capacity = int(capacity)
         self.max_len = int(max_len)
         self.caches = model.make_caches(capacity, max_len)
+        self._prefill, _ = jit_prefill_into(model, None, max_len)
+        self._step, _, _ = jit_masked_decode_step(model, None, capacity, max_len)
 
-    @torch.no_grad()
+    @property
+    def programs(self) -> tuple:
+        """The prefill and masked-step programs (graphs.Compiled)."""
+        return self._prefill.program, self._step.program
+
+    def release(self) -> None:
+        """Drop both programs' graphs and buffers (their memory pools go
+        back to the allocator; the live caches stay); the next calls build
+        them again."""
+        for prog in self.programs:
+            prog.release()
+
     def admit(self, slot: int, tokens: Tensor) -> Tensor:
         """Prefill one request (tokens (1, S)) into ``slot``; returns its
         next-token logits (vocab,)."""
-        logits, one = self.model.prefill({"tokens": tokens}, self.max_len)
-        self.caches = slot_update(self.caches, slot, one)
-        return logits[0]
+        return self._prefill(None, self.caches, slot, {"tokens": tokens})[0]
 
-    @torch.no_grad()
     def step(self, token: Tensor, active: Tensor) -> Tensor:
         """One masked decode step: token (B, 1), active (B,) bool ->
         logits (B, vocab). Every active slot advances together; inactive
         slots' caches are frozen and their logits lanes are garbage by
         contract."""
-        token = torch.where(active[:, None], token, torch.zeros_like(token))
-        logits, new_caches = self.model.decode_step(self.caches, token)
-        self.caches = slot_where(active, new_caches, self.caches)
+        logits, self.caches = self._step(None, self.caches, token, active)
         return logits
 
     def export_caches(self):
@@ -331,10 +344,10 @@ class DecodeBatcher:
         return tree_unflatten(treedef, host_copies(flat))
 
     def import_caches(self, caches) -> None:
-        """Restore exported slot caches onto the live caches' device. The
-        structure, shapes and dtypes must match the live caches (same
-        model / capacity / max_len); a mismatch raises ValueError naming the
-        leaf."""
+        """Restore exported slot caches into the live caches (the
+        programs' buffers, in place). The structure, shapes and dtypes must
+        match the live caches (same model / capacity / max_len); a mismatch
+        raises ValueError naming the leaf."""
         live, live_def = tree_flatten(self.caches)
         new, new_def = tree_flatten(caches)
         if new_def != live_def:
@@ -344,5 +357,5 @@ class DecodeBatcher:
             if tuple(a.shape) != tuple(b.shape) or a.dtype != b.dtype:
                 raise ValueError(f"cache leaf {i}: got {a.dtype}{list(a.shape)}, live "
                                  f"caches have {b.dtype}{list(b.shape)}")
-        self.caches = tree_unflatten(live_def, [a.to(b.device, copy=True)
-                                                for a, b in zip(new, live)])
+        for a, b in zip(new, live):
+            b.copy_(a)

@@ -57,6 +57,20 @@ The SINR backend of the service model (and of the fallback plan's pricing)
 is channel's module default (``channel.set_sinr_backend``); the planner's
 is the engine's own.
 
+The epoch and the fallback plan are compiled programs (repro_torch.graphs),
+the reference's jitted ``online_epoch`` and ``fallback_plan``: on the card
+each is a CUDA graph captured on its first call and replayed after, and
+compile_log records each once per capture. The draws are made eagerly,
+outside the graph, and copied into its static operands with the rest of
+the epoch's state; the fault rates are operands too, so set_fault_rates
+captures nothing. The epoch counter stays a host int (the draws' counter
+and a snapshot's int leaf) and reaches the graph as a float32 device
+scalar written each epoch by a fill. What a capture bakes in is the
+configuration's Python floats (stream, service, QoS, ladder and compute
+constants: fixed for a loop) and the SINR backend, which keys the graph.
+A hardened loop builds its fallback program at reset, as the reference
+warms it, so an escalation mid-episode captures nothing.
+
 Durable serving (repro_torch.state): ``serving_state()`` is the episode's
 complete state as (device tree, JSON host dict), ``load_serving_state``
 its inverse on a reset loop, ``state_template(kind)`` the restore-side
@@ -73,6 +87,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import graphs
 from repro_torch.core import channel
 from repro_torch.core.types import ModelProfile, SplitPlan, Tensor, lam, make_weights
 from repro_torch.core.utility import split_constants
@@ -213,6 +228,15 @@ class OnlineLoop:
         self._plan_template: SplitPlan | None = None   # an engine plan
         self._recorder = None                # a state.FlightRecorder, or None
         self.host_epoch = 0
+        # the compiled epoch and fallback plan, and the epoch counter the
+        # epoch's graph reads (float32, written by a fill each epoch)
+        self.epoch_program = graphs.Compiled("online_epoch", lambda ops: self._epoch(*ops),
+                                             self.device)
+        self.fallback_program = graphs.Compiled("fallback_plan", self._fallback_body,
+                                                self.device)
+        self._epoch_at = torch.zeros((), dtype=torch.float32, device=self.device)
+        self._fb_weights = (engine.weights if engine.weights is not None
+                            else make_weights(u, device=self.device))
 
     # -- the epoch ------------------------------------------------------------
     def _service_and_observation(self, env, plan: SplitPlan, congestion: Tensor):
@@ -250,8 +274,10 @@ class OnlineLoop:
     @torch.no_grad()
     def _epoch(self, draws: dict, plan: SplitPlan, rates: injectors.FaultRates, sc,
                st: StreamState, bt: BatchState, qs: QosState, tel: TelemetryState,
-               fs: FaultState):
-        """One epoch on its draws: pure tensor code, no host read. Returns
+               fs: FaultState, epoch: Tensor | None = None):
+        """One epoch on its draws: pure tensor code, no host read. ``epoch``
+        is the stream's epoch counter after this epoch's step (st.epoch + 1)
+        as a () float32 device tensor (None: made here by a fill). Returns
         the new (sc, st, bt, qs, tel, fs) and the EpochOut."""
         scen, svc, stream_cfg = self.scenario, self.service_cfg, self.stream_cfg
         dt = stream_cfg.epoch_dt_s
@@ -270,7 +296,9 @@ class OnlineLoop:
         service = injectors.spike_service(service, draw)
         obs = injectors.corrupt_observation(obs, draw, rates)
         work = work_epochs(service, dt, svc.max_work_epochs)
-        now = torch.full((), float(st.epoch), dtype=torch.float32, device=self.device) * dt
+        if epoch is None:
+            epoch = torch.full((), float(st.epoch), dtype=torch.float32, device=self.device)
+        now = epoch * dt
         k = stream_cfg.max_per_user_epoch
         shed_thr = self._shed_factor * stream_cfg.deadline_s
         if self._hardened and shed_thr > 0:
@@ -367,13 +395,20 @@ class OnlineLoop:
             torch.int32)
 
     def _fallback(self, env) -> SplitPlan:
-        """The ladder's rung-3 plan, cast to the engine plan's dtypes."""
-        w = (self.engine.weights if self.engine.weights is not None
-             else make_weights(self.scenario.cfg.n_users, device=self.device))
+        """The ladder's rung-3 plan, cast to the engine plan's dtypes, by
+        the fallback program."""
         COUNTS["fallback_plans"] += 1
-        with torch.no_grad():
-            return fallback_plan(env, self.engine.prof, w, template=self._plan_template,
-                                 mode=self.ladder.cfg.fallback)
+        return self._fallback_plan(env)
+
+    def _fallback_plan(self, env) -> SplitPlan:
+        tmpl = self._plan_template
+        dtypes = None if tmpl is None else tuple(x.dtype for x in graphs.tensors(tmpl))
+        return self.fallback_program(env, key=(channel._SINR_BACKEND, env.radio, env.comp,
+                                                dtypes))
+
+    def _fallback_body(self, env) -> SplitPlan:
+        return fallback_plan(env, self.engine.prof, self._fb_weights,
+                             template=self._plan_template, mode=self.ladder.cfg.fallback)
 
     def reset(self, seed: int, draws: dict | None = None) -> None:
         """Initialize scenario/stream/batch/QoS/telemetry/fault state and
@@ -400,6 +435,8 @@ class OnlineLoop:
         if self.server.state is not None:
             self._plan = self.server.state.plan
             self._plan_template = self._plan
+            if self._hardened:
+                self._fallback_plan(env0)     # build it now, as the reference warms it
         else:
             # The very first plan was rejected by the guard: serve the
             # baseline fallback until the ladder recovers a real plan.
@@ -415,9 +452,21 @@ class OnlineLoop:
         return (self._plan, self._rates, self._sc, self._st, self._bt, self._qs,
                 self._tel, self._fs)
 
+    def _run_epoch(self, draws: dict) -> EpochOut:
+        """The epoch program on ``draws`` and the current state; advances
+        the state and returns the EpochOut."""
+        sc0, st0 = self._sc, self._st
+        self._epoch_at.fill_(float(st0.epoch + 1))
+        (sc, st, self._bt, self._qs, self._tel, self._fs, out) = self.epoch_program(
+            (draws, *self.epoch_args(), self._epoch_at), key=channel._SINR_BACKEND)
+        # The host counters advance on the host: a replay returns the
+        # capture's ints.
+        self._sc = sc._replace(epoch=sc0.epoch + 1)
+        self._st = st._replace(epoch=st0.epoch + 1)
+        return out
+
     def _step_epoch_inner(self, draws: dict) -> tuple[EpochOut, bool]:
-        (self._sc, self._st, self._bt, self._qs, self._tel, self._fs,
-         out) = self._epoch(draws, *self.epoch_args())
+        out = self._run_epoch(draws)
         trigger = bool(out.report.trigger)   # the per-epoch decision read
         COUNTS["host_reads"] += 1
         if self.ladder is None:

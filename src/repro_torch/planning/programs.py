@@ -29,10 +29,8 @@ the stop flag. A capture or a replay that fails raises; nothing runs the
 eager step in its place. On the CPU a Program runs every step eagerly on
 its buffers.
 
-Python counters do not run on a replay, so a capture records what its
-launches added to every counter dict of the package (the kernels' LAUNCHES,
-li_gd / baselines / online.loop COUNTS), takes it back (a capture launches
-nothing), and each replay adds it again. Graphs of one engine share one
+Captures and replays go through repro_torch.graphs, which carries the
+package's counters across replays. Graphs of one engine share one
 memory pool and one stream: they replay one after another. Outputs never
 alias the static buffers (the next call overwrites them): the solver's
 results are fresh tensors, and the plan is cloned out of the assembly
@@ -42,11 +40,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import gc
-import time
 
 import torch
 
+from repro_torch import graphs
 from repro_torch.core import li_gd
 from repro_torch.core.types import (
     EccWeights,
@@ -100,7 +97,7 @@ def compile_log():
         _COMPILE_LOGS.remove(sink)
 
 
-def _record(kind: str) -> None:
+def record(kind: str) -> None:
     for sink in _COMPILE_LOGS:
         sink.append(kind)
 
@@ -137,42 +134,6 @@ def resolve_state(env: NetworkEnv, prof: ModelProfile, w: EccWeights, warm: dict
                      warm_rho=rho)
 
 
-# -- replay-counted graphs ---------------------------------------------------------
-def _counters() -> tuple[dict, ...]:
-    """Every Python counter dict of the package that code inside a graph
-    could add to."""
-    from repro_torch.core import baselines
-    from repro_torch.kernels import flash_attention, noma_rates, rg_lru
-    from repro_torch.online import loop
-    return (noma_rates.LAUNCHES, flash_attention.LAUNCHES, rg_lru.LAUNCHES, li_gd.COUNTS,
-            baselines.COUNTS, loop.COUNTS)
-
-
-class _Graph:
-    """A captured CUDA graph, what its capture added to the counters, and
-    its outputs (the tensors its last replay wrote)."""
-
-    def __init__(self, graph, added: list, out):
-        self.graph, self.added, self.out = graph, added, out
-
-    def replay(self) -> None:
-        self.graph.replay()
-        for counter, added in self.added:
-            for k, v in added.items():
-                counter[k] += v
-
-
-def _static_like(x: Tensor, device: torch.device) -> Tensor:
-    return torch.empty(x.shape, dtype=x.dtype, device=device)
-
-
-def _check_like(bufs: list, leaves: list, what: str) -> None:
-    for i, (b, x) in enumerate(zip(bufs, leaves)):
-        if tuple(b.shape) != tuple(x.shape) or b.dtype != x.dtype:
-            raise ValueError(f"{what} {i} is {tuple(x.shape)}/{x.dtype} but the program was "
-                             f"built for {tuple(b.shape)}/{b.dtype}")
-
-
 class Program:
     """One key of a PlannerEngine's cache; called with program_args(kind,
     env, ...), it returns the PlanState the entry point returns. ``stream``
@@ -191,7 +152,7 @@ class Program:
         self._state = None         # (treedef, static buffers) of one split's GD state
         self._live = None          # the static GD state as a tree
         self._loop = None          # static (gammas, iters, norms) read by the assembly
-        self._graphs: dict[tuple, _Graph] = {}   # (split | "assembly", radio, comp)
+        self._graphs: dict[tuple, graphs.Graph] = {}   # (split | "assembly", radio, comp)
         self._built: set = set()   # the (radio, comp) this program has built for
         self._consts = None        # (radio, comp) of the running call
         self._at = None            # (split, radio, comp) of the running step
@@ -207,7 +168,7 @@ class Program:
         consts = (env.radio, env.comp)
         if consts not in self._built:
             self._built.add(consts)
-            _record(self.kind)
+            record(self.kind)
         if not self._graphed:
             return self._run(consts, env, prof, w, warm)
         caller = torch.cuda.current_stream(self.device)
@@ -241,11 +202,11 @@ class Program:
                tuple(warm))
         leaves, treedef = tree_flatten(ops)
         if self._operands is None:
-            self._operands = (treedef, [_static_like(x, self.device) for x in leaves])
+            self._operands = (treedef, [graphs.static_like(x, self.device) for x in leaves])
         want, bufs = self._operands
         if treedef != want:
             raise ValueError(f"operands {treedef} do not fit the program's {want}")
-        _check_like(bufs, leaves, "operand")
+        graphs.check_like(bufs, leaves, "operand")
         for b, x in zip(bufs, leaves):
             b.copy_(x)
         g_up, g_dn, ap, fl, pw, m_down, w_T, w_E, s_warm = tree_unflatten(want, bufs)
@@ -259,11 +220,11 @@ class Program:
         return them as the state tree the steps advance."""
         leaves, treedef = tree_flatten(st)
         if self._state is None:
-            self._state = (treedef, [_static_like(x, self.device) for x in leaves])
+            self._state = (treedef, [graphs.static_like(x, self.device) for x in leaves])
             self._live = tree_unflatten(treedef, self._state[1])
         if treedef != self._state[0]:
             raise ValueError(f"GD state {treedef} does not fit the program's {self._state[0]}")
-        _check_like(self._state[1], leaves, "GD state leaf")
+        graphs.check_like(self._state[1], leaves, "GD state leaf")
         for b, x in zip(self._state[1], leaves):
             b.copy_(x)
         self._at = (s, *self._consts)
@@ -297,7 +258,7 @@ class Program:
                                        backend=backend)
         fields = (loop.gammas, loop.iters, loop.norms)
         if self._loop is None:
-            self._loop = tree_map(lambda x: _static_like(x, self.device), fields)
+            self._loop = tree_map(lambda x: graphs.static_like(x, self.device), fields)
         for b, x in zip(tree_flatten(self._loop)[0], tree_flatten(fields)[0]):
             b.copy_(x)
         gammas, iters, norms = self._loop
@@ -315,33 +276,8 @@ class Program:
         graph.replay()
         return tree_map(torch.clone, graph.out)
 
-    def _capture(self, fn) -> _Graph:
-        """Capture fn on the program's stream into the engine's pool. The
-        counters keep what the capture's launches would add, for the
-        replays, and lose it now."""
-        t0 = time.perf_counter()
-        counters = _counters()
-        before = [dict(c) for c in counters]
-        graph = torch.cuda.CUDAGraph()
-        # The collector waits while the stream captures: collecting a dead
-        # engine (a loop left in a reference cycle) destroys its graphs,
-        # which the CUDA runtime refuses during a capture, and the capture
-        # fails. thread_local: another thread (a snapshot writer) may use
-        # the CUDA runtime while this one captures.
-        collecting = gc.isenabled()
-        gc.disable()
-        graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
-        try:
-            out = fn()
-        finally:
-            graph.capture_end()
-            if collecting:
-                gc.enable()
-        added = []
-        for c, b in zip(counters, before):
-            diff = {k: c[k] - b[k] for k in c if c[k] != b[k]}
-            c.update(b)
-            if diff:
-                added.append((c, diff))
-        self.capture_s += time.perf_counter() - t0
-        return _Graph(graph, added, out)
+    def _capture(self, fn) -> graphs.Graph:
+        """Capture fn on the program's stream into the engine's pool."""
+        graph, secs = graphs.capture(fn, self._pool)
+        self.capture_s += secs
+        return graph

@@ -10,9 +10,19 @@ split logits equal the unsplit ones to the bit.
 
 OnlineSplitServer couples a PlannerEngine to split serving across a
 time-evolving scenario: it re-plans every epoch (or on demand) and re-cuts
-the model only when s* moves. The mesh-bound jit_* programs wait for the
-port of runtime/sharding; the masked decode step is
-online.batcher.DecodeBatcher.
+the model only when s* moves.
+
+jit_prefill, jit_decode_step and jit_masked_decode_step are the compiled
+serve steps (repro_torch.graphs.Compiled): on the card each captures a CUDA
+graph on its first call for a shape and replays it after; on the CPU it
+runs eagerly on its static buffers. The decode steps write each step's
+ring slot and states into their caches in place: the caches a step is
+first given become its buffers (consumed, as the reference's donated
+caches are), and the caches it returns are those buffers, which the next
+step takes without a copy. ``mesh`` stands for the reference's device
+mesh: None or one device (the model's); the sharded layouts wait for
+runtime/sharding. jit_prefill_into is online.batcher.DecodeBatcher's
+admission: the prefill written straight into a slot of live caches.
 """
 from __future__ import annotations
 
@@ -22,6 +32,7 @@ from typing import Callable, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import graphs
 from repro_torch.faults import guards
 from repro_torch.models import Model
 from repro_torch.models.layers import COMPUTE_DTYPE, embed_lookup, logits_out
@@ -101,6 +112,156 @@ def make_split_serve(model: Model, s: int) -> SplitPrograms:
     act_bytes = model.cfg.d_model * 2  # bf16 residual stream per token
     return SplitPrograms(device_fn=device_fn, edge_fn=edge_fn, split_layer=s,
                          act_bytes_per_token=act_bytes)
+
+
+# --------------------------------------------------------------------------
+# compiled serve steps
+# --------------------------------------------------------------------------
+def _placement(model: Model, mesh) -> torch.device:
+    """The device that stands for ``mesh``: None, a device (or its name)
+    that is the model's, or a sequence of one such. A mesh of more than one
+    device needs the sharded layouts (ROADMAP section 1, the sharding item:
+    runtime/sharding), which the port does not have yet."""
+    if isinstance(mesh, (list, tuple)):
+        if len(mesh) != 1:
+            raise NotImplementedError(
+                f"a mesh of {len(mesh)} devices needs runtime/sharding (ROADMAP section 1, "
+                "the sharding item); pass None or the model's one device")
+        mesh = mesh[0]
+    if mesh is not None and torch.device(mesh) != model.device and not (
+            torch.device(mesh).type == model.device.type and torch.device(mesh).index is None):
+        raise ValueError(f"mesh {mesh} is not the model's device {model.device}")
+    return model.device
+
+
+def _no_params(params) -> None:
+    if params is not None:
+        raise ValueError("the port's Model holds its own weights: pass params=None")
+
+
+def jit_prefill(model: Model, mesh, max_len: int):
+    """The compiled prefill: returns (step, placement) where step(params,
+    batch) -> (last-position logits (B, Vp), fresh caches of max_len), as
+    Model.prefill, and placement is the device its weights live on.
+    ``params`` must be None (the Model holds its weights); ``batch`` holds
+    "tokens" (B, S) and optionally "frontend". One graph per (tokens shape,
+    frontend shape or None): a new shape captures anew, as JAX retraces."""
+    dev = _placement(model, mesh)
+    prog = graphs.Compiled("prefill", lambda b: model.prefill(b, max_len), dev)
+
+    def step(params, batch):
+        _no_params(params)
+        return prog({k: v for k, v in batch.items() if v is not None})
+
+    step.program = prog
+    return step, dev
+
+
+def jit_prefill_into(model: Model, mesh, max_len: int):
+    """The compiled admission of a slot-batched server: returns (step,
+    placement) where step(params, caches, slot, batch) prefills ``batch``
+    (one request: "tokens" (1, S)) as jit_prefill does, writes its caches
+    into slot ``slot`` (an int) of ``caches`` in place (slot_update) in
+    the same graph, and returns the last-position logits (1, Vp). The
+    caches are adopted as the program's buffers (graphs.Compiled), so a
+    masked decode step that holds the same caches shares them, and nothing
+    is copied in or out; the request's own fresh caches are an
+    intermediate of the graph. One graph per prompt length."""
+    from repro_torch.online.batcher import _map_caches  # deferred: avoid the cycle
+    dev = _placement(model, mesh)
+
+    def body(ops):
+        logits, one = model.prefill(ops["batch"], max_len)
+        _map_caches(lambda buf, x, ax: buf.index_copy_(ax, ops["slot"], x), ops["caches"],
+                    one)
+        return logits
+
+    prog = graphs.Compiled("prefill", body, dev, adopt=("caches",))
+
+    def step(params, caches, slot, batch):
+        _no_params(params)
+        # the slot reaches the graph as a device operand made by a fill
+        at = torch.full((1,), int(slot), dtype=torch.int64, device=dev)
+        return prog({"caches": caches, "slot": at,
+                     "batch": {k: v for k, v in batch.items() if v is not None}})
+
+    step.program = prog
+    return step, dev
+
+
+def _write_caches(static: dict, new: dict, active=None) -> None:
+    """Write a decode step's new caches into the program's static caches:
+    leaves that are already their buffer (written in place) are left
+    alone, the others are copied, inactive slots kept when ``active`` is
+    given (stage leaves (L, B, ...) select on axis 1, the rest on 0)."""
+    from repro_torch.online.batcher import _map_caches  # deferred: avoid the cycle
+
+    def write(buf, x, ax):
+        if x is buf:
+            return None
+        if active is not None:
+            shape = [1] * x.ndim
+            shape[ax] = active.shape[0]
+            x = torch.where(active.reshape(shape), x, buf)
+        buf.copy_(x)
+        return None
+    _map_caches(write, static, new)
+
+
+def jit_decode_step(model: Model, mesh, batch: int, max_len: int):
+    """The compiled decode step: returns (step, placement, cache
+    placement); step(params, caches, token (B, 1)) -> (logits (B, Vp),
+    caches). The caches of its first call become its buffers, which it
+    writes in place and returns: the caches it is given are consumed (as a
+    donated buffer). Passing back what the last step returned (the steady
+    state) copies nothing; other caches are copied into the buffers.
+    ``params`` must be None."""
+    dev = _placement(model, mesh)
+
+    def body(ops):
+        logits, new = model.decode_step(ops["caches"], ops["token"], in_place=True)
+        _write_caches(ops["caches"], new)
+        return logits
+
+    return _decode_program("decode_step", body, model, batch, max_len, dev, masked=False)
+
+
+def jit_masked_decode_step(model: Model, mesh, batch: int, max_len: int):
+    """Slot-masked decode step for continuous batching: like
+    jit_decode_step, but step(params, caches, token, active (B,) bool)
+    feeds inactive slots token 0 and keeps their caches (pos included), so
+    a slot can idle between requests and be overwritten at its next
+    admission; their logits lanes are garbage by contract. Returns (step,
+    placement, cache placement)."""
+    dev = _placement(model, mesh)
+
+    def body(ops):
+        active = ops["active"]
+        token = torch.where(active[:, None], ops["token"], torch.zeros_like(ops["token"]))
+        logits, new = model.decode_step(ops["caches"], token, in_place=True, active=active)
+        _write_caches(ops["caches"], new, active)
+        return logits
+
+    return _decode_program("masked_decode_step", body, model, batch, max_len, dev, masked=True)
+
+
+def _decode_program(kind: str, body, model: Model, batch: int, max_len: int,
+                    dev: torch.device, masked: bool):
+    prog = graphs.Compiled(kind, body, dev, adopt=("caches",))
+    args = "(params, caches, token, active)" if masked else "(params, caches, token)"
+
+    def step(params, caches, token, *active):
+        _no_params(params)
+        if len(active) != int(masked):
+            raise TypeError(f"{kind} takes {args}")
+        ops = {"caches": caches, "token": token}
+        if masked:
+            ops["active"] = active[0]
+        logits = prog(ops)
+        return logits, prog.operands["caches"]
+
+    step.program = prog
+    return step, dev, dev
 
 
 def transfer_seconds(n_tokens: int, d_model: int, rate_bps: float) -> float:

@@ -12,6 +12,7 @@ Draws come from a torch.Generator; the ``*_from`` cores take them as tensors.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.scenarios import fading
@@ -20,15 +21,25 @@ from repro_torch.scenarios.mobility import MobilityState
 Tensor = torch.Tensor
 
 
+def _probability(n_users: int, rate_hz: float, dt_s: float) -> float:
+    """The per-slot Bernoulli probability rounded to float32 and clipped to
+    [0, 1], as a Python float (exactly a float32 value)."""
+    p = np.float32(rate_hz * dt_s / max(n_users, 1))
+    return float(np.clip(p, np.float32(0.0), np.float32(1.0)))
+
+
 def replacement_probability(n_users: int, rate_hz: float, dt_s: float) -> Tensor:
     """The per-slot Bernoulli probability, clipped to [0, 1] in float32."""
-    p = torch.tensor(rate_hz * dt_s / max(n_users, 1), dtype=torch.float32)
-    return torch.clamp(p, 0.0, 1.0)
+    return torch.full((), _probability(n_users, rate_hz, dt_s), dtype=torch.float32)
 
 
 def mask_from(unit: Tensor, n_users: int, rate_hz: float, dt_s: float) -> Tensor:
-    """([B,] U) bool from unit uniforms: replaced where unit < p."""
-    return unit < replacement_probability(n_users, rate_hz, dt_s).to(unit.device)
+    """([B,] U) bool from unit uniforms: replaced where unit < p, p made by
+    a fill on unit's device (no copy from the host: a CUDA graph may
+    capture this)."""
+    p = torch.full((), _probability(n_users, rate_hz, dt_s), dtype=torch.float32,
+                   device=unit.device)
+    return unit < p
 
 
 def replacement_mask(gen: torch.Generator, n_users: int, rate_hz: float,

@@ -46,8 +46,13 @@ def init_coeffs(gen: torch.Generator, shape) -> Tensor:
 
 def gauss_markov_from(h: Tensor, w: Tensor, rho) -> Tensor:
     """One AR(1) step given the innovation w (CN(0, 1) coefficients); rho a
-    float or a float32 tensor broadcasting against h (per member)."""
-    rho = torch.as_tensor(rho, dtype=torch.float32, device=h.device)
+    float or a float32 tensor broadcasting against h (per member). A float
+    becomes a float32 scalar by a fill on h's device, not a copy from the
+    host (a CUDA graph may capture the step)."""
+    if isinstance(rho, Tensor):
+        rho = rho.to(device=h.device, dtype=torch.float32)
+    else:
+        rho = torch.full((), float(rho), dtype=torch.float32, device=h.device)
     return rho * h + torch.sqrt(torch.clamp_min(1.0 - rho * rho, 0.0)) * w
 
 

@@ -107,11 +107,12 @@ def test_masked_batching_matches_sequential_serving(name):
 
 
 def _slot(caches, i):
-    """Every leaf's slot i, in the port's cache layout."""
-    out = [caches["pos"][i]]
+    """Copies of every leaf's slot i, in the port's cache layout (copies:
+    the batcher's steps write its live caches in place)."""
+    out = [caches["pos"][i].clone()]
     for st in caches["stages"]:
         for leaf in next(iter(st.values())).values():
-            out.append(leaf[:, i])
+            out.append(leaf[:, i].clone())
     return out
 
 

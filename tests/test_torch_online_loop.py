@@ -597,3 +597,80 @@ def test_loop_conserves_requests_and_guards_devices():
                    StreamConfig(**LOADED["stream"]))
     with pytest.raises(RuntimeError, match="before reset"):
         port_loop(LOADED).step_epoch()
+
+
+# -- the compiled epoch and fallback plan (online_epoch, fallback_plan) ----------
+def _episode(loop, n_epochs: int, seed: int):
+    """(history, every epoch's state and EpochOut tree with its two host
+    epoch counters, metrics)."""
+    loop.reset(seed)
+    hist, states = loop.history_init(), []
+    for _ in range(n_epochs):
+        out, trigger = loop.step_epoch()
+        loop.record_history(hist, out, trigger)
+        states.append(((loop._sc, loop._st, loop._bt, loop._qs, loop._tel, loop._fs, out),
+                       (loop._sc.epoch, loop._st.epoch)))
+    return hist, states, loop.metrics()
+
+
+@pytest.mark.parametrize("conf", ["loaded", "chaos"])
+def test_compiled_epoch_equals_the_eager_epoch(conf):
+    """An episode through the online_epoch program against the same
+    episode through the eager epoch: every state and EpochOut tensor to
+    the bit (NaN where NaN) after every epoch, so the discrete outputs
+    (arrivals, completions, queues, triggers, s*) and metrics are the
+    same."""
+    cfg = LOADED if conf == "loaded" else CHAOS
+    seed = 0 if conf == "loaded" else 7
+    from repro_torch import graphs
+    prog, eager = port_loop(cfg), port_loop(cfg)
+    eager.epoch_program = eager.epoch_program.eager()
+    got, want = _episode(prog, 16, seed), _episode(eager, 16, seed)
+    for t, ((a, ea), (b, eb)) in enumerate(zip(got[1], want[1])):
+        assert ea == eb, t
+        bad = graphs.differing(a, b)
+        assert not bad, (t, bad)
+    for k in ("s", "completed", "occupancy", "backlog", "trigger", "health", "faulted",
+              "stage"):
+        assert got[0][k] == want[0][k], k
+    assert got[2] == want[2]
+    assert prog.epoch_program.graph_count == 0 and len(prog.epoch_program.keys()) == 1
+
+
+def test_epoch_and_fallback_programs_record_once():
+    """compile_log over a hardened episode whose ladder escalates to the
+    baseline fallback (every replan of epochs 4-11 reported unhealthy):
+    online_epoch once (its first epoch), fallback_plan once (built at
+    reset, as the reference warms it); a swap of the fault rates
+    mid-episode records nothing and builds no key."""
+    from repro_torch.planning import compile_log
+    loop = port_loop(dict(CHAOS, degrade=dict(baseline_after=1)))
+    looplib.reset_counts()
+    sync = loop.server._sync_plan
+    with compile_log() as log:
+        loop.reset(7)
+        built_at_reset = list(log)
+        for t in range(24):
+            bad = 4 <= t < 12
+            loop.server._sync_plan = (lambda env, plan: (1, sync(env, plan)[1])) if bad \
+                else sync
+            loop.step_epoch()
+    assert built_at_reset == ["plan", "fallback_plan"]
+    assert log.count("online_epoch") == 1 and log.count("fallback_plan") == 1
+    assert looplib.COUNTS["fallback_plans"] > 0, "the ladder never served a fallback"
+    with compile_log() as log:
+        loop.set_fault_rates(FaultConfig(link_outage_rate=0.5, telemetry_drop_rate=0.3))
+        for _ in range(4):
+            loop.step_epoch()
+    assert "online_epoch" not in log and "fallback_plan" not in log
+    assert len(loop.epoch_program.keys()) == 1 and len(loop.fallback_program.keys()) == 1
+
+
+def test_unhardened_loop_records_the_epoch_once():
+    from repro_torch.planning import compile_log
+    loop = port_loop(LOADED)
+    with compile_log() as log:
+        loop.run(0, 12)
+        loop.run(1, 4)      # a new episode on the same loop builds nothing
+    assert log.count("online_epoch") == 1 and "fallback_plan" not in log
+    assert log[0] == "plan"
