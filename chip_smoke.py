@@ -72,8 +72,9 @@ Phases, each fatal on failure (no phase catches its own error):
                  to a single launch on it, members 0 and 7 against the plain
                  twins, each operand set of both links and directions timed
                  beside eight single launches (no slower) and its bound; then
-                 plan_many and two epochs of step_many -> env_many ->
-                 replan_many with exact launch counts (6 / 3 / 3 a fleet GD
+                 plan_many and one epoch of step_many -> env_many ->
+                 replan_many (one fewer, for phase 15's time)
+                 with exact launch counts (6 / 3 / 3 a fleet GD
                  step) and every member's plan feasible; members 0 and 1
                  planned alone beside the fleet (utility gate); 40 fixed GD
                  steps of the fleet against member 0 alone; 40 fleet GD steps
@@ -151,7 +152,10 @@ Phases, each fatal on failure (no phase catches its own error):
                  (programs.solve_state / resolve_state without a runner:
                  li_gd.gd_loop + assemble_plan) on the same inputs, leaf for
                  leaf with torch.equal and with the same launches and GD
-                 steps: 12.1 phase 4's plan and two replans; 12.2 the plan and
+                 steps: 12.1 phase 4's plan and second replan (the first
+                 replan's eager rerun left out for phase 15's time: its
+                 graphs are captured by it and replayed by the second, and
+                 12.2 holds its replay to it); 12.2 the plan and
                  the first replan again (pure replays: bit-equal to the
                  capturing calls, exact launches, no blocking sync inside a
                  replayed step, the others' origins printed); 12.3 phase 7's
@@ -213,6 +217,30 @@ Phases, each fatal on failure (no phase catches its own error):
                  compiled serve steps as in 6, with the frontend, the
                  compiled prefill's flash shapes among the checked ones
                  (not counted on the kernels line: a check, not a path).
+ 15. train    -- training qwen1.5-0.5b at full width and depth (24 layers,
+                 0.62e9 parameters, float32 masters from a seed): 15.1 the
+                 flash_attention_bwd kernel against its plain twin at the
+                 train step's shapes (8 x 16 query head rows over 2048 keys,
+                 hd 64, G = 1, causal, bf16, and the check batches' shapes)
+                 and a grid of small shapes (window, bidirectional, G = 4,
+                 Sq != Sk, kv_len < Sk, hd 32 / 128 / 256, float32), two
+                 launches bit-equal at each, the forward's log-sum-exp
+                 against its twin and its output bit-equal to the serving
+                 call's, the backward's time beside its twin's, SDPA's
+                 backward (is_causal) and its bound; 15.2 TRAIN_STEPS steps of
+                 make_train_step (chunked cross-entropy) on SyntheticLM's 8 x
+                 2048 tokens at base_lr 3e-3 (float32 masters, bf16 compute,
+                 remat): exact flash launches a step (2
+                 forwards a layer under remat, 1 backward), a finite loss
+                 every step and lower at the end, step ms, tokens/s, model
+                 FLOPs utilisation, one profiled step (busy share), peak
+                 reserve; the chunked against the unchunked cross-entropy
+                 at 2 x 512 tokens; 4 microbatches against 1 on one batch;
+                 two steps from one state bit-equal; 15.3 the entry point,
+                 launch.train.main at its defaults (8 x 128) with
+                 --ckpt-every 3, a 4-step run that crosses it and ends, a
+                 restart that resumes from its final checkpoint, the
+                 resumed losses bit-equal to an uninterrupted run's.
 The last lines are the kernels JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
@@ -269,6 +297,7 @@ FLEET_UTILITY_RTOL = 1e-4
 # non-kernel sums differs, which Adam's normalized steps carry forward.
 FLEET_STEP_RTOL = 1e-3
 FLEET_B = 8
+FLEET_CALLS = 2                    # plan_many, then one epoch's replan_many
 FLEET_SCENARIO = dict(n_users=1250, n_aps=16, n_sub=250, epoch_dt_s=0.01, doppler_hz=9.0,
                       speed_mps=1.4, arrival_rate_hz=2.0, cluster_frac=0.5, n_clusters=3,
                       cluster_radius_m=40.0, name="paper_scale_urban")
@@ -345,6 +374,24 @@ XLSTM_GRAPH_S = 512
 VLM_ARCH, AUDIO_ARCH = "llama-3.2-vision-11b", "whisper-small"
 VLM_SPLIT, VLM_XGATE = 22, 0.5
 AUDIO_S, AUDIO_SPLIT = 448, 18
+# Phase 15: training qwen1.5-0.5b at full size on SyntheticLM, TRAIN_B x
+# TRAIN_S tokens a step, chunked cross-entropy; the cross-entropy check's
+# batch (small enough for the unchunked (B, S, V) float32 logits), and the
+# entry point's defaults (8 x 128) with its checkpoint cadence crossed once.
+TRAIN_ARCH, TRAIN_SEED = "qwen1.5-0.5b", 0
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR, TRAIN_CHUNK = 8, 2048, 20, 3e-3, 512
+CE_B, CE_S, CE_CHUNK = 2, 512, 128
+# 15.3: a first run of 4 steps crosses --ckpt-every 3 (each checkpoint of
+# the 0.62e9-parameter state is 7.4 GB: params, m and v in float32), then a
+# restart trains 2 more, writing only its final checkpoint.
+ENTRY_STEPS, ENTRY_RESUMED, ENTRY_EVERY = 4, 2, 3
+# 15.1: flash_attention_bwd against its twin, each gradient element within
+# this fraction of the sum of the magnitudes of its terms
+# (flash_attention_bwd_scale): in bf16 both round P and dS to bf16 before
+# the products (a rounding may fall on the other side: 2^-8 of a term) and
+# the gradients at 2^-8; in float32 only the order of the sums differs. The
+# forward's log-sum-exp within LSE_RTOL of 1 + |lse| (exp2 against exp).
+FLASH_BWD_RTOL, FLASH_BWD_F32_RTOL, LSE_RTOL = 1e-2, 1e-5, 1e-5
 # TPU kernel each CUDA kernel replaces, and its source in this repo.
 NOMA_SOURCE = "src/repro_torch/kernels/csrc/noma_rates.cu"
 TPU_KERNELS = {
@@ -354,6 +401,10 @@ TPU_KERNELS = {
     "flash_attention": ("src/repro/kernels/flash_attention.py:75",
                         "src/repro_torch/kernels/csrc/flash_attention.cu"),
     "rg_lru": ("src/repro/kernels/rg_lru.py:41", "src/repro_torch/kernels/csrc/rg_lru.cu"),
+    # no TPU kernel: the JAX package takes jax.grad through its jnp core
+    "flash_attention_bwd": ("src/repro/models/attention.py:46 (_chunked_mha's gradient; "
+                            "no pallas_call)",
+                            "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"),
 }
 
 
@@ -991,6 +1042,12 @@ def main() -> int:
         rows["flash_attention"].update(phase_rows)
         launches["flash_attention"] += phase_launches
         memory_mark(torch, label, peaks)
+    # -- 15. training ------------------------------------------------------------
+    bwd_row, fwd_rows, train_launches = train_phase(dev, smi, errs, peaks)
+    rows["flash_attention_bwd"] = bwd_row
+    rows["flash_attention"].update(fwd_rows)
+    launches["flash_attention"] += train_launches["flash_attention"]
+    launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
     print("memory: peak reserved by phase (GiB): " + ", ".join(
         f"{k} {v / 2**30:.2f}" for k, v in peaks.items()))
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": tpu,
@@ -1165,6 +1222,8 @@ def serve_phase(dev, kind: str, smi: str, errs: dict):
           f"launches={main_launches}")
     if not 0 <= s_star <= cfg.n_layers:
         fail(f"serve: s*={s_star} out of range")
+    if main_launches["flash_attention_bwd"]:
+        fail("serving launched the attention backward")
     for name in ("flash_attention", "rg_lru", *nr.LAUNCHES):
         if main_launches[name] <= 0:
             fail(f"{name} was not launched on the serving main path")
@@ -1400,8 +1459,8 @@ def fleet_phase(dev, smi: str, rows: dict, cfg) -> dict:
     del sets, beta, p_up, p_dn, cot, e, members
     torch.cuda.empty_cache()
 
-    # 7.2 the main path: plan_many, then two epochs of step_many -> env_many
-    # -> replan_many, with the launch counters read around them
+    # 7.2 the main path: plan_many, then FLEET_CALLS - 1 epochs of step_many ->
+    # env_many -> replan_many, with the launch counters read around them
     prof = profiles.nin()
     eng = PlannerEngine(prof, cfg=cfg, sinr_backend="kernel")
     torch.cuda.synchronize()
@@ -1409,7 +1468,7 @@ def fleet_phase(dev, smi: str, rows: dict, cfg) -> dict:
     li_gd.reset_counts()
     walls, fleet_states, steps, env_list, call_launches = [], [], [], [], []
     prev = None
-    for epoch in range(3):
+    for epoch in range(FLEET_CALLS):
         t0 = time.perf_counter()
         before, l0 = li_gd.COUNTS["steps"], dict(nr.LAUNCHES)
         if epoch:
@@ -1425,8 +1484,8 @@ def fleet_phase(dev, smi: str, rows: dict, cfg) -> dict:
     launches = dict(nr.LAUNCHES)
     graphs = program_report("fleet", eng, smi)
     splits = prof.n_layers + 1
-    for name, st, wall, n_steps in zip(("plan_many", "replan_many1", "replan_many2"),
-                                       fleet_states, walls, steps):
+    names = ["plan_many"] + [f"replan_many{i}" for i in range(1, FLEET_CALLS)]
+    for name, st, wall, n_steps in zip(names, fleet_states, walls, steps):
         rho = None if st.warm_rho is None else [round(x, 6) for x in st.warm_rho.tolist()]
         used = (st.opt_steps > st.plan.iters).int().tolist()
         print(f"fleet {name}: wall_s={wall:.3f} fleet_steps={n_steps} s*={st.plan.s.tolist()} "
@@ -1434,18 +1493,19 @@ def fleet_phase(dev, smi: str, rows: dict, cfg) -> dict:
         print(f"fleet {name}: used_warm per member {used}")
         print(f"fleet {name}: utility {[f'{x:.7g}' for x in st.plan.utility.tolist()]}")
     total_steps = sum(steps)
-    expect = plan_launches(total_steps, splits * 3 + 2 * 3 + 2 * splits * 2)
+    n = FLEET_CALLS
+    expect = plan_launches(total_steps, splits * n + 2 * n + 2 * splits * (n - 1))
     print(f"fleet launches: {launches}; expected from {total_steps} fleet GD steps: {expect} "
           f"(6 / 3 / 3 a fleet step, whatever B)")
     for k, v in launches.items():
         if v != expect[k]:
             fail(f"fleet: {k} launched {v} times on the fleet path, expected {expect[k]}")
         fleet[k]["fleet_launches"] = v
-    for name, st, e_i in zip(("plan_many", "replan_many1", "replan_many2"), fleet_states,
-                             env_list):
+    for name, st, e_i in zip(names, fleet_states, env_list):
         for i in range(b):
             check_plan(f"fleet {name} member {i}", member(st, i), member(e_i, i), prof.n_layers)
-    print(f"fleet plan checks: all {b} members of the 3 epochs finite and feasible")
+    print(f"fleet plan checks: all {b} members of the {FLEET_CALLS} epochs finite and "
+          "feasible")
 
     # 7.3 against sequential plans of members 0 and 1
     first, env0 = fleet_states[0], env_list[0]
@@ -2721,10 +2781,9 @@ def programs_phase(dev, smi: str, main: dict, fleet: dict) -> None:
     env, env1, env2 = main["envs"]
     states = main["states"]
     # -- 12.1 phase 4's calls against the eager path --------------------------------
-    calls = (("plan", "plan (captures)", env, None), ("replan", "replan1 (captures)", env1,
-                                                      states[0]),
-             ("replan", "replan2 (replays)", env2, states[1]))
-    for i, (kind, label, e_i, prev) in enumerate(calls):
+    calls = ((0, "plan", "plan (captures)", env, None),
+             (2, "replan", "replan2 (replays replan1's graphs)", env2, states[1]))
+    for i, kind, label, e_i, prev in calls:
         want, wall, e_launch, e_count = counted(lambda: eager(eng, kind, e_i, prev))
         hold(f"12.1 {label}", states[i], want, main["launches"][i], main["steps"][i],
              main["walls"][i], wall, e_launch, e_count)
@@ -3569,6 +3628,8 @@ def serve_main(arch: str, b: int, s: int, label: str, want_flash: int) -> dict:
           f"launches={launched}")
     if not 0 <= out["split"] <= cfg.n_layers:
         fail(f"{label}: s*={out['split']} out of range")
+    if launched.pop("flash_attention_bwd"):
+        fail(f"{label}: serving launched the attention backward")
     for name, n in launched.items():
         if n <= 0:
             fail(f"{label}: {name} was not launched on the serving main path")
@@ -3845,6 +3906,405 @@ def audio_phase(dev, smi: str, errs: dict) -> tuple[dict, int]:
                                "audio 14.2", {"compiled prefill": graphed["prefill_shapes"]})
     return rows, launches
 
+
+
+def event_ms(fn, reps: int = 5, trials: int = 5) -> float:
+    """Median device milliseconds of one call, from CUDA events around
+    `reps` eager calls: for a call that a CUDA graph cannot capture (an
+    autograd backward runs on its forward's stream), long enough that the
+    host stays ahead of the card."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(trials):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def leaf_names(tree, prefix: str = "") -> list[str]:
+    """Paths of a tree's leaves in tree_flatten order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, x in enumerate(tree) for n in leaf_names(x, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def train_phase(dev, smi: str, errs: dict, peaks: dict) -> tuple[dict, dict, dict]:
+    """Phase 15: training qwen1.5-0.5b at full size. Returns the
+    flash_attention_bwd timing row, the forward's timing row at the train
+    step's shape, and the main paths' launches of both kernels (15.2's
+    steps and 15.3's entry point, each counted from 0 around it); adds the
+    kernels' worst errors to errs and the sub-phases' peak reserves to
+    peaks."""
+    import gc
+    import math
+    import shutil
+    import tempfile
+    from collections import Counter
+
+    import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import list_steps
+    from repro_torch.core.types import tree_flatten
+    from repro_torch.data import SyntheticLM, make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import clip_by_global_norm
+    from repro_torch.runtime import train as rt
+
+    t_phase = time.perf_counter()
+    cfg = configs.get(TRAIN_ARCH)
+    H, KV, HD, L = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.n_layers
+    G = H // KV
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(15)
+    entry = launch_train.parse_args([])
+
+    # -- 15.1 the backward kernel against its plain twin -----------------------------
+    def check_bwd(tag, bh, g, sq, sk, hd, causal, window, kv_len=None, dtype=bf16):
+        q = torch.randn((bh, sq, hd), device=dev, generator=gen).to(dtype)
+        k, v = (torch.randn((bh // g, sk, hd), device=dev, generator=gen).to(dtype)
+                for _ in range(2))
+        dout = torch.randn((bh, sq, hd), device=dev, generator=gen).to(dtype)
+        args = (g, causal, window, kv_len)
+        f32 = dtype == torch.float32
+        out, lse = fa.flash_attention(q, k, v, *args, return_lse=True)
+        served = fa.flash_attention(q, k, v, *args)
+        torch.cuda.synchronize()
+        if not torch.equal(out, served):
+            fail(f"flash_attention {tag}: the output with the log-sum-exp differs from the "
+                 "serving call's")
+        want_out, want_lse = fa.flash_attention_plain(q, k, v, *args, return_lse=True)
+        check(f"flash_attention {tag} (with lse)", out.float(), want_out.float(),
+              FLASH_F32_RTOL if f32 else FLASH_RTOL,
+              fa.flash_attention_plain(q, k, v.abs(), *args).float(), errs, "flash_attention")
+        check(f"flash_attention {tag} lse", lse, want_lse, LSE_RTOL, 1 + want_lse.abs())
+        del want_out, want_lse, served
+        got = fa.flash_attention_bwd(q, k, v, out, lse, dout, *args)
+        again = fa.flash_attention_bwd(q, k, v, out, lse, dout, *args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        print(f"check flash_attention_bwd {tag}: two launches bit-equal: {same}")
+        if not same:
+            fail(f"flash_attention_bwd {tag}: two launches on the same inputs differ")
+        del again
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, *args)
+        scales = fa.flash_attention_bwd_scale(q, k, v, out, lse, dout, *args)
+        for name, x, w, sc in zip(("dq", "dk", "dv"), got, want, scales):
+            check(f"flash_attention_bwd {tag} {name}", x.float(), w.float(),
+                  FLASH_BWD_F32_RTOL if f32 else FLASH_BWD_RTOL, sc, errs,
+                  "flash_attention_bwd")
+        return q, k, v, out, lse, dout
+
+    # every shape the paths below launch (hd 64, G = 1, causal): label -> (rows, S)
+    train_shapes = {"train step": (TRAIN_B * H, TRAIN_S),
+                    "microbatch": (TRAIN_B // 4 * H, TRAIN_S),
+                    "cross-entropy check": (CE_B * H, CE_S),
+                    "entry point": (entry.batch * H, entry.seq)}
+    checked = set()
+    for label, (bh, s_) in reversed(train_shapes.items()):
+        tensors = check_bwd(f"{TRAIN_ARCH} {label} ({bh}, {s_}, {HD}) G={G} causal", bh, G,
+                            s_, s_, HD, True, 0)
+        checked.add((bh, s_, s_, HD, G, True, 0, s_))
+    grid = [("window 100 G=1 hd 64", 8, 1, 300, 300, 64, True, 100),
+            ("bidirectional G=4 hd 64", 8, 4, 200, 200, 64, False, 0),
+            ("causal G=4 hd 128 ragged", 8, 4, 257, 257, 128, True, 0),
+            ("causal Sq=100 < Sk=150 G=2 hd 32", 4, 2, 100, 150, 32, True, 0),
+            ("bidirectional Sq=150 > Sk=100 G=2 hd 32", 4, 2, 150, 100, 32, False, 0),
+            ("causal kv_len=170 < Sk=200 hd 64", 4, 1, 200, 200, 64, True, 0, 170),
+            ("bidirectional kv_len=150 < Sk=200 G=4 hd 256", 4, 4, 130, 200, 256, False, 0,
+             150),
+            ("window 77 G=2 hd 256", 4, 2, 300, 300, 256, True, 77),
+            ("causal hd 32", 4, 1, 130, 130, 32, True, 0)]
+    grid += [(f"float32 causal Sq=150 Sk=170 G=2 hd {hd}", 4, 2, 150, 170, hd, True, 0, None,
+              torch.float32) for hd in fa.HEAD_DIMS]
+    grid.append(("float32 window 33 bidirectional kv_len=101 G=4 hd 64", 4, 4, 120, 130, 64,
+                 False, 33, 101, torch.float32))
+    for case in grid:
+        check_bwd(*case)
+        torch.cuda.empty_cache()
+
+    # time at the train step's shape beside the twin, SDPA's backward and the bound
+    q, k, v, out, lse, dout = tensors
+    bh, sq = TRAIN_B * H, TRAIN_S
+    args = (G, True, 0, None)
+    pairs = bh * sq * (sq + 1) // 2
+    bwd_ops = 10 * HD * pairs
+    bwd_bytes = 2 * 8 * bh * sq * HD + 4 * bh * sq     # q k v out dout lse in; dq dk dv out
+    t_ops, t_bytes = bwd_ops / BF16_OPS_PER_S * 1e3, bwd_bytes / HBM_BYTES_PER_S * 1e3
+    qs, ks, vs = (t.view(TRAIN_B, -1, sq, HD).detach().requires_grad_(True) for t in (q, k, v))
+    o_s = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=G > 1)
+    do_s = dout.view(TRAIN_B, H, sq, HD)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(o_s, (qs, ks, vs), do_s, retain_graph=True)
+
+    lib = sdpa_bwd()
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, *args)
+    scales = fa.flash_attention_bwd_scale(q, k, v, out, lse, dout, *args)
+    lib_err = [float(((x.reshape(w.shape).float() - w.float()).abs() / sc).max())
+               for x, w, sc in zip(lib, want, scales)]
+    del lib, want, scales
+    print(f"flash_attention_bwd library yardstick: SDPA's backward (is_causal) against the twin "
+          f"(its own forward, not the kernel's): dq/dk/dv worst {lib_err} of the terms' scale")
+    torch.cuda.empty_cache()
+    bwd_row = {
+        "ms": device_ms([lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, *args)],
+                        reps=5),
+        "plain_ms": device_ms([lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                                                    *args)], reps=1, trials=3),
+        "library_ms": event_ms(sdpa_bwd),
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+    bwd_row["bound_share"] = bwd_row["bound_ms"] / bwd_row["ms"]
+    print(f"time flash_attention_bwd at {TRAIN_ARCH}'s train shape ({bh}, {sq}, {HD}) G={G} "
+          f"causal: " + " ".join(f"{k}={v}" for k, v in bwd_row.items())
+          + f" ({bwd_ops:.4e} FLOP = 10 hd x {pairs} unmasked pairs, "
+          f"{bwd_bytes / 1e6:.1f} MB; one call = 3 CUDA launches, D, dK/dV, dQ; library: "
+          f"torch.autograd.grad of scaled_dot_product_attention, is_causal, CUDA events "
+          f"around 5 eager calls) | {smi}")
+    del tensors, q, k, v, out, lse, dout, qs, ks, vs, o_s, do_s
+    gc.collect()
+    torch.cuda.empty_cache()
+    fwd_row = flash_row(dev, f"{TRAIN_ARCH} train", TRAIN_B, H, KV, TRAIN_S, TRAIN_S, HD, True,
+                        errs, smi, 151)
+    torch.cuda.empty_cache()
+    memory_mark(torch, "15.1", peaks)
+    print(f"train: 15.1 took {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 15.2 the train step at full size ---------------------------------------------
+    t_sub = t0 = time.perf_counter()
+    model = Model(cfg, device=dev, trainable=True, remat=True)
+    state = rt.init_state(model, torch.Generator(device=dev).manual_seed(TRAIN_SEED))
+    torch.cuda.synchronize()
+    leaves = tree_flatten(model.param_tree())[0]
+    n_params = sum(x.numel() for x in leaves)
+    # matmul parameters: every block's 2-D weight and the unembedding (the
+    # embedding is a lookup)
+    mm_params = sum(blk.p.tree()[grp][w].numel() for layers in model.stage_layers
+                    for blk in layers for grp in ("attn", "mlp") for w in blk.p.tree()[grp]
+                    if blk.p.tree()[grp][w].ndim == 2) + model.top.unembed.numel()
+    tokens = TRAIN_B * TRAIN_S
+    att_pairs = L * TRAIN_B * H * TRAIN_S * (TRAIN_S + 1) // 2
+    flops = 6 * mm_params * tokens + 12 * HD * att_pairs
+    print(f"train 15.2 model: {TRAIN_ARCH} {L} layers, {n_params} parameters (float32 masters, "
+          f"{model.param_bytes()} bytes), init {time.perf_counter() - t0:.2f} s; model FLOPs a "
+          f"step: 6 x {mm_params} matmul parameters x {tokens} tokens = "
+          f"{6 * mm_params * tokens:.4e} + attention 12 hd x {att_pairs} unmasked pairs "
+          f"(forward 4 hd, backward 8 hd; remat's recomputation not counted) = "
+          f"{12 * HD * att_pairs:.4e}: {flops:.4e}")
+    step = rt.make_train_step(model, n_microbatches=1, base_lr=TRAIN_LR, seq_chunk=TRAIN_CHUNK)
+    want_launches = {"flash_attention": 2 * L, "flash_attention_bwd": L}
+    data = SyntheticLM(TRAIN_SEED, TRAIN_B, TRAIN_S, cfg.vocab_size, device=dev)
+    losses, walls = [], []
+    launches = Counter()
+    shapes = {"forward": Counter(), "backward": Counter()}
+    try:
+        for i in range(TRAIN_STEPS):
+            batch = next(data)
+            torch.cuda.synchronize()
+            fa.reset_launches()
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            got = dict(fa.LAUNCHES)
+            launches.update(got)
+            shapes["forward"].update(fa.SHAPES)
+            shapes["backward"].update(fa.BWD_SHAPES)
+            losses.append(float(met["loss"]))
+            if got != want_launches:
+                fail(f"train 15.2 step {i}: flash launches {got}, expected {want_launches}")
+            if not math.isfinite(losses[-1]):
+                fail(f"train 15.2 step {i}: loss {losses[-1]}")
+        prof_batch = next(data)
+    finally:
+        data.close()
+    print(f"train 15.2 losses over {TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_S} tokens "
+          f"(base_lr {TRAIN_LR}, warmup 100): {[round(x, 4) for x in losses]}")
+    if not losses[-1] < losses[0]:
+        fail(f"train 15.2: the loss did not fall ({losses[0]} -> {losses[-1]})")
+    for kind, seen in shapes.items():
+        unchecked = sorted(k for k in seen if k not in checked)
+        if unchecked:
+            fail(f"train 15.2: the {kind} kernel ran at shapes 15.1 did not check: {unchecked}")
+    step_s = statistics.median(walls[1:])
+    # one profiled step: the busy share and where the time goes
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, met = step(state, prof_batch)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    rows_k = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in rows_k)
+    if busy_us <= 0:
+        fail("train 15.2: torch.profiler recorded no device time")
+    fwd_us = sum(e.self_device_time_total for e in rows_k if "flash_wgmma_kernel" in e.key)
+    bwd_us = sum(e.self_device_time_total for e in rows_k if "flash_bwd_" in e.key)
+    gemm_us = sum(e.self_device_time_total for e in rows_k
+                  if any(t in e.key.lower() for t in ("gemm", "cutlass", "sm90_xmma", "nvjet")))
+    for e in sorted(rows_k, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"train 15.2 profile kernel {e.self_device_time_total / 1e3:9.2f} ms "
+              f"{e.self_device_time_total / busy_us:6.1%} {e.count:6d} launches  {e.key[:80]}")
+    peak = torch.cuda.max_memory_reserved()
+    train_row = dict(step_ms=step_s * 1e3, step_ms_min=min(walls) * 1e3,
+                     tokens_per_s=tokens / step_s, mfu=flops / step_s / BF16_OPS_PER_S,
+                     busy_share=busy_us / 1e6 / prof_wall, profiled_step_ms=prof_wall * 1e3,
+                     flash_fwd_share=fwd_us / busy_us, flash_bwd_share=bwd_us / busy_us,
+                     gemm_share=gemm_us / busy_us, peak_reserved_gib=peak / 2**30,
+                     loss_first=losses[0], loss_last=losses[-1])
+    print(f"time train 15.2 ({TRAIN_B} x {TRAIN_S} tokens a step, chunked cross-entropy "
+          f"{TRAIN_CHUNK}): " + " ".join(f"{k}={v}" for k, v in train_row.items())
+          + f" | {smi}")
+
+    # two passes from one state and batch: the same bits?
+    g_a = rt.loss_and_grads(model, prof_batch, seq_chunk=TRAIN_CHUNK)
+    g_b = rt.loss_and_grads(model, prof_batch, seq_chunk=TRAIN_CHUNK)
+    differ = [name for name, a, b in zip(leaf_names(g_a[2]), tree_flatten(g_a[2])[0],
+                                         tree_flatten(g_b[2])[0]) if not torch.equal(a, b)]
+    print(f"check train 15.2 two gradient passes from one state and batch bit-equal: loss "
+          f"{torch.equal(g_a[0], g_b[0])}, gradient leaves differing: {differ or 'none'}")
+    del g_a, g_b
+
+    # chunked against unchunked cross-entropy where (B, S, V) logits fit
+    ce_batch = make_batch(TRAIN_SEED + 1, 0, CE_B, CE_S, cfg.vocab_size, device=dev)
+    fa.reset_launches()
+    nll_c, _, g_c = rt.loss_and_grads(model, ce_batch, seq_chunk=CE_CHUNK)
+    gn_c = float(clip_by_global_norm(g_c)[1])
+    del g_c
+    nll_u, _, g_u = rt.loss_and_grads(model, ce_batch)
+    gn_u = float(clip_by_global_norm(g_u)[1])
+    del g_u
+    nll_c, nll_u = float(nll_c), float(nll_u)
+    print(f"check train 15.2 chunked ({CE_CHUNK}) against unchunked cross-entropy at {CE_B} x "
+          f"{CE_S}: loss {nll_c!r} / {nll_u!r} (rel {abs(nll_c - nll_u) / abs(nll_u):.3e}), "
+          f"grad norm {gn_c!r} / {gn_u!r} (rel {abs(gn_c - gn_u) / gn_u:.3e})")
+    if abs(nll_c - nll_u) > 1e-5 * abs(nll_u) or abs(gn_c - gn_u) > 1e-3 * gn_u:
+        fail("train 15.2: chunked and unchunked cross-entropy differ beyond loss rtol 1e-5 / "
+             "grad norm rtol 1e-3")
+
+    # 4 microbatches against 1 on one batch from a fresh state (lr 0 at step 0)
+    mb_batch = make_batch(TRAIN_SEED + 2, 0, TRAIN_B, TRAIN_S, cfg.vocab_size, device=dev)
+    results = []
+    for n in (1, 4):
+        st0 = rt.init_state(model, torch.Generator(device=dev).manual_seed(TRAIN_SEED))
+        p0 = [x.detach().clone() for x in tree_flatten(st0.params)[0]]
+        st1, m1 = rt.make_train_step(model, n_microbatches=n, base_lr=TRAIN_LR,
+                                     seq_chunk=TRAIN_CHUNK)(st0, mb_batch)
+        same_p = all(torch.equal(a, b) for a, b in zip(p0, tree_flatten(st1.params)[0]))
+        results.append((float(m1["loss"]), float(m1["grad_norm"]), st1.opt.m, same_p))
+        del p0, st0, st1
+    (l1, gn1, mom1, same1), (l4, gn4, mom4, same4) = results
+    mom_err = max(float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
+                  for a, b in zip(tree_flatten(mom1)[0], tree_flatten(mom4)[0]))
+    print(f"check train 15.2 4 microbatches against 1 at {TRAIN_B} x {TRAIN_S}: loss {l4!r} / "
+          f"{l1!r} (rel {abs(l4 - l1) / abs(l1):.3e}), grad norm {gn4!r} / {gn1!r} "
+          f"(rel {abs(gn4 - gn1) / gn1:.3e}), first moments worst {mom_err:.3e} of the leaf's "
+          f"largest; params unchanged by the lr-0 step {same1} / {same4}")
+    if abs(l4 - l1) > 1e-4 * abs(l1) or not (same1 and same4):
+        fail("train 15.2: 4 microbatches and 1 differ beyond the reference's loss rtol 1e-4, "
+             "or a step at lr 0 moved a parameter")
+    del results, mom1, mom4, model, state, step, batch, prof_batch, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    memory_mark(torch, "15.2", peaks)
+    print(f"train: 15.2 took {time.perf_counter() - t_sub:.1f} s")
+
+    # -- 15.3 the entry point: a run that crosses --ckpt-every, a restart ----------------
+    t_sub = t0 = time.perf_counter()
+    model = Model(cfg, device=dev, moe_capacity=2.0, trainable=True, remat=True)
+    state = rt.init_state(model, torch.Generator(device=dev).manual_seed(entry.seed))
+    step = rt.make_train_step(model, entry.microbatches)
+    data = SyntheticLM(entry.seed, entry.batch, entry.seq, cfg.vocab_size, device=dev)
+    ref = []
+    try:
+        for _ in range(ENTRY_STEPS + ENTRY_RESUMED):
+            state, met = step(state, next(data))
+            ref.append(float(met["loss"]))
+    finally:
+        data.close()
+    ref_s = time.perf_counter() - t0
+    del model, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    argv = ["--log-every", "1", "--ckpt-every", str(ENTRY_EVERY), "--ckpt-dir", base]
+    runs = {}
+    try:
+        for name, n in (("first", ENTRY_STEPS), ("resumed", ENTRY_RESUMED)):
+            print(f"train 15.3 {name}: python -m repro_torch.launch.train "
+                  f"{' '.join(argv + ['--steps', str(n)])}")
+            fa.reset_launches()
+            t0 = time.perf_counter()
+            out_run = launch_train.main(argv + ["--steps", str(n)])
+            torch.cuda.synchronize()
+            runs[name] = dict(out_run, wall=time.perf_counter() - t0, launched=dict(fa.LAUNCHES),
+                              shapes=dict(fa.SHAPES), bwd_shapes=dict(fa.BWD_SHAPES),
+                              saved=list_steps(base))
+            del out_run
+            print(f"train 15.3 {name}: {runs[name]['done']} steps from {runs[name]['start']} in "
+                  f"{runs[name]['wall']:.2f} s (with its checkpoint writes), launches "
+                  f"{runs[name]['launched']}, checkpoints {runs[name]['saved']}")
+            if name == "first":    # the periodic checkpoint is not the one resumed from
+                for s_ in runs[name]["saved"][:-1]:
+                    shutil.rmtree(os.path.join(base, f"step_{s_:08d}"))
+            runs[name].pop("state")
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    first, resumed = runs["first"], runs["resumed"]
+    every = ENTRY_EVERY
+    for name, r, n, start in (("first", first, ENTRY_STEPS, 0),
+                              ("resumed", resumed, ENTRY_RESUMED, ENTRY_STEPS)):
+        want = {"flash_attention": 2 * L * n, "flash_attention_bwd": L * n}
+        if r["done"] != n or r["start"] != start or r["launched"] != want:
+            fail(f"train 15.3 {name}: {r['done']} steps from {r['start']}, launches "
+                 f"{r['launched']}; expected {n} from {start}, {want}")
+        for seen in (r["shapes"], r["bwd_shapes"]):
+            if set(seen) - checked:
+                fail(f"train 15.3 {name}: flash shapes 15.1 did not check: {set(seen) - checked}")
+    if first["saved"] != [every * (ENTRY_STEPS // every), ENTRY_STEPS]:
+        fail(f"train 15.3: the first run wrote checkpoints {first['saved']}, expected "
+             f"{[every * (ENTRY_STEPS // every), ENTRY_STEPS]}")
+    got_first = [first["losses"][s_] for s_ in range(ENTRY_STEPS)]
+    got_resumed = [resumed["losses"][ENTRY_STEPS + i] for i in range(ENTRY_RESUMED)]
+    same_first = got_first == ref[:ENTRY_STEPS]
+    same_resumed = got_resumed == ref[ENTRY_STEPS:]
+    print(f"check train 15.3: the first run's {ENTRY_STEPS} losses bit-equal to an "
+          f"uninterrupted run's: {same_first}; the resumed run's losses {got_resumed} against "
+          f"the uninterrupted run's {ref[ENTRY_STEPS:]}: bit-equal {same_resumed}; the "
+          f"uninterrupted reference run {ref_s:.2f} s (no checkpoint)")
+    if not (same_first and same_resumed):
+        fail("train 15.3: the entry point's losses differ from an uninterrupted run's")
+    print(f"train: 15.3 took {time.perf_counter() - t_sub:.1f} s; phase 15 took "
+          f"{time.perf_counter() - t_phase:.1f} s | {smi}")
+    memory_mark(torch, "15.3", peaks)
+    fwd_row["launches"] = (shapes["forward"][(TRAIN_B * H, TRAIN_S, TRAIN_S, HD, G, True, 0,
+                                              TRAIN_S)])
+    bwd_row["launches"] = launches["flash_attention_bwd"] + first["launched"][
+        "flash_attention_bwd"] + resumed["launched"]["flash_attention_bwd"]
+    bwd_row["train_step"] = train_row
+    total = {k: launches[k] + first["launched"][k] + resumed["launched"][k]
+             for k in ("flash_attention", "flash_attention_bwd")}
+    return bwd_row, {f"{TRAIN_ARCH} train": fwd_row}, total
 
 if __name__ == "__main__":
     sys.exit(main())

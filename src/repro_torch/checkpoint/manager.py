@@ -127,8 +127,9 @@ def list_steps(directory: str) -> list[int]:
 
 
 def leaf_crc32(a: np.ndarray) -> int:
-    """Content checksum of one leaf (dtype/shape are recorded separately)."""
-    return zlib.crc32(np.ascontiguousarray(a).tobytes())
+    """Content checksum of one leaf (dtype/shape are recorded separately),
+    over its C-order bytes, read in place (no copy of a contiguous leaf)."""
+    return zlib.crc32(np.ascontiguousarray(a).reshape(-1).view(np.uint8))
 
 
 def _write_step(directory: str, step: int, arrays: list[np.ndarray], treedef: TreeDef,

@@ -6,6 +6,7 @@ PlanState (one scenario's or a fleet's), a ScenarioState, and the online
 loop's StreamState, BatchState, QosState, TelemetryState and FaultState,
 a whole serving snapshot (serving_state_from_numpy), the served LM's
 parameters (model_params_from_numpy) and its caches (caches_from_numpy),
+a training state (train_state_from_numpy),
 so a plan made by the reference can warm-start the port's replan /
 replan_many, a reference scenario can be stepped on by the port, and a
 reference episode stopped (or snapshotted) at epoch k can go on in the
@@ -235,16 +236,39 @@ def model_params_from_numpy(model, tree: dict):
     [L, ...] split into its L layers. Every leaf is cast to the port's
     storage dtype on the model's device (bf16, or float32 where the
     reference uses it so: norms, the cross blocks' xgate and the RG-LRU and
-    xLSTM gates). Returns the model."""
-    dev = model.device
-    model.top.load_(_from_numpy({k: v for k, v in tree.items() if k != "stages"}, dev))
+    xLSTM gates; float32 masters in a trainable model). Returns the
+    model."""
+    return model.load_params_(_port_layout(model, tree, model.device))
+
+
+def _port_layout(model, tree: dict, device) -> dict:
+    """A reference parameter-shaped tree (top leaves, and "stages": one dict
+    of [L, ...] stacked leaves a stage) in Model.param_tree()'s layout (a
+    list of per-layer dicts a stage), float32 on ``device``."""
     if len(tree["stages"]) != len(model.stage_layers):
         raise ValueError(f"{len(tree['stages'])} stages in the tree, "
                          f"{len(model.stage_layers)} in the model")
-    for st, layers in zip(tree["stages"], model.stage_layers):
-        for i, blk in enumerate(layers):
-            blk.p.load_(_from_numpy(_layer(st, i), dev))
-    return model
+    out = _from_numpy({k: v for k, v in tree.items() if k != "stages"}, device)
+    out["stages"] = [[_from_numpy(_layer(st, i), device) for i in range(len(layers))]
+                     for st, layers in zip(tree["stages"], model.stage_layers)]
+    return out
+
+
+def train_state_from_numpy(model, params: dict, m: dict, v: dict, opt_step, step):
+    """The reference's TrainState (params, AdamWState(step, m, v), step), its
+    trees given as numpy arrays, as the port's runtime.train.TrainState on
+    a Model(trainable=True): the params loaded into the model's float32
+    masters (the state's params are the model's own parameters), m and v
+    as float32 trees in the same layout, the steps int32. Returns it."""
+    from repro_torch.optim import AdamWState
+    from repro_torch.runtime.train import TrainState
+    if not model.trainable:
+        raise ValueError("a TrainState needs a Model(trainable=True): float32 masters")
+    dev = model.device
+    model_params_from_numpy(model, params)
+    opt = AdamWState(step=tensor(opt_step, dev), m=_port_layout(model, m, dev),
+                     v=_port_layout(model, v, dev))
+    return TrainState(params=model.param_tree(), opt=opt, step=tensor(step, dev))
 
 
 def caches_from_numpy(tree, like):

@@ -204,6 +204,8 @@ def blocking_syncs(fn, inside=()):
 # wrapper counts it under.
 KERNEL_SYMBOLS = (("flash_wgmma_kernel", "flash_attention"),
                   ("flash_f32_kernel", "flash_attention"),
+                  # a backward call is three kernels; its dQ kernel marks it
+                  ("flash_bwd_dq_kernel", "flash_attention_bwd"),
                   ("cell_intra_dense_kernel", "noma_cell_intra"),
                   ("cell_intra_kernel", "noma_cell_intra"),
                   ("per_ap_kernel", "noma_per_ap"),

@@ -38,7 +38,10 @@ SIGNATURES = {
         "noma_ap_contract": [_P] * 4 + [_I] * 6 + [_P],
     },
     "flash_attention": {
-        "flash_attention": [_P] * 4 + [_I] * 9 + [_F, _I, _P],
+        "flash_attention": [_P] * 5 + [_I] * 9 + [_F, _I, _P],
+    },
+    "flash_attention_bwd": {
+        "flash_attention_bwd": [_P] * 10 + [_I] * 9 + [_F, _I, _P],
     },
     "rg_lru": {
         "rg_lru": [_P] * 4 + [_I] * 5 + [_P],

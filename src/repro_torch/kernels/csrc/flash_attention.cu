@@ -10,6 +10,10 @@
 //   q   (BH, Sq, hd)           BH = B * KV * G, query head row bh
 //   k/v (BH / G, Sk, hd)       the KV row of bh is bh / G
 //   out (BH, Sq, hd)           same dtype as q (bf16 or float32)
+//   lse (BH, Sq) float32       optional (null: not written): the natural
+//                              log-sum-exp of each query row's scaled,
+//                              masked scores, m + log(l), which the backward
+//                              (flash_attention_bwd.cu) recomputes P from
 //
 // Arithmetic, as the TPU kernel: scores are float32 dot products of the
 // inputs times hd^-0.5, masked to the finite -1e30 (never -inf, so a row
@@ -91,8 +95,8 @@ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, int Sq, int Sk, int group, int causal, int window,
-             int kv_len, float sm_scale) {
+                 const float* __restrict__ v, float* __restrict__ out, float* __restrict__ lse,
+                 int Sq, int Sk, int group, int causal, int window, int kv_len, float sm_scale) {
   constexpr int QS = qk_stride<HD>();
   constexpr int TC = HD / 16;           // accumulator columns per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -236,6 +240,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < TC; ++c)
       op[static_cast<size_t>(q0 + r) * HD + tx + 16 * c] = acc[i][c] / den;
+    if (lse != nullptr && tx == 0)
+      lse[static_cast<size_t>(bh) * Sq + q0 + r] = m_s[r] + logf(l_s[r]);
   }
 }
 
@@ -397,7 +403,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
-                   int Sq, int kv_len, int group, int causal, int window, float scale_log2) {
+                   float* __restrict__ lse, int Sq, int kv_len, int group, int causal, int window,
+                   float scale_log2) {
   using L = WgLayout<HD>;
   constexpr int NB = L::kColBlocks;
   extern __shared__ unsigned char smem_raw[];
@@ -559,7 +566,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     __syncthreads();  // both warpgroups are done with this stage
   }
 
-  // out = acc / max(l, 1e-30), l summed over the quad.
+  // out = acc / max(l, 1e-30), l summed over the quad; the log-sum-exp
+  // in natural units from the log2-domain max (first lane of the quad).
   float den[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -567,6 +575,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     den[h] = fmaxf(l, 1e-30f);
+    const int row = row0 + 8 * h;
+    if (lse != nullptr && (lane & 3) == 0 && row < Sq)
+      lse[static_cast<size_t>(bh) * Sq + row] = (m_row[h] + log2f(l)) * 0.6931471805599453f;
   }
   __nv_bfloat16* op = out + static_cast<size_t>(bh) * Sq * HD;
 #pragma unroll
@@ -601,7 +612,8 @@ cudaError_t opt_in_smem(Kernel kernel, size_t bytes, int device, bool (&done)[kM
 }
 
 template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int BH, int Sq, int Sk,
+int launch_f32(const void* q, const void* k, const void* v, void* out, void* lse, int BH, int Sq,
+               int Sk,
                int group, int causal, int window, int kv_len, float sm_scale, int device,
                cudaStream_t s) {
   static bool done[kMaxDevices] = {};
@@ -611,7 +623,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int BH, i
   const dim3 grid(BH, ceil_div(Sq, kBlockQ));
   flash_f32_kernel<HD><<<grid, kThreads, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), Sq, Sk, group, causal, window, kv_len, sm_scale);
+      static_cast<float*>(out), static_cast<float*>(lse), Sq, Sk, group, causal, window, kv_len,
+      sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -661,7 +674,8 @@ int make_map(CUtensorMap* map, const void* ptr, int cols, int rows, int n_heads,
 }
 
 template <int HD>
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int BH, int Sq, int Sk,
+int launch_bf16(const void* q, const void* k, const void* v, void* out, void* lse, int BH, int Sq,
+                int Sk,
                 int group, int causal, int window, int kv_len, float sm_scale, int device,
                 cudaStream_t s) {
   static bool done[kMaxDevices] = {};
@@ -675,22 +689,22 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int BH, 
   if (rc != 0) return rc;
   const dim3 grid(BH, ceil_div(Sq, kWgBlockQ));
   flash_wgmma_kernel<HD><<<grid, kWgThreads, smem, s>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), Sq, kv_len, group, causal, window,
-      sm_scale * 1.4426950408889634f);
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), Sq, kv_len,
+      group, causal, window, sm_scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The two paths are an explicit choice by dtype: bf16 (the served models)
 // on the tensor cores, float32 on the FMA kernel.
 int dispatch_hd(bool bf16, int hd, const void* q, const void* k, const void* v, void* out,
-                int BH, int Sq, int Sk, int group, int causal, int window, int kv_len,
+                void* lse, int BH, int Sq, int Sk, int group, int causal, int window, int kv_len,
                 float sm_scale, int device, cudaStream_t s) {
 #define FLASH_CASE(HD)                                                                      \
   case HD:                                                                                  \
-    return bf16 ? launch_bf16<HD>(q, k, v, out, BH, Sq, Sk, group, causal, window, kv_len,  \
-                                  sm_scale, device, s)                                      \
-                : launch_f32<HD>(q, k, v, out, BH, Sq, Sk, group, causal, window, kv_len,   \
-                                 sm_scale, device, s);
+    return bf16 ? launch_bf16<HD>(q, k, v, out, lse, BH, Sq, Sk, group, causal, window,     \
+                                  kv_len, sm_scale, device, s)                              \
+                : launch_f32<HD>(q, k, v, out, lse, BH, Sq, Sk, group, causal, window,      \
+                                 kv_len, sm_scale, device, s);
   switch (hd) {
     FLASH_CASE(32)
     FLASH_CASE(64)
@@ -707,15 +721,16 @@ extern "C" {
 
 // hd in {32, 64, 128, 256}; bf16 != 0 for bfloat16 tensors, else float32.
 // window 0 means no window; 0 <= kv_len <= Sk. bf16 tensors must start on
-// a 16-byte boundary (a tensor map's requirement). Returns 0, a
+// a 16-byte boundary (a tensor map's requirement). lse is null (serving)
+// or a float32 (BH, Sq) tensor for the log-sum-exp rows. Returns 0, a
 // cudaError_t, or a negative code of the tensor-map encoder.
-int flash_attention(const void* q, const void* k, const void* v, void* out, int BH, int Sq,
-                    int Sk, int hd, int group, int causal, int window, int kv_len, int bf16,
-                    float sm_scale, int device, void* stream) {
+int flash_attention(const void* q, const void* k, const void* v, void* out, void* lse, int BH,
+                    int Sq, int Sk, int hd, int group, int causal, int window, int kv_len,
+                    int bf16, float sm_scale, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return dispatch_hd(bf16 != 0, hd, q, k, v, out, BH, Sq, Sk, group, causal, window, kv_len,
-                     sm_scale, device, static_cast<cudaStream_t>(stream));
+  return dispatch_hd(bf16 != 0, hd, q, k, v, out, lse, BH, Sq, Sk, group, causal, window,
+                     kv_len, sm_scale, device, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

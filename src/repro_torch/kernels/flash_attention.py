@@ -1,14 +1,17 @@
 """Flash attention (causal / local-window / bidirectional, GQA): the
-wrapper around the CUDA kernel in csrc/flash_attention.cu, and its plain
-PyTorch twin.
+wrappers around the CUDA kernels in csrc/flash_attention.cu (forward) and
+csrc/flash_attention_bwd.cu (its gradient), and their plain PyTorch twins.
 
 Layout, as the JAX package's kernel: q (B*KV*G, Sq, hd) with query head row
 bh = (b*KV + kv)*G + g, k/v (B*KV, Sk, hd); the KV row of bh is bh // G.
 Query and key positions are 0..Sq-1 and 0..Sk-1 (fresh sequences).
 
-For CUDA tensors the wrapper launches the kernel (counted in LAUNCHES, and
-by shape in SHAPES) or raises; for CPU tensors it computes flash_attention_plain, which is also
-what the kernel is held against on the card.
+For CUDA tensors a wrapper launches its kernel (counted in LAUNCHES, and
+by shape in SHAPES / BWD_SHAPES) or raises; for CPU tensors it computes its
+plain twin, which is also what the kernel is held against on the card. The
+forward writes each query row's float32 log-sum-exp when asked (training);
+the backward recomputes the probabilities from it. One backward call is
+three CUDA launches (D = rowsum(dO * O), dK/dV, dQ) and counts as one.
 """
 from __future__ import annotations
 
@@ -18,10 +21,11 @@ import torch
 
 from repro_torch.kernels import build
 
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 # the same launches by shape: (query head rows, Sq, Sk, hd, group, causal,
-# window, kv_len) -> count
+# window, kv_len) -> count; the forward's and the backward's
 SHAPES: Counter = Counter()
+BWD_SHAPES: Counter = Counter()
 
 # -- Hopper block table (csrc/flash_attention.cu) -------------------------------
 # bf16 (tensor cores): one thread block of two warpgroups per (query head
@@ -62,6 +66,7 @@ def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     SHAPES.clear()
+    BWD_SHAPES.clear()
 
 
 def attention_mask(sq: int, sk: int, causal: bool, window: int, kv_len: int, device):
@@ -76,15 +81,11 @@ def attention_mask(sq: int, sk: int, causal: bool, window: int, kv_len: int, dev
     return mask
 
 
-def flash_attention(q, k, v, group: int, causal: bool = True, window: int = 0,
-                    kv_len: int | None = None) -> torch.Tensor:
-    """Softmax attention of each query head row over its KV row, (BH, Sq, hd)
-    in q's dtype. q (BH, Sq, hd), k/v (BH // group, Sk, hd), all bf16 or all
-    float32, contiguous; hd in HEAD_DIMS; keys at or past kv_len (default
-    Sk) are masked. A query row with no unmasked key is undefined."""
+def _check_args(q, k, v, group: int, window: int, kv_len: int | None) -> int:
+    """Validate a forward or backward call's q, k, v and options; returns
+    kv_len (default Sk)."""
     bh, sq, hd = q.shape
     sk = k.shape[1]
-    dev = q.device
     kv_len = sk if kv_len is None else kv_len
     if q.dtype not in DTYPES:
         raise TypeError(f"q must be one of {DTYPES}, got {q.dtype}")
@@ -96,43 +97,153 @@ def flash_attention(q, k, v, group: int, causal: bool = True, window: int = 0,
         raise ValueError(f"kv_len={kv_len} outside [0, {sk}]")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
-    build.check("q", q, q.dtype, (bh, sq, hd), dev)
-    build.check("k", k, q.dtype, (bh // group, sk, hd), dev)
-    build.check("v", v, q.dtype, (bh // group, sk, hd), dev)
+    build.check("q", q, q.dtype, (bh, sq, hd), q.device)
+    build.check("k", k, q.dtype, (bh // group, sk, hd), q.device)
+    build.check("v", v, q.dtype, (bh // group, sk, hd), q.device)
+    return kv_len
+
+
+def flash_attention(q, k, v, group: int, causal: bool = True, window: int = 0,
+                    kv_len: int | None = None, return_lse: bool = False):
+    """Softmax attention of each query head row over its KV row, (BH, Sq, hd)
+    in q's dtype. q (BH, Sq, hd), k/v (BH // group, Sk, hd), all bf16 or all
+    float32, contiguous; hd in HEAD_DIMS; keys at or past kv_len (default
+    Sk) are masked. A query row with no unmasked key is undefined. With
+    return_lse, returns (out, lse): lse (BH, Sq) float32 is each row's
+    log-sum-exp of its scaled, masked scores (what the backward needs);
+    without, the kernel writes none."""
+    bh, sq, hd = q.shape
+    sk = k.shape[1]
+    dev = q.device
+    kv_len = _check_args(q, k, v, group, window, kv_len)
     if dev.type != "cuda":
-        return flash_attention_plain(q, k, v, group, causal, window, kv_len)
+        return flash_attention_plain(q, k, v, group, causal, window, kv_len, return_lse)
     if q.dtype == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % TMA_ALIGN_BYTES:
                 raise ValueError(f"{name} must start on a {TMA_ALIGN_BYTES}-byte boundary "
                                  "(a TMA tensor map's requirement)")
     out = torch.empty_like(q)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=dev) if return_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     rc = build.load("flash_attention").flash_attention(
-        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), bh, sq, sk, hd, group,
-        int(causal), window, kv_len, int(q.dtype == torch.bfloat16), hd**-0.5,
+        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), build.ptr(lse), bh, sq, sk,
+        hd, group, int(causal), window, kv_len, int(q.dtype == torch.bfloat16), hd**-0.5,
         dev.index, build.stream(dev))
     build.raise_on(rc, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     SHAPES[(bh, sq, sk, hd, group, bool(causal), window, kv_len)] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def flash_attention_plain(q, k, v, group: int, causal: bool = True, window: int = 0,
-                          kv_len: int | None = None) -> torch.Tensor:
+                          kv_len: int | None = None, return_lse: bool = False):
     """Plain twin of flash_attention, rounding where the kernel rounds:
     float32 scores times hd^-0.5, masked to -1e30; p = exp(s - max) summed
     unrounded and rounded to v's dtype before the AV product; the sum over
-    keys divided by max(l, 1e-30), cast to q's dtype. One pass over all
-    keys, where the kernel carries a running max over key blocks."""
+    keys divided by max(l, 1e-30), cast to q's dtype; lse = max + log(l).
+    One pass over all keys, where the kernel carries a running max over key
+    blocks."""
     bh, sq, hd = q.shape
     n_kv, sk = k.shape[0], k.shape[1]
     kv_len = sk if kv_len is None else kv_len
     qg = q.float().view(n_kv, group, sq, hd)
     s = torch.matmul(qg, k.float()[:, None].transpose(-1, -2)) * hd**-0.5
     s = torch.where(attention_mask(sq, sk, causal, window, kv_len, q.device), s, NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     acc = torch.matmul(p.to(v.dtype).float(), v.float()[:, None])
-    return (acc / l.clamp_min(1e-30)).to(q.dtype).view(bh, sq, hd)
+    out = (acc / l.clamp_min(1e-30)).to(q.dtype).view(bh, sq, hd)
+    if not return_lse:
+        return out
+    return out, (m + torch.log(l)).view(bh, sq)
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, group: int, causal: bool = True,
+                        window: int = 0, kv_len: int | None = None):
+    """The gradient of flash_attention: (dq, dk, dv) in q's dtype for the
+    cotangent dout of its output ``out``, from the forward's ``lse`` (BH, Sq)
+    float32. Every tensor as in flash_attention, contiguous; on the card
+    each starts on a 16-byte boundary. Keys at or past kv_len get zero
+    gradient; a query row with no unmasked key is undefined."""
+    bh, sq, hd = q.shape
+    sk = k.shape[1]
+    dev = q.device
+    kv_len = _check_args(q, k, v, group, window, kv_len)
+    build.check("out", out, q.dtype, (bh, sq, hd), dev)
+    build.check("dout", dout, q.dtype, (bh, sq, hd), dev)
+    build.check("lse", lse, torch.float32, (bh, sq), dev)
+    if dev.type != "cuda":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout, group, causal, window, kv_len)
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout), ("lse", lse)):
+        if t.data_ptr() % TMA_ALIGN_BYTES:
+            raise ValueError(f"{name} must start on a {TMA_ALIGN_BYTES}-byte boundary "
+                             "(the backward loads 16 bytes a thread)")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    dvec = torch.empty((bh, sq), dtype=torch.float32, device=dev)
+    rc = build.load("flash_attention_bwd").flash_attention_bwd(
+        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), build.ptr(dout),
+        build.ptr(lse), build.ptr(dvec), build.ptr(dq), build.ptr(dk), build.ptr(dv), bh, sq,
+        sk, hd, group, int(causal), window, kv_len, int(q.dtype == torch.bfloat16), hd**-0.5,
+        dev.index, build.stream(dev))
+    build.raise_on(rc, "flash_attention_bwd")
+    LAUNCHES["flash_attention_bwd"] += 1
+    BWD_SHAPES[(bh, sq, sk, hd, group, bool(causal), window, kv_len)] += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, group: int, causal: bool = True,
+                              window: int = 0, kv_len: int | None = None):
+    """Plain twin of flash_attention_bwd, in float32, rounding where the
+    kernel rounds: P = exp(s * hd^-0.5 - lse) (0 where masked) from the
+    float32 scores of the inputs; D = rowsum(dout * out); dP = dout v^T;
+    dS = P (dP - D); P and dS are rounded to the inputs' dtype before the
+    products dV = P^T dout, dK = dS^T q hd^-0.5 and dQ = dS k hd^-0.5 (a
+    no-op in float32); the gradients are summed over the group's query
+    heads and cast to q's dtype."""
+    bh, sq, hd = q.shape
+    n_kv, sk = k.shape[0], k.shape[1]
+    kv_len = sk if kv_len is None else kv_len
+    dt, scale = q.dtype, hd**-0.5
+    qg = q.float().view(n_kv, group, sq, hd)
+    kf, vf = k.float()[:, None], v.float()[:, None]
+    dog = dout.float().view(n_kv, group, sq, hd)
+    s = torch.matmul(qg, kf.transpose(-1, -2)) * scale
+    mask = attention_mask(sq, sk, causal, window, kv_len, q.device)
+    p = torch.where(mask, torch.exp(s - lse.view(n_kv, group, sq, 1)), 0.0)
+    d = (dog * out.float().view(n_kv, group, sq, hd)).sum(-1, keepdim=True)
+    ds = p * (torch.matmul(dog, vf.transpose(-1, -2)) - d)
+    p, ds = p.to(dt).float(), ds.to(dt).float()
+    dv = torch.matmul(p.transpose(-1, -2), dog).sum(1)
+    dk = torch.matmul(ds.transpose(-1, -2), qg).sum(1) * scale
+    dq = torch.matmul(ds, kf) * scale
+    return dq.to(dt).view(bh, sq, hd), dk.to(dt), dv.to(dt)
+
+
+def flash_attention_bwd_scale(q, k, v, out, lse, dout, group: int, causal: bool = True,
+                              window: int = 0, kv_len: int | None = None):
+    """Per-element scales (dq, dk, dv), float32, that a check holds the
+    gradients to: each gradient's sum of the magnitudes of its terms. dV:
+    sum_i P |dO_i|; dK and dQ: sums of |dS| |q| (|k|) hd^-0.5, with |dS| taken
+    as P (|dO| |v|^T + sum_d |dO| |O|), the magnitude of dP and D before
+    their difference cancels."""
+    bh, sq, hd = q.shape
+    n_kv, sk = k.shape[0], k.shape[1]
+    kv_len = sk if kv_len is None else kv_len
+    scale = hd**-0.5
+    qg = q.float().view(n_kv, group, sq, hd)
+    kf, vf = k.float()[:, None], v.float()[:, None]
+    dog = dout.float().abs().view(n_kv, group, sq, hd)
+    s = torch.matmul(qg, kf.transpose(-1, -2)) * scale
+    mask = attention_mask(sq, sk, causal, window, kv_len, q.device)
+    p = torch.where(mask, torch.exp(s - lse.view(n_kv, group, sq, 1)), 0.0)
+    d_abs = (dog * out.float().abs().view(n_kv, group, sq, hd)).sum(-1, keepdim=True)
+    ds = p * (torch.matmul(dog, vf.abs().transpose(-1, -2)) + d_abs)
+    s_dv = torch.matmul(p.transpose(-1, -2), dog).sum(1)
+    s_dk = torch.matmul(ds.transpose(-1, -2), qg.abs()).sum(1) * scale
+    s_dq = torch.matmul(ds, kf.abs()) * scale
+    return s_dq.view(bh, sq, hd), s_dk, s_dv

@@ -29,16 +29,43 @@ from repro_torch.kernels.noma_rates import (
 )
 
 
+class _FlashAttention(torch.autograd.Function):
+    """flash_attention in the kernel's layout as a differentiable function:
+    the forward kernel, asked for each row's log-sum-exp, and the backward
+    kernel (their plain twins on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, group, causal, window):
+        out, lse = fa.flash_attention(q, k, v, group, causal, window, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = (group, causal, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        if dout.data_ptr() % fa.TMA_ALIGN_BYTES:    # a view into a larger gradient
+            dout = dout.clone()
+        dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, dout, *ctx.opts)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, causal: bool = True, window: int = 0) -> torch.Tensor:
     """q (B, Sq, H, hd), k/v (B, Sk, KV, hd) -> (B, Sq, H, hd). Query head
     h = kv*G + g reads KV head kv, as the models' grouped layout orders
-    them."""
+    them. Differentiable when grad is on and an input requires it (a
+    training step); otherwise the forward alone, with no log-sum-exp
+    (serving)."""
     b, sq, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
     qf = q.transpose(1, 2).contiguous().view(b * h, sq, hd)
     kf = k.transpose(1, 2).contiguous().view(b * kv, sk, hd)
     vf = v.transpose(1, 2).contiguous().view(b * kv, sk, hd)
-    out = fa.flash_attention(qf, kf, vf, group=h // kv, causal=causal, window=window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (qf, kf, vf)):
+        out = _FlashAttention.apply(qf, kf, vf, h // kv, causal, window)
+    else:
+        out = fa.flash_attention(qf, kf, vf, group=h // kv, causal=causal, window=window)
     return out.view(b, h, sq, hd).transpose(1, 2)
 
 

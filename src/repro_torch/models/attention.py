@@ -2,7 +2,8 @@
 cache.
 
 Attention over a fresh sequence (no cache, or a prefill) runs through
-ops.flash_attention: the CUDA kernel on the card, its plain twin on the CPU.
+ops.flash_attention: the CUDA kernel on the card, its plain twin on the CPU,
+differentiable (the backward kernel) when a training step needs it.
 It is the function the JAX package's jnp online-softmax core computes and
 its Pallas kernel replaces on a TPU. Decode against the cache is the JAX
 package's single-pass path, plain tensor code. Cross attention (kv_src)
@@ -17,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import COMPUTE_DTYPE, ParamDef, rope
+from repro_torch.models.layers import COMPUTE_DTYPE, ParamDef, at_use, rope
 
 NEG_INF = -1e30
 
@@ -82,13 +83,14 @@ def attn_apply(p: dict, x, cfg, q_pos, kv_src=None, cache: dict | None = None,
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     g = h // kv
     src = x if kv_src is None else kv_src
-    q = x @ p["wq"]
-    kproj = src @ p["wk"]
-    vproj = src @ p["wv"]
+    dt = COMPUTE_DTYPE      # weights cast at use (a no-op on stored bf16)
+    q = x @ at_use(p["wq"], x)
+    kproj = src @ at_use(p["wk"], src)
+    vproj = src @ at_use(p["wv"], src)
     if "bq" in p:
-        q = q + p["bq"]
-        kproj = kproj + p["bk"]
-        vproj = vproj + p["bv"]
+        q = q + p["bq"].to(dt)
+        kproj = kproj + p["bk"].to(dt)
+        vproj = vproj + p["bv"].to(dt)
     q = q.view(b, s, h, hd)
     kproj = kproj.view(b, -1, kv, hd)
     vproj = vproj.view(b, -1, kv, hd)
@@ -100,7 +102,7 @@ def attn_apply(p: dict, x, cfg, q_pos, kv_src=None, cache: dict | None = None,
                                causal, window)
         else:
             out = ops.flash_attention(q, kproj, vproj, causal=causal, window=window)
-        return out.reshape(b, s, h * hd) @ p["wo"], None
+        return out.reshape(b, s, h * hd) @ at_use(p["wo"], out), None
     q = rope(q, q_pos, cfg.rope_theta)
     kproj = rope(kproj, q_pos, cfg.rope_theta)
 
@@ -128,7 +130,7 @@ def attn_apply(p: dict, x, cfg, q_pos, kv_src=None, cache: dict | None = None,
                 keep = active.view(b, *[1] * (n.ndim - 1))
                 t.index_copy_(1, slot, torch.where(keep, n, o))
         new_cache = {"k": k_all, "v": v_all, "pos": pos_all, "len": cache["len"] + s}
-    return out.reshape(b, s, h * hd) @ p["wo"], new_cache
+    return out.reshape(b, s, h * hd) @ at_use(p["wo"], out), new_cache
 
 
 def _prefill_cache(cache: dict, kproj, vproj, q_pos) -> dict:

@@ -1,11 +1,15 @@
 """Model primitives: norms, RoPE, MLPs, embeddings, parameter descriptors.
 
-Every parameter is described by a ParamDef. It is stored in the dtype the
-JAX package uses it in: the JAX package stores float32 and casts at each
-use, to COMPUTE_DTYPE (bf16) for matmul weights, embeddings and the conv,
-and keeps float32 for norms and the RG-LRU gates. Rounding to bf16 is
-deterministic, so storing the cast gives the same numbers at half the
-memory.
+Every parameter is described by a ParamDef. The JAX package stores float32
+and casts at each use, to COMPUTE_DTYPE (bf16) for matmul weights,
+embeddings and the conv, and keeps float32 for norms and the RG-LRU gates.
+A serving model stores each parameter in the dtype it is used in (the def's
+dtype), frozen: rounding to bf16 is deterministic, so storing the cast gives
+the same numbers at half the memory. A model built for training stores
+float32 masters that require grad, and each use casts them as the JAX
+package does, with a differentiable cast (Tensor.to: its backward upcasts
+the cotangent, as JAX transposes an astype). On stored bf16 the same cast
+is the tensor itself, so serving runs the same ops.
 """
 from __future__ import annotations
 
@@ -35,22 +39,24 @@ def _leaves(defs: dict, prefix: tuple = ()):
             yield prefix + (k,), d
 
 
-def init_params(defs: dict, generator: torch.Generator, n_stack: int = 0) -> dict:
+def init_params(defs: dict, generator: torch.Generator, n_stack: int = 0,
+                dtype: torch.dtype | None = None) -> dict:
     """A nested dict of tensors for a nested dict of ParamDefs, drawn from
-    ``generator`` (on its device) in float32 and stored in each def's dtype.
-    With n_stack > 0 a leading layers dimension of that size is added to
-    every leaf."""
+    ``generator`` (on its device) in float32 and stored in each def's dtype
+    (or in ``dtype`` for every leaf: float32 masters). With n_stack > 0 a
+    leading layers dimension of that size is added to every leaf."""
     device = generator.device
     out: dict = {}
     for path, d in _leaves(defs):
         shape = (n_stack, *d.shape) if n_stack else d.shape
+        store = dtype or d.dtype
         if d.init == "zeros":
-            arr = torch.zeros(shape, dtype=d.dtype, device=device)
+            arr = torch.zeros(shape, dtype=store, device=device)
         elif d.init == "ones":
-            arr = torch.ones(shape, dtype=d.dtype, device=device)
+            arr = torch.ones(shape, dtype=store, device=device)
         else:
             arr = torch.randn(shape, generator=generator, device=device).mul_(d.scale)
-            arr = arr.to(d.dtype)
+            arr = arr.to(store)
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
@@ -60,19 +66,21 @@ def init_params(defs: dict, generator: torch.Generator, n_stack: int = 0) -> dic
 
 class Params(nn.Module):
     """A nested dict of ParamDefs as a module: sub-dicts become child Params,
-    leaves frozen nn.Parameters allocated (uninitialised) on ``device``.
-    load_() fills them from a nested dict of tensors, casting to each
+    leaves nn.Parameters allocated (uninitialised) on ``device``: frozen in
+    each def's dtype, or with ``trainable`` float32 masters that require
+    grad. load_() fills them from a nested dict of tensors, casting to each
     leaf's storage dtype; tree() gives the nested dict of parameters."""
 
-    def __init__(self, defs: dict, device):
+    def __init__(self, defs: dict, device, trainable: bool = False):
         super().__init__()
         self.defs = defs
         for k, d in defs.items():
             if isinstance(d, dict):
-                self.add_module(k, Params(d, device))
+                self.add_module(k, Params(d, device, trainable))
             else:
-                t = torch.empty(d.shape, dtype=d.dtype, device=device)
-                self.register_parameter(k, nn.Parameter(t, requires_grad=False))
+                t = torch.empty(d.shape, dtype=torch.float32 if trainable else d.dtype,
+                                device=device)
+                self.register_parameter(k, nn.Parameter(t, requires_grad=trainable))
 
     @torch.no_grad()
     def load_(self, tree: dict) -> "Params":
@@ -132,14 +140,25 @@ def rope(x, positions, theta: float):
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
 
 
+def at_use(w, x):
+    """A weight as the JAX package uses it against activations x: cast to
+    COMPUTE_DTYPE (a differentiable cast; the stored tensor itself when it
+    already is), then widened to x's dtype where x is wider, as JAX promotes
+    a mixed product (torch's matmul does not)."""
+    w = w.to(COMPUTE_DTYPE)
+    if x.dtype != w.dtype and torch.promote_types(x.dtype, w.dtype) == x.dtype:
+        w = w.to(x.dtype)
+    return w
+
+
 def mlp_apply(p: dict, x, act: str):
     """SwiGLU (w1/w3/w2) or GELU (w1/w2) MLP. GELU is the tanh form, the
-    JAX default."""
+    JAX default. Weights cast at use (at_use)."""
     if act == "swiglu":
-        h = F.silu(x @ p["w1"]) * (x @ p["w3"])
+        h = F.silu(x @ at_use(p["w1"], x)) * (x @ at_use(p["w3"], x))
     else:
-        h = F.gelu(x @ p["w1"], approximate="tanh")
-    return h @ p["w2"]
+        h = F.gelu(x @ at_use(p["w1"], x), approximate="tanh")
+    return h @ at_use(p["w2"], h)
 
 
 def mlp_defs(d_model: int, d_ff: int, act: str) -> dict:

@@ -1,14 +1,23 @@
-"""Model assembly: stages -> init / forward / prefill / decode.
+"""Model assembly: stages -> init / train forward / prefill / decode.
 
 Each stage is an nn.ModuleList of Blocks, one per layer, run by a Python
 loop where the JAX package scans stacked parameters. Caches keep the JAX
-package's layout, stacked over a stage's layers. Nothing here builds a
-graph: every parameter is frozen (inference only), so no remat either.
+package's layout, stacked over a stage's layers.
+
+One switch, Model(trainable=...), sets the mode. A serving model (the
+default) stores frozen parameters in their use dtype and its forward runs
+under no_grad. A trainable model stores float32 masters that require grad
+(layers.Params) and its forward builds a graph when grad is on, each block
+under torch.utils.checkpoint (remat=True, the JAX package's jax.checkpoint
+of the scanned layer body): a block's activations are recomputed in the
+backward. Training covers the dense family; the other families' backward
+passes wait for their kernels and ports (ROADMAP.md section 1, item 5).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, blocks, recurrent, xlstm
@@ -40,10 +49,10 @@ def _sinusoid(pos, d: int):
 class Block(nn.Module):
     """One layer of a stage: its parameters and its kind."""
 
-    def __init__(self, cfg, spec: blocks.StageSpec, device):
+    def __init__(self, cfg, spec: blocks.StageSpec, device, trainable: bool = False):
         super().__init__()
         self.cfg, self.spec = cfg, spec
-        self.p = Params(blocks.block_defs(cfg, spec), device)
+        self.p = Params(blocks.block_defs(cfg, spec), device, trainable)
 
     def forward(self, x, aux: dict, cache=None):
         return blocks.block_apply(self.cfg, self.spec, self.p.tree(), x, aux, cache)
@@ -74,25 +83,44 @@ def _stack(trees: list):
     return torch.stack(trees)
 
 
+# What brings each family's training (ROADMAP.md section 1, item 5's queue).
+TRAINING_WAITS_FOR = {
+    "hybrid": "the rg_lru backward kernel and hybrid training (ROADMAP.md section 1, "
+              "item 5, training queue 1)",
+    **{fam: f"the {fam} family's training (ROADMAP.md section 1, item 5, training queue 2)"
+       for fam in ("moe", "ssm", "vlm", "audio")},
+}
+
+
 class Model(nn.Module):
-    """The served LM of one ArchConfig (any family) on one device.
-    ``device=None`` means the card and raises without CUDA; the parameters
-    are allocated there uninitialised until init() or a load. ``moe_impl``
-    and ``moe_capacity`` reach every MoE block (the reference's
-    defaults)."""
+    """The LM of one ArchConfig (any family) on one device. ``device=None``
+    means the card and raises without CUDA; the parameters are allocated
+    there uninitialised until init() or a load. ``moe_impl`` and
+    ``moe_capacity`` reach every MoE block (the reference's defaults).
+
+    ``trainable``: float32 master parameters that require grad, and a
+    forward that builds a graph (dense family only; another family raises
+    NotImplementedError naming what it waits for). ``remat``: each block of
+    a training forward under torch.utils.checkpoint."""
 
     def __init__(self, cfg, device=None, moe_impl: str = "sorted",
-                 moe_capacity: float = 1.25):
+                 moe_capacity: float = 1.25, trainable: bool = False, remat: bool = True):
         super().__init__()
+        if trainable and cfg.family != "dense":
+            raise NotImplementedError(
+                f"training {cfg.name} ({cfg.family} family) waits for "
+                f"{TRAINING_WAITS_FOR[cfg.family]}")
         self.cfg = cfg
         self.stages = blocks.stages_for(cfg)
         self.vocab_padded = pad_vocab(cfg.vocab_size)
         self.device = resolve_device(device)
         self.moe_impl = moe_impl
         self.moe_capacity = moe_capacity
-        self.top = Params(self._top_defs(), self.device)
+        self.trainable = trainable
+        self.remat = remat
+        self.top = Params(self._top_defs(), self.device, trainable)
         self.stage_layers = nn.ModuleList(
-            nn.ModuleList(Block(cfg, spec, self.device) for _ in range(spec.n_layers))
+            nn.ModuleList(Block(cfg, spec, self.device, trainable) for _ in range(spec.n_layers))
             for spec in self.stages)
 
     # ---------------- params ----------------
@@ -111,15 +139,41 @@ class Model(nn.Module):
 
     def init(self, generator: torch.Generator) -> "Model":
         """Draw every parameter from ``generator`` (on the model's device),
-        layer by layer, in float32, stored in its storage dtype."""
-        self.top.load_(init_params(self._top_defs(), generator))
+        layer by layer, in float32, stored in its storage dtype (float32
+        masters when trainable)."""
+        store = torch.float32 if self.trainable else None
+        self.top.load_(init_params(self._top_defs(), generator, dtype=store))
         for layers in self.stage_layers:
             for blk in layers:
-                blk.p.load_(init_params(blk.p.defs, generator))
+                blk.p.load_(init_params(blk.p.defs, generator, dtype=store))
         return self
 
     def param_bytes(self) -> int:
         return sum(p.numel() * p.element_size() for p in self.parameters())
+
+    def param_tree(self) -> dict:
+        """The parameters themselves as a tree: the top leaves, and "stages",
+        a list (per stage) of lists (per layer) of each block's nested dict."""
+        return {**self.top.tree(),
+                "stages": [[blk.p.tree() for blk in layers] for layers in self.stage_layers]}
+
+    @torch.no_grad()
+    def load_params_(self, tree: dict) -> "Model":
+        """Copy a tree shaped as param_tree() into the parameters, in place;
+        a leaf that already is the parameter is left alone."""
+        def copy(dst, src):
+            if isinstance(dst, dict):
+                for k in dst:
+                    copy(dst[k], src[k])
+            elif isinstance(dst, list):
+                for d, s_ in zip(dst, src, strict=True):
+                    copy(d, s_)
+            elif src is not dst:
+                if tuple(src.shape) != tuple(dst.shape):
+                    raise ValueError(f"shape {tuple(src.shape)}, expected {tuple(dst.shape)}")
+                dst.copy_(src)
+        copy(self.param_tree(), tree)
+        return self
 
     # ---------------- stage runner ----------------
     def _run_stage(self, spec, layers, x, aux, cache_stacked):
@@ -130,10 +184,15 @@ class Model(nn.Module):
         static buffers, and restacking them would copy every layer."""
         aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
         in_place = aux.get("in_place", False) and cache_stacked is not None
+        remat = self.remat and cache_stacked is None and torch.is_grad_enabled()
         new = []
         for i, blk in enumerate(layers):
             cache = None if cache_stacked is None else _index(cache_stacked, i)
-            x, new_cache, al = blk(x, aux, cache)
+            if remat:
+                x, new_cache, al = checkpoint(blk, x, aux, None, use_reentrant=False,
+                                              preserve_rng_state=False)
+            else:
+                x, new_cache, al = blk(x, aux, cache)
             aux_sum = aux_sum + al
             if in_place:
                 _write_layer(cache, new_cache, aux.get("active"))
@@ -168,19 +227,28 @@ class Model(nn.Module):
         x, _, _ = self._run_stage(self.stages[0], self.stage_layers[0], x, self.aux(pos), None)
         return x
 
-    @torch.no_grad()
     def forward(self, tokens, frontend=None, caches=None, positions=None,
-                last: bool = False, in_place: bool = False, active=None):
+                last: bool = False, in_place: bool = False, active=None,
+                return_hidden: bool = False):
         """tokens (B, S) int; frontend (B, Sf, D) or None: the audio
         encoder's input, or the image tokens a vlm cross-attends to. With
         caches and no frontend, the caches' enc_out / frontend stand in.
         Returns (logits float32 (B, S, Vp), new caches or None, aux loss);
-        with ``last``, the logits of the last position only, (B, 1, Vp).
+        with ``last``, the logits of the last position only, (B, 1, Vp);
+        with ``return_hidden``, the final-normed hidden states (B, S, D) in
+        place of the logits. Builds a graph only for a trainable model with
+        grad on.
 
         in_place / active (a compiled decode step, runtime/serve.py): the
         stage caches are written in place, only the active slots' when
         ``active`` is given, and the returned caches hold the same stage
         tensors."""
+        with torch.set_grad_enabled(self.trainable and torch.is_grad_enabled()):
+            return self._forward(tokens, frontend, caches, positions, last, in_place, active,
+                                 return_hidden)
+
+    def _forward(self, tokens, frontend, caches, positions, last, in_place, active,
+                 return_hidden):
         b, s = tokens.shape
         if positions is None:
             positions = self._positions(b, s)
@@ -218,7 +286,7 @@ class Model(nn.Module):
         if last:
             x = x[:, -1:]
         x = self._final_norm(x)
-        logits = logits_out(x, self.top.unembed, self.cfg.vocab_size)
+        logits = x if return_hidden else logits_out(x, self.top.unembed, self.cfg.vocab_size)
         new_caches = None
         if caches is not None:
             if self.cfg.family == "audio":
@@ -227,6 +295,17 @@ class Model(nn.Module):
         return logits, new_caches, aux_total
 
     # ---------------- public APIs ----------------
+    def train_logits(self, batch: dict):
+        """The training forward of batch["tokens"] (and batch["frontend"]):
+        (logits, caches None, aux loss)."""
+        return self(batch["tokens"], batch.get("frontend"))
+
+    def train_hidden(self, batch: dict):
+        """Final-normed hidden states (B, S, D) and the aux loss, for the
+        chunked cross-entropy (which never holds (B, S, V) logits)."""
+        h, _, aux = self(batch["tokens"], batch.get("frontend"), return_hidden=True)
+        return h, aux
+
     def prefill(self, batch: dict, max_len: int):
         """Run the prompt batch["tokens"] (B, S) (and batch["frontend"] when
         given) and fill fresh caches of max_len. Returns (last-position logits

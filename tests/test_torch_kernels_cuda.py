@@ -17,7 +17,11 @@ under which a far user's rows would hide.
 flash_attention: each output element within 1e-2 (bf16) or 1e-5 (float32)
 of sum_k p_k |v_k| (the twin on |v|): the bf16 output rounds at 2^-8 of it
 and p is rounded to bf16 before the AV product; in float32 only the order
-of the sums differs. rg_lru: within 1e-5 of the twin on (log_a, |b|, |h0|),
+of the sums differs. flash_attention_bwd: each gradient element within 1e-2
+(bf16) or 1e-5 (float32) of the sum of the magnitudes of its terms
+(flash_attention_bwd_scale): P and dS are rounded to bf16 before the
+products in both, the gradients to bf16 at the end; two launches on the
+same inputs give the same bits (no atomics). rg_lru: within 1e-5 of the twin on (log_a, |b|, |h0|),
 the float32 summation bound of the recurrence. The reduced model on the
 card against itself on the CPU: within 1e-2 of each position's largest
 logit (bf16 matmuls with other summation orders); so are the reduced
@@ -643,3 +647,94 @@ def test_online_loop_on_the_card(cuda):
         channel.set_sinr_backend(prev)
     m = loop.metrics()
     assert m["epochs"] == 8 and m["offered"] >= m["completed"]
+
+
+# -- the flash backward ---------------------------------------------------------------
+def _bwd_inputs(cuda, bh, g, sq, sk, hd, causal, window, kv_len, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((bh, sq, hd), device=cuda, generator=gen).to(dtype)
+    k, v = (torch.randn((bh // g, sk, hd), device=cuda, generator=gen).to(dtype)
+            for _ in range(2))
+    dout = torch.randn((bh, sq, hd), device=cuda, generator=gen).to(dtype)
+    out, lse = fa.flash_attention(q, k, v, g, causal, window, kv_len, return_lse=True)
+    return q, k, v, out, lse, dout
+
+
+def _check_bwd(cuda, bh, g, sq, sk, hd, causal, window, kv_len, dtype, seed):
+    args = (g, causal, window, kv_len)
+    q, k, v, out, lse, dout = _bwd_inputs(cuda, bh, g, sq, sk, hd, causal, window, kv_len,
+                                          dtype, seed)
+    assert torch.equal(out, fa.flash_attention(q, k, v, *args))   # the lse switch moves nothing
+    before = fa.LAUNCHES["flash_attention_bwd"]
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, *args)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, *args)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_bwd"] == before + 2
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, *args)
+    scales = fa.flash_attention_bwd_scale(q, k, v, out, lse, dout, *args)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    for x, y, w, sc in zip(got, again, want, scales):
+        assert x.dtype == dtype and bool(torch.isfinite(x).all())
+        assert torch.equal(x, y)
+        _close(x.float(), w.float(), sc, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "bh,g,sq,sk,hd,causal,window,kv_len",
+    [
+        (8, 1, 300, 300, 64, True, 100, None),     # local window, G = 1
+        (8, 4, 200, 200, 64, False, 0, None),      # bidirectional, G = 4
+        (8, 4, 257, 257, 128, True, 0, None),      # causal, G = 4, ragged
+        (4, 2, 100, 150, 32, True, 0, None),       # Sq < Sk, causal
+        (4, 2, 150, 100, 32, False, 0, None),      # Sq > Sk, bidirectional
+        (4, 1, 200, 200, 64, True, 0, 170),        # kv_len < Sk
+        (4, 4, 130, 200, 256, False, 0, 150),      # hd 256, kv_len < Sk
+        (4, 2, 300, 300, 256, True, 77, None),     # hd 256, window
+    ],
+)
+def test_flash_attention_bwd_matches_plain_twin(cuda, dtype, bh, g, sq, sk, hd, causal, window,
+                                                kv_len):
+    _check_bwd(cuda, bh, g, sq, sk, hd, causal, window, kv_len, dtype, sq + sk + hd)
+
+
+def test_flash_attention_bwd_at_the_qwen_train_shape(cuda):
+    """qwen1.5-0.5b's training attention: 8 x 16 query head rows, S = 2048,
+    hd 64, G = 1, causal, bf16."""
+    _check_bwd(cuda, 128, 1, 2048, 2048, 64, True, 0, None, torch.bfloat16, 23)
+
+
+def test_train_step_on_the_card_counts_launches(cuda):
+    """The reduced qwen1.5-0.5b's train step on the card: per step 2 flash
+    forwards a layer (the forward, and its recomputation under remat) and
+    one backward call; the loss finite and within 0.05 * max(1, |loss|) of
+    the same step on the CPU (plain twins) from the same parameters."""
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime import train as t_train
+    cfg = configs.get("qwen1.5-0.5b").reduced()
+    batch = make_batch(0, 0, 4, 64, cfg.vocab_size, device="cpu")
+    card = Model(cfg, device=cuda, trainable=True)
+    states = [t_train.init_state(card, torch.Generator(device=cuda).manual_seed(0))]
+    host = Model(cfg, device="cpu", trainable=True).load_params_(_to_cpu(card.param_tree()))
+    states.append(t_train.TrainState(host.param_tree(), adamw_init(host.param_tree()),
+                                     torch.zeros((), dtype=torch.int32)))
+    losses = []
+    for model, state in zip((card, host), states):
+        step = t_train.make_train_step(model, base_lr=3e-3, total_steps=30, seq_chunk=32)
+        fa.reset_launches()
+        _, met = step(state, {k: v.to(model.device) for k, v in batch.items()})
+        if model is card:
+            torch.cuda.synchronize()
+            assert fa.LAUNCHES == {"flash_attention": 2 * cfg.n_layers,
+                                   "flash_attention_bwd": cfg.n_layers}
+        losses.append(float(met["loss"]))
+    assert np.isfinite(losses[0])
+    assert abs(losses[0] - losses[1]) <= 0.05 * max(1.0, abs(losses[1]))
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.detach().cpu()
