@@ -227,7 +227,13 @@ Phases, each fatal on failure (no phase catches its own error):
                  launches bit-equal at each, the forward's log-sum-exp
                  against its twin and its output bit-equal to the serving
                  call's, the backward's time beside its twin's, SDPA's
-                 backward (is_causal) and its bound; 15.2 TRAIN_STEPS steps of
+                 backward (is_causal) and its bound, and each of its three
+                 kernels' device time in one call (torch.profiler), at the
+                 train shape and at WIDE_ARCH's hd-128 layout (8 x 12 query
+                 heads over 2 KV heads, G = 6, 2048, causal; checked too);
+                 each backward kernel's registers and spills from ptxas
+                 (a spill in a wgmma kernel fails) and the shared memory
+                 each opts in to against bwd_smem_bytes; 15.2 TRAIN_STEPS steps of
                  make_train_step (chunked cross-entropy) on SyntheticLM's 8 x
                  2048 tokens at base_lr 3e-3 (float32 masters, bf16 compute,
                  remat): exact flash launches a step (2
@@ -247,6 +253,7 @@ The last lines are the kernels JSON, the nvidia-smi line, and
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -379,6 +386,9 @@ AUDIO_S, AUDIO_SPLIT = 448, 18
 # batch (small enough for the unchunked (B, S, V) float32 logits), and the
 # entry point's defaults (8 x 128) with its checkpoint cadence crossed once.
 TRAIN_ARCH, TRAIN_SEED = "qwen1.5-0.5b", 0
+# 15.1 also checks and times the backward at this arch's hd-128 GQA layout
+# (the other dense archs' head dim) at TRAIN_B x TRAIN_S
+WIDE_ARCH = "qwen2-1.5b"
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR, TRAIN_CHUNK = 8, 2048, 20, 3e-3, 512
 CE_B, CE_S, CE_CHUNK = 2, 512, 128
 # 15.3: a first run of 4 steps crosses --ckpt-every 3 (each checkpoint of
@@ -3929,6 +3939,33 @@ def event_ms(fn, reps: int = 5, trials: int = 5) -> float:
     return statistics.median(times)
 
 
+def bwd_ptxas(log: str) -> list[tuple]:
+    """(kernel, registers, (spill store bytes, spill load bytes)) of every
+    flash_bwd_ kernel in a ptxas -v log: the kernel named by its
+    template arguments (dtype, head dim)."""
+    out, name, spills = [], None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            sym = m.group(1)
+            k = re.search(r"(flash_bwd_[a-z_]+kernel)", sym)
+            name = None
+            if k:
+                hd = re.search(r"Li(\d+)E", sym)
+                dt = "bf16" if "bfloat16" in sym else ("float32" if "IfLi" in sym else "")
+                name = " ".join(x for x in (k.group(1), dt, f"hd {hd.group(1)}" if hd else "")
+                                if x)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), spills))
+            name = None
+    return out
+
+
 def leaf_names(tree, prefix: str = "") -> list[str]:
     """Paths of a tree's leaves in tree_flatten order (dict keys sorted)."""
     if isinstance(tree, dict):
@@ -3960,6 +3997,7 @@ def train_phase(dev, smi: str, errs: dict, peaks: dict) -> tuple[dict, dict, dic
     from repro_torch.checkpoint import list_steps
     from repro_torch.core.types import tree_flatten
     from repro_torch.data import SyntheticLM, make_batch
+    from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import train as launch_train
     from repro_torch.models import Model
@@ -4039,47 +4077,102 @@ def train_phase(dev, smi: str, errs: dict, peaks: dict) -> tuple[dict, dict, dic
         check_bwd(*case)
         torch.cuda.empty_cache()
 
-    # time at the train step's shape beside the twin, SDPA's backward and the bound
-    q, k, v, out, lse, dout = tensors
-    bh, sq = TRAIN_B * H, TRAIN_S
-    args = (G, True, 0, None)
-    pairs = bh * sq * (sq + 1) // 2
-    bwd_ops = 10 * HD * pairs
-    bwd_bytes = 2 * 8 * bh * sq * HD + 4 * bh * sq     # q k v out dout lse in; dq dk dv out
-    t_ops, t_bytes = bwd_ops / BF16_OPS_PER_S * 1e3, bwd_bytes / HBM_BYTES_PER_S * 1e3
-    qs, ks, vs = (t.view(TRAIN_B, -1, sq, HD).detach().requires_grad_(True) for t in (q, k, v))
-    o_s = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=G > 1)
-    do_s = dout.view(TRAIN_B, H, sq, HD)
+    # the backward's build: each kernel's registers and spills from ptxas, and
+    # the dynamic shared memory each bf16 kernel opts in to against the
+    # block table's mirror of it (flash_attention.bwd_smem_bytes)
+    for kern, regs, spills in bwd_ptxas(build.BUILD_INFO["flash_attention_bwd"]["log"]):
+        print(f"build flash_attention_bwd {kern}: {regs} registers, spills {spills}")
+        if "wgmma" in kern and spills != (0, 0):
+            fail(f"flash_attention_bwd {kern}: ptxas spills {spills} (stores, loads) bytes")
+    lib = build.load("flash_attention_bwd")
+    for hd in fa.HEAD_DIMS:
+        for dt in fa.DTYPES:
+            got_smem = tuple(lib.flash_attention_bwd_smem(hd, int(dt == bf16), kernel)
+                             for kernel in (0, 1))
+            print(f"build flash_attention_bwd shared memory hd {hd} {dt}: (dK/dV, dQ) "
+                  f"{got_smem} bytes")
+            if got_smem != fa.bwd_smem_bytes(hd, dt):
+                fail(f"flash_attention_bwd hd {hd} {dt}: the kernels opt in to {got_smem} "
+                     f"bytes, bwd_smem_bytes says {fa.bwd_smem_bytes(hd, dt)}")
 
-    def sdpa_bwd():
-        return torch.autograd.grad(o_s, (qs, ks, vs), do_s, retain_graph=True)
+    def time_bwd(label, b, h, kv, hd, tensors):
+        """The backward at one causal (b * h, S, hd) shape beside the twin,
+        SDPA's backward (enable_gqa where G > 1) and the bound; each of its
+        three kernels' device time within one call (torch.profiler over 5
+        calls)."""
+        q, k, v, out, lse, dout = tensors
+        bh, sq, g = b * h, q.shape[1], h // kv
+        args = (g, True, 0, None)
+        pairs = bh * sq * (sq + 1) // 2
+        bwd_ops = 10 * hd * pairs
+        # q out dout dq (query head rows), k v dk dv (KV rows), lse
+        bwd_bytes = 2 * (4 * bh + 4 * b * kv) * sq * hd + 4 * bh * sq
+        t_ops, t_bytes = bwd_ops / BF16_OPS_PER_S * 1e3, bwd_bytes / HBM_BYTES_PER_S * 1e3
+        qs, ks, vs = (t.view(b, -1, sq, hd).detach().requires_grad_(True) for t in (q, k, v))
+        o_s = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=g > 1)
+        do_s = dout.view(b, h, sq, hd)
 
-    lib = sdpa_bwd()
-    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, *args)
-    scales = fa.flash_attention_bwd_scale(q, k, v, out, lse, dout, *args)
-    lib_err = [float(((x.reshape(w.shape).float() - w.float()).abs() / sc).max())
-               for x, w, sc in zip(lib, want, scales)]
-    del lib, want, scales
-    print(f"flash_attention_bwd library yardstick: SDPA's backward (is_causal) against the twin "
-          f"(its own forward, not the kernel's): dq/dk/dv worst {lib_err} of the terms' scale")
+        def sdpa_bwd():
+            return torch.autograd.grad(o_s, (qs, ks, vs), do_s, retain_graph=True)
+
+        lib_grads = sdpa_bwd()
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, *args)
+        scales = fa.flash_attention_bwd_scale(q, k, v, out, lse, dout, *args)
+        lib_err = [float(((x.reshape(w.shape).float() - w.float()).abs() / sc).max())
+                   for x, w, sc in zip(lib_grads, want, scales)]
+        del lib_grads, want, scales
+        print(f"flash_attention_bwd library yardstick at {label}: SDPA's backward (is_causal"
+              f"{', enable_gqa' if g > 1 else ''}) against the twin (its own forward, not the "
+              f"kernel's): dq/dk/dv worst {lib_err} of the terms' scale")
+        torch.cuda.empty_cache()
+        row = {
+            "ms": device_ms([lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, *args)],
+                            reps=5),
+            "plain_ms": device_ms([lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                                                        *args)],
+                                  reps=1, trials=3),
+            "library_ms": event_ms(sdpa_bwd),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        print(f"time flash_attention_bwd at {label} ({bh}, {sq}, {hd}) G={g} causal: "
+              + " ".join(f"{k}={v}" for k, v in row.items())
+              + f" ({bwd_ops:.4e} FLOP = 10 hd x {pairs} unmasked pairs, "
+              f"{bwd_bytes / 1e6:.1f} MB; one call = 3 CUDA launches, D, dK/dV, dQ; library: "
+              f"torch.autograd.grad of scaled_dot_product_attention, is_causal, CUDA events "
+              f"around 5 eager calls) | {smi}")
+        split = {}
+        for _ in range(3):   # a window the profiler returns empty is taken again
+            fa.flash_attention_bwd(q, k, v, out, lse, dout, *args)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    fa.flash_attention_bwd(q, k, v, out, lse, dout, *args)
+                torch.cuda.synchronize()
+            split = {e.key.split("<")[0].split("::")[-1].split(" ")[-1]:
+                     e.self_device_time_total / 5e3 for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA and "flash_bwd_" in e.key}
+            if split:
+                break
+        print(f"time flash_attention_bwd at {label}: device ms a call by kernel (torch.profiler, "
+              f"5 calls): " + (" ".join(f"{k}={v}" for k, v in split.items()) or
+                               "not measured (three windows with no device record)")
+              + f" | {smi}")
+        return row
+
+    bwd_row = time_bwd(f"{TRAIN_ARCH}'s train shape", TRAIN_B, H, KV, HD, tensors)
+    del tensors
+    gc.collect()
     torch.cuda.empty_cache()
-    bwd_row = {
-        "ms": device_ms([lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, *args)],
-                        reps=5),
-        "plain_ms": device_ms([lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, dout,
-                                                                    *args)], reps=1, trials=3),
-        "library_ms": event_ms(sdpa_bwd),
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-    }
-    bwd_row["bound_share"] = bwd_row["bound_ms"] / bwd_row["ms"]
-    print(f"time flash_attention_bwd at {TRAIN_ARCH}'s train shape ({bh}, {sq}, {HD}) G={G} "
-          f"causal: " + " ".join(f"{k}={v}" for k, v in bwd_row.items())
-          + f" ({bwd_ops:.4e} FLOP = 10 hd x {pairs} unmasked pairs, "
-          f"{bwd_bytes / 1e6:.1f} MB; one call = 3 CUDA launches, D, dK/dV, dQ; library: "
-          f"torch.autograd.grad of scaled_dot_product_attention, is_causal, CUDA events "
-          f"around 5 eager calls) | {smi}")
-    del tensors, q, k, v, out, lse, dout, qs, ks, vs, o_s, do_s
+    # the hd-128 layout of the other dense archs: qwen2-1.5b, 8 x 12 query
+    # heads over 2 KV heads (G = 6), S 2048, causal
+    w_cfg = configs.get(WIDE_ARCH)
+    w_b, w_h, w_kv, w_hd = TRAIN_B, w_cfg.n_heads, w_cfg.n_kv_heads, w_cfg.hd
+    wide = check_bwd(f"{WIDE_ARCH} ({w_b * w_h}, {TRAIN_S}, {w_hd}) G={w_h // w_kv} causal",
+                     w_b * w_h, w_h // w_kv, TRAIN_S, TRAIN_S, w_hd, True, 0)
+    time_bwd(f"{WIDE_ARCH}'s layout", w_b, w_h, w_kv, w_hd, wide)
+    del wide
     gc.collect()
     torch.cuda.empty_cache()
     fwd_row = flash_row(dev, f"{TRAIN_ARCH} train", TRAIN_B, H, KV, TRAIN_S, TRAIN_S, HD, True,

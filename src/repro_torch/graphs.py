@@ -205,6 +205,8 @@ def blocking_syncs(fn, inside=()):
 KERNEL_SYMBOLS = (("flash_wgmma_kernel", "flash_attention"),
                   ("flash_f32_kernel", "flash_attention"),
                   # a backward call is three kernels; its dQ kernel marks it
+                  # (wgmma at bf16 hd <= 128, else the mma.sync / FMA one)
+                  ("flash_bwd_dq_wgmma_kernel", "flash_attention_bwd"),
                   ("flash_bwd_dq_kernel", "flash_attention_bwd"),
                   ("cell_intra_dense_kernel", "noma_cell_intra"),
                   ("cell_intra_kernel", "noma_cell_intra"),

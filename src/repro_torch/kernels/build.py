@@ -42,6 +42,7 @@ SIGNATURES = {
     },
     "flash_attention_bwd": {
         "flash_attention_bwd": [_P] * 10 + [_I] * 9 + [_F, _I, _P],
+        "flash_attention_bwd_smem": [_I] * 3,
     },
     "rg_lru": {
         "rg_lru": [_P] * 4 + [_I] * 5 + [_P],

@@ -62,6 +62,44 @@ def smem_bytes(hd: int, dtype: torch.dtype) -> int:
         F32_BLOCK_Q * (F32_BLOCK_K + 1) + 3 * F32_BLOCK_Q)
 
 
+# -- Hopper block table of the backward (csrc/flash_attention_bwd.cu) -----------
+# bf16 at BWD_WGMMA_HEAD_DIMS (wgmma): the dK/dV kernel holds BWD_BLOCK keys
+# (K and V) a block and streams (query head, BWD_TILE-query tile) pairs of
+# Q, dO and their LSE and D values through a BWD_STAGES-deep TMA ring; the
+# dQ kernel holds BWD_BLOCK queries (Q and dO) and streams BWD_TILE-key
+# tiles of K and V. Two consumer warpgroups a block, 64 rows each; tiles
+# are 128-byte swizzled rows of 64 bf16 (head dims under 64 staged 64
+# wide). bf16 at hd 256 and float32 keep the mma.sync / FMA kernels of 64
+# rows (32 for float32 at hd 256) in padded shared memory.
+BWD_BLOCK = 128
+BWD_TILE = 64
+BWD_STAGES = 3
+BWD_WGMMA_HEAD_DIMS = (32, 64, 128)
+
+
+def bwd_smem_bytes(hd: int, dtype: torch.dtype) -> tuple[int, int]:
+    """Dynamic shared memory of one block of the backward's (dK/dV, dQ)
+    kernels.
+
+    wgmma path: 1024 bytes of slack (the swizzle's 1024-byte atom), the two
+    held BWD_BLOCK-row tiles, BWD_STAGES stages of two BWD_TILE-row tiles,
+    in dK/dV each stage's 64 float32 LSE and 64 D values, and an 8-byte
+    mbarrier for the held tiles plus a full and an empty one a stage.
+    mma.sync / FMA path (both kernels alike): K, V, Q and dO tiles with rows
+    padded by 16 bytes, two float32 rows of the block, and in float32 each
+    warp's 16-row P scratch (rows padded by one)."""
+    if dtype == torch.bfloat16 and hd in BWD_WGMMA_HEAD_DIMS:
+        hdp = max(hd, 64)
+        dq = (1024 + 2 * 2 * BWD_BLOCK * hdp + BWD_STAGES * 2 * 2 * BWD_TILE * hdp
+              + 8 * (1 + 2 * BWD_STAGES))
+        return dq + BWD_STAGES * 2 * 4 * BWD_TILE, dq
+    size = dtype.itemsize
+    block = 32 if size == 4 and hd > 128 else 64
+    scratch = 4 * (block // 16) * 16 * (block + 1) if size == 4 else 0
+    n = 4 * size * block * (hd + 16 // size) + 2 * 4 * block + scratch
+    return n, n
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -180,11 +218,12 @@ def flash_attention_bwd(q, k, v, out, lse, dout, group: int, causal: bool = True
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout), ("lse", lse)):
         if t.data_ptr() % TMA_ALIGN_BYTES:
             raise ValueError(f"{name} must start on a {TMA_ALIGN_BYTES}-byte boundary "
-                             "(the backward loads 16 bytes a thread)")
+                             "(a TMA tensor map's requirement)")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    dvec = torch.empty((bh, sq), dtype=torch.float32, device=dev)
+    # D (and on the wgmma path the LSE) in 64-row tiles: 2 x 64 a tile
+    dvec = torch.empty((bh, 2 * BWD_TILE * -(-sq // BWD_TILE)), dtype=torch.float32, device=dev)
     rc = build.load("flash_attention_bwd").flash_attention_bwd(
         build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), build.ptr(dout),
         build.ptr(lse), build.ptr(dvec), build.ptr(dq), build.ptr(dk), build.ptr(dv), bh, sq,

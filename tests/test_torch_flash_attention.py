@@ -135,3 +135,22 @@ def test_flash_attention_smem_budget():
     # head dims under 64 are staged 64 wide (one 128-byte swizzled row)
     assert fa.smem_bytes(32, torch.bfloat16) == fa.smem_bytes(64, torch.bfloat16)
     assert fa.smem_bytes(256, torch.float32) == 214528
+
+
+def test_flash_attention_bwd_smem_budget():
+    """The backward's two kernels (dK/dV, dQ) fit what a Hopper block may
+    opt in to at every head_dim and dtype; bwd_smem_bytes mirrors the
+    source's layouts (chip_smoke.py holds it to the kernels' own numbers)."""
+    for hd in fa.HEAD_DIMS:
+        for dt in fa.DTYPES:
+            dkdv, dq = fa.bwd_smem_bytes(hd, dt)
+            assert 0 < dq <= dkdv <= 232448, (hd, dt)
+    # wgmma path at hd 64: 1 KB slack, K and V (128 x 64 each), 3 stages of
+    # Q and dO (64 x 64 each), in dK/dV each stage's 64 LSE and 64 D
+    # values, seven mbarriers
+    assert fa.bwd_smem_bytes(64, torch.bfloat16) == (
+        1024 + 2 * 2 * 128 * 64 + 3 * 2 * 2 * 64 * 64 + 3 * 512 + 56, 83000) == (84536, 83000)
+    assert fa.bwd_smem_bytes(128, torch.bfloat16) == (166456, 164920)
+    # head dims under 64 are staged 64 wide; hd 256 keeps the mma.sync kernels
+    assert fa.bwd_smem_bytes(32, torch.bfloat16) == fa.bwd_smem_bytes(64, torch.bfloat16)
+    assert fa.bwd_smem_bytes(256, torch.bfloat16) == (135680, 135680)

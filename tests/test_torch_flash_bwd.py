@@ -61,6 +61,7 @@ def _heads_first(x):
         (2, 50, 70, 2, 2, 32, False, 0, None),     # bidirectional, Sq != Sk
         (1, 30, 60, 1, 4, 32, True, 0, None),      # causal, Sq < Sk
         (1, 40, 64, 2, 2, 32, False, 0, 50),       # kv_len < Sk
+        (1, 40, 40, 1, 4, 128, True, 0, None),     # hd 128, G = 4 (the dense archs)
     ],
 )
 def test_flash_backward_matches_jax_grad_of_the_core(jx, b, sq, sk, kv, g, hd, causal, window,

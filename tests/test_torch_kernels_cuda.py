@@ -691,6 +691,14 @@ def _check_bwd(cuda, bh, g, sq, sk, hd, causal, window, kv_len, dtype, seed):
         (4, 1, 200, 200, 64, True, 0, 170),        # kv_len < Sk
         (4, 4, 130, 200, 256, False, 0, 150),      # hd 256, kv_len < Sk
         (4, 2, 300, 300, 256, True, 77, None),     # hd 256, window
+        # the edges of the wgmma kernels' 128-row blocks and 64-row tiles
+        (16, 4, 2048, 2048, 128, True, 0, None),   # phi3-medium-14b's layout, G = 4
+        (24, 6, 2048, 2048, 128, True, 0, None),   # qwen2-1.5b's and internlm2-20b's, G = 6
+        (8, 2, 1000, 257, 128, False, 0, None),    # partial key block and query tile
+        (8, 2, 257, 1000, 64, True, 0, None),      # the same, causal, Sq < Sk
+        (8, 2, 500, 500, 128, True, 37, None),     # a window edge inside a 64-key tile
+        (8, 4, 300, 320, 128, False, 0, 250),      # kv_len < Sk at hd 128
+        (32, 16, 300, 300, 64, True, 0, None),     # G = 16
     ],
 )
 def test_flash_attention_bwd_matches_plain_twin(cuda, dtype, bh, g, sq, sk, hd, causal, window,
