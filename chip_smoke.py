@@ -182,10 +182,10 @@ Phases, each fatal on failure (no phase catches its own error):
                  forward under torch.profiler (busy share; expert bmm,
                  dispatch and flash shares); the compiled serve steps as
                  in 6, their MoE dropped-slot counts equal to eager;
-                 13.2 xlstm-125m (12 layers,
-                 mLSTM / sLSTM): the entry point (no TPU kernel on its
+                 13.2 xlstm-125m (12 layers, mLSTM / sLSTM; 4 requests
+                 of XLSTM_S tokens): the entry point (no TPU kernel on its
                  path), split logits at s* and s=6 bit-equal, prefill of
-                 11 chunks + 8 decode steps against the forward, a
+                 3 chunks + 8 decode steps against the forward, a
                  DecodeBatcher's caches exported after 8 steps and
                  imported into a fresh one, 4 more steps bit-equal to the
                  live batcher's, the compiled serve steps as in 6 on a
@@ -247,6 +247,36 @@ Phases, each fatal on failure (no phase catches its own error):
                  --ckpt-every 3, a 4-step run that crosses it and ends, a
                  restart that resumes from its final checkpoint, the
                  resumed losses bit-equal to an uninterrupted run's.
+ 16. families -- training the hybrid, MoE, vision, xLSTM and audio families
+                 at full width (FAMILIES: recurrentgemma-9b cut to rec, rec,
+                 attn; deepseek-moe-16b to its dense layer and 2 MoE layers;
+                 llama-3.2-vision-11b to 4 self + 1 cross layers over a
+                 1601 x 4096 frontend, every xgate 0.5; xlstm-125m and
+                 whisper-small whole), float32 masters and AdamW in place:
+                 16.0 rg_lru_bwd bit-equal to its twin at the hybrid's
+                 (2, 3072, 4096) with and without h0, at a ragged S and W,
+                 at W % 4 != 0 and with dh off 16 bytes (cp.async), two
+                 launches bit-equal at each, timed beside its twin, its bound
+                 and a same-bytes yardstick; for each family the flash
+                 forward and backward against their twins at every shape its
+                 step launches (window 2048 hd 256 G = 16; causal hd 128 G = 1
+                 and G = 4; vlm cross 2048 over 1601; whisper's encoder,
+                 decoder self and cross) with two backward launches bit-equal,
+                 each backward timed beside SDPA's backward; 16.1 an untimed
+                 step, then two gradient passes from one state and batch
+                 bit-equal in every leaf; 16.2 FAMILY_STEPS timed steps
+                 (exact flash, rg_lru and rg_lru_bwd launches a step: 2
+                 forwards and 1 backward a layer under remat; one MoE drop
+                 count a MoE layer; no launch at an unchecked shape): step
+                 ms, tokens/s, MFU, a profiled step's busy share and kernel
+                 shares, peak reserve; 16.3 the reduced model in float32 on
+                 the card against the CPU's plain twins (loss and every
+                 gradient leaf); 16.4 launch.train.main for each family
+                 (xlstm-125m and whisper-small at full size, the others
+                 --reduced), whisper-small resumed from its final checkpoint
+                 bit-equal to an uninterrupted run.
+Every profiled window that records no device time is measured once more
+(profiled); a phase fails only if the retry is empty too.
 The last lines are the kernels JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
@@ -365,13 +395,17 @@ DURABLE_FAULTS = dict(link_outage_rate=0.1, fade_depth=1e-6, ap_outage_rate=0.02
 DURABLE_SEED, DURABLE_EPOCHS, DURABLE_EVERY, DURABLE_CRASH = 7, 24, 6, 16
 DURABLE_TAMPER_T = 3               # the journal epoch whose word 11.5 flips
 # Phase 13: the MoE and xLSTM families at full width and depth, 4 requests of
-# 3072 tokens as phase 6; the second split point each holds to the bit, and
-# the served tokens on which sorted MoE is held to dense.
+# 3072 tokens as phase 6 (xlstm: XLSTM_S); the second split point each holds
+# to the bit, and the served tokens on which sorted MoE is held to dense.
 MOE_ARCH, XLSTM_ARCH = "deepseek-moe-16b", "xlstm-125m"
 MOE_SPLIT, XLSTM_SPLIT = 14, 6
 MOE_DENSE_TOKENS = 1024
 # 13.2's graphed serve steps: a prompt of two mLSTM chunks
 XLSTM_GRAPH_S = 512
+# 13.2's requests: 1024 tokens (4 mLSTM chunks), cut from the other
+# families' SERVE_S for the script's time (its sLSTM loop is host-bound,
+# about 2.3 ms a token of a 4-request forward); phase 16 trains it at 512.
+XLSTM_S = 1024
 # Phase 14: the vision and audio families. llama-3.2-vision-11b serves 4 x
 # 3072 tokens over its 1601 image tokens with every cross block's gate at
 # VLM_XGATE, and is held to the bit at a split inside a group of 4 attn + 1
@@ -402,6 +436,35 @@ ENTRY_STEPS, ENTRY_RESUMED, ENTRY_EVERY = 4, 2, 3
 # the gradients at 2^-8; in float32 only the order of the sums differs. The
 # forward's log-sum-exp within LSE_RTOL of 1 + |lse| (exp2 against exp).
 FLASH_BWD_RTOL, FLASH_BWD_F32_RTOL, LSE_RTOL = 1e-2, 1e-5, 1e-5
+# Phase 16: training the other five families, each at full width (depth cut
+# to fit float32 masters and AdamW, 16 bytes a parameter, where listed):
+# family -> (arch, layers kept or None, batch, tokens a sequence, frontend
+# tokens or None). The hybrid keeps rec, rec, attn (window 2048); deepseek
+# its dense first layer and two MoE layers; the vlm four self-attention
+# layers and one cross layer over a 1601 x 4096 frontend; xlstm-125m and
+# whisper-small (over 1500 frames) are whole.
+FAMILIES = {
+    "hybrid": ("recurrentgemma-9b", 3, 2, 3072, None),
+    "moe": ("deepseek-moe-16b", 3, 4, 2048, None),
+    "vlm": ("llama-3.2-vision-11b", 5, 2, 2048, 1601),
+    "audio": ("whisper-small", None, 4, 448, 1500),
+    # last: its profiled step records about a million events, after which a
+    # window may come back empty
+    "ssm": ("xlstm-125m", None, 4, 512, None),
+}
+FAMILY_SEED, FAMILY_STEPS, FAMILY_LR, FAMILY_CHUNK = 16, 5, 3e-3, 512
+FAMILY_CAPACITY, FAMILY_XGATE = 2.0, 0.5     # the launcher's capacity; every xgate
+# 16.3: the reduced model in float32 compute on the card against itself on
+# the CPU (the plain twins): the loss within REDUCED_LOSS_RTOL, each
+# gradient leaf within REDUCED_GRAD_RTOL of its largest value (a
+# one-element leaf, xgate, of its block's largest: a sum over every output
+# of the block, whose terms cancel): the same float32 terms summed in
+# another order by the kernels and cuBLAS.
+REDUCED_B, REDUCED_S, REDUCED_LOSS_RTOL, REDUCED_GRAD_RTOL = 2, 64, 1e-5, 1e-4
+# 16.4: the entry point for every family (whisper-small and xlstm-125m at
+# full size, the others --reduced), 2 steps at 8 x 128 each; whisper-small
+# then resumed for 1 step from its final checkpoint.
+ENTRY_FAMILY_STEPS, ENTRY_FAMILY_RESUMED = 2, 1
 # TPU kernel each CUDA kernel replaces, and its source in this repo.
 NOMA_SOURCE = "src/repro_torch/kernels/csrc/noma_rates.cu"
 TPU_KERNELS = {
@@ -415,6 +478,9 @@ TPU_KERNELS = {
     "flash_attention_bwd": ("src/repro/models/attention.py:46 (_chunked_mha's gradient; "
                             "no pallas_call)",
                             "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"),
+    # no TPU kernel: the JAX package takes jax.grad through its associative scan
+    "rg_lru_bwd": ("src/repro/models/recurrent.py:56 (_rglru_scan's gradient; no "
+                   "pallas_call)", "src/repro_torch/kernels/csrc/rg_lru_bwd.cu"),
 }
 
 
@@ -548,6 +614,68 @@ def device_ms(fns, reps: int = 20, trials: int = 7) -> float:
     return statistics.median(times)
 
 
+# Labels of the profiled windows that recorded no device time and were
+# measured once more (printed at the end).
+PROFILE_RETRIES: list = []
+
+
+class KernelRow:
+    """One kernel name's device time in a profiled window (the fields of a
+    key_averages row that the phases read)."""
+    __slots__ = ("key", "count", "self_device_time_total", "device_type")
+
+    def __init__(self, key, device_type):
+        self.key, self.count, self.self_device_time_total = key, 0, 0.0
+        self.device_type = device_type
+
+
+def kernel_rows(prof) -> list:
+    """The device rows of a profiled window straight from its kineto
+    events, by kernel name: what key_averages gives for them, without
+    building the host events (minutes for the sLSTM loop's million)."""
+    from torch.autograd import DeviceType
+    rows: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        row = rows.setdefault(e.name(), KernelRow(e.name(), DeviceType.CUDA))
+        row.count += 1
+        row.self_device_time_total += e.duration_ns() / 1e3
+    return list(rows.values())
+
+
+def profiled(fn, label: str, prep=None, fast: bool = False):
+    """fn() under torch.profiler (CPU and CUDA activities), timed to a
+    synchronize: (profile, wall s, fn's result, the device rows of
+    key_averages, busy us); with ``fast``, the rows of kernel_rows. A
+    window that records no device time is measured once more, after
+    prep() when given (to reset what fn counts); the phase fails only if
+    the retry is empty too. Each retry is printed and kept in
+    PROFILE_RETRIES."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(2):
+        if attempt:
+            PROFILE_RETRIES.append(label)
+            print(f"profile {label}: torch.profiler recorded no device time; the window is "
+                  f"measured once more")
+            if prep is not None:
+                prep()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = kernel_rows(prof) if fast else [
+            e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy_us = sum(e.self_device_time_total for e in rows)
+        if busy_us > 0:
+            return prof, wall, out, rows, busy_us
+    fail(f"{label}: torch.profiler recorded no device time, in the window and in its retry")
+
+
 def pool_bytes(torch, pool) -> int | None:
     """Bytes of the allocator's segments in one graph memory pool (None if
     this torch's memory snapshot does not name pools)."""
@@ -578,10 +706,6 @@ def profile_graph_steps(eng, kind: str, env, n_steps: int, label: str, eager: tu
     of the stop flag a chunk, under torch.profiler; printed beside the
     eager (ms a step, busy share). The NOMA kernels on the device trace
     must equal what the replays' bookkeeping added to the counters."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch import graphs
     from repro_torch.core import li_gd
     from repro_torch.kernels import noma_rates as nr
@@ -592,20 +716,16 @@ def profile_graph_steps(eng, kind: str, env, n_steps: int, label: str, eager: tu
     while sum(chunks) < n_steps:
         chunks.append(min(k, n_steps - sum(chunks)))
         k = min(2 * k, li_gd.SYNC_EVERY)
-    torch.cuda.synchronize()
-    nr.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_g:
-        t0 = time.perf_counter()
+    def replays():
         for k in chunks:
             for _ in range(k):
                 step_graph.replay()
             bool(done.all())
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = [e for e in prof_g.key_averages() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in rows) / 1e6
-    if busy <= 0:
-        fail(f"{label}: torch.profiler recorded no device time for the graphed steps")
+
+    nr.reset_launches()
+    prof_g, wall, _, rows, busy = profiled(replays, f"{label} (graphed steps)",
+                                           nr.reset_launches)
+    busy /= 1e6
     kernels = sum(e.count for e in rows)
     seen = {k: n for k, n in graphs.kernel_launches(prof_g).items() if k in nr.LAUNCHES}
     print(f"check {label}: NOMA kernels on the device trace of the replays {seen}, counted "
@@ -970,23 +1090,14 @@ def main() -> int:
     # -- 5. where the time goes: 40 GD steps under torch.profiler -------------
     # A window of the step that dominates the path (a full replan yields
     # ~0.5 M kernel events, minutes of profiler post-processing).
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     prof_cfg = GdConfig(optimizer="adam", max_iters=40, eps=0.0, sinr_backend="kernel")
     start = li_gd.cold_init(env2)
     li_gd.gd_solve(env2, eng.prof, 4, w, start, prof_cfg)      # warm-up
-    torch.cuda.synchronize()
     li_gd.reset_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        li_gd.gd_solve(env2, eng.prof, 4, w, start, prof_cfg)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    prof, wall, _, rows_k, busy_us = profiled(
+        lambda: li_gd.gd_solve(env2, eng.prof, 4, w, start, prof_cfg), "gd_solve split 4",
+        li_gd.reset_counts)
     n_steps = li_gd.COUNTS["steps"]
-    rows_k = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in rows_k)
-    if busy_us <= 0:
-        fail("torch.profiler recorded no device time")
     launches_k = sum(e.count for e in rows_k)
     print(f"profile gd_solve split 4, {n_steps} steps (profiled): wall_s={wall:.4f} "
           f"per_step_ms={wall / n_steps * 1e3:.3f} device_busy_s={busy_us / 1e6:.4f} "
@@ -1058,10 +1169,18 @@ def main() -> int:
     rows["flash_attention"].update(fwd_rows)
     launches["flash_attention"] += train_launches["flash_attention"]
     launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
+    # -- 16. training the hybrid, MoE, vision, xLSTM and audio families --------------
+    rows["rg_lru_bwd"], family_bwd_rows, family_launches = families_phase(dev, smi, errs, peaks)
+    rows["flash_attention_bwd"].update(family_bwd_rows)
+    for name in ("flash_attention", "flash_attention_bwd", "rg_lru"):
+        launches[name] += family_launches[name]
+    launches["rg_lru_bwd"] = family_launches["rg_lru_bwd"]
+    print(f"profile retries (windows with no device time, measured once more): "
+          f"{PROFILE_RETRIES or 'none'}")
     print("memory: peak reserved by phase (GiB): " + ", ".join(
         f"{k} {v / 2**30:.2f}" for k, v in peaks.items()))
-    kernels = [{"name": name, "route": "cuda", "source": src, "replaces": tpu,
-                "launches": launches[name], "max_abs_err": errs[name], **rows[name]}
+    kernels = [{"name": name, "route": "cuda", "source": src, "replaces": tpu, **rows[name],
+                "launches": launches[name], "max_abs_err": errs[name]}
                for name, (tpu, src) in TPU_KERNELS.items()]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, peak "
           f"{max(peaks.values()) / 2**30:.2f} GiB reserved | {smi}")
@@ -1232,8 +1351,8 @@ def serve_phase(dev, kind: str, smi: str, errs: dict):
           f"launches={main_launches}")
     if not 0 <= s_star <= cfg.n_layers:
         fail(f"serve: s*={s_star} out of range")
-    if main_launches["flash_attention_bwd"]:
-        fail("serving launched the attention backward")
+    if main_launches["flash_attention_bwd"] or main_launches["rg_lru_bwd"]:
+        fail("serving launched a backward kernel")
     for name in ("flash_attention", "rg_lru", *nr.LAUNCHES):
         if main_launches[name] <= 0:
             fail(f"{name} was not launched on the serving main path")
@@ -1553,23 +1672,14 @@ def fleet_phase(dev, smi: str, rows: dict, cfg) -> dict:
     del fleet_res, one_res
 
     # 7.4 where a fleet GD step's time goes
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     env2 = env_list[-1]
     start = li_gd.cold_init(env2)
     li_gd.gd_solve(env2, prof, 4, w, start, step_cfg)      # warm-up
-    torch.cuda.synchronize()
     li_gd.reset_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_run:
-        t0 = time.perf_counter()
-        li_gd.gd_solve(env2, prof, 4, w, start, step_cfg)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    prof_run, wall, _, rows_k, busy_us = profiled(
+        lambda: li_gd.gd_solve(env2, prof, 4, w, start, step_cfg), "fleet gd_solve split 4",
+        li_gd.reset_counts)
     n_steps = li_gd.COUNTS["steps"]
-    rows_k = [e for e in prof_run.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in rows_k)
-    if busy_us <= 0:
-        fail("torch.profiler recorded no device time for the fleet")
     launches_k = sum(e.count for e in rows_k)
     print(f"profile fleet gd_solve split 4, B={b}, {n_steps} steps (profiled): "
           f"wall_s={wall:.4f} per_step_ms={wall / n_steps * 1e3:.3f} "
@@ -2163,21 +2273,17 @@ def loop_phase(dev, smi: str, model, env, errs: dict) -> None:
         # one epoch that does not replan under torch.profiler, each way
         for mode in ("graphed", "eager"):
             loop.epoch_program = prog if mode == "graphed" else prog.eager()
-            for _ in range(3):
-                if loop.server.epoch % loop.server.replan_every:
-                    break
-                loop.step_epoch()
-            torch.cuda.synchronize()
-            nr.reset_launches()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
-                t0 = time.perf_counter()
-                loop.step_epoch()
+            def to_plain_epoch():
+                for _ in range(3):
+                    if loop.server.epoch % loop.server.replan_every:
+                        break
+                    loop.step_epoch()
                 torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            rows_k = [e for e in pr.key_averages() if e.device_type == DeviceType.CUDA]
-            busy_us = sum(e.self_device_time_total for e in rows_k)
-            if busy_us <= 0:
-                fail("loop 10.2: torch.profiler recorded no device time")
+                nr.reset_launches()
+
+            to_plain_epoch()
+            pr, wall, _, rows_k, busy_us = profiled(loop.step_epoch, f"loop 10.2 {mode} epoch",
+                                                    to_plain_epoch)
             seen = {k: n for k, n in graphs.kernel_launches(pr).items() if k in nr.LAUNCHES}
             print(f"check loop 10.2 {mode} epoch: NOMA kernels on the device trace {seen}, "
                   f"counted {dict(nr.LAUNCHES)}: {seen == nr.LAUNCHES}")
@@ -2843,20 +2949,9 @@ def profile_forward(fn, label: str, smi: str, ops: dict | None = None) -> dict:
     share, kernel count, the top kernels, and for each group of ``ops``
     (label -> aten op names, or a kernel-name fragment after "kernel:") its
     share of the busy time. Returns the numbers."""
-    import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    prof, wall, _, rows_k, busy_us = profiled(fn, label)
     avg = prof.key_averages()
-    rows_k = [e for e in avg if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in rows_k)
-    if busy_us <= 0:
-        fail(f"{label}: torch.profiler recorded no device time")
     n_kernels = sum(e.count for e in rows_k)
     print(f"{label} (profiled): wall_s={wall:.4f} device_busy_s={busy_us / 1e6:.4f} "
           f"busy_share={busy_us / 1e6 / wall:.4f} kernel_launches={n_kernels} | {smi}")
@@ -3019,20 +3114,12 @@ def program_calls(graphs, programs) -> tuple:
 def profile_steps(step, n: int, label: str, smi: str) -> dict:
     """n calls of step() under torch.profiler: ms a step, device busy ms a
     step and busy share, kernels a step."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    def steps():
         for _ in range(n):
             step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in rows) / 1e6
-    if busy <= 0:
-        fail(f"{label}: torch.profiler recorded no device time")
+
+    prof, wall, _, rows, busy = profiled(steps, label)
+    busy /= 1e6
     kernels = sum(e.count for e in rows)
     print(f"{label} {n} steps (profiled): ms_per_step={wall / n * 1e3:.4f} busy_ms_per_step="
           f"{busy / n * 1e3:.4f} busy_share={busy / wall:.4f} kernels_per_step={kernels / n:.1f}"
@@ -3498,7 +3585,7 @@ def xlstm_phase(dev, smi: str) -> None:
 
     t_phase = time.perf_counter()
     cfg = configs.get(XLSTM_ARCH)
-    B, S = SERVE_B, SERVE_S
+    B, S = SERVE_B, XLSTM_S
     for reset in (nr.reset_launches, fa.reset_launches, rl.reset_launches):
         reset()
     argv = ["--arch", XLSTM_ARCH, "--requests", str(B), "--seq", str(S), "--new-tokens", "1",
@@ -3975,6 +4062,149 @@ def leaf_names(tree, prefix: str = "") -> list[str]:
     return [prefix]
 
 
+def check_bwd(dev, gen, errs: dict, tag: str, bh, g, sq, sk, hd, causal, window, kv_len=None,
+              dtype=None):
+    """flash_attention's forward (with the log-sum-exp) and
+    flash_attention_bwd against their twins at one shape of random bf16 (or
+    ``dtype``) inputs drawn from ``gen``: the forward bit-equal to the
+    serving call's, two backward launches bit-equal, each gradient within
+    FLASH_BWD_RTOL of its terms' scale. Adds the worst errors to errs;
+    returns (q, k, v, out, lse, dout)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    dtype = dtype or torch.bfloat16
+    q = torch.randn((bh, sq, hd), device=dev, generator=gen).to(dtype)
+    k, v = (torch.randn((bh // g, sk, hd), device=dev, generator=gen).to(dtype)
+            for _ in range(2))
+    dout = torch.randn((bh, sq, hd), device=dev, generator=gen).to(dtype)
+    args = (g, causal, window, kv_len)
+    f32 = dtype == torch.float32
+    out, lse = fa.flash_attention(q, k, v, *args, return_lse=True)
+    served = fa.flash_attention(q, k, v, *args)
+    torch.cuda.synchronize()
+    if not torch.equal(out, served):
+        fail(f"flash_attention {tag}: the output with the log-sum-exp differs from the "
+             "serving call's")
+    want_out, want_lse = fa.flash_attention_plain(q, k, v, *args, return_lse=True)
+    check(f"flash_attention {tag} (with lse)", out.float(), want_out.float(),
+          FLASH_F32_RTOL if f32 else FLASH_RTOL,
+          fa.flash_attention_plain(q, k, v.abs(), *args).float(), errs, "flash_attention")
+    check(f"flash_attention {tag} lse", lse, want_lse, LSE_RTOL, 1 + want_lse.abs())
+    del want_out, want_lse, served
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, *args)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, *args)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    print(f"check flash_attention_bwd {tag}: two launches bit-equal: {same}")
+    if not same:
+        fail(f"flash_attention_bwd {tag}: two launches on the same inputs differ")
+    del again
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, *args)
+    scales = fa.flash_attention_bwd_scale(q, k, v, out, lse, dout, *args)
+    for name, x, w, sc in zip(("dq", "dk", "dv"), got, want, scales):
+        check(f"flash_attention_bwd {tag} {name}", x.float(), w.float(),
+              FLASH_BWD_F32_RTOL if f32 else FLASH_BWD_RTOL, sc, errs,
+              "flash_attention_bwd")
+    return q, k, v, out, lse, dout
+
+
+def attention_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """Unmasked (query, key) pairs of one head: query i (at position i)
+    sees keys j <= i (causal) within ``window`` (when set), or every key."""
+    if not causal:
+        return sq * sk
+    return sum(min(i + 1, sk, window or sk) for i in range(sq))
+
+
+def time_bwd(label: str, b: int, h: int, kv: int, hd: int, tensors, smi: str,
+             causal: bool = True, window: int = 0) -> dict:
+    """flash_attention_bwd at one (b * h, Sq, hd) shape over Sk keys beside
+    its twin, SDPA's backward (enable_gqa where G > 1; is_causal, a band
+    mask for a window, no mask for a bidirectional or cross call) and its
+    bound; each of its three kernels' device time within one call
+    (torch.profiler over 5 calls). Returns the row."""
+    import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, out, lse, dout = tensors
+    bh, sq, sk, g = b * h, q.shape[1], k.shape[1], h // kv
+    args = (g, causal, window, None)
+    pairs = bh * attention_pairs(sq, sk, causal, window)
+    bwd_ops = 10 * hd * pairs
+    # q out dout dq (query head rows), k v dk dv (KV rows), lse
+    bwd_bytes = 2 * (4 * bh * sq + 4 * b * kv * sk) * hd + 4 * bh * sq
+    t_ops, t_bytes = bwd_ops / BF16_OPS_PER_S * 1e3, bwd_bytes / HBM_BYTES_PER_S * 1e3
+    qs = q.view(b, h, sq, hd).detach().requires_grad_(True)
+    ks, vs = (t.view(b, kv, sk, hd).detach().requires_grad_(True) for t in (k, v))
+    mask, mask_name = None, "no mask"
+    if causal and window:
+        qi = torch.arange(sq, device=q.device)[:, None]
+        kj = torch.arange(sk, device=q.device)[None]
+        mask, mask_name = (kj <= qi) & (qi - kj < window), f"band mask (window {window})"
+    elif causal:
+        mask_name = "is_causal"
+    o_s = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                         is_causal=causal and not window, enable_gqa=g > 1)
+    do_s = dout.view(b, h, sq, hd)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(o_s, (qs, ks, vs), do_s, retain_graph=True)
+
+    lib_grads = sdpa_bwd()
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, *args)
+    scales = fa.flash_attention_bwd_scale(q, k, v, out, lse, dout, *args)
+    lib_err = [float(((x.reshape(w.shape).float() - w.float()).abs() / sc).max())
+               for x, w, sc in zip(lib_grads, want, scales)]
+    del lib_grads, want, scales
+    print(f"flash_attention_bwd library yardstick at {label}: SDPA's backward ({mask_name}"
+          f"{', enable_gqa' if g > 1 else ''}) against the twin (its own forward, not the "
+          f"kernel's): dq/dk/dv worst {lib_err} of the terms' scale")
+    torch.cuda.empty_cache()
+    row = {
+        "ms": device_ms([lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, *args)],
+                        reps=5),
+        "plain_ms": device_ms([lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                                                    *args)],
+                              reps=1, trials=3),
+        "library_ms": event_ms(sdpa_bwd),
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    print(f"time flash_attention_bwd at {label} ({bh}, {sq}, {hd}) over {sk} keys G={g} "
+          f"{'causal' if causal else 'no mask'}{f' window {window}' if window else ''}: "
+          + " ".join(f"{k_}={v_}" for k_, v_ in row.items())
+          + f" ({bwd_ops:.4e} FLOP = 10 hd x {pairs} unmasked pairs, "
+          f"{bwd_bytes / 1e6:.1f} MB; one call = 3 CUDA launches, D, dK/dV, dQ; library: "
+          f"torch.autograd.grad of scaled_dot_product_attention, {mask_name}, CUDA events "
+          f"around 5 eager calls) | {smi}")
+
+    def five():
+        for _ in range(5):
+            fa.flash_attention_bwd(q, k, v, out, lse, dout, *args)
+
+    split = {}
+    for _ in range(3):   # a window the profiler returns empty is taken again
+        fa.flash_attention_bwd(q, k, v, out, lse, dout, *args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            five()
+            torch.cuda.synchronize()
+        split = {e.key.split("<")[0].split("::")[-1].split(" ")[-1]:
+                 e.self_device_time_total / 5e3 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and "flash_bwd_" in e.key}
+        if split:
+            break
+    print(f"time flash_attention_bwd at {label}: device ms a call by kernel (torch.profiler, "
+          f"5 calls): " + (" ".join(f"{k_}={v_}" for k_, v_ in split.items()) or
+                           "not measured (three windows with no device record)") + f" | {smi}")
+    return row
+
+
 def train_phase(dev, smi: str, errs: dict, peaks: dict) -> tuple[dict, dict, dict]:
     """Phase 15: training qwen1.5-0.5b at full size. Returns the
     flash_attention_bwd timing row, the forward's timing row at the train
@@ -4014,40 +4244,8 @@ def train_phase(dev, smi: str, errs: dict, peaks: dict) -> tuple[dict, dict, dic
     entry = launch_train.parse_args([])
 
     # -- 15.1 the backward kernel against its plain twin -----------------------------
-    def check_bwd(tag, bh, g, sq, sk, hd, causal, window, kv_len=None, dtype=bf16):
-        q = torch.randn((bh, sq, hd), device=dev, generator=gen).to(dtype)
-        k, v = (torch.randn((bh // g, sk, hd), device=dev, generator=gen).to(dtype)
-                for _ in range(2))
-        dout = torch.randn((bh, sq, hd), device=dev, generator=gen).to(dtype)
-        args = (g, causal, window, kv_len)
-        f32 = dtype == torch.float32
-        out, lse = fa.flash_attention(q, k, v, *args, return_lse=True)
-        served = fa.flash_attention(q, k, v, *args)
-        torch.cuda.synchronize()
-        if not torch.equal(out, served):
-            fail(f"flash_attention {tag}: the output with the log-sum-exp differs from the "
-                 "serving call's")
-        want_out, want_lse = fa.flash_attention_plain(q, k, v, *args, return_lse=True)
-        check(f"flash_attention {tag} (with lse)", out.float(), want_out.float(),
-              FLASH_F32_RTOL if f32 else FLASH_RTOL,
-              fa.flash_attention_plain(q, k, v.abs(), *args).float(), errs, "flash_attention")
-        check(f"flash_attention {tag} lse", lse, want_lse, LSE_RTOL, 1 + want_lse.abs())
-        del want_out, want_lse, served
-        got = fa.flash_attention_bwd(q, k, v, out, lse, dout, *args)
-        again = fa.flash_attention_bwd(q, k, v, out, lse, dout, *args)
-        torch.cuda.synchronize()
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        print(f"check flash_attention_bwd {tag}: two launches bit-equal: {same}")
-        if not same:
-            fail(f"flash_attention_bwd {tag}: two launches on the same inputs differ")
-        del again
-        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, *args)
-        scales = fa.flash_attention_bwd_scale(q, k, v, out, lse, dout, *args)
-        for name, x, w, sc in zip(("dq", "dk", "dv"), got, want, scales):
-            check(f"flash_attention_bwd {tag} {name}", x.float(), w.float(),
-                  FLASH_BWD_F32_RTOL if f32 else FLASH_BWD_RTOL, sc, errs,
-                  "flash_attention_bwd")
-        return q, k, v, out, lse, dout
+    def check_bwd_(tag, bh, g, sq, sk, hd, causal, window, kv_len=None, dtype=bf16):
+        return check_bwd(dev, gen, errs, tag, bh, g, sq, sk, hd, causal, window, kv_len, dtype)
 
     # every shape the paths below launch (hd 64, G = 1, causal): label -> (rows, S)
     train_shapes = {"train step": (TRAIN_B * H, TRAIN_S),
@@ -4056,7 +4254,7 @@ def train_phase(dev, smi: str, errs: dict, peaks: dict) -> tuple[dict, dict, dic
                     "entry point": (entry.batch * H, entry.seq)}
     checked = set()
     for label, (bh, s_) in reversed(train_shapes.items()):
-        tensors = check_bwd(f"{TRAIN_ARCH} {label} ({bh}, {s_}, {HD}) G={G} causal", bh, G,
+        tensors = check_bwd_(f"{TRAIN_ARCH} {label} ({bh}, {s_}, {HD}) G={G} causal", bh, G,
                             s_, s_, HD, True, 0)
         checked.add((bh, s_, s_, HD, G, True, 0, s_))
     grid = [("window 100 G=1 hd 64", 8, 1, 300, 300, 64, True, 100),
@@ -4074,7 +4272,7 @@ def train_phase(dev, smi: str, errs: dict, peaks: dict) -> tuple[dict, dict, dic
     grid.append(("float32 window 33 bidirectional kv_len=101 G=4 hd 64", 4, 4, 120, 130, 64,
                  False, 33, 101, torch.float32))
     for case in grid:
-        check_bwd(*case)
+        check_bwd_(*case)
         torch.cuda.empty_cache()
 
     # the backward's build: each kernel's registers and spills from ptxas, and
@@ -4095,73 +4293,10 @@ def train_phase(dev, smi: str, errs: dict, peaks: dict) -> tuple[dict, dict, dic
                 fail(f"flash_attention_bwd hd {hd} {dt}: the kernels opt in to {got_smem} "
                      f"bytes, bwd_smem_bytes says {fa.bwd_smem_bytes(hd, dt)}")
 
-    def time_bwd(label, b, h, kv, hd, tensors):
-        """The backward at one causal (b * h, S, hd) shape beside the twin,
-        SDPA's backward (enable_gqa where G > 1) and the bound; each of its
-        three kernels' device time within one call (torch.profiler over 5
-        calls)."""
-        q, k, v, out, lse, dout = tensors
-        bh, sq, g = b * h, q.shape[1], h // kv
-        args = (g, True, 0, None)
-        pairs = bh * sq * (sq + 1) // 2
-        bwd_ops = 10 * hd * pairs
-        # q out dout dq (query head rows), k v dk dv (KV rows), lse
-        bwd_bytes = 2 * (4 * bh + 4 * b * kv) * sq * hd + 4 * bh * sq
-        t_ops, t_bytes = bwd_ops / BF16_OPS_PER_S * 1e3, bwd_bytes / HBM_BYTES_PER_S * 1e3
-        qs, ks, vs = (t.view(b, -1, sq, hd).detach().requires_grad_(True) for t in (q, k, v))
-        o_s = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=g > 1)
-        do_s = dout.view(b, h, sq, hd)
+    def time_bwd_(label, b, h, kv, hd, tensors):
+        return time_bwd(label, b, h, kv, hd, tensors, smi)
 
-        def sdpa_bwd():
-            return torch.autograd.grad(o_s, (qs, ks, vs), do_s, retain_graph=True)
-
-        lib_grads = sdpa_bwd()
-        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, *args)
-        scales = fa.flash_attention_bwd_scale(q, k, v, out, lse, dout, *args)
-        lib_err = [float(((x.reshape(w.shape).float() - w.float()).abs() / sc).max())
-                   for x, w, sc in zip(lib_grads, want, scales)]
-        del lib_grads, want, scales
-        print(f"flash_attention_bwd library yardstick at {label}: SDPA's backward (is_causal"
-              f"{', enable_gqa' if g > 1 else ''}) against the twin (its own forward, not the "
-              f"kernel's): dq/dk/dv worst {lib_err} of the terms' scale")
-        torch.cuda.empty_cache()
-        row = {
-            "ms": device_ms([lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, *args)],
-                            reps=5),
-            "plain_ms": device_ms([lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, dout,
-                                                                        *args)],
-                                  reps=1, trials=3),
-            "library_ms": event_ms(sdpa_bwd),
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        }
-        row["bound_share"] = row["bound_ms"] / row["ms"]
-        print(f"time flash_attention_bwd at {label} ({bh}, {sq}, {hd}) G={g} causal: "
-              + " ".join(f"{k}={v}" for k, v in row.items())
-              + f" ({bwd_ops:.4e} FLOP = 10 hd x {pairs} unmasked pairs, "
-              f"{bwd_bytes / 1e6:.1f} MB; one call = 3 CUDA launches, D, dK/dV, dQ; library: "
-              f"torch.autograd.grad of scaled_dot_product_attention, is_causal, CUDA events "
-              f"around 5 eager calls) | {smi}")
-        split = {}
-        for _ in range(3):   # a window the profiler returns empty is taken again
-            fa.flash_attention_bwd(q, k, v, out, lse, dout, *args)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(5):
-                    fa.flash_attention_bwd(q, k, v, out, lse, dout, *args)
-                torch.cuda.synchronize()
-            split = {e.key.split("<")[0].split("::")[-1].split(" ")[-1]:
-                     e.self_device_time_total / 5e3 for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA and "flash_bwd_" in e.key}
-            if split:
-                break
-        print(f"time flash_attention_bwd at {label}: device ms a call by kernel (torch.profiler, "
-              f"5 calls): " + (" ".join(f"{k}={v}" for k, v in split.items()) or
-                               "not measured (three windows with no device record)")
-              + f" | {smi}")
-        return row
-
-    bwd_row = time_bwd(f"{TRAIN_ARCH}'s train shape", TRAIN_B, H, KV, HD, tensors)
+    bwd_row = time_bwd_(f"{TRAIN_ARCH}'s train shape", TRAIN_B, H, KV, HD, tensors)
     del tensors
     gc.collect()
     torch.cuda.empty_cache()
@@ -4169,9 +4304,9 @@ def train_phase(dev, smi: str, errs: dict, peaks: dict) -> tuple[dict, dict, dic
     # heads over 2 KV heads (G = 6), S 2048, causal
     w_cfg = configs.get(WIDE_ARCH)
     w_b, w_h, w_kv, w_hd = TRAIN_B, w_cfg.n_heads, w_cfg.n_kv_heads, w_cfg.hd
-    wide = check_bwd(f"{WIDE_ARCH} ({w_b * w_h}, {TRAIN_S}, {w_hd}) G={w_h // w_kv} causal",
+    wide = check_bwd_(f"{WIDE_ARCH} ({w_b * w_h}, {TRAIN_S}, {w_hd}) G={w_h // w_kv} causal",
                      w_b * w_h, w_h // w_kv, TRAIN_S, TRAIN_S, w_hd, True, 0)
-    time_bwd(f"{WIDE_ARCH}'s layout", w_b, w_h, w_kv, w_hd, wide)
+    time_bwd_(f"{WIDE_ARCH}'s layout", w_b, w_h, w_kv, w_hd, wide)
     del wide
     gc.collect()
     torch.cuda.empty_cache()
@@ -4239,16 +4374,8 @@ def train_phase(dev, smi: str, errs: dict, peaks: dict) -> tuple[dict, dict, dic
             fail(f"train 15.2: the {kind} kernel ran at shapes 15.1 did not check: {unchecked}")
     step_s = statistics.median(walls[1:])
     # one profiled step: the busy share and where the time goes
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, met = step(state, prof_batch)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    rows_k = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in rows_k)
-    if busy_us <= 0:
-        fail("train 15.2: torch.profiler recorded no device time")
+    prof, prof_wall, (state, met), rows_k, busy_us = profiled(
+        lambda: step(state, prof_batch), "train 15.2 step")
     fwd_us = sum(e.self_device_time_total for e in rows_k if "flash_wgmma_kernel" in e.key)
     bwd_us = sum(e.self_device_time_total for e in rows_k if "flash_bwd_" in e.key)
     gemm_us = sum(e.self_device_time_total for e in rows_k
@@ -4392,12 +4519,497 @@ def train_phase(dev, smi: str, errs: dict, peaks: dict) -> tuple[dict, dict, dic
     memory_mark(torch, "15.3", peaks)
     fwd_row["launches"] = (shapes["forward"][(TRAIN_B * H, TRAIN_S, TRAIN_S, HD, G, True, 0,
                                               TRAIN_S)])
-    bwd_row["launches"] = launches["flash_attention_bwd"] + first["launched"][
-        "flash_attention_bwd"] + resumed["launched"]["flash_attention_bwd"]
     bwd_row["train_step"] = train_row
     total = {k: launches[k] + first["launched"][k] + resumed["launched"][k]
              for k in ("flash_attention", "flash_attention_bwd")}
     return bwd_row, {f"{TRAIN_ARCH} train": fwd_row}, total
+
+
+def family_config(family: str):
+    """(config with its depth cut, batch, tokens, frontend tokens or None)."""
+    from repro_torch import configs
+    arch, layers, b, s, f = FAMILIES[family]
+    cfg = configs.get(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return cfg, b, s, f
+
+
+def family_attention(model, b: int, s: int, f) -> list[tuple]:
+    """Every flash_attention call of the model's training forward: (label,
+    query rows, G, Sq, Sk, hd, causal, window), one per call site kind, with
+    how many times a forward makes it."""
+    cfg = model.cfg
+    h, g, hd = cfg.n_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
+    calls: dict = {}
+
+    def add(label, sq, sk, causal, window, n):
+        key = (label, b * h, g, sq, sk, hd, causal, window)
+        calls[key] = calls.get(key, 0) + n
+
+    for spec in model.stages:
+        if spec.kind == "enc":
+            add("encoder", f, f, False, 0, spec.n_layers)
+        elif spec.kind in ("attn", "dec"):
+            add("self" + (f", window {spec.window}" if spec.window else ""), s, s, spec.causal,
+                spec.window, spec.n_layers)
+        if spec.kind in ("dec", "cross"):
+            add(f"cross over {f}", s, f, False, 0, spec.n_layers)
+    return [(*key, n) for key, n in calls.items()]
+
+
+def train_flops(model, b: int, s: int, f) -> tuple[float, int, int]:
+    """Model FLOPs of one training step, counted as phase 15 counts them: 6
+    x (each matmul parameter x the tokens it multiplies: text tokens, or
+    frontend tokens for the encoder and the cross attention's K and V) + 12
+    hd a head's unmasked attention pair (forward 4 hd, backward 8 hd).
+    MoE counts the router, the shared experts and top_k of the routed
+    experts a token (not the capacity's padding); the sLSTM's recurrent
+    matrix counts a token; the depthwise conv, the norms and the mLSTM's
+    chunk products are not counted. Returns (FLOPs, parameter-token
+    products, attention pairs)."""
+    cfg = model.cfg
+    t_text, t_front = b * s, b * (f or 0)
+    mm = t_text * model.top.unembed.numel()
+    numel = lambda tree, keys: sum(tree[k].numel() for k in keys if k in tree)  # noqa: E731
+    for spec, layers in zip(model.stages, model.stage_layers):
+        tok = t_front if spec.kind == "enc" else t_text
+        for blk in layers:
+            p = blk.p.tree()
+            if "attn" in p:
+                mm += tok * numel(p["attn"], ("wq", "wk", "wv", "wo"))
+            if "xattn" in p:
+                mm += t_text * numel(p["xattn"], ("wq", "wo"))
+                mm += t_front * numel(p["xattn"], ("wk", "wv"))
+            if "mlp" in p:
+                mm += tok * numel(p["mlp"], ("w1", "w2", "w3"))
+            if "moe" in p:
+                q = p["moe"]
+                mm += tok * numel(q, ("router", "sw1", "sw2", "sw3"))
+                mm += tok * cfg.top_k * numel(q, ("w1", "w2", "w3")) // cfg.n_experts
+            if "rglru" in p:
+                mm += tok * numel(p["rglru"], ("w_in", "w_gate", "w_r", "w_i", "w_out"))
+            if "mlstm" in p:
+                mm += tok * numel(p["mlstm"], ("wq", "wk", "wv", "wi", "wf", "wo_gate", "wo"))
+            if "slstm" in p:
+                mm += tok * numel(p["slstm"], ("w_zifo", "r_zifo", "w_out"))
+    pairs = sum(n * rows * attention_pairs(sq, sk, causal, window)
+                for _, rows, _, sq, sk, _, causal, window, n in family_attention(model, b, s, f))
+    return 6 * mm + 12 * cfg.hd * pairs, mm, pairs
+
+
+def rg_lru_bwd_checks(dev, errs: dict, smi: str) -> dict:
+    """16.0 for the hybrid: rg_lru at the train step's (2, 3072, 4096) and
+    rg_lru_bwd against its twin, bit for bit, there (with and without h0,
+    TMA), at a ragged S and W, at W % 4 != 0 (cp.async) and with dh off a
+    16-byte boundary (cp.async at the train shape); two launches bit-equal
+    at each. Then its time beside its twin's, its bound and a same-bytes
+    yardstick. Returns the timing row."""
+    import torch
+
+    from repro_torch.kernels import rg_lru as rl
+    cfg, b, s, _ = family_config("hybrid")
+    w = cfg.rglru_dim
+    gen = torch.Generator(device=dev).manual_seed(FAMILY_SEED)
+    # label, B, S, W, h0, dh's offset in floats, filled by TMA
+    cases = [("train shape", b, s, w, False, 0, True), ("train shape, h0", b, s, w, True, 0, True),
+             ("ragged S and W, h0", 3, 1000, 200, True, 0, True),
+             ("W % 4 != 0, h0", 2, 77, 30, True, 0, False),
+             ("train shape, dh off 16 bytes", b, s, w, False, 1, False)]
+    for label, bb, ss, ww, with_h0, off, want_tma in cases:
+        log_a = -8.0 * torch.rand((bb, ss, ww), device=dev, generator=gen)
+        x = torch.randn((bb, ss, ww), device=dev, generator=gen)
+        h0 = torch.randn((bb, ww), device=dev, generator=gen) if with_h0 else None
+        dh = torch.randn(bb * ss * ww + off, device=dev, generator=gen)[off:].view(bb, ss, ww)
+        h = rl.rg_lru(log_a, x, h0)
+        if (bb, ss, ww) == (b, s, w) and not with_h0 and not off:
+            same = torch.equal(h, rl.rg_lru_plain(log_a, x, h0))
+            print(f"check rg_lru at the hybrid train shape ({b}, {s}, {w}) bit-equal to its "
+                  f"twin: {same}")
+            if not same:
+                fail("rg_lru: the kernel differs from its twin at the hybrid train shape")
+        tma = rl.uses_tma(ww, log_a.data_ptr(), h.data_ptr(), dh.data_ptr())
+        got = rl.rg_lru_bwd(log_a, h, h0, dh)
+        again = rl.rg_lru_bwd(log_a, h, h0, dh)
+        want = rl.rg_lru_bwd_plain(log_a, h, h0, dh)
+        torch.cuda.synchronize()
+        pairs = [(n, a, c, d) for n, a, c, d in zip(("dlog_a", "db", "dh0"), got, again, want)
+                 if d is not None]
+        equal = all(torch.equal(a, d) for _, a, _, d in pairs)
+        repeat = all(torch.equal(a, c) for _, a, c, _ in pairs)
+        err = max(float((a - d).abs().max()) for _, a, _, d in pairs)
+        errs["rg_lru_bwd"] = max(errs.get("rg_lru_bwd", 0.0), err)
+        print(f"check rg_lru_bwd {label} ({bb}, {ss}, {ww}) {'TMA' if tma else 'cp.async'}: "
+              f"bit-equal to its twin {equal} (max_abs_err={err:.3e}), two launches "
+              f"bit-equal {repeat}, dh0 {'returned' if got[2] is not None else 'None'}")
+        if not (equal and repeat) or (got[2] is None) != (h0 is None):
+            fail(f"rg_lru_bwd {label}: differs from its twin or from itself")
+        if tma != want_tma:
+            fail(f"rg_lru_bwd {label}: filled by {'TMA' if tma else 'cp.async'}")
+        del log_a, x, h0, dh, h, got, again, want, pairs
+    # time at the train shape (the path's: no h0)
+    log_a = -8.0 * torch.rand((b, s, w), device=dev, generator=gen)
+    h = rl.rg_lru(log_a, torch.randn((b, s, w), device=dev, generator=gen))
+    dh = torch.randn((b, s, w), device=dev, generator=gen)
+    buf = torch.empty_like(log_a)
+    n_el = b * s * w
+    t_bytes = 20 * n_el / HBM_BYTES_PER_S * 1e3
+    t_ops = 5 * n_el / FP32_INSTR_PER_S * 1e3   # exp, a multiply-add (2), 2 multiplies
+    row = {"ms": device_ms([lambda: rl.rg_lru_bwd(log_a, h, None, dh)], reps=20),
+           "plain_ms": device_ms([lambda: rl.rg_lru_bwd_plain(log_a, h, None, dh)], reps=1,
+                                 trials=3),
+           "library_ms": None, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "stream_ms": device_ms([lambda: torch.addcmul(log_a, h, dh, out=buf)], reps=20)}
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    # the cp.async path at the same shape: dh 4 bytes past a 16-byte boundary
+    dh_c = torch.empty(n_el + 1, device=dev)[1:].view_as(dh).copy_(dh)
+    if rl.uses_tma(w, log_a.data_ptr(), h.data_ptr(), dh_c.data_ptr()):
+        fail("rg_lru_bwd: a misaligned dh would be filled by TMA")
+    row["cp_async_ms"] = device_ms([lambda: rl.rg_lru_bwd(log_a, h, None, dh_c)], reps=20)
+    row["library_note"] = (
+        "no single PyTorch call computes the reverse recurrence; the closed form through "
+        "cumsum(log_a) underflows as the forward's does; stream_ms is torch.addcmul(log_a, h, "
+        "dh, out=buf), 16 of the kernel's 20 bytes an element")
+    print(f"time rg_lru_bwd at ({b}, {s}, {w}): " + " ".join(f"{k}={v}" for k, v in row.items())
+          + f" ({20 * n_el / 1e6:.1f} MB: log_a, h, dh read, dlog_a, db written) | {smi}")
+    return row
+
+
+def grad_gaps(card, host) -> tuple[float, str]:
+    """Worst |card - host| of the gradient trees' leaves over each leaf's
+    largest |host| value (a one-element leaf: over its block's largest)."""
+    from repro_torch.core.types import tree_flatten
+    names = leaf_names(host)
+    ca, ho = tree_flatten(card)[0], tree_flatten(host)[0]
+    block_max: dict = {}
+    for n, x in zip(names, ho):
+        blk = n.rsplit("/", 2)[0]
+        block_max[blk] = max(block_max.get(blk, 0.0), float(x.abs().max()))
+    worst, where = 0.0, ""
+    for n, a, x in zip(names, ca, ho):
+        scale = block_max[n.rsplit("/", 2)[0]] if x.numel() == 1 else float(x.abs().max())
+        e = float((a.cpu() - x).abs().max()) / max(scale, 1e-30)
+        if e > worst:
+            worst, where = e, n
+    return worst, where
+
+
+def reduced_check(dev, family: str, smi: str) -> None:
+    """16.3: the family's reduced model with COMPUTE_DTYPE float32, on the
+    card (the kernels) against the same parameters on the CPU (the plain
+    twins): loss and every gradient leaf (REDUCED_*_RTOL)."""
+    import importlib
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import make_batch
+    from repro_torch.launch.train import frontend_shape
+    from repro_torch.models import Model
+    from repro_torch.runtime import train as rt
+    mods = [importlib.import_module(f"repro_torch.models.{m}")
+            for m in ("layers", "attention", "moe", "recurrent", "xlstm", "model")]
+    saved = [m.COMPUTE_DTYPE for m in mods]
+    try:
+        for m in mods:
+            m.COMPUTE_DTYPE = torch.float32
+        cfg = configs.get(FAMILIES[family][0]).reduced()
+        batch = make_batch(FAMILY_SEED, 0, REDUCED_B, REDUCED_S, cfg.vocab_size,
+                           frontend_shape(cfg, REDUCED_S), device="cpu")
+        out = []
+        for d in (dev, torch.device("cpu")):
+            model = Model(cfg, device=d, trainable=True, moe_capacity=FAMILY_CAPACITY)
+            if d.type == "cuda":
+                model.init(torch.Generator(device=d).manual_seed(FAMILY_SEED))
+                set_xgate(model)
+                params = model.param_tree()
+            else:
+                model.load_params_(to_cpu(params))
+            nll, aux, g = rt.loss_and_grads(model, {k: v.to(d) for k, v in batch.items()},
+                                            seq_chunk=32)
+            out.append((float(nll), float(aux), g))
+        worst, where = grad_gaps(out[0][2], out[1][2])
+        print(f"check family 16.3 {family} reduced, float32 compute, card against CPU: loss "
+              f"{out[0][0]!r} / {out[1][0]!r}, aux {out[0][1]!r} / {out[1][1]!r}, worst "
+              f"gradient leaf {worst:.3e} of its scale at {where} (tol {REDUCED_GRAD_RTOL:g})")
+        if (abs(out[0][0] - out[1][0]) > REDUCED_LOSS_RTOL * abs(out[1][0])
+                or abs(out[0][1] - out[1][1]) > REDUCED_LOSS_RTOL * max(1.0, abs(out[1][1]))
+                or worst > REDUCED_GRAD_RTOL):
+            fail(f"family 16.3 {family}: the card's reduced train pass differs from the CPU's")
+    finally:
+        for m, dt in zip(mods, saved):
+            m.COMPUTE_DTYPE = dt
+
+
+def to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_cpu(v) for v in tree]
+    return tree.detach().cpu()
+
+
+def set_xgate(model) -> None:
+    """Every cross block's xgate to FAMILY_XGATE (the reference initialises
+    it to 0, where the block adds nothing and its weights get no
+    gradient)."""
+    import torch
+    with torch.no_grad():
+        for layers in model.stage_layers:
+            for blk in layers:
+                if "xgate" in blk.p.tree():
+                    blk.p.tree()["xgate"].fill_(FAMILY_XGATE)
+
+
+def family_train(dev, family: str, smi: str, errs: dict, bwd_rows: dict) -> dict:
+    """16.0-16.3 for one family. Returns the launches of the timed steps
+    (16.2, counted from 0 around them) of each kernel."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.core.types import tree_flatten
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rg_lru as rl
+    from repro_torch.models import Model, moe
+    from repro_torch.runtime import train as rt
+
+    t_fam = time.perf_counter()
+    cfg, b, s, f = family_config(family)
+    gen = torch.Generator(device=dev).manual_seed(FAMILY_SEED + 1)
+    model = Model(cfg, device=dev, trainable=True, remat=True, moe_capacity=FAMILY_CAPACITY)
+    calls = family_attention(model, b, s, f)
+    # -- 16.0 the kernels at every shape the step launches ---------------------------
+    checked = set()
+    for label, rows, g, sq, sk, hd, causal, window, n in calls:
+        tag = f"{cfg.name} {label} ({rows}, {sq}, {hd}) over {sk} G={g}"
+        tensors = check_bwd(dev, gen, errs, tag, rows, g, sq, sk, hd, causal, window)
+        checked.add((rows, sq, sk, hd, g, causal, window, sk))
+        row = time_bwd(f"{cfg.name} {label}", b, cfg.n_heads, cfg.n_kv_heads, hd, tensors, smi,
+                       causal, window)
+        bwd_rows[f"{cfg.name} {label}"] = row
+        del tensors
+        torch.cuda.empty_cache()
+    n_rec = sum(sp.n_layers for sp in model.stages if sp.kind == "rec")
+    n_moe = sum(sp.n_layers for sp in model.stages if sp.moe)
+    n_calls = sum(c[-1] for c in calls)
+    want = {"flash_attention": 2 * n_calls, "flash_attention_bwd": n_calls,
+            "rg_lru": 2 * n_rec, "rg_lru_bwd": n_rec}
+    print(f"family 16.0 {family}: {cfg.name}, {len(calls)} attention shapes checked and timed "
+          f"in {time.perf_counter() - t_fam:.1f} s; launches a step expected {want}")
+
+    # -- 16.1 one untimed step, then two gradient passes from one state and batch ---------
+    t0 = time.perf_counter()
+    state = rt.init_state(model, torch.Generator(device=dev).manual_seed(FAMILY_SEED))
+    set_xgate(model)
+    n_params = sum(p.numel() for p in model.parameters())
+    flops, mm, pairs = train_flops(model, b, s, f)
+    torch.cuda.synchronize()
+    print(f"family 16.1 {family}: {cfg.name}, {cfg.n_layers} layers at full width, {n_params} "
+          f"parameters ({16 * n_params / 1e9:.2f} GB at 16 bytes a parameter), {b} x {s} "
+          f"tokens{f' over {f} frontend tokens' if f else ''}, init "
+          f"{time.perf_counter() - t0:.2f} s; model FLOPs a step 6 x {mm} parameter-tokens + "
+          f"12 x {cfg.hd} x {pairs} attention pairs = {flops:.4e}")
+    step = rt.make_train_step(model, base_lr=FAMILY_LR, seq_chunk=FAMILY_CHUNK)
+    fs = None if f is None else (f, cfg.d_model)
+    batches = [make_batch(FAMILY_SEED, i, b, s, cfg.vocab_size, fs, device=dev)
+               for i in range(FAMILY_STEPS + 2)]
+    state, met = step(state, batches[0])
+    torch.cuda.synchronize()
+    first = float(met["loss"])
+    # pass A's gradients go to the host: two trees would not fit beside the state
+    nll_a, aux_a, g_a = rt.loss_and_grads(model, batches[1], seq_chunk=FAMILY_CHUNK)
+    host_a = [x.cpu() for x in tree_flatten(g_a)[0]]
+    del g_a
+    nll_b, aux_b, g_b = rt.loss_and_grads(model, batches[1], seq_chunk=FAMILY_CHUNK)
+    names = leaf_names(g_b)
+    differ = [n for n, a, x in zip(names, host_a, tree_flatten(g_b)[0])
+              if not torch.equal(a, x.cpu())]
+    same_loss = torch.equal(nll_a, nll_b) and torch.equal(aux_a, aux_b)
+    print(f"check family 16.1 {family}: two gradient passes from one state and batch bit-equal: "
+          f"loss and aux {same_loss}, {len(names)} leaves, differing: {differ or 'none'} "
+          f"(first step's loss {first!r})")
+    del host_a, g_b
+    if differ or not same_loss:
+        fail(f"family 16.1 {family}: two gradient passes differ")
+
+    # -- 16.2 timed steps ------------------------------------------------------------
+    walls, losses, launches = [], [], {k: 0 for k in want}
+    shapes = {"forward": set(), "backward": set()}
+    for i in range(FAMILY_STEPS):
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        rl.reset_launches()
+        with moe.drop_log() as drops:
+            t0 = time.perf_counter()
+            state, met = step(state, batches[2 + i])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        got = {**fa.LAUNCHES, **rl.LAUNCHES}
+        shapes["forward"] |= set(fa.SHAPES)
+        shapes["backward"] |= set(fa.BWD_SHAPES)
+        for k in launches:
+            launches[k] += got[k]
+        losses.append(float(met["loss"]))
+        if got != want:
+            fail(f"family 16.2 {family} step {i}: launches {got}, expected {want}")
+        if len(drops) != n_moe:
+            fail(f"family 16.2 {family} step {i}: {len(drops)} dropped-slot counts logged, "
+                 f"expected one a MoE layer ({n_moe})")
+        if not math.isfinite(losses[-1]):
+            fail(f"family 16.2 {family} step {i}: loss {losses[-1]}")
+    for kind, seen in shapes.items():
+        if seen - checked:
+            fail(f"family 16.2 {family}: the {kind} flash kernel ran at shapes 16.0 did not "
+                 f"check: {sorted(seen - checked)}")
+    step_s = statistics.median(walls)
+    prof, prof_wall, (state, met), rows_k, busy_us = profiled(
+        lambda: step(state, batches[-1]), f"family 16.2 {family} step", fast=True)
+
+    def share(*frags):
+        return sum(e.self_device_time_total for e in rows_k
+                   if any(fr in e.key for fr in frags)) / busy_us
+
+    gemm = sum(e.self_device_time_total for e in rows_k
+               if any(t in e.key.lower() for t in ("gemm", "cutlass", "sm90_xmma", "nvjet")))
+    for e in sorted(rows_k, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"family 16.2 {family} profile kernel {e.self_device_time_total / 1e3:9.2f} ms "
+              f"{e.self_device_time_total / busy_us:6.1%} {e.count:6d} launches  {e.key[:80]}")
+    peak = torch.cuda.max_memory_reserved()
+    row = dict(step_ms=step_s * 1e3, step_ms_min=min(walls) * 1e3, tokens_per_s=b * s / step_s,
+               mfu=flops / step_s / BF16_OPS_PER_S, busy_share=busy_us / 1e6 / prof_wall,
+               profiled_step_ms=prof_wall * 1e3,
+               flash_fwd_share=share("flash_wgmma_kernel", "flash_f32_kernel"),
+               flash_bwd_share=share("flash_bwd_"),
+               rg_lru_share=share("rg_lru_kernel"), rg_lru_bwd_share=share("rg_lru_bwd_kernel"),
+               gemm_share=gemm / busy_us, peak_reserved_gib=peak / 2**30,
+               loss_first=first, loss_last=losses[-1], parameters=n_params)
+    print(f"time family 16.2 {family} ({cfg.name}, {b} x {s} tokens a step, median of "
+          f"{FAMILY_STEPS}; launches a step {want}): "
+          + " ".join(f"{k}={v}" for k, v in row.items()) + f" | {smi}")
+    del prof, rows_k, state, step, batches, met, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 16.3 the reduced model on the card against the CPU ----------------------------
+    reduced_check(dev, family, smi)
+    print(f"family: {family} took {time.perf_counter() - t_fam:.1f} s")
+    return {**launches, "row": row}
+
+
+def family_entry_points(dev, smi: str) -> dict:
+    """16.4: launch.train.main for every family (xlstm-125m and
+    whisper-small at full size, the others --reduced), ENTRY_FAMILY_STEPS
+    steps at the launcher's 8 x 128; whisper-small then resumed for
+    ENTRY_FAMILY_RESUMED step from its final checkpoint, its losses
+    bit-equal to an uninterrupted run's. Returns the launches of the runs."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rg_lru as rl
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import Model
+    from repro_torch.runtime import train as rt
+
+    total: dict = {}
+    entry = launch_train.parse_args([])
+    for family, (arch, _, _, _, _) in FAMILIES.items():
+        full = family in ("ssm", "audio")
+        base = tempfile.mkdtemp(prefix="chip_smoke_family_")
+        argv = ["--arch", arch, "--log-every", "1", "--ckpt-dir", base] + (
+            [] if full else ["--reduced"])
+        try:
+            runs = []
+            for n in ((ENTRY_FAMILY_STEPS, ENTRY_FAMILY_RESUMED) if family == "audio"
+                      else (ENTRY_FAMILY_STEPS,)):
+                fa.reset_launches()
+                rl.reset_launches()
+                t0 = time.perf_counter()
+                out = launch_train.main(argv + ["--steps", str(n)])
+                torch.cuda.synchronize()
+                launched = {**fa.LAUNCHES, **rl.LAUNCHES}
+                for k, v in launched.items():
+                    total[k] = total.get(k, 0) + v
+                out.pop("state")
+                runs.append(out)
+                print(f"family 16.4 {family}: python -m repro_torch.launch.train "
+                      f"{' '.join(argv + ['--steps', str(n)])}: {out['done']} steps from "
+                      f"{out['start']} in {time.perf_counter() - t0:.2f} s, losses "
+                      f"{out['losses']}, launches {launched}")
+                if out["done"] != n or not all(map(math_isfinite, out["losses"].values())):
+                    fail(f"family 16.4 {family}: the entry point trained {out['done']} of {n} "
+                         f"steps, losses {out['losses']}")
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            shutil.rmtree(base, ignore_errors=True)
+        if family != "audio":
+            continue
+        # the uninterrupted reference run of whisper-small
+        cfg = configs.get(arch)
+        model = Model(cfg, device=dev, moe_capacity=FAMILY_CAPACITY, trainable=True, remat=True)
+        state = rt.init_state(model, torch.Generator(device=dev).manual_seed(entry.seed))
+        step = rt.make_train_step(model, entry.microbatches)
+        data = SyntheticLM(entry.seed, entry.batch, entry.seq, cfg.vocab_size,
+                           launch_train.frontend_shape(cfg, entry.seq), device=dev)
+        ref = []
+        try:
+            for _ in range(ENTRY_FAMILY_STEPS + ENTRY_FAMILY_RESUMED):
+                state, met = step(state, next(data))
+                ref.append(float(met["loss"]))
+        finally:
+            data.close()
+        del model, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        got = [runs[0]["losses"][i] for i in range(ENTRY_FAMILY_STEPS)] + [
+            runs[1]["losses"][ENTRY_FAMILY_STEPS + i] for i in range(ENTRY_FAMILY_RESUMED)]
+        print(f"check family 16.4 audio: whisper-small's losses, {ENTRY_FAMILY_STEPS} steps and "
+              f"{ENTRY_FAMILY_RESUMED} resumed from the final checkpoint, {got} against an "
+              f"uninterrupted run's {ref}: bit-equal {got == ref} | {smi}")
+        if got != ref or runs[1]["start"] != ENTRY_FAMILY_STEPS:
+            fail("family 16.4: whisper-small's resumed losses differ from an uninterrupted run's")
+    return total
+
+
+def math_isfinite(x) -> bool:
+    import math
+    return math.isfinite(x)
+
+
+def families_phase(dev, smi: str, errs: dict, peaks: dict) -> tuple[dict, dict, dict]:
+    """Phase 16: training the hybrid, MoE, vision, xLSTM and audio families
+    on the card. Returns the rg_lru_bwd timing row, the flash backward's
+    rows at the new shapes, and the main paths' launches of each kernel
+    (16.2's timed steps, and 16.4's entry points)."""
+    import torch
+    t_phase = time.perf_counter()
+    bwd_row = rg_lru_bwd_checks(dev, errs, smi)
+    launches: dict = {}
+    bwd_rows: dict = {}
+    steps: dict = {}
+    for family in FAMILIES:
+        got = family_train(dev, family, smi, errs, bwd_rows)
+        steps[family] = got.pop("row")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        memory_mark(torch, f"16 {family}", peaks)
+    for k, v in family_entry_points(dev, smi).items():
+        launches[k] = launches.get(k, 0) + v
+    memory_mark(torch, "16.4", peaks)
+    bwd_row["train_steps"] = steps
+    print(f"families: phase 16 took {time.perf_counter() - t_phase:.1f} s | {smi}")
+    return bwd_row, bwd_rows, launches
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -255,11 +255,13 @@ def _port_layout(model, tree: dict, device) -> dict:
 
 
 def train_state_from_numpy(model, params: dict, m: dict, v: dict, opt_step, step):
-    """The reference's TrainState (params, AdamWState(step, m, v), step), its
-    trees given as numpy arrays, as the port's runtime.train.TrainState on
-    a Model(trainable=True): the params loaded into the model's float32
-    masters (the state's params are the model's own parameters), m and v
-    as float32 trees in the same layout, the steps int32. Returns it."""
+    """The reference's TrainState (params, AdamWState(step, m, v), step) of
+    any family, its trees given as numpy arrays, as the port's
+    runtime.train.TrainState on a Model(trainable=True) of the same
+    config, so a JAX state trains on in the port: the params loaded into
+    the model's float32 masters (the state's params are the model's own
+    parameters), m and v as float32 trees in the same layout, the steps
+    int32. Returns it."""
     from repro_torch.optim import AdamWState
     from repro_torch.runtime.train import TrainState
     if not model.trainable:

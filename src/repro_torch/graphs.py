@@ -212,7 +212,8 @@ KERNEL_SYMBOLS = (("flash_wgmma_kernel", "flash_attention"),
                   ("cell_intra_kernel", "noma_cell_intra"),
                   ("per_ap_kernel", "noma_per_ap"),
                   ("ap_contract_kernel", "noma_ap_contract"),
-                  ("rg_lru_kernel", "rg_lru"))
+                  ("rg_lru_kernel", "rg_lru"),
+                  ("rg_lru_bwd_kernel", "rg_lru_bwd"))
 
 
 def traced_launches(fn):

@@ -47,6 +47,9 @@ SIGNATURES = {
     "rg_lru": {
         "rg_lru": [_P] * 4 + [_I] * 5 + [_P],
     },
+    "rg_lru_bwd": {
+        "rg_lru_bwd": [_P] * 7 + [_I] * 5 + [_P],
+    },
 }
 # The compiler log (ptxas register and shared-memory report) and the wall
 # seconds of each source's build, for chip_smoke.py to print; a library

@@ -1,7 +1,9 @@
 """Public wrappers around the kernels.
 
 flash_attention and rg_lru take the models' layouts and reshape to the
-kernels' (no padding: the kernels mask their ragged edges).
+kernels' (no padding: the kernels mask their ragged edges); each is an
+autograd Function, its backward a kernel of its own, when a training step
+needs its gradient.
 
 torch.autograd.Functions carry the uplink and downlink pairwise terms: the
 forward runs noma_pairwise_kernel, the backward re-streams the same raw gain
@@ -69,10 +71,32 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0) -> torch.Tens
     return out.view(b, h, sq, hd).transpose(1, 2)
 
 
+class _RgLru(torch.autograd.Function):
+    """rg_lru as a differentiable function: the forward kernel, and the
+    backward kernel on the saved log_a, h and h0 (their plain twins on the
+    CPU)."""
+
+    @staticmethod
+    def forward(ctx, log_a, b, h0):
+        h = rl.rg_lru(log_a, b, h0)
+        ctx.save_for_backward(log_a, h, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        log_a, h, h0 = ctx.saved_tensors
+        dlog_a, db, dh0 = rl.rg_lru_bwd(log_a, h, h0, dh.contiguous())
+        return dlog_a, db, dh0
+
+
 def rg_lru(log_a, b, h0=None) -> torch.Tensor:
-    """The RG-LRU recurrence over (B, S, W) float32 with optional h0 (B, W)."""
-    return rl.rg_lru(log_a.contiguous(), b.contiguous(),
-                     None if h0 is None else h0.contiguous())
+    """The RG-LRU recurrence over (B, S, W) float32 with optional h0 (B, W).
+    Differentiable when grad is on and an input requires it (a training
+    step); otherwise the forward alone, saving nothing (serving)."""
+    ins = (log_a.contiguous(), b.contiguous(), None if h0 is None else h0.contiguous())
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ins):
+        return _RgLru.apply(*ins)
+    return rl.rg_lru(*ins)
 
 
 def _layout_blocks(layout, env, block_u, block_v):

@@ -60,11 +60,20 @@ def check_mesh(spec: str) -> None:
             "runtime/sharding (ROADMAP.md section 1, item 5)")
 
 
+def frontend_shape(cfg, seq: int):
+    """The frontend a batch of this arch carries, or None."""
+    if cfg.family not in ("audio", "vlm"):
+        return None
+    return (cfg.frontend_tokens if cfg.family == "vlm" else seq, cfg.d_model)
+
+
 def main(argv=None) -> dict:
     """Train; returns the steps done, the start step, each logged step's
     loss (step -> float), retries, straggler steps, the final TrainState
-    and the wall seconds. Only the dense family trains (Model raises for
-    the others), so no frontend is drawn."""
+    and the wall seconds. Every family trains; vlm and audio batches carry
+    a frontend drawn as the JAX package's launcher draws it:
+    (frontend_tokens, d_model) image tokens for vlm, (seq, d_model) frames
+    for audio."""
     args = parse_args(argv)
     check_mesh(args.mesh)
     dev = resolve_device(args.device)
@@ -83,8 +92,8 @@ def main(argv=None) -> dict:
     else:
         start = 0
 
-    data = SyntheticLM(args.seed, args.batch, args.seq, cfg.vocab_size, start_step=start,
-                       device=dev)
+    data = SyntheticLM(args.seed, args.batch, args.seq, cfg.vocab_size,
+                       frontend_shape(cfg, args.seq), start_step=start, device=dev)
     holder = {"state": state}
     losses: dict[int, float] = {}
 

@@ -17,7 +17,8 @@ block_apply(cfg, spec, p, x, aux, cache) -> (x, new_cache, aux_loss)
 `aux` carries {"pos": (B, S), "frontend": (B, Sf, D) or None} and, for MoE
 blocks, "moe_impl" and "moe_capacity" (defaults "sorted" and 1.25, the
 reference's); a compiled decode step adds "in_place" and "active"
-(attention.attn_apply).
+(attention.attn_apply); "recompute" marks a block's remat recompute in the
+backward (its MoE drops are not logged again).
 """
 from __future__ import annotations
 
@@ -113,7 +114,8 @@ def block_apply(cfg, spec: StageSpec, p: dict, x, aux: dict, cache=None):
     if spec.moe:
         y, aux_l = moe.moe_apply(p["moe"], _norm(cfg, p, "ln2", x), cfg,
                                  impl=aux.get("moe_impl", "sorted"),
-                                 capacity_factor=aux.get("moe_capacity", 1.25))
+                                 capacity_factor=aux.get("moe_capacity", 1.25),
+                                 log=not aux.get("recompute", False))
         return x + y, new_cache, aux_l
     return x + mlp_apply(p["mlp"], _norm(cfg, p, "ln2", x), cfg.act), new_cache, zero
 

@@ -10,8 +10,10 @@ under no_grad. A trainable model stores float32 masters that require grad
 (layers.Params) and its forward builds a graph when grad is on, each block
 under torch.utils.checkpoint (remat=True, the JAX package's jax.checkpoint
 of the scanned layer body): a block's activations are recomputed in the
-backward. Training covers the dense family; the other families' backward
-passes wait for their kernels and ports (ROADMAP.md section 1, item 5).
+backward. Every family trains: the attention backward is the flash
+backward kernel, the RG-LRU's the rg_lru backward kernel (kernels/ops.py);
+MoE, xLSTM, the cross attention and the audio encoder are autograd over
+plain tensor code.
 """
 from __future__ import annotations
 
@@ -83,15 +85,6 @@ def _stack(trees: list):
     return torch.stack(trees)
 
 
-# What brings each family's training (ROADMAP.md section 1, item 5's queue).
-TRAINING_WAITS_FOR = {
-    "hybrid": "the rg_lru backward kernel and hybrid training (ROADMAP.md section 1, "
-              "item 5, training queue 1)",
-    **{fam: f"the {fam} family's training (ROADMAP.md section 1, item 5, training queue 2)"
-       for fam in ("moe", "ssm", "vlm", "audio")},
-}
-
-
 class Model(nn.Module):
     """The LM of one ArchConfig (any family) on one device. ``device=None``
     means the card and raises without CUDA; the parameters are allocated
@@ -99,17 +92,12 @@ class Model(nn.Module):
     ``moe_capacity`` reach every MoE block (the reference's defaults).
 
     ``trainable``: float32 master parameters that require grad, and a
-    forward that builds a graph (dense family only; another family raises
-    NotImplementedError naming what it waits for). ``remat``: each block of
-    a training forward under torch.utils.checkpoint."""
+    forward that builds a graph (every family). ``remat``: each block of a
+    training forward under torch.utils.checkpoint."""
 
     def __init__(self, cfg, device=None, moe_impl: str = "sorted",
                  moe_capacity: float = 1.25, trainable: bool = False, remat: bool = True):
         super().__init__()
-        if trainable and cfg.family != "dense":
-            raise NotImplementedError(
-                f"training {cfg.name} ({cfg.family} family) waits for "
-                f"{TRAINING_WAITS_FOR[cfg.family]}")
         self.cfg = cfg
         self.stages = blocks.stages_for(cfg)
         self.vocab_padded = pad_vocab(cfg.vocab_size)
@@ -189,8 +177,12 @@ class Model(nn.Module):
         for i, blk in enumerate(layers):
             cache = None if cache_stacked is None else _index(cache_stacked, i)
             if remat:
-                x, new_cache, al = checkpoint(blk, x, aux, None, use_reentrant=False,
+                # the recompute in the backward gets this block's own aux,
+                # marked once the forward has run
+                blk_aux = dict(aux)
+                x, new_cache, al = checkpoint(blk, x, blk_aux, None, use_reentrant=False,
                                               preserve_rng_state=False)
+                blk_aux["recompute"] = True
             else:
                 x, new_cache, al = blk(x, aux, cache)
             aux_sum = aux_sum + al

@@ -20,12 +20,15 @@ Two places where a direct translation would give other answers:
     the order of the sorted slots (ascending expert id). index_add_ would
     sum with atomics on the card, in no fixed order; _experts_sorted
     gathers the k contributions of each token and adds them one at a time
-    from zero in that order, so two runs give the same bits.
+    from zero in that order, so two runs give the same bits. The
+    dispatch's backward, which sums a token's k slot gradients, does the
+    same (_Dispatch).
 
 The aux loss (load balance + 1e-3 z-loss) is returned as the reference
 does. ``drop_log()`` collects the dropped-slot count of every sorted
-dispatch run inside it; a replayed CUDA graph appends the counts of its
-replay (repro_torch.graphs).
+dispatch run inside it, once a forward: a block recomputed under remat in
+the backward does not count again; a replayed CUDA graph appends the counts
+of its replay (repro_torch.graphs).
 """
 from __future__ import annotations
 
@@ -120,19 +123,51 @@ def dispatch(idx, n_experts: int, cap: int):
     return order, dest, keep
 
 
-def _experts_sorted(p: dict, xt, gates, idx, cfg, capacity_factor: float = 1.25):
+class _Dispatch(torch.autograd.Function):
+    """The sorted dispatch buf[dest] = xt[tok] into a (rows + 1, D) buffer
+    (the last row takes every dropped slot), with a backward that sums each
+    token's k slots without atomics: the slots' gradients gathered through
+    ``at`` (the sorted positions of a token's slots, ascending expert id)
+    and added one at a time from zero in that order, as the combine adds
+    them in its forward. Two backward passes give the same bits."""
+
+    @staticmethod
+    def forward(ctx, xt, tok, dest, keep, at, rows: int):
+        buf = xt.new_zeros((rows + 1, xt.shape[1]))
+        buf[dest] = xt[tok]
+        ctx.save_for_backward(dest, keep, at)
+        return buf
+
+    @staticmethod
+    def backward(ctx, dbuf):
+        dest, keep, at = ctx.saved_tensors
+        g = torch.where(keep[:, None], dbuf[dest], torch.zeros((), dtype=dbuf.dtype,
+                                                               device=dbuf.device))
+        c = g[at]                                       # (N, k, D)
+        dx = torch.zeros_like(c[:, 0])
+        for j in range(c.shape[1]):
+            dx = dx + c[:, j]
+        return dx, None, None, None, None, None
+
+
+def _experts_sorted(p: dict, xt, gates, idx, cfg, capacity_factor: float = 1.25,
+                    log: bool = True):
     n, d = xt.shape
     e, k = cfg.n_experts, cfg.top_k
     dt = COMPUTE_DTYPE
     cap = capacity(n, cfg, capacity_factor)
     order, dest, keep = dispatch(idx, e, cap)
-    if _DROP_LOG is not None:
+    if _DROP_LOG is not None and log:
         log_drops([torch.sum(~keep)])
     tok = order // k                                # source token per slot
+    # Slot j of token t sits at sorted position inv[t*k + j]; its expert
+    # order is the order of the sorted slots.
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.numel(), device=order.device)
+    by_expert = torch.argsort(idx, dim=1)           # experts of a token are distinct
+    at = inv.view(n, k).gather(1, by_expert)        # (N, k) ascending expert id
 
-    # One scratch row past the buffer takes every dropped slot.
-    buf = torch.zeros((e * cap + 1, d), dtype=dt, device=xt.device)
-    buf[dest] = xt[tok].to(dt)
+    buf = _Dispatch.apply(xt.to(dt), tok, dest, keep, at, e * cap)
     h = buf[:e * cap].view(e, cap, d)
     hidden = F.silu(torch.bmm(h, p["w1"].to(dt))) * torch.bmm(h, p["w3"].to(dt))
     out_flat = torch.bmm(hidden, p["w2"].to(dt)).reshape(e * cap, d)
@@ -140,12 +175,6 @@ def _experts_sorted(p: dict, xt, gates, idx, cfg, capacity_factor: float = 1.25)
     gate_slot = gates.reshape(-1)[order].to(dt)     # aligned with sorted slots
     contrib = out_flat[torch.where(keep, dest, 0)] * torch.where(
         keep, gate_slot, torch.zeros_like(gate_slot))[:, None]
-    # Slot j of token t sits at sorted position inv[t*k + j]; its expert
-    # order is the order of the sorted slots.
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(order.numel(), device=order.device)
-    by_expert = torch.argsort(idx, dim=1)           # experts of a token are distinct
-    at = inv.view(n, k).gather(1, by_expert)        # (N, k) ascending expert id
     c = contrib[at]                                 # (N, k, D)
     y = torch.zeros((n, d), dtype=dt, device=xt.device)
     for j in range(k):
@@ -164,13 +193,16 @@ def _experts_dense(p: dict, xt, gates, idx, cfg):
     return torch.einsum("end,ne->nd", out, comb.to(dt))
 
 
-def moe_apply(p: dict, x, cfg, impl: str = "sorted", capacity_factor: float = 1.25):
-    """x: (B, S, D). Returns (y, aux_loss)."""
+def moe_apply(p: dict, x, cfg, impl: str = "sorted", capacity_factor: float = 1.25,
+              log: bool = True):
+    """x: (B, S, D). Returns (y, aux_loss). ``log``: count the dispatch's
+    dropped slots in an active drop_log (False for a remat recompute of a
+    forward that counted them already)."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     gates, idx, aux = _router(p, xt, cfg)
     if impl == "sorted":
-        y = _experts_sorted(p, xt, gates, idx, cfg, capacity_factor)
+        y = _experts_sorted(p, xt, gates, idx, cfg, capacity_factor, log)
     else:
         y = _experts_dense(p, xt, gates, idx, cfg)
     if cfg.n_shared_experts:

@@ -11,8 +11,9 @@ RG-LRU per channel:
 
 A sequence (S > 1) runs the recurrence through ops.rg_lru (the CUDA kernel
 on the card, its plain twin on the CPU), the function the JAX package
-computes with an associative scan; a decode step (S == 1) is the one-step
-update.
+computes with an associative scan; in a training step its gradient is
+the rg_lru backward kernel (ops.rg_lru's autograd). A decode step (S == 1)
+is the one-step update. Weights are cast at use (layers.at_use).
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import COMPUTE_DTYPE, ParamDef
+from repro_torch.models.layers import COMPUTE_DTYPE, ParamDef, at_use
 
 C_EXP = 8.0
 
@@ -58,15 +59,17 @@ def _causal_conv(x, w, b, state):
 def rglru_apply(p: dict, x, cfg, state: dict | None = None):
     """x: (B, S, D). state: {"h": (B, W), "conv": (B, K-1, W)} or None.
     Returns (out (B, S, D), new state or None)."""
-    gate = F.gelu(x @ p["w_gate"], approximate="tanh")
-    u = x @ p["w_in"]
+    gate = F.gelu(x @ at_use(p["w_gate"], x), approximate="tanh")
+    u = x @ at_use(p["w_in"], x)
     u, conv_state = _causal_conv(u, p["conv_w"], p["conv_b"],
                                  None if state is None else state["conv"])
     uf = u.float()
-    r = torch.sigmoid(uf @ p["w_r"])
-    i = torch.sigmoid(uf @ p["w_i"])
+    # the gates' weights and lam stay float32, as the reference uses them
+    r = torch.sigmoid(uf @ p["w_r"].float())
+    i = torch.sigmoid(uf @ p["w_i"].float())
     # jax.nn.softplus is logaddexp(x, 0), with no linear threshold
-    softplus = torch.logaddexp(p["lam"], torch.zeros_like(p["lam"]))
+    lam = p["lam"].float()
+    softplus = torch.logaddexp(lam, torch.zeros_like(lam))
     log_a = -C_EXP * softplus * r
     scale = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-6))
     b = scale * (i * uf)
@@ -80,8 +83,8 @@ def rglru_apply(p: dict, x, cfg, state: dict | None = None):
         else:
             h = ops.rg_lru(log_a, b, h0)
         new_state = {"h": h[:, -1, :].float(), "conv": conv_state}
-    out = (gate * h.to(COMPUTE_DTYPE)) @ p["w_out"]
-    return out, new_state
+    y = gate * h.to(COMPUTE_DTYPE)
+    return y @ at_use(p["w_out"], y), new_state
 
 
 def make_rglru_state(cfg, batch: int, n_layers: int, device=None) -> dict:

@@ -1,9 +1,16 @@
 """AdamW + cosine schedule, as plain functions on trees of tensors (nested
-dicts, lists and named tuples; core.types.tree_map). Every function returns
-new tensors and leaves its inputs as they are, as the JAX package's pure
-functions do. The arithmetic is the JAX package's, operation by operation,
-in float32: weight decay on every leaf (norms and biases included), the
-bias corrections b ** t with t the step in float32, and an int32 step."""
+dicts, lists and named tuples; core.types.tree_map). The pure functions
+return new tensors and leave their inputs as they are, as the JAX package's
+do. The arithmetic is the JAX package's, operation by operation, in
+float32: weight decay on every leaf (norms and biases included), the bias
+corrections b ** t with t the step in float32, and an int32 step.
+
+adamw_update_ and clip_by_global_norm_ do the same arithmetic in place,
+leaf by leaf, in flat chunks of at most CHUNK elements (an elementwise
+operation gives the same bits in chunks): a train step then holds the
+params, their gradients and the two moments, 16 bytes a parameter, and a
+chunk's temporaries, where the pure pair holds new moments and params
+beside the old ones and a clipped copy of every gradient."""
 from __future__ import annotations
 
 import math
@@ -12,6 +19,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.types import tree_flatten, tree_map, tree_unflatten
+
+CHUNK = 1 << 26     # elements of a leaf the in-place functions take at once
 
 
 class AdamWState(NamedTuple):
@@ -46,13 +55,37 @@ def cosine_lr(step, base_lr=3e-4, warmup=100, total=10000, min_frac=0.1):
     return torch.where(step < warmup, warm, cos)
 
 
-def clip_by_global_norm(grads, max_norm=1.0):
-    """grads scaled by min(1, max_norm / |grads|) and the global norm, the
-    squares summed leaf by leaf in the tree's order (dict keys sorted, as
-    jax.tree.leaves orders them)."""
+def _clip_scale(grads, max_norm):
+    """(min(1, max_norm / |grads|), |grads|): the squares summed leaf by leaf
+    in the tree's order (dict keys sorted, as jax.tree.leaves orders them)."""
     gn = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in tree_flatten(grads)[0]))
-    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
+    return torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0), gn
+
+
+def clip_by_global_norm(grads, max_norm=1.0):
+    """grads scaled by min(1, max_norm / |grads|), and the global norm."""
+    scale, gn = _clip_scale(grads, max_norm)
     return tree_map(lambda g: g * scale, grads), gn
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads, max_norm=1.0):
+    """clip_by_global_norm writing the scaled gradients into ``grads``'
+    leaves; returns (grads, the global norm). The same bits."""
+    scale, gn = _clip_scale(grads, max_norm)
+    for g in tree_flatten(grads)[0]:
+        for c in _chunks(g):
+            c.mul_(scale)
+    return grads, gn
+
+
+def _chunks(t):
+    """Views of a tensor's elements, CHUNK at a time (the tensor itself when
+    it is not contiguous)."""
+    if not t.is_contiguous():
+        return [t]
+    flat = t.view(-1)
+    return [flat[i:i + CHUNK] for i in range(0, flat.numel(), CHUNK)]
 
 
 @torch.no_grad()
@@ -72,3 +105,23 @@ def adamw_update(params, grads, state: AdamWState, lr, b1=0.9, b2=0.95, eps=1e-8
 
     new_params = _map(upd, params, m, v)
     return new_params, AdamWState(step=step, m=m, v=v)
+
+
+@torch.no_grad()
+def adamw_update_(params, grads, state: AdamWState, lr, b1=0.9, b2=0.95, eps=1e-8, wd=0.1):
+    """adamw_update writing the new params into ``params``' leaves and the
+    new moments into ``state``'s, leaf by leaf and chunk by chunk, with the
+    same operations in the same order (the same bits). Returns (params, the
+    new AdamWState: a new step, the same m and v tensors). The params and
+    moments must be contiguous."""
+    step = state.step + 1
+    t = step.float()
+    c1, c2 = 1 - b1 ** t, 1 - b2 ** t
+    leaves = [tree_flatten(x)[0] for x in (params, grads, state.m, state.v)]
+    for p, g, m, v in zip(*leaves, strict=True):
+        g = g.contiguous()
+        for pc, gc, mc, vc in zip(*(_chunks(x) for x in (p, g, m, v)), strict=True):
+            mc.mul_(b1).add_((1 - b1) * gc)
+            vc.mul_(b2).add_((1 - b2) * gc * gc)
+            pc.sub_(lr * (mc / c1 / (torch.sqrt(vc / c2) + eps) + wd * pc))
+    return params, AdamWState(step=step, m=state.m, v=state.v)

@@ -4,12 +4,12 @@ microbatch accumulation, global-norm clipping and AdamW, on one device.
 The state is a TrainState of trees, as the JAX package's. Its params are
 the model's own parameters (Model.param_tree(): float32 masters of a
 Model(trainable=True)); a step computes the gradients with
-torch.autograd.grad, AdamW's new params and moments out of place (the JAX
-package's pure functions), and then writes the new params into the model's
-parameters in place, so the returned state's params are those parameters
-again: the port's form of the JAX step's donated state. A state whose
-params are other tensors (a restored checkpoint) is copied into the model
-first.
+torch.autograd.grad, clips them and runs AdamW in place
+(clip_by_global_norm_ / adamw_update_: the JAX package's arithmetic, the
+same bits as the pure functions), so the returned state holds the tensors
+it was given, params and moments: the port's form of the JAX step's
+donated state, at 16 bytes a parameter. A state whose params are other
+tensors (a restored checkpoint) is copied into the model first.
 
 jit_train_step and its ZeRO-1 shardings need a mesh, and wait for the port
 of runtime/sharding (ROADMAP.md section 1, item 5).
@@ -28,8 +28,8 @@ from repro_torch.models.layers import logits_out
 from repro_torch.optim.adamw import (
     AdamWState,
     adamw_init,
-    adamw_update,
-    clip_by_global_norm,
+    adamw_update_,
+    clip_by_global_norm_,
     cosine_lr,
 )
 
@@ -143,18 +143,18 @@ def make_train_step(model: Model, n_microbatches: int = 1, base_lr=3e-4, total_s
     """Returns train_step(state, batch) -> (state, metrics): the gradients
     (loss_and_grads; seq_chunk > 0 takes the chunked cross-entropy),
     clipped to global norm 1, the cosine learning rate at state.step and
-    one AdamW update. metrics: loss, aux, grad_norm, lr (device scalars)."""
+    one AdamW update, in place. metrics: loss, aux, grad_norm, lr (device
+    scalars). Every family trains: vlm and audio batches carry "frontend"."""
     if not model.trainable:
         raise ValueError("make_train_step needs a Model(trainable=True): float32 masters")
 
     def train_step(state: TrainState, batch: dict):
         state = attach(model, state)
         nll, aux, g = loss_and_grads(model, batch, n_microbatches, seq_chunk)
-        g, gnorm = clip_by_global_norm(g)
+        g, gnorm = clip_by_global_norm_(g)
         lr = cosine_lr(state.step, base_lr=base_lr, total=total_steps)
-        new_params, opt = adamw_update(state.params, g, state.opt, lr)
+        _, opt = adamw_update_(state.params, g, state.opt, lr)
         del g
-        model.load_params_(new_params)
         metrics = {"loss": nll, "aux": aux, "grad_norm": gnorm, "lr": lr}
         return TrainState(params=state.params, opt=opt, step=state.step + 1), metrics
 

@@ -746,3 +746,71 @@ def _to_cpu(tree):
     if isinstance(tree, list):
         return [_to_cpu(v) for v in tree]
     return tree.detach().cpu()
+
+
+@pytest.mark.parametrize("b,s,w,with_h0,tma", [
+    (2, 45, 96, True, True),      # S not a multiple of the ring's 32 steps
+    (3, 1, 64, True, True),       # S = 1: step 0 reads h0
+    (1, 100, 30, True, False),    # W % 4 != 0: cp.async; B = 1
+    (2, 77, 201, False, False),   # W % 4 != 0, a ragged channel tile
+    (2, 70, 20, True, True),      # W under one 32-channel tile, TMA
+    (2, 3072, 4096, False, True),  # the hybrid train step's shape
+    (2, 3072, 4096, True, True),
+])
+def test_rg_lru_bwd_is_bit_equal_to_plain_twin(cuda, b, s, w, with_h0, tma):
+    """The RG-LRU backward against its twin, to the bit, and two launches
+    on the same inputs bit-equal (no atomics)."""
+    g = torch.Generator(device=cuda).manual_seed(5 * s + w)
+    log_a = -8.0 * torch.rand((b, s, w), device=cuda, generator=g)
+    x = torch.randn((b, s, w), device=cuda, generator=g)
+    h0 = torch.randn((b, w), device=cuda, generator=g) if with_h0 else None
+    dh = torch.randn((b, s, w), device=cuda, generator=g)
+    h = rl.rg_lru(log_a, x, h0)
+    assert rl.uses_tma(w, log_a.data_ptr(), h.data_ptr(), dh.data_ptr()) == tma
+    before = rl.LAUNCHES["rg_lru_bwd"]
+    got = rl.rg_lru_bwd(log_a, h, h0, dh)
+    again = rl.rg_lru_bwd(log_a, h, h0, dh)
+    torch.cuda.synchronize()
+    assert rl.LAUNCHES["rg_lru_bwd"] == before + 2
+    want = rl.rg_lru_bwd_plain(log_a, h, h0, dh)
+    assert (got[2] is None) == (h0 is None)
+    for x_, y_, z_ in zip(got, again, want):
+        if z_ is not None:
+            assert torch.equal(x_, z_) and torch.equal(x_, y_)
+
+
+def test_rg_lru_bwd_takes_cp_async_for_misaligned_operands(cuda):
+    """dh off a 16-byte boundary (a view into a larger gradient): the ring
+    is filled by cp.async, with the twin's bits."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    log_a = -torch.rand((2, 40, 64), device=cuda, generator=g)
+    x = torch.randn((2, 40, 64), device=cuda, generator=g)
+    h0 = torch.randn((2, 64), device=cuda, generator=g)
+    dh = torch.randn(2 * 40 * 64 + 1, device=cuda, generator=g)[1:].view(2, 40, 64)
+    h = rl.rg_lru(log_a, x, h0)
+    assert not rl.uses_tma(64, log_a.data_ptr(), h.data_ptr(), dh.data_ptr())
+    for a, b in zip(rl.rg_lru_bwd(log_a, h, h0, dh), rl.rg_lru_bwd_plain(log_a, h, h0, dh)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name,n_rec", [("recurrentgemma-9b", 2), ("deepseek-moe-16b", 0)])
+def test_hybrid_and_moe_gradient_passes_are_bit_equal(cuda, name, n_rec):
+    """Two gradient passes of the reduced model from one state and batch on
+    the card give the same bits in every leaf (the RG-LRU backward, the
+    MoE dispatch's backward, the embedding's); with remat, 2 rg_lru
+    forwards and 1 backward a recurrent layer a pass."""
+    from repro_torch.core.types import tree_flatten
+    from repro_torch.runtime import train as t_train
+    cfg = configs.get(name).reduced()
+    model = Model(cfg, device=cuda, trainable=True, moe_capacity=2.0)
+    t_train.init_state(model, torch.Generator(device=cuda).manual_seed(0))
+    batch = make_batch(0, 0, 4, 64, cfg.vocab_size, device=cuda)
+    passes = []
+    for _ in range(2):
+        rl.reset_launches()
+        passes.append(t_train.loss_and_grads(model, batch, seq_chunk=32))
+        torch.cuda.synchronize()
+        assert rl.LAUNCHES == {"rg_lru": 2 * n_rec, "rg_lru_bwd": n_rec}
+    assert torch.equal(passes[0][0], passes[1][0])
+    for a, b in zip(tree_flatten(passes[0][2])[0], tree_flatten(passes[1][2])[0], strict=True):
+        assert torch.equal(a, b)

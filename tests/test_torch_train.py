@@ -228,6 +228,36 @@ def test_clip_by_global_norm_matches_the_reference(jx, max_norm):
         _close_terms(got, np.asarray(want), np.abs(np.asarray(want)), 1e-6, "clipped leaf")
 
 
+@pytest.mark.parametrize("chunk", [1 << 26, 5])
+def test_in_place_adamw_and_clip_equal_the_pure_functions_to_the_bit(monkeypatch, chunk):
+    """clip_by_global_norm_ and adamw_update_ on copies of the same trees
+    give the pure functions' bits (norm, clipped gradients, m, v, params,
+    step) over four steps; the returned state holds the tensors it was
+    given. chunk 5 splits every leaf into flat chunks of 5 elements (the
+    in-place functions' CHUNK), with a ragged last chunk."""
+    monkeypatch.setattr(t_adamw, "CHUNK", chunk)
+    rng = np.random.default_rng(4)
+    params = _to_torch(_tree(rng))
+    mine = _to_torch(_tree(np.random.default_rng(4)))
+    pure_state, state = t_adamw.adamw_init(params), t_adamw.adamw_init(mine)
+    m_ids = [id(x) for x in tree_flatten(state.m)[0]]
+    for i in range(4):
+        grads = _tree(rng)
+        grads["a"][1, 2] = 0.0
+        g_pure, n_pure = t_adamw.clip_by_global_norm(_to_torch(grads), 0.5)
+        g_mine, n_mine = t_adamw.clip_by_global_norm_(_to_torch(grads), 0.5)
+        assert torch.equal(n_pure, n_mine)
+        lr = t_adamw.cosine_lr(torch.tensor(i + 3, dtype=torch.int32), base_lr=1e-2, warmup=3,
+                               total=20)
+        params, pure_state = t_adamw.adamw_update(params, g_pure, pure_state, lr)
+        out, state = t_adamw.adamw_update_(mine, g_mine, state, lr)
+        assert out is mine and [id(x) for x in tree_flatten(state.m)[0]] == m_ids
+        assert torch.equal(state.step, pure_state.step) and state.step.dtype == torch.int32
+        for a, b in zip(tree_flatten((g_pure, params, pure_state.m, pure_state.v))[0],
+                        tree_flatten((g_mine, mine, state.m, state.v))[0], strict=True):
+            assert torch.equal(a, b)
+
+
 def test_compression_matches_the_reference(jx):
     """compress_topk picks the same values and indices (distinct magnitudes),
     decompress_topk scatters them back, and eight error-feedback steps
@@ -281,53 +311,191 @@ def test_synthetic_lm_equals_the_reference_and_resumes(jx):
 
 
 # -- one train step against the reference --------------------------------------------
-def _step_case(jx, dtype: str) -> dict:
+# the model modules that bind COMPUTE_DTYPE, in both packages
+COMPUTE_MODULES = ("layers", "attention", "blocks", "moe", "recurrent", "xlstm", "model")
+
+
+def f32_compute(mp, jx) -> None:
+    """Set COMPUTE_DTYPE to float32 in every model module of both packages
+    (undone when the MonkeyPatch context ends)."""
+    import importlib
+    for pkg, dt in (("repro.models", jx["jnp"].float32), ("repro_torch.models", torch.float32)):
+        for name in COMPUTE_MODULES:
+            mod = importlib.import_module(f"{pkg}.{name}")
+            if hasattr(mod, "COMPUTE_DTYPE"):
+                mp.setattr(mod, "COMPUTE_DTYPE", dt)
+
+
+def edited_params(jx, params, family: str, seed: int = 1):
+    """The reference's init tree with every cross block's xgate set to 0.5
+    and -0.7 by layer (the reference initialises it to zero, where a cross
+    block adds nothing and its weights get no gradient) and, for audio, the
+    LayerNorm weights and biases drawn at random (1 + 0.1 N(0, 1), 0.1 N(0,
+    1)): the paths a test must see."""
+    jax, jnp = jx["jax"], jx["jnp"]
+    rng = np.random.default_rng(seed)
+
+    def edit(path, a):
+        key = path[-1].key
+        a = np.asarray(a)
+        if key == "xgate":
+            return jnp.asarray(np.resize(np.asarray([0.5, -0.7], np.float32),
+                                         a.shape).astype(np.float32))
+        if family == "audio" and key.endswith("_b"):
+            return jnp.asarray((0.1 * rng.standard_normal(a.shape)).astype(np.float32))
+        if family == "audio" and key.endswith("_w"):
+            return jnp.asarray((1 + 0.1 * rng.standard_normal(a.shape)).astype(np.float32))
+        return jnp.asarray(a)
+    return jax.tree_util.tree_map_with_path(edit, params)
+
+
+def step_case(jx, dtype: str, arch: str = ARCH, batch: int = 4, seq: int = 32,
+              moe_capacity: float = 2.0) -> dict:
     """The reference state after two steps of make_train_step (base_lr 3e-3)
-    on make_batch(0, s, 4, 32), its step counters set to 100 (the end of the
-    warmup: lr = base_lr, bias corrections near 1), then one more step on
-    make_batch(0, 7, 4, 32) in both packages from the same bits, with
+    on make_batch(0, s, batch, seq) (with the launcher's frontend), from its
+    init edited by edited_params, its step counters set to 100 (the end of
+    the warmup: lr = base_lr, bias corrections near 1), then one more step
+    on make_batch(0, 7, ...) in both packages from the same bits, with
     COMPUTE_DTYPE float32 in both when dtype is "float32". Returns the
     readings as numpy and port trees."""
     jax, jnp = jx["jax"], jx["jnp"]
     with pytest.MonkeyPatch.context() as mp:
         if dtype == "float32":
-            mp.setattr(jx["attention"], "COMPUTE_DTYPE", jnp.float32)
-            mp.setattr(jx["layers"], "COMPUTE_DTYPE", jnp.float32)
-            mp.setattr(t_attention, "COMPUTE_DTYPE", torch.float32)
-            mp.setattr(t_layers, "COMPUTE_DTYPE", torch.float32)
-        cfg = jx["configs"].get(ARCH).reduced()
-        jm = jx["Model"](cfg, remat=True)
-        jstep = jax.jit(jx["train"].make_train_step(jm, base_lr=BASE_LR, total_steps=300))
-        st = jx["train"].init_state(jm, jax.random.PRNGKey(0))
-        for s in range(2):
-            st, _ = jstep(st, jx["make_batch"](0, s, 4, 32, cfg.vocab_size))
-        st = st._replace(step=jnp.int32(100), opt=st.opt._replace(step=jnp.int32(100)))
-        jbatch = jx["make_batch"](0, 7, 4, 32, cfg.vocab_size)
-        (_, (jloss, _)), jgrads = jax.value_and_grad(
-            lambda p: jx["train"].loss_fn(jm, p, jbatch), has_aux=True)(st.params)
-        st2, jmet = jstep(st, jbatch)
+            f32_compute(mp, jx)
+        cfg = jx["configs"].get(arch).reduced()
+        fs = launch_train.frontend_shape(cfg, seq)
+        jm = jx["Model"](cfg, remat=True, moe_capacity=moe_capacity)
+        train_step = jx["train"].make_train_step(jm, base_lr=BASE_LR, total_steps=300)
 
-        model = Model(configs.get(ARCH).reduced(), device="cpu", trainable=True)
+        @jax.jit
+        def step_and_grads(st, b):
+            """The reference step and, at the same params, its loss, aux and
+            gradients (one program: one compile for every step)."""
+            (_, (loss, aux)), grads = jax.value_and_grad(
+                lambda p: jx["train"].loss_fn(jm, p, b), has_aux=True)(st.params)
+            return train_step(st, b), (loss, aux, grads)
+
+        st = jx["train"].init_state(jm, jax.random.PRNGKey(0))
+        st = st._replace(params=edited_params(jx, st.params, cfg.family))
+        for s in range(2):
+            (st, _), _ = step_and_grads(st, jx["make_batch"](0, s, batch, seq, cfg.vocab_size,
+                                                            fs))
+        st = st._replace(step=jnp.int32(100), opt=st.opt._replace(step=jnp.int32(100)))
+        jbatch = jx["make_batch"](0, 7, batch, seq, cfg.vocab_size, fs)
+        (st2, jmet), (jloss, jaux, jgrads) = step_and_grads(st, jbatch)
+
+        model = Model(configs.get(arch).reduced(), device="cpu", trainable=True,
+                      moe_capacity=moe_capacity)
         state = convert.train_state_from_numpy(
             model, _np(st.params, jax), _np(st.opt.m, jax), _np(st.opt.v, jax),
             np.asarray(st.opt.step), np.asarray(st.step))
-        batch = make_batch(0, 7, 4, 32, cfg.vocab_size, device="cpu")
-        _, _, grads = t_train.loss_and_grads(model, batch)
+        batch_t = make_batch(0, 7, batch, seq, cfg.vocab_size, fs, device="cpu")
+        _, _, grads = t_train.loss_and_grads(model, batch_t)
         step = t_train.make_train_step(model, base_lr=BASE_LR, total_steps=300)
-        state2, met = step(state, batch)
-    return dict(jax_params=st.params, jax_grads=jgrads, jax_loss=float(jloss), jax_state=st2,
+        state2, met = step(state, batch_t)
+    return dict(jax_params=st.params, jax_grads=jgrads, jax_loss=float(jloss),
+                jax_aux=float(jaux), jax_state=st2,
                 jax_metrics={k: float(v) for k, v in jmet.items()}, grads=grads, state=state2,
                 metrics={k: float(v) for k, v in met.items()})
 
 
+def block_scaled_leafwise(jax, ref, port, tol, what):
+    """_leafwise, with a one-element leaf (a cross block's xgate: a sum over
+    every output of its block, whose terms cancel) held to tol of the
+    largest |reference| value of its block's leaves instead: the same
+    products its block's weight gradients sum. Returns the worst reading."""
+    pairs = _paired_leaves(jax, ref, port)
+    block_max: dict = {}
+    for path, w, _ in pairs:
+        block = path.rsplit("[", 1)[0]
+        block_max[block] = max(block_max.get(block, 0.0), float(np.abs(w).max()))
+    worst = 0.0
+    for path, w, g in pairs:
+        assert g.shape == w.shape, (what, path)
+        scale = block_max[path.rsplit("[", 1)[0]] if w.size == 1 else float(np.abs(w).max())
+        err = float(np.abs(g - w).max()) / max(scale, 1e-30)
+        worst = max(worst, err)
+        assert err <= tol, f"{what} {path}: {err:.3e} of the scale > {tol}"
+    return worst
+
+
+def check_f32_case(jx, case, what: str) -> None:
+    """A float32 step_case: the loss and the aux loss within 1e-5 relative
+    (the aux within 1e-5 of max(1, |aux|)), the global norm within 1e-5, the
+    same learning rate, the steps advanced by one, each gradient and moment
+    leaf within 1e-5 of its largest value (block_scaled_leafwise), the
+    updated params within adamw_bound."""
+    jax = jx["jax"]
+    jm, m = case["jax_metrics"], case["metrics"]
+    np.testing.assert_allclose(m["loss"], case["jax_loss"], rtol=1e-5)
+    np.testing.assert_allclose(m["loss"], jm["loss"], rtol=1e-5)
+    assert abs(m["aux"] - jm["aux"]) <= 1e-5 * max(1.0, abs(jm["aux"]))
+    np.testing.assert_allclose(m["grad_norm"], jm["grad_norm"], rtol=1e-5)
+    assert m["lr"] == jm["lr"] == pytest.approx(BASE_LR)
+    assert int(case["state"].step) == int(case["state"].opt.step) == 101
+    worst = block_scaled_leafwise(jax, case["jax_grads"], case["grads"], 1e-5,
+                                  f"{what} gradient")
+    for name in ("m", "v"):
+        block_scaled_leafwise(jax, getattr(case["jax_state"].opt, name),
+                              getattr(case["state"].opt, name), 1e-5, f"{what} {name}")
+    _check_params(jx, case, 1e-5, f"{what} float32 step")
+    print(f"{what} float32 gradients: worst {worst:.3e} of the scale")
+
+
+def bf16_logits_check(jx, arch: str, bound: float = 0.05, batch: int = 4, seq: int = 32):
+    """The training forward in bf16 (float32 masters cast at use) against the
+    JAX package's at the same edited init params (moe_capacity 2.0, the
+    launcher's frontend): the logits within bound * max(1, max |logits|)
+    and the loss within bound * max(1, |loss|). Returns the readings."""
+    jax = jx["jax"]
+    cfg = jx["configs"].get(arch).reduced()
+    fs = launch_train.frontend_shape(cfg, seq)
+    jm = jx["Model"](cfg, remat=True, moe_capacity=2.0)
+    params = edited_params(jx, jm.init(jax.random.PRNGKey(0)), cfg.family)
+    jbatch = jx["make_batch"](0, 7, batch, seq, cfg.vocab_size, fs)
+    reference = jax.jit(lambda p, b: (jm.train_logits(p, b)[0],
+                                      jx["train"].loss_fn(jm, p, b)[1][0]))
+    jlogits, jloss = reference(params, jbatch)
+    jlogits, jloss = np.asarray(jlogits, np.float32), float(jloss)
+    model = Model(configs.get(arch).reduced(), device="cpu", trainable=True, moe_capacity=2.0)
+    convert.model_params_from_numpy(model, _np(params, jax))
+    batch_t = make_batch(0, 7, batch, seq, cfg.vocab_size, fs, device="cpu")
+    with torch.no_grad():
+        logits = model.train_logits(batch_t)[0].float().numpy()
+        loss = float(t_train.loss_fn(model, batch_t)[1][0])
+    err = float(np.abs(logits - jlogits).max()) / max(1.0, float(np.abs(jlogits).max()))
+    print(f"{arch} bf16 training forward: logits within {err:.3e} of max(1, max |logits|), "
+          f"loss {loss!r} / {jloss!r}")
+    assert err <= bound
+    assert abs(loss - jloss) <= bound * max(1.0, abs(jloss))
+    return err, loss, jloss
+
+
+def launch_resume_check(tmp_path, arch: str, seq: int = 32) -> None:
+    """launch.train.main --reduced --device cpu for ``arch``: 3 steps
+    uninterrupted; then 2 steps and a restart that resumes from the final
+    checkpoint (step 2) and trains 1 more, its loss equal to the
+    uninterrupted run's to the bit."""
+    common = ["--arch", arch, "--reduced", "--device", "cpu", "--batch", "2", "--seq",
+              str(seq), "--log-every", "1", "--ckpt-every", "2"]
+    full = launch_train.main(common + ["--steps", "3", "--ckpt-dir", str(tmp_path / "a")])
+    first = launch_train.main(common + ["--steps", "2", "--ckpt-dir", str(tmp_path / "b")])
+    again = launch_train.main(common + ["--steps", "1", "--ckpt-dir", str(tmp_path / "b")])
+    assert full["done"] == 3 and first["done"] == 2 and again["start"] == 2
+    assert int(again["state"].step) == 3
+    assert [first["losses"][s] for s in range(2)] == [full["losses"][s] for s in range(2)]
+    assert again["losses"] == {2: full["losses"][2]}
+    assert all(np.isfinite(list(full["losses"].values())))
+
+
 @pytest.fixture(scope="module")
 def f32_case(jx):
-    return _step_case(jx, "float32")
+    return step_case(jx, "float32")
 
 
 @pytest.fixture(scope="module")
 def bf16_case(jx):
-    return _step_case(jx, "bfloat16")
+    return step_case(jx, "bfloat16")
 
 
 def test_train_step_f32_loss_and_metrics(f32_case):
@@ -493,14 +661,15 @@ def test_launch_train_saves_and_resumes(tmp_path):
 
 
 def test_training_is_dense_only_and_serving_stays_frozen():
-    """A trainable model of another family raises, naming what it waits
-    for; a mesh of more than one device raises; a serving model keeps
-    frozen bf16 parameters and builds no graph."""
-    for name, words in (("recurrentgemma-9b", "rg_lru backward"),
-                        ("deepseek-moe-16b", "moe family"),
-                        ("xlstm-125m", "ssm family")):
-        with pytest.raises(NotImplementedError, match=words):
-            Model(configs.get(name).reduced(), device="cpu", trainable=True)
+    """Every registered arch builds trainable (float32 masters that require
+    grad, every family: the name is from the slice that trained the dense
+    family alone); a mesh of more than one device raises; a serving model
+    keeps frozen bf16 parameters and builds no graph."""
+    for name in configs.all_names():
+        model = Model(configs.get(name).reduced(), device="cpu", trainable=True)
+        assert all(p.requires_grad and p.dtype == torch.float32 for p in model.parameters()), \
+            name
+    assert not hasattr(Model, "TRAINING_WAITS_FOR")
     with pytest.raises(NotImplementedError, match="runtime/sharding"):
         launch_train.check_mesh("2x1")
     cfg = configs.get(ARCH).reduced()
