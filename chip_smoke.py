@@ -275,8 +275,25 @@ Phases, each fatal on failure (no phase catches its own error):
                  (xlstm-125m and whisper-small at full size, the others
                  --reduced), whisper-small resumed from its final checkpoint
                  bit-equal to an uninterrupted run.
+ 17. sharding -- run after 15 and before 16 (xlstm's profile in 16 leaves
+                 later traces short of kernel records), on an NCCL group
+                 of world size 1 (one card: a mesh of one device, not a
+                 multi-device result; the CPU tests run the ranks): 17.1 phase 7's fleet planned and replanned through
+                 plan_many_sharded / replan_many_sharded on fleet_mesh(),
+                 every leaf bit-equal to phase 7's unsharded states, exact
+                 NOMA launches, a graphed step's traced launches against the
+                 counted ones and the replays that ran; 17.2
+                 jit_train_step on a ("data",) mesh at qwen1.5-0.5b 8 x 2048,
+                 3 steps with ZeRO-1 off and 3 on, bit-equal to
+                 make_train_step's from the same state and batches, step
+                 ms, MFU, peak reserve; 17.3 compressed_psum bit-equal to
+                 error_feedback_update's g_hat; 17.4 launch.train.main
+                 --mesh 1x1 --reduced under the group, resumed bit-equal to
+                 an uninterrupted run, flash checked at its shapes.
 Every profiled window that records no device time is measured once more
-(profiled); a phase fails only if the retry is empty too.
+(profiled); a phase fails only if the retry is empty too. A graphed
+window whose trace is short of the replays that CUDA events saw run is
+measured once more too (profile_graph_steps).
 The last lines are the kernels JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
@@ -429,6 +446,10 @@ CE_B, CE_S, CE_CHUNK = 2, 512, 128
 # the 0.62e9-parameter state is 7.4 GB: params, m and v in float32), then a
 # restart trains 2 more, writing only its final checkpoint.
 ENTRY_STEPS, ENTRY_RESUMED, ENTRY_EVERY = 4, 2, 3
+# Phase 17: the data-parallel step's steps at TRAIN_B x TRAIN_S (with ZeRO-1
+# off and on) and compressed_psum's gradient (the unembedding's shape)
+DP_STEPS = 3
+PSUM_SHAPE = (151936, 1024)
 # 15.1: flash_attention_bwd against its twin, each gradient element within
 # this fraction of the sum of the magnitudes of its terms
 # (flash_attention_bwd_scale): in bf16 both round P and dS to bf16 before
@@ -632,11 +653,13 @@ class KernelRow:
 def kernel_rows(prof) -> list:
     """The device rows of a profiled window straight from its kineto
     events, by kernel name: what key_averages gives for them, without
-    building the host events (minutes for the sLSTM loop's million)."""
+    building the host events (minutes for the sLSTM loop's million). The
+    window's pads (graphs.traced) are left out."""
     from torch.autograd import DeviceType
+    from repro_torch import graphs
     rows: dict = {}
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() != DeviceType.CUDA:
+        if e.device_type() != DeviceType.CUDA or graphs.PAD_KERNEL in e.name():
             continue
         row = rows.setdefault(e.name(), KernelRow(e.name(), DeviceType.CUDA))
         row.count += 1
@@ -645,16 +668,17 @@ def kernel_rows(prof) -> list:
 
 
 def profiled(fn, label: str, prep=None, fast: bool = False):
-    """fn() under torch.profiler (CPU and CUDA activities), timed to a
-    synchronize: (profile, wall s, fn's result, the device rows of
-    key_averages, busy us); with ``fast``, the rows of kernel_rows. A
+    """fn() in a graphs.traced() window (torch.profiler, CPU and CUDA
+    activities), timed to a synchronize: (profile, wall s, fn's result, the
+    device rows of key_averages, busy us); with ``fast``, the rows of
+    kernel_rows. The window's pads are outside the wall and the rows. A
     window that records no device time is measured once more, after
     prep() when given (to reset what fn counts); the phase fails only if
     the retry is empty too. Each retry is printed and kept in
     PROFILE_RETRIES."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import graphs
     for attempt in range(2):
         if attempt:
             PROFILE_RETRIES.append(label)
@@ -662,14 +686,14 @@ def profiled(fn, label: str, prep=None, fast: bool = False):
                   f"measured once more")
             if prep is not None:
                 prep()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with graphs.traced() as prof:
             t0 = time.perf_counter()
             out = fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         rows = kernel_rows(prof) if fast else [
-            e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and graphs.PAD_KERNEL not in e.key]
         busy_us = sum(e.self_device_time_total for e in rows)
         if busy_us > 0:
             return prof, wall, out, rows, busy_us
@@ -699,44 +723,175 @@ def program_report(label: str, eng, smi: str) -> dict:
     return report
 
 
-def profile_graph_steps(eng, kind: str, env, n_steps: int, label: str, eager: tuple,
-                        smi: str) -> None:
-    """n_steps replays of the engine's captured GD step of split 4 (the
-    program of (kind, env), already built) in gd_solve's chunks, one read
-    of the stop flag a chunk, under torch.profiler; printed beside the
-    eager (ms a step, busy share). The NOMA kernels on the device trace
-    must equal what the replays' bookkeeping added to the counters."""
-    from repro_torch import graphs
+def graph_steps(eng, kind: str, env, n_steps: int):
+    """(replays, per_replay) for n_steps replays of the engine's captured GD
+    step of split 4 (the program of (kind, env), already built) in
+    gd_solve's chunks, one read of the stop flag a chunk: replays() runs
+    them with a pair of CUDA events recorded around each replay and returns
+    the pairs; per_replay is what one replay adds to the NOMA counters."""
+    import torch
     from repro_torch.core import li_gd
     from repro_torch.kernels import noma_rates as nr
     prog = eng.program(kind, env)
     step_graph = prog._graphs[(4, env.radio, env.comp)]
+    per_replay = {k: v for c, added in step_graph.added if c is nr.LAUNCHES
+                  for k, v in added.items()}
     done = prog._live["done"]
     chunks, k = [], 1
     while sum(chunks) < n_steps:
         chunks.append(min(k, n_steps - sum(chunks)))
         k = min(2 * k, li_gd.SYNC_EVERY)
+
     def replays():
+        marks = []
         for k in chunks:
             for _ in range(k):
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
                 step_graph.replay()
+                b.record()
+                marks.append((a, b))
             bool(done.all())
+        return marks
+    return replays, per_replay, chunks
 
-    nr.reset_launches()
-    prof_g, wall, _, rows, busy = profiled(replays, f"{label} (graphed steps)",
-                                           nr.reset_launches)
+
+def replays_ran(marks) -> tuple[int, list]:
+    """(replays the device ran, their ms): a replay ran when its events span
+    at least half the median replay (one that launched nothing spans
+    microseconds). The events must have completed."""
+    ms = [a.elapsed_time(b) for a, b in marks]
+    med = statistics.median(ms)
+    return sum(t >= 0.5 * med for t in ms), ms
+
+
+def trace_ends(prof, n: int = 8) -> tuple[list, list, int]:
+    """(first n, last n) device kernel names of a profiled window in start
+    order, and how many of its records are the window's pads."""
+    from torch.autograd import DeviceType
+    from repro_torch import graphs
+    evs = sorted((e for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA), key=lambda e: e.start_ns())
+    pads = sum(graphs.PAD_KERNEL in e.name() for e in evs)
+    names = [e.name()[:48] for e in evs]
+    return names[:n], names[-n:], pads
+
+
+# (windows, replay counts) of the census profile_graph_steps takes before
+# it traces, set by census_main; None in a run of main.
+CENSUS: tuple | None = None
+
+
+def profile_graph_steps(eng, kind: str, env, n_steps: int, label: str, eager: tuple | None,
+                        smi: str) -> float:
+    """n_steps replays of the engine's captured GD step of split 4 (the
+    program of (kind, env), already built) in a traced window (profiled);
+    printed beside the eager (ms a step, busy share). What the replays'
+    bookkeeping added to the counters must equal the replays the device
+    ran (CUDA events around each) times the launches one replay captured,
+    and the NOMA kernels on the device trace must equal it too. A trace
+    that comes back short while every replay ran (the profiler lost kernel
+    records: ROADMAP section 3) is measured once more, and kept in
+    PROFILE_RETRIES; a second short trace fails. ``eager`` (ms a step, busy
+    share) is printed beside when given. Returns the profiled wall ms a
+    step."""
+    from repro_torch import graphs
+    from repro_torch.kernels import noma_rates as nr
+    if CENSUS is not None:
+        for pad in (False, True):
+            for n in CENSUS[1]:
+                window_census(eng, kind, env, n, CENSUS[0], label, smi, pad)
+    replays, per_replay, chunks = graph_steps(eng, kind, env, n_steps)
+    want = {k: v * n_steps for k, v in per_replay.items()}
+    for attempt in range(2):
+        nr.reset_launches()
+        prof_g, wall, marks, rows, busy = profiled(replays, f"{label} (graphed steps)",
+                                                   nr.reset_launches)
+        ran, _ = replays_ran(marks)
+        print(f"check {label}: {ran} of {n_steps} replays ran on the device (CUDA events); "
+              f"the replays counted {dict(nr.LAUNCHES)}, {per_replay} a replay")
+        if ran != n_steps or nr.LAUNCHES != want:
+            fail(f"{label}: the device ran {ran} of {n_steps} replays, counted "
+                 f"{dict(nr.LAUNCHES)} for {want}")
+        seen = {k: n for k, n in graphs.kernel_launches(prof_g).items() if k in nr.LAUNCHES}
+        print(f"check {label}: NOMA kernels on the device trace of the replays {seen}, counted "
+              f"by the replays {dict(nr.LAUNCHES)}: {seen == nr.LAUNCHES}")
+        if seen == nr.LAUNCHES:
+            break
+        first, last, pads = trace_ends(prof_g)
+        print(f"profile {label}: the short trace's first kernels {first}, last {last}, "
+              f"{pads} of its {2 * graphs.PAD_KERNELS} pad records")
+        if attempt:
+            fail(f"{label}: the trace held {seen} twice, the replays ran {dict(nr.LAUNCHES)}")
+        PROFILE_RETRIES.append(f"{label} (trace short of the replays that ran)")
+        print(f"profile {label}: the trace is short of the {n_steps} replays that ran; the "
+              "window is measured once more")
     busy /= 1e6
     kernels = sum(e.count for e in rows)
-    seen = {k: n for k, n in graphs.kernel_launches(prof_g).items() if k in nr.LAUNCHES}
-    print(f"check {label}: NOMA kernels on the device trace of the replays {seen}, counted "
-          f"by the replays {dict(nr.LAUNCHES)}: {seen == nr.LAUNCHES}")
-    if seen != nr.LAUNCHES or not sum(seen.values()):
-        fail(f"{label}: the replays ran {seen} on the device but counted {dict(nr.LAUNCHES)}")
+    beside = "" if eager is None else (f"; eager per_step_ms={eager[0] * 1e3:.3f} "
+                                       f"busy_share={eager[1]:.4f}")
     print(f"{label} {n_steps} step replays in chunks {chunks} (profiled): wall_s={wall:.4f} "
           f"per_step_ms={wall / n_steps * 1e3:.4f} device_busy_s={busy:.4f} "
           f"busy_ms_per_step={busy / n_steps * 1e3:.4f} busy_share={busy / wall:.4f} "
-          f"kernels_per_step={kernels / n_steps:.1f}; eager per_step_ms="
-          f"{eager[0] * 1e3:.3f} busy_share={eager[1]:.4f} | {smi}")
+          f"kernels_per_step={kernels / n_steps:.1f}{beside} | {smi}")
+    return wall / n_steps * 1e3
+
+
+def window_census(eng, kind: str, env, n_steps: int, n_windows: int, label: str,
+                  smi: str, pad: bool) -> list[dict]:
+    """n_windows traced windows of graph_steps' n_steps replays, each
+    counted three ways: the NOMA kernels on the torch.profiler trace, what
+    the replays' bookkeeping (graphs.Graph.replay) added to LAUNCHES, and
+    the replays the device ran by their CUDA events (replays_ran); and the
+    device's kernel records on the trace, pads left out. ``pad``: the
+    windows are graphs.traced()'s, else bare torch.profiler windows (as
+    the traces were taken before the pads). Returns a dict a window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import graphs
+    from repro_torch.kernels import noma_rates as nr
+    replays, per_replay, _ = graph_steps(eng, kind, env, n_steps)
+    out = []
+    for _ in range(n_windows):
+        nr.reset_launches()
+        if pad:
+            with graphs.traced() as prof:
+                marks = replays()
+        else:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                marks = replays()
+                torch.cuda.synchronize()
+        ran, _ = replays_ran(marks)
+        out.append(dict(trace={k: n for k, n in graphs.kernel_launches(prof).items()
+                               if k in nr.LAUNCHES},
+                        counted=dict(nr.LAUNCHES), ran=ran,
+                        records=sum(r.count for r in kernel_rows(prof)),
+                        pads=trace_ends(prof)[2]))
+    want = {k: v * n_steps for k, v in per_replay.items()}
+    short = [i for i, w in enumerate(out) if w["trace"] != w["counted"]]
+    missed = [i for i, w in enumerate(out) if w["ran"] != n_steps or w["counted"] != want]
+    recs = [w["records"] for w in out]
+    print(f"census {label} {'padded' if pad else 'bare'}: {n_windows} traced windows of "
+          f"{n_steps} replays, a replay {per_replay}; windows whose trace differs from the "
+          f"counted launches {len(short)} ({[out[i]['trace'] for i in short]}); windows "
+          f"where fewer replays ran on the device than were counted {len(missed)}; kernel "
+          f"records a window min/median/max {min(recs)} / {statistics.median(recs)} / "
+          f"{max(recs)}, pad records kept min {min(w['pads'] for w in out)} of "
+          f"{2 * graphs.PAD_KERNELS if pad else 0} | {smi}")
+    return out
+
+
+def census_main(windows: int = 8, lengths: tuple = (40, 8)) -> int:
+    """The census behind ROADMAP section 3's fleet-window entry (not a phase
+    of main): main, with window_census taken before each graphed window
+    that profile_graph_steps traces (phase 4's one env, phase 7's fleet,
+    17.1's sharded fleet): ``windows`` windows of each of ``lengths``
+    replays, bare and padded. Run on the card:
+    python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.census_main())"."""
+    global CENSUS
+    CENSUS = (windows, lengths)
+    return main()
 
 
 def main() -> int:
@@ -1145,6 +1300,8 @@ def main() -> int:
     memory_mark(torch, "11", peaks)
     # -- 12. the engine's compiled programs against the eager path -------------
     programs_phase(dev, smi, main, fleet_path)
+    # phase 17 holds its sharded fleet to phase 7's states
+    fleet_kept = {k: fleet_path[k] for k in ("cfg", "envs", "states", "walls")}
     del main, fleet_path
     torch.cuda.empty_cache()
 
@@ -1169,6 +1326,12 @@ def main() -> int:
     rows["flash_attention"].update(fwd_rows)
     launches["flash_attention"] += train_launches["flash_attention"]
     launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
+    # -- 17. sharding on a world-1 NCCL group, before 16: xlstm's million-event
+    # profile in 16 leaves later traces short of kernel records (PR 26's final
+    # call traced 238 of 240 intra launches there, twice)
+    for name, n in sharding_phase(dev, smi, fleet_kept, errs, peaks).items():
+        launches[name] += n
+    del fleet_kept
     # -- 16. training the hybrid, MoE, vision, xLSTM and audio families --------------
     rows["rg_lru_bwd"], family_bwd_rows, family_launches = families_phase(dev, smi, errs, peaks)
     rows["flash_attention_bwd"].update(family_bwd_rows)
@@ -4127,8 +4290,8 @@ def time_bwd(label: str, b: int, h: int, kv: int, hd: int, tensors, smi: str,
     import torch
     import torch.nn.functional as F
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch import graphs
     from repro_torch.kernels import flash_attention as fa
     q, k, v, out, lse, dout = tensors
     bh, sq, sk, g = b * h, q.shape[1], k.shape[1], h // kv
@@ -4190,10 +4353,8 @@ def time_bwd(label: str, b: int, h: int, kv: int, hd: int, tensors, smi: str,
     split = {}
     for _ in range(3):   # a window the profiler returns empty is taken again
         fa.flash_attention_bwd(q, k, v, out, lse, dout, *args)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with graphs.traced() as prof:
             five()
-            torch.cuda.synchronize()
         split = {e.key.split("<")[0].split("::")[-1].split(" ")[-1]:
                  e.self_device_time_total / 5e3 for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA and "flash_bwd_" in e.key}
@@ -5009,6 +5170,228 @@ def families_phase(dev, smi: str, errs: dict, peaks: dict) -> tuple[dict, dict, 
     bwd_row["train_steps"] = steps
     print(f"families: phase 16 took {time.perf_counter() - t_phase:.1f} s | {smi}")
     return bwd_row, bwd_rows, launches
+
+
+def sharding_phase(dev, smi: str, fleet: dict, errs: dict, peaks: dict) -> dict:
+    """Phase 17: sharding on the card, on an NCCL group of world size 1 (the
+    one card: NCCL refuses two ranks on one GPU, so this is a one-device
+    mesh, not a multi-device result). 17.1 phase 7's fleet planned and
+    replanned through plan_many_sharded / replan_many_sharded on
+    fleet_mesh(), every leaf bit-equal to phase 7's unsharded states,
+    exact NOMA launches, one graphed step's traced launches against the
+    counted ones; 17.2 jit_train_step on a ("data",) mesh of one at
+    qwen1.5-0.5b 8 x 2048, 3 steps with ZeRO-1 off and 3 on, both bit-equal
+    to make_train_step's (phase 15.2's step) from the same state and
+    batches; 17.3 compressed_psum over the group bit-equal to
+    error_feedback_update's g_hat; 17.4 launch/train.py --mesh 1x1
+    --reduced under the group, resumed bit-equal to an uninterrupted run,
+    and flash checked at the reduced model's shapes (check_bwd). Returns
+    the main paths' launches (NOMA kernels of 17.1, flash of 17.2 and
+    17.4)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import configs, graphs
+    from repro_torch.core import li_gd, profiles
+    from repro_torch.core.types import tree_flatten
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import noma_rates as nr
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import Model
+    from repro_torch.optim import compressed_psum, error_feedback_update
+    from repro_torch.planning import PlannerEngine
+    from repro_torch.pshard import fleet_mesh, shard_fleet, unshard
+    from repro_torch.runtime import train as rt
+
+    t_phase = time.perf_counter()
+    lmesh.init_process_group(device=dev)
+    print(f"sharding 17: an NCCL group of world size {torch.distributed.get_world_size()} on "
+          f"{dev} (one card: a one-device mesh) | {smi}")
+    out: dict = {}
+    try:
+        # -- 17.1 the fleet over a fleet mesh ---------------------------------------
+        t_sub = time.perf_counter()
+        mesh = fleet_mesh()
+        prof = profiles.nin()
+        sh = PlannerEngine(prof, cfg=fleet["cfg"], sinr_backend="kernel", mesh=mesh)
+        nr.reset_launches()
+        li_gd.reset_counts()
+        walls, steps, states, prev = [], [], [], None
+        for e_i in fleet["envs"]:
+            torch.cuda.synchronize()
+            t0, before = time.perf_counter(), li_gd.COUNTS["steps"]
+            placed = shard_fleet(e_i, mesh)
+            prev = sh.plan_many(placed) if prev is None else sh.replan_many(prev, placed)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            steps.append(li_gd.COUNTS["steps"] - before)
+            states.append(prev)
+        launches = dict(nr.LAUNCHES)
+        n, splits = len(walls), prof.n_layers + 1
+        expect = plan_launches(sum(steps), splits * n + 2 * n + 2 * splits * (n - 1))
+        print(f"sharding 17.1 fleet of {FLEET_B} on {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}: "
+              f"kinds {sorted(k[0] for k in sh.cache_keys())}; launches {launches}, expected "
+              f"from {sum(steps)} fleet GD steps {expect}")
+        if launches != expect:
+            fail(f"sharding 17.1: the sharded fleet launched {launches}, expected {expect}")
+        for name, got, want in zip(("plan_many", "replan_many1"), states, fleet["states"]):
+            bad = graphs.differing(unshard(got), want)
+            print(f"check sharding 17.1 {name}_sharded: every leaf of all {FLEET_B} members "
+                  f"bit-equal to phase 7's unsharded {name}: {not bad}")
+            if bad:
+                fail(f"sharding 17.1 {name}: leaves {bad} differ from the unsharded engine's")
+        step_ms = profile_graph_steps(sh, "plan_many_sharded", fleet["envs"][0], 40,
+                                      f"sharding 17.1 graphed sharded fleet GD step split 4, "
+                                      f"B={FLEET_B},", None, smi)
+        print(f"time sharding 17.1: plan_many_sharded {walls[0]:.4f} s, replan_many_sharded "
+              f"{walls[1]:.4f} s (each capturing its graphs); phase 7's unsharded graphed "
+              f"plan_many {fleet['walls'][0]:.4f} s, replan_many {fleet['walls'][1]:.4f} s "
+              f"(printed again in 12.3); a graphed step {step_ms:.4f} ms; 17.1 took "
+              f"{time.perf_counter() - t_sub:.1f} s | {smi}")
+        out.update(launches)
+        del sh, states, prev, placed
+        gc.collect()
+        torch.cuda.empty_cache()
+        memory_mark(torch, "17.1", peaks)
+
+        # -- 17.2 the data-parallel train step ---------------------------------------
+        t_sub = time.perf_counter()
+        cfg = configs.get(TRAIN_ARCH)
+        L = cfg.n_layers
+        model = Model(cfg, device=dev, trainable=True, remat=True)
+        data = SyntheticLM(TRAIN_SEED, TRAIN_B, TRAIN_S, cfg.vocab_size, device=dev)
+        try:
+            batches = [next(data) for _ in range(DP_STEPS)]
+        finally:
+            data.close()
+
+        def fresh():
+            return rt.init_state(model, torch.Generator(device=dev).manual_seed(TRAIN_SEED))
+        state = fresh()
+        step = rt.make_train_step(model, seq_chunk=TRAIN_CHUNK)
+        ref_mets, ref_walls = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = step(state, b)
+            torch.cuda.synchronize()
+            ref_walls.append(time.perf_counter() - t0)
+            ref_mets.append(met)
+        ref = [x.detach().clone() for x in tree_flatten(state)[0]]
+        del state, step
+        flops = train_flops(model, TRAIN_B, TRAIN_S, None)[0]
+        ref_s = statistics.median(ref_walls[1:])
+        print(f"time sharding 17.2 make_train_step (one device, no mesh): step_ms="
+              f"{ref_s * 1e3:.2f} ({[round(w * 1e3, 2) for w in ref_walls]}) "
+              f"mfu={flops / ref_s / BF16_OPS_PER_S:.4f} | {smi}")
+        dmesh = lmesh.make_mesh((1,), ("data",))
+        want = {"flash_attention": 2 * L * DP_STEPS, "flash_attention_bwd": L * DP_STEPS}
+        for zero1 in (False, True):
+            state = fresh()
+            make, _ = rt.jit_train_step(model, dmesh, zero1=zero1, seq_chunk=TRAIN_CHUNK)
+            step = make({k: v.shape for k, v in batches[0].items()})
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launches()
+            walls, mets = [], []
+            for b in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, met = step(state, b)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                mets.append(met)
+            launched = dict(fa.LAUNCHES)
+            peak = torch.cuda.max_memory_reserved()
+            sharded = sum(type(x).__name__ == "DTensor" for x in tree_flatten(state.opt.m)[0])
+            differ = [i for i, (a, b) in enumerate(zip(tree_flatten(unshard(state))[0], ref,
+                                                       strict=True)) if not torch.equal(a, b)]
+            same_met = all(torch.equal(a[k], b[k]) for a, b in zip(mets, ref_mets) for k in a)
+            step_s = statistics.median(walls[1:])
+            print(f"check sharding 17.2 jit_train_step zero1={zero1} ({sharded} moment leaves "
+                  f"sharded): {DP_STEPS} steps' params, moments and steps bit-equal to "
+                  f"make_train_step's: {not differ}, metrics bit-equal: {same_met}; flash "
+                  f"launches {launched}")
+            print(f"time sharding 17.2 zero1={zero1}: step_ms={step_s * 1e3:.2f} (median of "
+                  f"steps 2-{DP_STEPS}; {[round(w * 1e3, 2) for w in walls]}) "
+                  f"mfu={flops / step_s / BF16_OPS_PER_S:.4f} "
+                  f"peak_reserved_gib={peak / 2**30:.2f} | {smi}")
+            if differ or not same_met:
+                fail(f"sharding 17.2 zero1={zero1}: leaves {differ} (metrics equal {same_met}) "
+                     "differ from make_train_step's")
+            if launched != want:
+                fail(f"sharding 17.2 zero1={zero1}: flash launches {launched}, expected {want}")
+            if zero1 and not sharded:
+                fail("sharding 17.2: ZeRO-1 sharded no moment leaf")
+            if zero1:     # where a ZeRO-1 step's time goes
+                _, p_wall, _, rows_k, busy_us = profiled(lambda: step(state, batches[0]),
+                                                         "sharding 17.2 zero1 step", fast=True)
+                print(f"profile sharding 17.2 zero1 step: wall_ms={p_wall * 1e3:.2f} "
+                      f"busy_share={busy_us / 1e6 / p_wall:.4f}")
+                for e in sorted(rows_k, key=lambda e: -e.self_device_time_total)[:6]:
+                    print(f"profile sharding 17.2 kernel {e.self_device_time_total / 1e3:9.2f} ms "
+                          f"{e.self_device_time_total / busy_us:6.1%} {e.count:6d} launches  "
+                          f"{e.key[:80]}")
+            for k, v in launched.items():
+                out[k] = out.get(k, 0) + v
+            del state, step, make
+        del model, batches, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        memory_mark(torch, "17.2", peaks)
+        print(f"sharding: 17.2 took {time.perf_counter() - t_sub:.1f} s")
+
+        # -- 17.3 compressed_psum over the group --------------------------------------
+        gen = torch.Generator(device=dev).manual_seed(17)
+        g = torch.randn(PSUM_SHAPE, device=dev, generator=gen)
+        res = 1e-2 * torch.randn(PSUM_SHAPE, device=dev, generator=gen)
+        got, got_res = compressed_psum(g, None, res)
+        hat, new_res = error_feedback_update(g, res)
+        again = compressed_psum(g, None, res)[0]
+        print(f"check sharding 17.3 compressed_psum of {PSUM_SHAPE} over the group bit-equal to "
+              f"error_feedback_update's g_hat: {torch.equal(got, hat)}, residual "
+              f"{torch.equal(got_res, new_res)}, two calls {torch.equal(got, again)}")
+        if not (torch.equal(got, hat) and torch.equal(got_res, new_res)
+                and torch.equal(got, again)):
+            fail("sharding 17.3: compressed_psum differs from error_feedback_update")
+        del g, res, got, got_res, hat, new_res, again
+
+        # -- 17.4 the entry point under the group ----------------------------------------
+        t_sub = time.perf_counter()
+        base = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+        common = ["--reduced", "--mesh", "1x1", "--log-every", "1", "--ckpt-every", "100"]
+        try:
+            fa.reset_launches()
+            full = launch_train.main(common + ["--steps", "3", "--ckpt-dir", f"{base}/a"])
+            first = launch_train.main(common + ["--steps", "2", "--ckpt-dir", f"{base}/b"])
+            again = launch_train.main(common + ["--steps", "1", "--ckpt-dir", f"{base}/b"])
+            launched = dict(fa.LAUNCHES)
+            seen = set(fa.SHAPES) | set(fa.BWD_SHAPES)
+        finally:
+            shutil.rmtree(base, ignore_errors=True)
+        gen = torch.Generator(device=dev).manual_seed(174)
+        for bh, sq, sk, hd, g, causal, window, kv_len in sorted(seen):
+            check_bwd(dev, gen, errs, f"17.4 reduced {TRAIN_ARCH} ({bh}, {sq}, {hd}) G={g}", bh,
+                      g, sq, sk, hd, causal, window, None if kv_len == sk else kv_len)
+        same = (again["start"] == 2 and [first["losses"][i] for i in range(2)]
+                == [full["losses"][i] for i in range(2)] and again["losses"] == {2: full["losses"][2]})
+        print(f"check sharding 17.4 launch.train --mesh 1x1 --reduced under the group: 3 steps "
+              f"{full['losses']}; 2 steps and a restart from step {again['start']}: "
+              f"{first['losses']} {again['losses']}: bit-equal {same}; flash launches {launched}; "
+              f"17.4 took {time.perf_counter() - t_sub:.1f} s")
+        if not same:
+            fail("sharding 17.4: the resumed run's losses differ from the uninterrupted run's")
+        for k, v in launched.items():
+            out[k] = out.get(k, 0) + v
+    finally:
+        lmesh.destroy_process_group()
+    print(f"sharding: phase 17 took {time.perf_counter() - t_phase:.1f} s | {smi}")
+    return out
 
 
 if __name__ == "__main__":

@@ -20,11 +20,14 @@ The on-disk layout is the JAX package's (``step_<8 digits>/``,
 ``shard_<process>.npz`` with keys ``a<i>``, ``meta.json``), so either
 package's reader finds the same files. Trees are flattened with
 core.types.tree_flatten; Python int leaves are stored as 0-d int64 arrays. ``restore`` places the leaves on ``device`` (the
-card by default) with the caller's dtypes; re-sharding waits for a port of
-runtime/sharding.
+card by default) with the caller's dtypes and, given ``shardings`` (a tree
+of pshard.NamedSharding), splits each leaf over its mesh: the elastic
+restore onto a mesh of any size. Every rank reads the whole arrays and keeps
+its own shard, so placing them needs no communication.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -235,11 +238,37 @@ def to_tree(treedef: TreeDef, template: list, arrays: list[np.ndarray], device):
     return tree_unflatten(treedef, leaves)
 
 
-def load_checkpoint(directory: str, tree_like, step: int | None = None, device=None):
+def place(tree, shardings):
+    """``tree`` with each tensor leaf split over the mesh of the
+    pshard.NamedSharding at its place in ``shardings`` (a tree of the same
+    structure; a None there leaves the leaf whole): a DTensor holding this
+    rank's shard of the leaf, which every rank holds whole."""
+    if isinstance(tree, torch.Tensor):
+        if shardings is None:
+            return tree
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(tree, shardings.mesh, shardings.placements,
+                                 src_data_rank=None)
+    if isinstance(tree, dict):
+        return {k: place(v, shardings[k]) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(place(v, s) for v, s in zip(tree, shardings, strict=True)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(place(v, s) for v, s in zip(tree, shardings, strict=True))
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{f.name: place(getattr(tree, f.name),
+                                                          getattr(shardings, f.name))
+                                            for f in dataclasses.fields(tree)})
+    return tree
+
+
+def load_checkpoint(directory: str, tree_like, step: int | None = None, device=None,
+                    shardings=None):
     """Restore into the structure of ``tree_like`` on ``device`` (None: the
-    card). The stored meta.json (treedef string, per-leaf dtypes/shapes/CRCs)
-    is validated against both ``tree_like`` and the bytes actually read; any
-    mismatch raises SnapshotIntegrityError. Returns (tree, step)."""
+    card), each leaf split by ``shardings`` when given (place). The stored
+    meta.json (treedef string, per-leaf dtypes/shapes/CRCs) is validated
+    against both ``tree_like`` and the bytes actually read; any mismatch
+    raises SnapshotIntegrityError. Returns (tree, step)."""
     steps = list_steps(directory)
     if not steps:
         raise FileNotFoundError(f"no checkpoints under {directory}")
@@ -249,7 +278,8 @@ def load_checkpoint(directory: str, tree_like, step: int | None = None, device=N
     meta = _read_meta(path)
     validate_leaves(meta, flat, treedef, path)
     loaded = load_arrays(path, "shard_0.npz", meta)
-    return to_tree(treedef, flat, loaded, resolve_device(device)), step
+    tree = to_tree(treedef, flat, loaded, resolve_device(device))
+    return (tree if shardings is None else place(tree, shardings)), step
 
 
 class CheckpointManager:
@@ -289,8 +319,8 @@ class CheckpointManager:
         steps = list_steps(self.directory)
         return steps[-1] if steps else None
 
-    def restore(self, tree_like, device=None, step=None):
-        return load_checkpoint(self.directory, tree_like, step, device)
+    def restore(self, tree_like, device=None, step=None, shardings=None):
+        return load_checkpoint(self.directory, tree_like, step, device, shardings)
 
     def _gc(self) -> None:
         for s in list_steps(self.directory)[:-self.keep_n]:

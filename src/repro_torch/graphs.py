@@ -27,11 +27,12 @@ and chip_smoke.py: ``differing`` (the tensor leaves of two trees that are
 not equal to the bit), ``blocking_syncs`` (the blocking host syncs a call
 makes) and ``traced_launches`` (the port's kernels that a call ran on the
 device, read off a torch.profiler trace: the count a replay's bookkeeping
-is held to).
+is held to). ``traced`` is the window they trace in.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import gc
 import re
 import time
@@ -216,14 +217,45 @@ KERNEL_SYMBOLS = (("flash_wgmma_kernel", "flash_attention"),
                   ("rg_lru_bwd_kernel", "rg_lru_bwd"))
 
 
-def traced_launches(fn):
-    """fn() under torch.profiler: its result and kernel_launches of the
-    trace. fn's work is waited for."""
+# The first device records of a torch.profiler window can be lost: late
+# in a long process every window lost its first 54 kernel records,
+# whatever its length. A traced window therefore opens and closes with a
+# pad, PAD_KERNELS spin kernels that keep the device busy for PAD_CYCLES
+# in all (about 10 ms at 1.98 GHz), and a host sync: the traced work lies
+# well inside the window by time and by record count. Readers of a
+# trace's device rows skip PAD_KERNEL, the spin's symbol; kernel_launches
+# counts only the port's kernels.
+PAD_CYCLES = 20_000_000
+PAD_KERNELS = 128
+PAD_KERNEL = "spin_kernel"
+
+
+def trace_pad() -> None:
+    """Run one pad on the device and wait for it."""
+    for _ in range(PAD_KERNELS):
+        torch.cuda._sleep(PAD_CYCLES // PAD_KERNELS)
+    torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def traced():
+    """torch.profiler (CPU and CUDA activities) around the body, which runs
+    between two trace_pad()s and whose work is waited for; yields the
+    profile."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        out = fn()
+        trace_pad()
+        yield prof
         torch.cuda.synchronize()
+        trace_pad()
+
+
+def traced_launches(fn):
+    """fn() in a traced() window: its result and kernel_launches of the
+    trace."""
+    with traced() as prof:
+        out = fn()
     return out, kernel_launches(prof)
 
 

@@ -11,7 +11,8 @@ projects K and V from another sequence, rotates neither q nor k and masks
 nothing: Sq > 8 queries go through the kernel (Sq != Sk), a few queries (a
 decode step) through the single-pass path, as the JAX core splits them.
 
-The flat tensor-parallel layout waits for runtime/sharding.
+The flat tensor-parallel layout waits for the tensor-parallel slice (ROADMAP
+section 1, the sharding item's TP half).
 """
 from __future__ import annotations
 

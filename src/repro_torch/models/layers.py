@@ -64,6 +64,11 @@ def init_params(defs: dict, generator: torch.Generator, n_stack: int = 0,
     return out
 
 
+def param_specs(defs: dict) -> dict:
+    """The logical axes of every leaf of a nested dict of ParamDefs."""
+    return {k: param_specs(d) if isinstance(d, dict) else d.axes for k, d in defs.items()}
+
+
 class Params(nn.Module):
     """A nested dict of ParamDefs as a module: sub-dicts become child Params,
     leaves nn.Parameters allocated (uninitialised) on ``device``: frozen in

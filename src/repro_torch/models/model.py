@@ -32,6 +32,7 @@ from repro_torch.models.layers import (
     layer_norm,
     logits_out,
     pad_vocab,
+    param_specs,
     rms_norm,
 )
 
@@ -144,6 +145,13 @@ class Model(nn.Module):
         a list (per stage) of lists (per layer) of each block's nested dict."""
         return {**self.top.tree(),
                 "stages": [[blk.p.tree() for blk in layers] for layers in self.stage_layers]}
+
+    def specs(self) -> dict:
+        """The logical axes of every parameter, shaped as param_tree() (per
+        layer: the reference's stacked leaves lead with "layers")."""
+        return {**param_specs(self._top_defs()),
+                "stages": [[param_specs(blk.p.defs) for blk in layers]
+                           for layers in self.stage_layers]}
 
     @torch.no_grad()
     def load_params_(self, tree: dict) -> "Model":

@@ -9,6 +9,7 @@ from repro_torch.optim.adamw import (  # noqa: F401
 )
 from repro_torch.optim.compression import (  # noqa: F401
     compress_topk,
+    compressed_psum,
     decompress_topk,
     error_feedback_update,
 )

@@ -1,6 +1,6 @@
 """PlannerEngine: the entry point for one-shot and online warm-started ECC
 planning of one scenario, or of a fleet of same-shape scenarios, on one
-device.
+device or with the fleet split over a device mesh.
 
   plan(env)          -- one-shot solve (the paper's Table I).
   plan_many(envs)    -- the same for a fleet: one batched Li-GD solve of B
@@ -11,6 +11,22 @@ device.
                         says that start beats the fresh chain carry.
   replan_many(prev, envs) -- the fleet replan: the warm gate, the probes and
                         the step counts per member.
+
+With a mesh attached (``mesh=`` or ``engine.shard(mesh)``; a
+torch.distributed DeviceMesh, pshard.fleet_mesh()), plan_many and
+replan_many run the kinds plan_many_sharded / replan_many_sharded: each
+rank plans its contiguous slice of the fleet, members [r B/W, (r+1) B/W)
+for rank r of W along the mesh's fleet axis, through the same programs as
+plan_many (one CUDA graph a split), and the results are DTensors split
+over that axis (pshard.unshard or full_tensor() gathers them). The members
+of a fleet are independent, so the solve needs no collective: the only
+communication places the inputs (pshard.shard_fleet) and the constants
+(replicated over the mesh once at construction, per call for per-call
+weights and measured profiles) and gathers what the caller asks for. Every
+rank of the mesh calls the same entry points in the same order. Envs and a
+warm state may be DTensors split over the fleet axis or whole tensors that
+every rank holds alike. Unlike the JAX engine's, the sharded kinds do not
+donate the carried payload: outputs never alias a program's buffers.
 
 All return a PlanState: the discrete SplitPlan plus the solver state that
 warm-starts the next epoch (a fleet's leaves lead with B).
@@ -49,10 +65,11 @@ from repro_torch.core.types import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.planning.programs import PlanState, Program, compile_log  # noqa: F401
+from repro_torch.pshard import fleet_axis, fleet_sharding, mesh_shape, replicate
 
-# The program kinds of the cache; the JAX engine's *_sharded kinds wait for
-# runtime/sharding.
-KINDS = ("plan", "plan_many", "replan", "replan_many")
+# The program kinds of the cache.
+KINDS = ("plan", "plan_many", "replan", "replan_many", "plan_many_sharded",
+         "replan_many_sharded")
 
 
 class WarmStateShapeError(ValueError):
@@ -125,10 +142,15 @@ class PlannerEngine:
         the fallback.
     warm_moment_decay: factor applied to the carried Adam moments on resume
         (1.0 resumes verbatim, 0.0 zeroes).
+    mesh: a torch.distributed DeviceMesh with at least one axis, or None.
+        The fleet entry points split the fleet over its fleet axis
+        (module docstring). Read-only: shard(mesh) gives a twin on another
+        mesh.
     sinr_backend: 'einsum' | 'kernel' (None keeps cfg's value).
-    device: None resolves to the card and raises without CUDA; pass
-        device='cpu' for the plain versions on the CPU. Envs handed to the
-        entry points must live on this device.
+    device: None resolves to the card and raises without CUDA (a mesh's
+        device type decides it); pass device='cpu' for the plain versions
+        on the CPU. Envs handed to the entry points must live on this
+        device.
 
     cfg, method, rounding, warm_rho_min and warm_moment_decay are read at
     each call and are part of the cache key: assigning one on a live engine
@@ -146,6 +168,7 @@ class PlannerEngine:
         rounding: str = "best",
         warm_rho_min: float = 0.5,
         warm_moment_decay: float = 0.1,
+        mesh=None,
         sinr_backend: str | None = None,
         device=None,
     ):
@@ -162,9 +185,26 @@ class PlannerEngine:
         if not 0.0 <= warm_moment_decay <= 1.0:
             raise ValueError(
                 f"warm_moment_decay must be in [0, 1], got {warm_moment_decay}")
+        if mesh is not None:
+            if not mesh_shape(mesh):
+                raise ValueError("mesh must have at least one axis")
+            if device is None:
+                device = mesh.device_type
+            elif resolve_device(device).type != mesh.device_type:
+                raise ValueError(f"device {device} is not of the mesh's type "
+                                 f"{mesh.device_type!r}")
         self.device = resolve_device(device)
         self._prof = prof.to(self.device)
         self._weights = None if weights is None else weights.to(self.device)
+        self._mesh = mesh
+        # Replicated copies of the constants for the sharded kinds, made
+        # equal on every rank once (the single-scenario kinds keep the
+        # originals).
+        if mesh is None:
+            self._prof_rep = self._weights_rep = None
+        else:
+            self._prof_rep = replicate(self._prof, mesh)
+            self._weights_rep = None if weights is None else replicate(self._weights, mesh)
         self.cfg = cfg
         self.method = method
         self.rounding = rounding
@@ -176,12 +216,28 @@ class PlannerEngine:
         self._pool = torch.cuda.graph_pool_handle() if graphed else None
 
     @property
+    def mesh(self):
+        """Read-only: the replicated constants and the fleet programs belong
+        to one mesh; swap meshes with shard()."""
+        return self._mesh
+
+    @property
     def prof(self) -> ModelProfile:
+        """Read-only: build a new engine for another profile."""
         return self._prof
 
     @property
     def weights(self) -> EccWeights | None:
+        """Read-only: pass per-call weights or build a new engine."""
         return self._weights
+
+    def shard(self, mesh) -> "PlannerEngine":
+        """A twin of this engine whose fleet entry points split the fleet
+        over ``mesh`` (None: a plain twin), with a program cache of its own."""
+        return PlannerEngine(
+            self.prof, weights=self.weights, cfg=self.cfg, method=self.method,
+            rounding=self.rounding, warm_rho_min=self.warm_rho_min,
+            warm_moment_decay=self.warm_moment_decay, mesh=mesh, device=self.device)
 
     @property
     def sinr_backend(self) -> str:
@@ -199,18 +255,75 @@ class PlannerEngine:
             raise ValueError(f"env is on {env.device} but the engine runs on "
                              f"{self.device}; move it with env.to(device)")
 
-    def _prof_arg(self, prof: ModelProfile | None) -> ModelProfile:
-        """The static profile, or a measured one validated against it."""
+    def _prof_arg(self, prof: ModelProfile | None, sharded: bool = False) -> ModelProfile:
+        """The static profile, or a measured one validated against it
+        (replicated over the mesh for a sharded kind)."""
         if prof is None:
-            return self._prof
-        return self._prof.validate_like(prof).to(self.device)
+            return self._prof_rep if sharded else self._prof
+        prof = self._prof.validate_like(prof).to(self.device)
+        return replicate(prof, self.mesh) if sharded else prof
 
-    def _w(self, env: NetworkEnv, weights: EccWeights | None) -> EccWeights:
-        if weights is not None:
-            return weights.to(self.device)
-        if self._weights is not None:
-            return self._weights
-        return make_weights(env.n_users, device=self.device)
+    def _w(self, env: NetworkEnv, weights: EccWeights | None,
+           sharded: bool = False) -> EccWeights:
+        if weights is None and self._weights is not None:
+            return self._weights_rep if sharded else self._weights
+        if weights is None:
+            weights = make_weights(env.n_users, device=self.device)
+        weights = weights.to(self.device)
+        return replicate(weights, self.mesh) if sharded else weights
+
+    # -- the fleet over the mesh -------------------------------------------
+    def _fleet_axis_size(self) -> int:
+        return mesh_shape(self.mesh)[fleet_axis(self.mesh)]
+
+    def _check_fleet_divisible(self, b: int) -> None:
+        nd = self._fleet_axis_size()
+        if b % nd != 0:
+            raise ValueError(
+                f"fleet size {b} is not divisible by the mesh fleet axis "
+                f"'{fleet_axis(self.mesh)}' ({nd} devices); pad the fleet or use a "
+                "divisor-sized mesh (repro_torch.pshard.fleet_mesh(n))")
+
+    def _members(self, b: int) -> tuple[int, int]:
+        """This rank's members [lo, hi) of a fleet of b."""
+        n = self._fleet_axis_size()
+        r = self.mesh.get_local_rank(fleet_axis(self.mesh))
+        return r * b // n, (r + 1) * b // n
+
+    def _local(self, tree, b: int):
+        """This rank's members of a fleet tree: a DTensor leaf's local shard
+        (redistributed to the fleet split first if it has another), a whole
+        tensor's rows."""
+        from torch.distributed.tensor import DTensor
+        lo, hi = self._members(b)
+        place = fleet_sharding(self.mesh).placements
+
+        def local(x):
+            if isinstance(x, DTensor):
+                if list(x.placements) != place:
+                    x = x.redistribute(self.mesh, place)
+                return x.to_local()
+            return x[lo:hi]
+        return tree_map(local, tree)
+
+    def _global(self, tree, b: int):
+        """A rank's members as DTensors of the whole fleet, split over the
+        fleet axis (no communication)."""
+        from torch.distributed.tensor import DTensor
+        place = fleet_sharding(self.mesh).placements
+
+        def wrap(x):
+            shape = (b, *x.shape[1:])
+            return DTensor.from_local(x, self.mesh, place, run_check=False, shape=shape,
+                                      stride=torch.empty(shape, device="meta").stride())
+        return tree_map(wrap, tree)
+
+    def _run_sharded(self, kind: str, envs: NetworkEnv, weights, prof, prev=None):
+        b = envs.fleet
+        self._check_fleet_divisible(b)
+        prog = self._compiled(kind, envs)
+        return self._global(prog(*self.program_args(kind, envs, prev, weights=weights,
+                                                    prof=prof)), b)
 
     # -- compiled-program cache ------------------------------------------
     def _compiled(self, kind: str, env: NetworkEnv) -> Program:
@@ -219,6 +332,8 @@ class PlannerEngine:
         # engine builds new programs, not silently keeps the old gate.
         if kind not in KINDS:
             raise KeyError(kind)
+        if kind.endswith("_sharded") and self.mesh is None:
+            raise KeyError(f"{kind}: a sharded kind needs an engine with a mesh")
         key = (kind, tuple(env.g_up.shape), self.cfg, self.method, self.rounding,
                self.warm_rho_min, self.warm_moment_decay)
         prog = self._cache.get(key)
@@ -251,15 +366,23 @@ class PlannerEngine:
         steps, prev_gains) of ``prev`` for the replan kinds. ``env`` is one
         environment for plan / replan and a stacked fleet for the *_many
         kinds. ``prof`` substitutes a measured profile, as the entry points
-        do (validated; the same program)."""
-        w = self._w(env, weights)
-        prof = self._prof_arg(prof)
+        do (validated; the same program). For a *_sharded kind the env and
+        the warm payload are this rank's members (the program plans a
+        rank's slice) and the constants the replicated ones."""
+        sharded = kind.endswith("_sharded")
+        w = self._w(env, weights, sharded)
+        prof = self._prof_arg(prof, sharded)
         if kind.startswith("plan"):
-            return (env, prof, w)
-        if prev is None:
+            args = (env, prof, w)
+        elif prev is None:
             raise ValueError(f"program_args({kind!r}) needs prev= (a PlanState) to "
                              "assemble the warm payload")
-        return (env, prof, w, *self._warm_args(prev, env.g_up))
+        else:
+            args = (env, prof, w, *self._warm_args(prev, env.g_up))
+        if not sharded:
+            return args
+        b = env.fleet
+        return (self._local(env, b), prof, w, *self._local(args[3:], b))
 
     # -- entry points ----------------------------------------------------
     @torch.no_grad()
@@ -285,6 +408,8 @@ class PlannerEngine:
                 f"plan_many expects stacked envs with g_up (B, U, N, M); got "
                 f"{tuple(envs.g_up.shape)} -- use plan() for a single scenario")
         self._check_device(envs)
+        if self.mesh is not None:
+            return self._run_sharded("plan_many_sharded", envs, weights, prof)
         return self._compiled("plan_many", envs)(
             *self.program_args("plan_many", envs, weights=weights, prof=prof))
 
@@ -386,5 +511,7 @@ class PlannerEngine:
                 f"{tuple(envs.g_up.shape)}; fleet and scenario shapes must "
                 "stay static across epochs (use plan_many() after a shape "
                 "change)")
+        if self.mesh is not None:
+            return self._run_sharded("replan_many_sharded", envs, weights, prof, prev)
         return self._compiled("replan_many", envs)(
             *self.program_args("replan_many", envs, prev, weights=weights, prof=prof))

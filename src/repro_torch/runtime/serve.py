@@ -20,8 +20,8 @@ ring slot and states into their caches in place: the caches a step is
 first given become its buffers (consumed, as the reference's donated
 caches are), and the caches it returns are those buffers, which the next
 step takes without a copy. ``mesh`` stands for the reference's device
-mesh: None or one device (the model's); the sharded layouts wait for
-runtime/sharding. jit_prefill_into is online.batcher.DecodeBatcher's
+mesh: None or one device (the model's); the sharded layouts wait for the
+tensor-parallel half of ROADMAP section 1's sharding item. jit_prefill_into is online.batcher.DecodeBatcher's
 admission: the prefill written straight into a slot of live caches.
 """
 from __future__ import annotations
@@ -120,13 +120,14 @@ def make_split_serve(model: Model, s: int) -> SplitPrograms:
 def _placement(model: Model, mesh) -> torch.device:
     """The device that stands for ``mesh``: None, a device (or its name)
     that is the model's, or a sequence of one such. A mesh of more than one
-    device needs the sharded layouts (ROADMAP section 1, the sharding item:
-    runtime/sharding), which the port does not have yet."""
+    device needs the sharded serve layouts (ROADMAP section 1, the sharding
+    item's tensor-parallel half), which the port does not have yet."""
     if isinstance(mesh, (list, tuple)):
         if len(mesh) != 1:
             raise NotImplementedError(
-                f"a mesh of {len(mesh)} devices needs runtime/sharding (ROADMAP section 1, "
-                "the sharding item); pass None or the model's one device")
+                f"a mesh of {len(mesh)} devices needs the sharded serve layouts (ROADMAP "
+                "section 1, the sharding item's tensor-parallel half); pass None or the "
+                "model's one device")
         mesh = mesh[0]
     if mesh is not None and torch.device(mesh) != model.device and not (
             torch.device(mesh).type == model.device.type and torch.device(mesh).index is None):

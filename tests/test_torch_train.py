@@ -663,15 +663,16 @@ def test_launch_train_saves_and_resumes(tmp_path):
 def test_training_is_dense_only_and_serving_stays_frozen():
     """Every registered arch builds trainable (float32 masters that require
     grad, every family: the name is from the slice that trained the dense
-    family alone); a mesh of more than one device raises; a serving model
+    family alone); a mesh with a model axis above one device raises (the
+    tensor-parallel slice; data-parallel meshes train); a serving model
     keeps frozen bf16 parameters and builds no graph."""
     for name in configs.all_names():
         model = Model(configs.get(name).reduced(), device="cpu", trainable=True)
         assert all(p.requires_grad and p.dtype == torch.float32 for p in model.parameters()), \
             name
     assert not hasattr(Model, "TRAINING_WAITS_FOR")
-    with pytest.raises(NotImplementedError, match="runtime/sharding"):
-        launch_train.check_mesh("2x1")
+    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+        launch_train.check_mesh("2x2")
     cfg = configs.get(ARCH).reduced()
     served = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
     assert all(not p.requires_grad for p in served.parameters())
