@@ -290,6 +290,26 @@ Phases, each fatal on failure (no phase catches its own error):
                  error_feedback_update's g_hat; 17.4 launch.train.main
                  --mesh 1x1 --reduced under the group, resumed bit-equal to
                  an uninterrupted run, flash checked at its shapes.
+ 18. tensor-parallel serving (models/tp.py) -- 18.1 after phase 11, over
+                 phase 6's model (its weights shared by a model built on a
+                 (1, 1) ("data", "model") mesh of a world-1 NCCL group):
+                 graphed jit_prefill / jit_decode_step / jit_masked_decode_step
+                 with their collectives captured, bit-equal to the unsharded
+                 programs, a traced replay's kernels against the counted
+                 ones, the all-reduces a call issues counted; 18.3 and 18.2
+                 last: 18.3 flash and rg_lru at the per-rank shapes of model
+                 axes of 2 and 4 (recurrentgemma-9b's flat layout at G = 1
+                 with window 2048 and its RG-LRU channels, qwen1.5-0.5b's
+                 grouped layout) against their twins and timed; 18.2 two
+                 ranks on the one card over gloo (NCCL refuses two ranks on
+                 one GPU), eager: recurrentgemma-9b cut to rec, rec, attn
+                 (flat, a sequence-split decode cache, split RG-LRU
+                 channels) and qwen1.5-0.5b whole (grouped), 4 x 3072 and 8
+                 decode steps, within 0.05 * max(1, max |logits|) of the
+                 unsharded Model(cfg, tp_size=2) on the same weights, the
+                 ranks' flash and rg_lru launches twice the unsharded
+                 prefill's; gloo stages through the host, so 18.2's times
+                 are no tensor-parallel performance number.
 Every profiled window that records no device time is measured once more
 (profiled); a phase fails only if the retry is empty too. A graphed
 window whose trace is short of the replays that CUDA events saw run is
@@ -486,6 +506,16 @@ REDUCED_B, REDUCED_S, REDUCED_LOSS_RTOL, REDUCED_GRAD_RTOL = 2, 64, 1e-5, 1e-4
 # full size, the others --reduced), 2 steps at 8 x 128 each; whisper-small
 # then resumed for 1 step from its final checkpoint.
 ENTRY_FAMILY_STEPS, ENTRY_FAMILY_RESUMED = 2, 1
+# Phase 18: tensor-parallel serving. 18.2 runs TP_M ranks on the one card
+# (gloo: NCCL refuses two ranks on one GPU): each arch of TP_ARCHS at
+# published width, its depth cut where given (arch -> layers kept or None:
+# recurrentgemma-9b keeps rec, rec, attn), a prefill of TP_B x TP_S and
+# TP_DECODE decode steps; 18.3 times the kernels at the per-rank shapes of
+# a model axis of each of TP_RANK_MS. Gloo all-reduces the card's tensors
+# itself (staged through the host).
+TP_M, TP_B, TP_S, TP_DECODE, TP_SEED = 2, 4, 3072, 8, 18
+TP_ARCHS = {"recurrentgemma-9b": 3, "qwen1.5-0.5b": None}
+TP_RANK_MS = (2, 4)
 # TPU kernel each CUDA kernel replaces, and its source in this repo.
 NOMA_SOURCE = "src/repro_torch/kernels/csrc/noma_rates.cu"
 TPU_KERNELS = {
@@ -895,6 +925,7 @@ def census_main(windows: int = 8, lengths: tuple = (40, 8)) -> int:
 
 
 def main() -> int:
+    import gc
     t_start = time.perf_counter()
     # phase 6 holds 12.6 GB logit tensors beside 19 GB of weights: let the
     # allocator grow segments rather than fragment them
@@ -1294,10 +1325,15 @@ def main() -> int:
     memory_mark(torch, "10", peaks)
     # -- 11. durable serving ---------------------------------------------------
     durable_phase(dev, smi, model)
+    memory_mark(torch, "11", peaks)
+    # -- 18.1 the compiled serve steps on a world-1 NCCL mesh, over phase 6's
+    # weights (the rest of phase 18 runs last)
+    for name, n in tp_graph_phase(dev, smi, model, errs).items():
+        launches[name] = launches.get(name, 0) + n
     del model
     torch.cuda.empty_cache()
 
-    memory_mark(torch, "11", peaks)
+    memory_mark(torch, "18.1", peaks)
     # -- 12. the engine's compiled programs against the eager path -------------
     programs_phase(dev, smi, main, fleet_path)
     # phase 17 holds its sharded fleet to phase 7's states
@@ -1338,6 +1374,28 @@ def main() -> int:
     for name in ("flash_attention", "flash_attention_bwd", "rg_lru"):
         launches[name] += family_launches[name]
     launches["rg_lru_bwd"] = family_launches["rg_lru_bwd"]
+    memory_mark(torch, "16", peaks)
+    # -- 18.3 the kernels at the per-rank shapes, then 18.2 two ranks on the
+    # card over gloo, last: the main process holds little by now
+    tp_flash, tp_rg, tp_keys = tp_kernel_phase(dev, smi, errs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    memory_mark(torch, "18.3", peaks)
+    ranks = tp_ranks_phase(dev, smi)
+    unchecked = sorted(k for k in ranks["shapes"] if k not in tp_keys.values())
+    if unchecked:
+        fail(f"tp 18.2: the ranks launched flash_attention at shapes 18.3 does not check "
+             f"(query rows, Sq, Sk, hd, G, causal, window, kv_len): {unchecked}")
+    for name, key in tp_keys.items():
+        tp_flash[name]["launches"] = ranks["shapes"].get(key, 0)
+    print(f"tp 18.2 flash_attention launches at 18.3's shapes: "
+          f"{ {n: r['launches'] for n, r in tp_flash.items()} } (M=4's shapes run on no path "
+          f"of one card)")
+    rows["flash_attention"].update(tp_flash)
+    rows["rg_lru"].update(tp_rg)
+    for name, n in ranks["launched"].items():
+        launches[name] = launches.get(name, 0) + n
+    memory_mark(torch, "18.2 (main process)", peaks)
     print(f"profile retries (windows with no device time, measured once more): "
           f"{PROFILE_RETRIES or 'none'}")
     print("memory: peak reserved by phase (GiB): " + ", ".join(
@@ -3479,15 +3537,16 @@ def graph_serve_checks(model, batch: dict, toks: list, max_len: int, label: str,
 
 
 def flash_row(dev, label: str, b: int, h: int, kv: int, sq: int, sk: int, hd: int,
-              causal: bool, errs: dict, smi: str, seed: int) -> dict:
+              causal: bool, errs: dict, smi: str, seed: int, window: int = 0) -> dict:
     """The bf16 flash kernel at one served shape, q (b*h, sq, hd) over k/v
-    (b*kv, sk, hd), no window (causal only at sq == sk): against its plain
-    twin within FLASH_RTOL of the twin on |v|, then its time beside the
-    twin's, one scaled_dot_product_attention call's (is_causal, or no mask;
-    enable_gqa where G > 1) and its bound, the larger of 4 hd FLOP an
-    unmasked (q, k) pair at the bf16 rate and the bytes of q, k, v and the
-    output once at the HBM rate. Returns the timing row; adds the check's
-    error to errs."""
+    (b*kv, sk, hd), with ``window`` or none (causal only at sq == sk):
+    against its plain twin within FLASH_RTOL of the twin on |v|, then its
+    time beside the twin's, one scaled_dot_product_attention call's
+    (is_causal, the boolean band mask of a window, or no mask; enable_gqa
+    where G > 1) and its bound, the larger of 4 hd FLOP an unmasked (q, k)
+    pair at the bf16 rate and the bytes of q, k, v and the output once at
+    the HBM rate. Returns the timing row; adds the check's error to
+    errs."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -3495,8 +3554,8 @@ def flash_row(dev, label: str, b: int, h: int, kv: int, sq: int, sk: int, hd: in
     q = torch.randn((b * h, sq, hd), device=dev, generator=gen).bfloat16()
     k, v = (torch.randn((b * kv, sk, hd), device=dev, generator=gen).bfloat16()
             for _ in range(2))
-    args = (h // kv, causal, 0)
-    mask = "causal" if causal else "no mask"
+    args = (h // kv, causal, window)
+    mask = (f"window {window}" if window else "causal") if causal else "no mask"
     got = fa.flash_attention(q, k, v, *args)
     torch.cuda.synchronize()
     check(f"flash_attention {label} B={b} Sq={sq} Sk={sk} H={h}/{kv} hd={hd} {mask}",
@@ -3504,18 +3563,20 @@ def flash_row(dev, label: str, b: int, h: int, kv: int, sq: int, sk: int, hd: in
           fa.flash_attention_plain(q, k, v.abs(), *args).float(), errs, "flash_attention")
     del got
     qs, ks, vs = q.view(b, h, sq, hd), k.view(b, kv, sk, hd), v.view(b, kv, sk, hd)
-    pairs = sq * (sq + 1) // 2 if causal else sq * sk
+    pairs = attention_pairs(sq, sk, causal, window)
     flash_ops = 4 * hd * pairs * b * h
     flash_bytes = 2 * (2 * b * h * sq * hd + 2 * b * kv * sk * hd)
     t_bytes = flash_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flash_ops / BF16_OPS_PER_S * 1e3
     gqa = h != kv
+    band = fa.attention_mask(sq, sk, causal, window, sk, dev) if window else None
     row = {
         "ms": device_ms([lambda: fa.flash_attention(q, k, v, *args)], reps=5),
         "plain_ms": device_ms([lambda: fa.flash_attention_plain(q, k, v, *args)], reps=1,
                               trials=3),
         "library_ms": device_ms([lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=causal, enable_gqa=gqa)], reps=5),
+            qs, ks, vs, attn_mask=band, is_causal=causal and band is None, enable_gqa=gqa)],
+            reps=5),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
     }
@@ -3523,7 +3584,8 @@ def flash_row(dev, label: str, b: int, h: int, kv: int, sq: int, sk: int, hd: in
     print(f"time flash_attention at {label}'s shape ({b * h}, {sq}, {hd}) over ({b * kv}, {sk}) "
           f"G={h // kv} {mask}: " + " ".join(f"{k}={v}" for k, v in row.items())
           + f" ({flash_ops:.4e} FLOP, {flash_bytes / 1e6:.1f} MB; library: "
-          f"scaled_dot_product_attention, {'is_causal' if causal else 'no mask'}"
+          f"scaled_dot_product_attention, "
+          f"{'band mask' if window else 'is_causal' if causal else 'no mask'}"
           f"{', enable_gqa' if gqa else ''}) | {smi}")
     return row
 
@@ -5392,6 +5454,404 @@ def sharding_phase(dev, smi: str, fleet: dict, errs: dict, peaks: dict) -> dict:
         lmesh.destroy_process_group()
     print(f"sharding: phase 17 took {time.perf_counter() - t_phase:.1f} s | {smi}")
     return out
+
+
+# --------------------------------------------------------------------------
+# Phase 18: tensor-parallel serving (models/tp.py)
+# --------------------------------------------------------------------------
+class CountedAllReduce:
+    """torch.distributed.all_reduce that counts its calls: the collectives a
+    model on a mesh issues (tp.TP takes its all-reduce as an argument)."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def __call__(self, x, op=None, group=None):
+        import torch.distributed as dist
+        self.calls += 1
+        dist.all_reduce(x, op=op, group=group)
+
+
+def tp_collectives(cfg) -> int:
+    """The all-reduces of one forward of a dense or hybrid model of the
+    grouped layout on a model axis of size 1 (every axis splits): the
+    embedding and the logits, two a layer (the mixer's output and the
+    MLP's) and one more a recurrent layer (its gates)."""
+    from repro_torch.models import stages_for
+    return 2 + sum(spec.n_layers * (2 + (spec.kind == "rec")) for spec in stages_for(cfg))
+
+
+def tp_graph_phase(dev, smi: str, model, errs: dict) -> dict:
+    """Phase 18.1: the compiled serve steps on a mesh (1, 1) ("data",
+    "model") of a world-1 NCCL group, over phase 6's model (its weights
+    shared, not copied: Model(mesh=).load_params_(share=True)): jit_prefill
+    of 4 x 3064 tokens, 8 jit_decode_step and 8 jit_masked_decode_step
+    (slot 1 idle every other step), each CUDA graph captured with its
+    collectives (a world-1 all-reduce is the identity), logits and caches
+    bit-equal to the unsharded programs' at every call, a traced replay's
+    kernels equal to what its bookkeeping counted, the collectives a call
+    issues counted. Returns the mesh programs' launches."""
+    import gc
+
+    import torch
+    from repro_torch import graphs
+    from repro_torch.data import make_batch
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models import Model
+    from repro_torch.runtime.serve import jit_decode_step, jit_masked_decode_step, jit_prefill
+
+    t_phase = time.perf_counter()
+    lmesh.init_process_group(device=dev)
+    launched_total: dict = {}
+    try:
+        mesh = lmesh.make_mesh((1, 1), ("data", "model"))
+        counted = CountedAllReduce()
+        tm = Model(model.cfg, device="meta", mesh=mesh, all_reduce=counted)
+        tm.load_params_(model.param_tree(), share=True)
+        shared = tm.device == model.device and all(
+            a.data_ptr() == b.data_ptr() for a, b in zip(tm.parameters(), model.parameters(),
+                                                         strict=True))
+        per_call = tp_collectives(tm.cfg)
+        print(f"tp 18.1: an NCCL group of world size {torch.distributed.get_world_size()}, "
+              f"mesh {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}; {SERVE_ARCH} on it "
+              f"sharing phase 6's {model.param_bytes()} bytes of weights: {shared}; layout "
+              f"{tm.cfg.attn_layout}; {per_call} all-reduces a forward | {smi}")
+        if not shared:
+            fail("tp 18.1: the mesh model does not share phase 6's weights")
+        B, S = SERVE_B, SERVE_S
+        p_len = S - DECODE_STEPS
+        tokens = make_batch(0, 0, B, S, model.cfg.vocab_size, device=dev)["tokens"]
+        batch = {"tokens": tokens[:, :p_len]}
+        toks = [tokens[:, p_len + i:p_len + i + 1] for i in range(DECODE_STEPS)]
+
+        def add(launched):
+            for k, v in launched[0].items():
+                launched_total[k] = launched_total.get(k, 0) + v
+
+        def mesh_call(fn, what, n_calls):
+            """fn() (a mesh program call) counted; its all-reduces held to
+            n_calls (the capturing call runs fn eagerly, then captures it:
+            twice; a replay runs no Python)."""
+            before = counted.calls
+            res, wall, launched = counted_call(fn)
+            if counted.calls - before != n_calls:
+                fail(f"tp 18.1 {what}: {counted.calls - before} all-reduces issued, expected "
+                     f"{n_calls}")
+            add(launched)
+            return res, wall, launched
+
+        def traced_mesh(fn, what, eager):
+            with graphs.traced() as prof:
+                res, _, booked = counted_call(fn)
+            seen = graphs.kernel_launches(prof)
+            from torch.autograd import DeviceType
+            nccl = sum(e.count for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA and "nccl" in e.key.lower())
+            print(f"check tp 18.1 {what} replay, traced: the port's kernels on the device "
+                  f"{seen}, the capturing call's eager run launched {eager[0]}, the replay "
+                  f"counted {booked[0]}: {seen == eager[0] == booked[0]}; NCCL device records "
+                  f"{nccl} (a world-1 in-place all-reduce moves no bytes)")
+            if not seen == eager[0] == booked[0]:
+                fail(f"tp 18.1 {what}: the replay ran {seen}, its eager run launched "
+                     f"{eager[0]}, the replay counted {booked[0]}")
+            add(booked)
+            return res
+
+        # prefill: each program's capturing call, then replays; the mesh's
+        # last replay traced
+        pre_u, _ = jit_prefill(model, None, S)
+        pre_m, _ = jit_prefill(tm, mesh, S)
+        (lu, cu), _, _ = counted_call(lambda: pre_u(None, batch))
+        (lm, cm), cap_wall, cap_launched = mesh_call(lambda: pre_m(None, batch),
+                                                     "prefill capture", 2 * per_call)
+        bad = graphs.differing((lm, cm), (lu, cu))
+        del lm, cm
+        (lu, cu), u_wall, _ = counted_call(lambda: pre_u(None, batch))
+        (lm, cm), m_wall, _ = mesh_call(lambda: pre_m(None, batch), "prefill replay", 0)
+        bad += graphs.differing((lm, cm), (lu, cu))
+        del lm, cm
+        lm, cm = traced_mesh(lambda: pre_m(None, batch), "prefill", cap_launched)
+        bad += graphs.differing((lm, cm), (lu, cu))
+        print(f"check tp 18.1 graphs prefill ({B} x {p_len} tokens) on the mesh: the capturing "
+              f"call and two replays bit-equal to the unsharded program's, logits and caches: "
+              f"{not bad}; admission_s mesh={m_wall:.4f} unsharded={u_wall:.4f} capturing "
+              f"call={cap_wall:.4f}; capture_s={pre_m.program.capture_s:.4f}, pool_bytes="
+              f"{pool_bytes(torch, pre_m.program.pool)} | {smi}")
+        if bad:
+            fail(f"tp 18.1 prefill: leaves {bad} differ from the unsharded program's")
+        pre_u.program.release()
+        pre_m.program.release()
+        del pre_u, pre_m, lm, lu
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # decode: both programs adopt their prefill's caches; the mesh's
+        # second step is traced
+        dec_u, _, _ = jit_decode_step(model, None, B, S)
+        dec_m, _, _ = jit_decode_step(tm, mesh, B, S)
+        m_ms, u_ms = [], []
+        for k, tok in enumerate(toks):
+            (lu, cu), u_wall, _ = counted_call(lambda: dec_u(None, cu, tok))
+            if k == 1:
+                lm, cm = traced_mesh(lambda: dec_m(None, cm, tok), "decode step", d_eager)
+            else:
+                (lm, cm), m_wall, launched = mesh_call(lambda: dec_m(None, cm, tok),
+                                                       f"decode step {k}",
+                                                       2 * per_call if k == 0 else 0)
+                if k == 0:
+                    d_eager = launched
+                else:
+                    m_ms.append(m_wall * 1e3)
+                    u_ms.append(u_wall * 1e3)
+            if not torch.equal(lm, lu):
+                fail(f"tp 18.1 decode step {k}: the mesh program's logits differ")
+        bad = graphs.differing(cm, cu)
+        print(f"check tp 18.1 graphs decode on the mesh: {len(toks)} steps' logits and the "
+              f"caches after them bit-equal to the unsharded program's: {not bad}; ms a step "
+              f"mesh={statistics.median(m_ms):.4f} unsharded={statistics.median(u_ms):.4f} "
+              f"| {smi}")
+        if bad:
+            fail(f"tp 18.1 decode: cache leaves {bad} differ")
+        dec_u.program.release()
+        dec_m.program.release()
+
+        # masked: slot 1 idle every other step
+        mk_u, _, _ = jit_masked_decode_step(model, None, B, S)
+        mk_m, _, _ = jit_masked_decode_step(tm, mesh, B, S)
+        mk_ms = []
+        for k, tok in enumerate(toks):
+            active = torch.tensor([i != 1 or k % 2 == 1 for i in range(B)], device=dev)
+            (lu, cu), _, _ = counted_call(lambda: mk_u(None, cu, tok, active))
+            if k == 1:
+                lm, cm = traced_mesh(lambda: mk_m(None, cm, tok, active), "masked step",
+                                     k_eager)
+            else:
+                (lm, cm), m_wall, launched = mesh_call(lambda: mk_m(None, cm, tok, active),
+                                                       f"masked step {k}",
+                                                       2 * per_call if k == 0 else 0)
+                if k == 0:
+                    k_eager = launched
+                else:
+                    mk_ms.append(m_wall * 1e3)
+            bad = graphs.differing((lm, cm), (lu, cu))
+            if bad:
+                fail(f"tp 18.1 masked step {k}: leaves {bad} differ from the unsharded "
+                     "program's")
+        print(f"check tp 18.1 graphs masked decode on the mesh: {len(toks)} steps, slot 1 "
+              f"idle every other step, logits and caches bit-equal to the unsharded "
+              f"program's: True; ms a step mesh={statistics.median(mk_ms):.4f}; all-reduces "
+              f"issued {counted.calls} (a capturing call {2 * per_call}, a replay 0) | {smi}")
+        mk_u.program.release()
+        mk_m.program.release()
+        del dec_u, dec_m, mk_u, mk_m, cu, cm, lu, lm, tm
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        lmesh.destroy_process_group()
+    print(f"tp: 18.1 took {time.perf_counter() - t_phase:.1f} s; mesh launches "
+          f"{launched_total} | {smi}")
+    return launched_total
+
+
+def tp_config(arch: str):
+    """18.2's config: published widths, the depth of TP_ARCHS."""
+    from repro_torch import configs
+    cfg = configs.get(arch)
+    depth = TP_ARCHS[arch]
+    return cfg if depth is None else dataclasses.replace(cfg, n_layers=depth)
+
+
+def tp_serve(model, tokens, max_len: int) -> tuple:
+    """Prefill tokens[:, :TP_S], then TP_DECODE cached decode steps (eager):
+    (the logits of each, float32 on the host; prefill s; decode ms a step;
+    the prefill's launches and flash shapes)."""
+    import torch
+    res, prefill_s, launched = counted_call(
+        lambda: model.prefill({"tokens": tokens[:, :TP_S]}, max_len))
+    logits, caches = res
+    out, walls = [logits.float().cpu()], []
+    for i in range(TP_DECODE):
+        (logits, caches), wall, _ = counted_call(lambda: model.decode_step(
+            caches, tokens[:, TP_S + i:TP_S + i + 1], max_len=max_len))
+        out.append(logits.float().cpu())
+        walls.append(wall * 1e3)
+    del caches
+    torch.cuda.empty_cache()
+    return out, prefill_s, statistics.median(walls), launched[0], launched[1]
+
+
+def tp_rank(rank: int, tmp: str) -> None:
+    """One of 18.2's ranks: a gloo group (launch.mesh.spawn with device
+    "cpu"; its mesh's device type is the CPU's) whose collectives take the
+    card's tensors; each TP_ARCHS model built on the mesh on the card, then
+    tp_serve. Writes what it saw to tmp/rank<r>.pt."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data import make_batch
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models import Model
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = lmesh.make_mesh((1, TP_M), ("data", "model"), device="cpu")
+    probe = {}
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.full((4,), float(rank + 1), dtype=dt, device=dev)
+        dist.all_reduce(x)
+        probe[str(dt)] = float(x[0])
+    out = {"probe": probe}
+    for arch in TP_ARCHS:
+        cfg = tp_config(arch)
+        torch.cuda.reset_peak_memory_stats()
+        model = Model(cfg, device=dev, mesh=mesh).init(
+            torch.Generator(device=dev).manual_seed(TP_SEED))
+        tokens = make_batch(0, 0, TP_B, TP_S + TP_DECODE, cfg.vocab_size, device=dev)["tokens"]
+        logits, prefill_s, dec_ms, launched, shapes = tp_serve(model, tokens,
+                                                               TP_S + TP_DECODE)
+        out[arch] = dict(logits=logits, prefill_s=prefill_s, decode_ms=dec_ms,
+                         launched=launched, shapes=shapes, layout=model.cfg.attn_layout,
+                         bytes=model.param_bytes(), peak=torch.cuda.max_memory_reserved())
+        del model
+        torch.cuda.empty_cache()
+    torch.save(out, f"{tmp}/rank{rank}.pt")
+
+
+def tp_ranks_phase(dev, smi: str) -> dict:
+    """Phase 18.2: TP_M ranks on the one card over gloo (NCCL refuses two
+    ranks on one GPU), eager: each TP_ARCHS model at published width
+    (recurrentgemma-9b cut to rec, rec, attn: the flat layout, a
+    sequence-split decode cache, split RG-LRU channels; qwen1.5-0.5b whole,
+    grouped), a prefill of TP_B x TP_S and TP_DECODE decode steps, against
+    the unsharded Model(cfg, tp_size=TP_M) on the same weights in this
+    process within 0.05 * max(1, max |logits|); the ranks' summed flash and
+    rg_lru launches equal to TP_M times the unsharded prefill's. Gloo
+    stages CUDA tensors through the host, so the times are no
+    tensor-parallel performance number. Returns the ranks' launches and
+    flash shapes."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.data import make_batch
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models import Model
+
+    t_phase = time.perf_counter()
+    refs = {}
+    for arch in TP_ARCHS:
+        cfg = tp_config(arch)
+        model = Model(cfg, device=dev, tp_size=TP_M).init(
+            torch.Generator(device=dev).manual_seed(TP_SEED))
+        tokens = make_batch(0, 0, TP_B, TP_S + TP_DECODE, cfg.vocab_size, device=dev)["tokens"]
+        refs[arch] = tp_serve(model, tokens, TP_S + TP_DECODE)
+        print(f"tp 18.2 unsharded {arch} ({cfg.n_layers} layers, layout "
+              f"{model.cfg.attn_layout}, Hp {model.cfg.heads_padded}): prefill {TP_B} x {TP_S} "
+              f"{refs[arch][1]:.4f} s, decode {refs[arch][2]:.4f} ms a step; launches "
+              f"{refs[arch][3]} | {smi}")
+        del model
+        torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    try:
+        t0 = time.perf_counter()
+        lmesh.spawn(tp_rank, TP_M, (tmp,), init_method=f"file://{tmp}/rendezvous", device="cpu")
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(TP_M)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"tp 18.2: {TP_M} ranks on {torch.cuda.get_device_name(0)} over gloo, {spawn_s:.1f} s "
+          f"from spawn to exit; gloo all_reduce of CUDA tensors in each rank (bf16, float32; "
+          f"a sum of rank + 1 over the ranks): {[r['probe'] for r in ranks]} | {smi}")
+    want_sum = float(sum(range(1, TP_M + 1)))
+    if any(v != want_sum for r in ranks for v in r["probe"].values()):
+        fail(f"tp 18.2: gloo's all-reduce of the card's tensors gave {[r['probe'] for r in ranks]}")
+    out: dict = {"launched": {}, "shapes": {}}
+    for arch in TP_ARCHS:
+        want, ref_pre, ref_dec, ref_launched, _ = refs[arch]
+        vocab = tp_config(arch).vocab_size      # the padded columns hold -1e30
+        bound = 0.05 * max(1.0, max(float(w[..., :vocab].abs().max()) for w in want))
+        worst = 0.0
+        for r, rk in enumerate(ranks):
+            got = rk[arch]["logits"]
+            for k, (g, w) in enumerate(zip(got, want, strict=True)):
+                if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+                    fail(f"tp 18.2 {arch} rank {r} call {k}: logits {tuple(g.shape)} not finite "
+                         f"or not {tuple(w.shape)}")
+                worst = max(worst, float((g - w).abs().max()))
+            print(f"time tp 18.2 {arch} rank {r} ({rk[arch]['layout']}; {rk[arch]['bytes']} "
+                  f"bytes of weights): prefill_s={rk[arch]['prefill_s']:.4f} decode_ms="
+                  f"{rk[arch]['decode_ms']:.4f} (gloo through the host: not a tensor-parallel "
+                  f"performance number) peak_reserved_gib={rk[arch]['peak'] / 2**30:.2f}; "
+                  f"launches {rk[arch]['launched']} | {smi}")
+        summed = {k: sum(rk[arch]["launched"][k] for rk in ranks) for k in ref_launched}
+        want_l = {k: TP_M * ref_launched[k] for k in ("flash_attention", "rg_lru")}
+        print(f"check tp 18.2 {arch}: {len(want)} calls (prefill + {TP_DECODE} decode steps) of "
+              f"{TP_M} ranks against the unsharded path: max |difference| {worst:.5f}, "
+              f"{worst / bound:.4f} of the bound 0.05*max(1, max|logits|) = {bound:.4f}; "
+              f"the ranks' flash / rg_lru launches {summed['flash_attention']} / "
+              f"{summed['rg_lru']}, {TP_M} x the unsharded prefill's: {want_l}")
+        if not worst <= bound:
+            fail(f"tp 18.2 {arch}: the ranks' logits differ from the unsharded path's by "
+                 f"{worst:.5f} > {bound:.5f}")
+        if any(summed[k] != v for k, v in want_l.items()):
+            fail(f"tp 18.2 {arch}: the ranks launched {summed}, expected {want_l}")
+        for k in want_l:
+            out["launched"][k] = out["launched"].get(k, 0) + summed[k]
+        for rk in ranks:
+            for key, n in rk[arch]["shapes"].items():
+                out["shapes"][key] = out["shapes"].get(key, 0) + n
+    print(f"tp: 18.2 took {time.perf_counter() - t_phase:.1f} s | {smi}")
+    return out
+
+
+def tp_kernel_phase(dev, smi: str, errs: dict) -> tuple[dict, dict, dict]:
+    """Phase 18.3: flash_attention and rg_lru at the per-rank shapes of a
+    model axis of M = 2 and 4 (TP_RANK_MS): recurrentgemma-9b's flat
+    layout, (4 * 16 / M, 3072, 256) at G = 1 (its KV head repeated a query
+    head) with window 2048, and its RG-LRU channels (4, 3072, 4096 / M);
+    qwen1.5-0.5b's grouped layout, (4 * 16 / M, 3072, 64) at G = 1, causal.
+    Each against its twin (rg_lru bit-equal) and timed beside its twin, a
+    library call (SDPA; none for rg_lru) and its bound. Returns (flash rows,
+    rg_lru rows, each flash row's key in flash_attention.SHAPES)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import rg_lru as rl
+    t_phase = time.perf_counter()
+    flash, keys, rg = {}, {}, {}
+    gen = torch.Generator(device=dev).manual_seed(183)
+    for m in TP_RANK_MS:
+        for arch, window in (("recurrentgemma-9b", 2048), ("qwen1.5-0.5b", 0)):
+            cfg = configs.get(arch)
+            h = TP_B * cfg.n_heads // m
+            name = f"{arch} per rank M={m}"
+            flash[name] = flash_row(dev, name, 1, h, h, TP_S, TP_S, cfg.hd, True, errs, smi,
+                                    180 + m, window=window)
+            keys[name] = (h, TP_S, TP_S, cfg.hd, 1, True, window, TP_S)
+        w = configs.get("recurrentgemma-9b").rglru_dim // m
+        log_a = -8.0 * torch.rand((TP_B, TP_S, w), device=dev, generator=gen)
+        x_b = torch.randn((TP_B, TP_S, w), device=dev, generator=gen)
+        h0 = torch.randn((TP_B, w), device=dev, generator=gen)
+        got, want = rl.rg_lru(log_a, x_b, h0), rl.rg_lru_plain(log_a, x_b, h0)
+        check(f"rg_lru per rank M={m} (B, S, W)=({TP_B}, {TP_S}, {w})", got, want, RG_LRU_RTOL,
+              rl.rg_lru_plain(log_a, x_b.abs(), h0.abs()), errs, "rg_lru")
+        print(f"check rg_lru per rank M={m} bit-equal to its twin: {torch.equal(got, want)}")
+        if not torch.equal(got, want):
+            fail(f"rg_lru per rank M={m}: not bit-equal to its twin")
+        buf = torch.empty_like(log_a)
+        t_bytes = 4 * (3 * TP_B * TP_S * w + TP_B * w) / HBM_BYTES_PER_S * 1e3
+        t_ops = 3 * TP_B * TP_S * w / FP32_INSTR_PER_S * 1e3
+        row = {"ms": device_ms([lambda: rl.rg_lru(log_a, x_b, h0)]),
+               "plain_ms": device_ms([lambda: rl.rg_lru_plain(log_a, x_b, h0)], reps=1,
+                                     trials=3),
+               "library_ms": None, "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "stream_ms": device_ms([lambda: torch.add(log_a, x_b, out=buf)])}
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        rg[f"recurrentgemma-9b per rank M={m}"] = row
+        print(f"time rg_lru per rank M={m} ({TP_B}, {TP_S}, {w}): "
+              + " ".join(f"{k}={v}" for k, v in row.items()) + f" | {smi}")
+        del log_a, x_b, h0, got, want, buf
+    torch.cuda.empty_cache()
+    print(f"tp: 18.3 took {time.perf_counter() - t_phase:.1f} s | {smi}")
+    return flash, rg, keys
 
 
 if __name__ == "__main__":

@@ -42,7 +42,7 @@ class ArchConfig:
     cross_attn_every: int = 0      # vlm: every k-th decoder layer cross-attends
     frontend_tokens: int = 1500    # stub frontend sequence length (audio/vlm)
     causal: bool = True
-    # --- TP attention layout (the flat layout waits for the TP slice) ---
+    # --- TP attention layout (Model(cfg, tp_size=M) sets it; models/attention.py) ---
     attn_layout: str = "grouped"   # grouped (shard kv heads) | flat (pad+shard q heads)
     heads_padded: int = 0          # flat layout: H padded to a tp multiple
 

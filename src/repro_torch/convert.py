@@ -236,8 +236,10 @@ def model_params_from_numpy(model, tree: dict):
     [L, ...] split into its L layers. Every leaf is cast to the port's
     storage dtype on the model's device (bf16, or float32 where the
     reference uses it so: norms, the cross blocks' xgate and the RG-LRU and
-    xLSTM gates; float32 masters in a trainable model). Returns the
-    model."""
+    xLSTM gates; float32 masters in a trainable model). On a model built on
+    a mesh each whole leaf is cut to this rank's shard (the reference's
+    Model(cfg, tp_size=M) tree, the flat layout's padded wq / wo / bq
+    included). Returns the model."""
     return model.load_params_(_port_layout(model, tree, model.device))
 
 
@@ -273,13 +275,17 @@ def train_state_from_numpy(model, params: dict, m: dict, v: dict, opt_step, step
     return TrainState(params=model.param_tree(), opt=opt, step=tensor(step, dev))
 
 
-def caches_from_numpy(tree, like):
+def caches_from_numpy(tree, like, model=None):
     """The reference's serving caches (Model.prefill / make_caches: KV,
     RG-LRU and xLSTM stage caches, None for a stage without one, "pos", and
     "enc_out" / "frontend"), given as numpy arrays, as the port's: each leaf
     in the dtype and on the device of the matching leaf of ``like`` (a port
     cache tree of the same model, batch and max_len, e.g.
-    Model.make_caches). A leaf of another shape raises ValueError."""
+    Model.make_caches). With ``model`` built on a mesh, the whole tree is
+    first cut to this rank's shard (Model.local_caches), as ``like`` holds
+    it. A leaf of another shape raises ValueError."""
+    if model is not None:
+        tree = model.local_caches(tree)
     if like is None or tree is None:
         if like is not None or tree is not None:
             raise ValueError(f"cache entry {type(tree).__name__}, expected "

@@ -99,7 +99,10 @@ def spawn(fn, world_size: int, args: tuple = (), init_method: str | None = None,
 def make_mesh(shape: tuple, axes: tuple, device=None):
     """A DeviceMesh of ``shape`` with dims named ``axes`` over the ranks of
     the default group, row-major, on the card unless ``device`` says "cpu".
-    Raises when the group's world size is not the product of the shape."""
+    Raises when the group's world size is not the product of the shape. A
+    "cpu" mesh's sub-groups are gloo's, whose all_reduce also takes CUDA
+    tensors (staged through the host): several ranks sharing one card,
+    which NCCL refuses, can run the tensor-parallel layers that way."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
     shape, axes = tuple(int(d) for d in shape), tuple(axes)

@@ -16,7 +16,8 @@ done; a run resumed from a label reads the stream from that step.
 
 --mesh D, DxM or PxDxM names the ("data",), ("data", "model") or ("pod",
 "data", "model") mesh; every axis but pod and data must be 1 (a model axis
-waits for the tensor-parallel half of ROADMAP.md section 1's sharding item).
+in training waits for TP / FSDP training, in the tensor-parallel half of
+ROADMAP.md section 1's sharding item).
 Under torchrun, or inside a process group the caller made, each process is
 a rank; a mesh of more than one device without either starts its D ranks
 itself (launch.mesh.spawn) and returns rank 0's result. Under a process

@@ -18,7 +18,10 @@ block_apply(cfg, spec, p, x, aux, cache) -> (x, new_cache, aux_loss)
 blocks, "moe_impl" and "moe_capacity" (defaults "sorted" and 1.25, the
 reference's); a compiled decode step adds "in_place" and "active"
 (attention.attn_apply); "recompute" marks a block's remat recompute in the
-backward (its MoE drops are not logged again).
+backward (its MoE drops are not logged again). A model on a mesh's
+"model" axis adds "tp" (a tp.TP: the attention, RG-LRU and MLP run this
+rank's shard, on a replicated residual stream with replicated norms) and
+"max_len" (its caches' length, which the flat layout's cache split reads).
 """
 from __future__ import annotations
 
@@ -97,14 +100,15 @@ def block_apply(cfg, spec: StageSpec, p: dict, x, aux: dict, cache=None):
     if spec.kind == "rec":
         h, st = recurrent.rglru_apply(
             p["rglru"], _norm(cfg, p, "ln1", x), cfg,
-            state=None if cache is None else cache.get("rglru"))
+            state=None if cache is None else cache.get("rglru"), tp=aux.get("tp"))
         new_cache = None if st is None else {"rglru": st}
     else:
         h, kv_cache = attention.attn_apply(
             p["attn"], _norm(cfg, p, "ln1", x), cfg, aux["pos"],
             cache=None if cache is None else cache.get("kv"),
             causal=spec.causal, window=spec.window,
-            in_place=aux.get("in_place", False), active=aux.get("active"))
+            in_place=aux.get("in_place", False), active=aux.get("active"),
+            tp=aux.get("tp"), max_len=aux.get("max_len"))
         new_cache = None if kv_cache is None else {"kv": kv_cache}
     x = x + h
     if spec.kind == "dec":
@@ -117,7 +121,8 @@ def block_apply(cfg, spec: StageSpec, p: dict, x, aux: dict, cache=None):
                                  capacity_factor=aux.get("moe_capacity", 1.25),
                                  log=not aux.get("recompute", False))
         return x + y, new_cache, aux_l
-    return x + mlp_apply(p["mlp"], _norm(cfg, p, "ln2", x), cfg.act), new_cache, zero
+    return (x + mlp_apply(p["mlp"], _norm(cfg, p, "ln2", x), cfg.act, aux.get("tp")),
+            new_cache, zero)
 
 
 def _grouped(specs) -> list[StageSpec]:

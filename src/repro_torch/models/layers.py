@@ -74,29 +74,43 @@ class Params(nn.Module):
     leaves nn.Parameters allocated (uninitialised) on ``device``: frozen in
     each def's dtype, or with ``trainable`` float32 masters that require
     grad. load_() fills them from a nested dict of tensors, casting to each
-    leaf's storage dtype; tree() gives the nested dict of parameters."""
+    leaf's storage dtype; tree() gives the nested dict of parameters.
 
-    def __init__(self, defs: dict, device, trainable: bool = False):
+    ``place`` (a tp.Placement, or None): each leaf is this rank's shard of
+    its def, the slice pshard.spec_for assigns on the mesh; load_() cuts a
+    leaf given whole to that slice."""
+
+    def __init__(self, defs: dict, device, trainable: bool = False, place=None):
         super().__init__()
-        self.defs = defs
+        self.defs, self.place = defs, place
         for k, d in defs.items():
             if isinstance(d, dict):
-                self.add_module(k, Params(d, device, trainable))
+                self.add_module(k, Params(d, device, trainable, place))
             else:
-                t = torch.empty(d.shape, dtype=torch.float32 if trainable else d.dtype,
+                shape = d.shape if place is None else place.local_shape(d.axes, d.shape)
+                t = torch.empty(shape, dtype=torch.float32 if trainable else d.dtype,
                                 device=device)
                 self.register_parameter(k, nn.Parameter(t, requires_grad=trainable))
 
     @torch.no_grad()
-    def load_(self, tree: dict) -> "Params":
+    def load_(self, tree: dict, share: bool = False) -> "Params":
+        """Copy ``tree`` in; with ``share``, a leaf that already is this
+        rank's shard in the parameter's dtype becomes the parameter itself
+        (no copy)."""
         for k, v in tree.items():
             if isinstance(v, dict):
-                getattr(self, k).load_(v)
+                getattr(self, k).load_(v, share)
+                continue
+            dst, d = self._parameters[k], self.defs[k]
+            if (self.place is not None and tuple(v.shape) == tuple(d.shape)
+                    and tuple(dst.shape) != tuple(d.shape)):
+                v = v[self.place.slice(d.axes, d.shape)]
+            if tuple(v.shape) != tuple(dst.shape):
+                raise ValueError(f"{k}: shape {tuple(v.shape)}, expected "
+                                 f"{tuple(dst.shape)}")
+            if share and v.dtype == dst.dtype:
+                self._parameters[k] = nn.Parameter(v, requires_grad=dst.requires_grad)
             else:
-                dst = self._parameters[k]
-                if tuple(v.shape) != tuple(dst.shape):
-                    raise ValueError(f"{k}: shape {tuple(v.shape)}, expected "
-                                     f"{tuple(dst.shape)}")
                 dst.copy_(v)
         return self
 
@@ -156,14 +170,17 @@ def at_use(w, x):
     return w
 
 
-def mlp_apply(p: dict, x, act: str):
+def mlp_apply(p: dict, x, act: str, tp=None):
     """SwiGLU (w1/w3/w2) or GELU (w1/w2) MLP. GELU is the tanh form, the
-    JAX default. Weights cast at use (at_use)."""
+    JAX default. Weights cast at use (at_use). With a tp.TP whose "mlp" is
+    split, w1 / w3 hold this rank's columns and w2 its rows: the partial
+    output is summed over the group (a replicated MLP is not reduced)."""
     if act == "swiglu":
         h = F.silu(x @ at_use(p["w1"], x)) * (x @ at_use(p["w3"], x))
     else:
         h = F.gelu(x @ at_use(p["w1"], x), approximate="tanh")
-    return h @ at_use(p["w2"], h)
+    out = h @ at_use(p["w2"], h)
+    return tp.all_reduce_sum(out) if tp is not None and tp.split["mlp"] else out
 
 
 def mlp_defs(d_model: int, d_ff: int, act: str) -> dict:
@@ -180,15 +197,31 @@ def pad_vocab(v: int, multiple: int = 256) -> int:
     return ((v + multiple - 1) // multiple) * multiple
 
 
-def embed_lookup(table, tokens):
-    return F.embedding(tokens, table).to(COMPUTE_DTYPE)
+def _vocab_split(tp) -> bool:
+    return tp is not None and tp.split["vocab"]
 
 
-def logits_out(x, table, vocab: int):
+def embed_lookup(table, tokens, tp=None):
+    """Rows of ``table`` at ``tokens``. Vocab-parallel under a tp.TP whose
+    "vocab" is split: each rank looks up the tokens in its rows, writes
+    zeros for the others, and the group sums."""
+    if not _vocab_split(tp):
+        return F.embedding(tokens, table).to(COMPUTE_DTYPE)
+    n = table.shape[0]
+    idx = tokens - tp.offset(n)
+    mine = (idx >= 0) & (idx < n)
+    rows = F.embedding(idx.clamp(0, n - 1), table)
+    return tp.all_reduce_sum(torch.where(mine[..., None], rows, 0).to(COMPUTE_DTYPE))
+
+
+def logits_out(x, table, vocab: int, tp=None):
     """Project to the (padded) vocab in float32; mask the padding rows to
-    -1e30."""
+    -1e30. Under a tp.TP whose "vocab" is split, each rank's columns are
+    gathered whole (tp.gather_cols) before the mask."""
     logits = (x @ table.to(COMPUTE_DTYPE).T).float()
-    vp = table.shape[0]
+    if _vocab_split(tp):
+        logits = tp.gather_cols(logits)
+    vp = logits.shape[-1]
     if vp != vocab:
         mask = torch.arange(vp, device=x.device) < vocab
         logits = torch.where(mask, logits, -1e30)

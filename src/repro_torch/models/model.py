@@ -14,15 +14,27 @@ backward. Every family trains: the attention backward is the flash
 backward kernel, the RG-LRU's the rg_lru backward kernel (kernels/ops.py);
 MoE, xLSTM, the cross attention and the audio encoder are autograd over
 plain tensor code.
+
+Model(cfg, tp_size=M) picks the attention layout as the JAX package's
+does: the flat layout, H padded to a multiple of M, when the KV heads do
+not divide over M. Model(cfg, mesh=) builds the model on a
+("data", "model") DeviceMesh of torch.distributed (the dense and hybrid
+families; launch.mesh.make_mesh): each rank allocates only its shard of
+each parameter and cache leaf (pshard.spec_for, runtime.sharding.
+cache_shardings), takes its rows of the batch, and its layers issue the
+model axis's collectives (models/tp.py).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import pshard
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, blocks, recurrent, xlstm
+from repro_torch.models import attention, blocks, recurrent, tp, xlstm
 from repro_torch.models.layers import (
     COMPUTE_DTYPE,
     ParamDef,
@@ -52,10 +64,11 @@ def _sinusoid(pos, d: int):
 class Block(nn.Module):
     """One layer of a stage: its parameters and its kind."""
 
-    def __init__(self, cfg, spec: blocks.StageSpec, device, trainable: bool = False):
+    def __init__(self, cfg, spec: blocks.StageSpec, device, trainable: bool = False,
+                 place=None):
         super().__init__()
         self.cfg, self.spec = cfg, spec
-        self.p = Params(blocks.block_defs(cfg, spec), device, trainable)
+        self.p = Params(blocks.block_defs(cfg, spec), device, trainable, place)
 
     def forward(self, x, aux: dict, cache=None):
         return blocks.block_apply(self.cfg, self.spec, self.p.tree(), x, aux, cache)
@@ -65,17 +78,21 @@ def _index(tree, i: int):
     return {k: _index(v, i) for k, v in tree.items()} if isinstance(tree, dict) else tree[i]
 
 
-def _write_layer(view, new, active) -> None:
+def _write_layer(view, new, active, whole=None) -> None:
     """Write a layer's new cache into its views of the stacked cache; a
     leaf that already is its view (written in place) is left alone. With
-    ``active`` (B,) bool, inactive slots keep their values."""
+    ``active`` (B,) bool, inactive slots keep their values; on a mesh whose
+    batch is split, ``whole`` is the mask of the whole batch, which a leaf
+    held whole on every rank (a KV cache's "len") takes."""
     if isinstance(view, dict):
         for k in view:
-            _write_layer(view[k], new[k], active)
+            _write_layer(view[k], new[k], active, whole)
         return
     if new is view:
         return
     if active is not None:
+        if whole is not None and new.shape[0] != active.shape[0]:
+            active = whole
         new = torch.where(active.view(-1, *[1] * (new.ndim - 1)), new, view)
     view.copy_(new)
 
@@ -86,6 +103,12 @@ def _stack(trees: list):
     return torch.stack(trees)
 
 
+TP_SERVE_ITEM = ("ROADMAP.md section 1, the sharding item's tensor-parallel half (MoE "
+                 "expert parallelism, xLSTM heads, the cross-attention families, then "
+                 "TP / FSDP training)")
+TP_FAMILIES = ("dense", "hybrid")
+
+
 class Model(nn.Module):
     """The LM of one ArchConfig (any family) on one device. ``device=None``
     means the card and raises without CUDA; the parameters are allocated
@@ -94,11 +117,32 @@ class Model(nn.Module):
 
     ``trainable``: float32 master parameters that require grad, and a
     forward that builds a graph (every family). ``remat``: each block of a
-    training forward under torch.utils.checkpoint."""
+    training forward under torch.utils.checkpoint.
+
+    ``tp_size``: the attention layout for a model axis of that size (module
+    docstring). ``mesh``: a DeviceMesh with named dims ("data", "model";
+    "pod" too): this rank's shard of every leaf (tp_size is then the mesh's
+    "model" size), its rows of a batch split over ("pod", "data"), and the
+    "model" axis's collectives, through ``all_reduce`` when given
+    (tp.TP)."""
 
     def __init__(self, cfg, device=None, moe_impl: str = "sorted",
-                 moe_capacity: float = 1.25, trainable: bool = False, remat: bool = True):
+                 moe_capacity: float = 1.25, trainable: bool = False, remat: bool = True,
+                 tp_size: int | None = None, mesh=None, all_reduce=None):
         super().__init__()
+        sizes = None if mesh is None else pshard.mesh_shape(mesh)
+        if sizes is not None:
+            m = sizes.get(tp.MODEL_AXIS, 1)
+            if tp_size not in (None, m):
+                raise ValueError(f"tp_size={tp_size} on a mesh whose model axis is {m}")
+            tp_size = m
+            if m > 1 and (cfg.family not in TP_FAMILIES or trainable):
+                what = "training" if trainable else f"the {cfg.family} family"
+                raise NotImplementedError(f"{what} on a model axis of {m} waits for "
+                                          f"{TP_SERVE_ITEM}")
+        if tp_size and cfg.family != "ssm" and cfg.n_kv_heads % tp_size != 0:
+            cfg = dataclasses.replace(cfg, attn_layout="flat",
+                                      heads_padded=tp.flat_heads(cfg.n_heads, tp_size))
         self.cfg = cfg
         self.stages = blocks.stages_for(cfg)
         self.vocab_padded = pad_vocab(cfg.vocab_size)
@@ -107,9 +151,14 @@ class Model(nn.Module):
         self.moe_capacity = moe_capacity
         self.trainable = trainable
         self.remat = remat
-        self.top = Params(self._top_defs(), self.device, trainable)
+        self.mesh = mesh
+        self.place = None if mesh is None else tp.Placement.on(mesh)
+        self.tp = (tp.TP.on_mesh(mesh, tp.widths(cfg, self.vocab_padded), all_reduce)
+                   if sizes is not None and tp.MODEL_AXIS in sizes else None)
+        self.top = Params(self._top_defs(), self.device, trainable, self.place)
         self.stage_layers = nn.ModuleList(
-            nn.ModuleList(Block(cfg, spec, self.device, trainable) for _ in range(spec.n_layers))
+            nn.ModuleList(Block(cfg, spec, self.device, trainable, self.place)
+                          for _ in range(spec.n_layers))
             for spec in self.stages)
 
     # ---------------- params ----------------
@@ -153,22 +202,34 @@ class Model(nn.Module):
                 "stages": [[param_specs(blk.p.defs) for blk in layers]
                            for layers in self.stage_layers]}
 
+    def param_shapes(self) -> dict:
+        """Every parameter whole (the flat layout's padded widths included),
+        as meta tensors shaped as param_tree(): what tree_shardings resolves
+        the specs against, whatever shard this rank holds."""
+        def meta(defs):
+            return {k: meta(d) if isinstance(d, dict)
+                    else torch.empty(d.shape, dtype=d.dtype, device="meta")
+                    for k, d in defs.items()}
+        return {**meta(self._top_defs()),
+                "stages": [[meta(blk.p.defs) for blk in layers] for layers in self.stage_layers]}
+
     @torch.no_grad()
-    def load_params_(self, tree: dict) -> "Model":
+    def load_params_(self, tree: dict, share: bool = False) -> "Model":
         """Copy a tree shaped as param_tree() into the parameters, in place;
-        a leaf that already is the parameter is left alone."""
-        def copy(dst, src):
-            if isinstance(dst, dict):
-                for k in dst:
-                    copy(dst[k], src[k])
-            elif isinstance(dst, list):
-                for d, s_ in zip(dst, src, strict=True):
-                    copy(d, s_)
-            elif src is not dst:
-                if tuple(src.shape) != tuple(dst.shape):
-                    raise ValueError(f"shape {tuple(src.shape)}, expected {tuple(dst.shape)}")
-                dst.copy_(src)
-        copy(self.param_tree(), tree)
+        a leaf given whole is cut to this rank's shard (on a mesh), and a
+        leaf that already is the parameter is left alone. With ``share``, a
+        leaf that is this rank's shard in the parameter's dtype becomes the
+        parameter (no copy); a model built on the meta device takes the
+        shared tensors' device."""
+        if len(tree["stages"]) != len(self.stage_layers):
+            raise ValueError(f"{len(tree['stages'])} stages in the tree, "
+                             f"{len(self.stage_layers)} in the model")
+        self.top.load_({k: v for k, v in tree.items() if k != "stages"}, share)
+        for layers, st in zip(self.stage_layers, tree["stages"]):
+            for blk, leaves in zip(layers, st, strict=True):
+                blk.p.load_(leaves, share)
+        if self.device.type == "meta":
+            self.device = next(self.parameters()).device
         return self
 
     # ---------------- stage runner ----------------
@@ -195,7 +256,7 @@ class Model(nn.Module):
                 x, new_cache, al = blk(x, aux, cache)
             aux_sum = aux_sum + al
             if in_place:
-                _write_layer(cache, new_cache, aux.get("active"))
+                _write_layer(cache, new_cache, aux.get("active"), aux.get("active_whole"))
             else:
                 new.append(new_cache)
         if cache_stacked is None or in_place:
@@ -212,11 +273,12 @@ class Model(nn.Module):
     def _positions(self, b: int, s: int):
         return torch.arange(s, dtype=torch.int32, device=self.device)[None].expand(b, s)
 
-    def aux(self, positions, frontend=None) -> dict:
+    def aux(self, positions, frontend=None, max_len: int | None = None) -> dict:
         """What every block gets beside its input: positions, the sequence
-        the cross attention reads (or None) and the MoE options."""
+        the cross attention reads (or None), the MoE options, and on a model
+        axis the tp.TP and the caches' max_len."""
         return {"pos": positions, "frontend": frontend, "moe_impl": self.moe_impl,
-                "moe_capacity": self.moe_capacity}
+                "moe_capacity": self.moe_capacity, "tp": self.tp, "max_len": max_len}
 
     def _encode(self, frontend):
         """The audio encoder (stage 0) over frontend (B, F, D) plus the
@@ -229,7 +291,7 @@ class Model(nn.Module):
 
     def forward(self, tokens, frontend=None, caches=None, positions=None,
                 last: bool = False, in_place: bool = False, active=None,
-                return_hidden: bool = False):
+                return_hidden: bool = False, max_len: int | None = None):
         """tokens (B, S) int; frontend (B, Sf, D) or None: the audio
         encoder's input, or the image tokens a vlm cross-attends to. With
         caches and no frontend, the caches' enc_out / frontend stand in.
@@ -242,17 +304,23 @@ class Model(nn.Module):
         in_place / active (a compiled decode step, runtime/serve.py): the
         stage caches are written in place, only the active slots' when
         ``active`` is given, and the returned caches hold the same stage
-        tensors."""
+        tensors.
+
+        On a mesh: tokens are this rank's rows, the caches its shard,
+        ``active`` the mask of the whole batch (held whole, as the
+        reference's replicated operand) and ``max_len`` the caches' length
+        (a flat-layout model's cache split reads it); the logits are this
+        rank's rows, whole over the vocab."""
         with torch.set_grad_enabled(self.trainable and torch.is_grad_enabled()):
             return self._forward(tokens, frontend, caches, positions, last, in_place, active,
-                                 return_hidden)
+                                 return_hidden, max_len)
 
     def _forward(self, tokens, frontend, caches, positions, last, in_place, active,
-                 return_hidden):
+                 return_hidden, max_len):
         b, s = tokens.shape
         if positions is None:
             positions = self._positions(b, s)
-        x = embed_lookup(self.top.embed, tokens)
+        x = embed_lookup(self.top.embed, tokens, self.tp)
         stages, stage_layers = self.stages, self.stage_layers
         stage_caches = caches["stages"] if caches is not None else [None] * len(stages)
         if self.cfg.family == "audio":
@@ -274,9 +342,10 @@ class Model(nn.Module):
             kv_src = None if frontend is None else frontend.to(COMPUTE_DTYPE)
             if caches is not None and kv_src is not None:
                 caches = dict(caches, frontend=kv_src)
-        aux = self.aux(positions, kv_src)
+        aux = self.aux(positions, kv_src, max_len)
         if in_place:
-            aux.update(in_place=True, active=active)
+            aux.update(in_place=True, active=None if active is None else self.local_rows(active),
+                       active_whole=active)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         new_stage_caches = []
         for spec, layers, c_st in zip(stages, stage_layers, stage_caches):
@@ -286,7 +355,8 @@ class Model(nn.Module):
         if last:
             x = x[:, -1:]
         x = self._final_norm(x)
-        logits = x if return_hidden else logits_out(x, self.top.unembed, self.cfg.vocab_size)
+        logits = x if return_hidden else logits_out(x, self.top.unembed, self.cfg.vocab_size,
+                                                    self.tp)
         new_caches = None
         if caches is not None:
             if self.cfg.family == "audio":
@@ -312,16 +382,18 @@ class Model(nn.Module):
         (B, Vp), caches)."""
         caches = self.make_caches(batch["tokens"].shape[0], max_len)
         logits, caches, _ = self(batch["tokens"], batch.get("frontend"), caches=caches,
-                                 last=True)
+                                 last=True, max_len=max_len)
         return logits[:, -1], caches
 
-    def decode_step(self, caches: dict, token, in_place: bool = False, active=None):
+    def decode_step(self, caches: dict, token, in_place: bool = False, active=None,
+                    max_len: int | None = None):
         """token: (B, 1). One step with the KV / state caches; functional
-        unless ``in_place`` (forward)."""
+        unless ``in_place`` (forward). ``max_len``: the caches' length, which
+        a flat-layout model on a model axis needs (forward)."""
         b = token.shape[0]
         pos = caches["pos"][:, None].expand(b, 1)
         logits, caches, _ = self(token, caches=caches, positions=pos, in_place=in_place,
-                                 active=active)
+                                 active=active, max_len=max_len)
         return logits[:, -1], caches
 
     # ---------------- caches ----------------
@@ -329,25 +401,77 @@ class Model(nn.Module):
         """Zeroed caches for ``batch`` requests of up to max_len tokens: one
         entry a stage (None for the cross and encoder stages), "pos", and
         the zero "enc_out" (audio) or "frontend" (vlm) that a forward with
-        caches and no frontend reads."""
+        caches and no frontend reads. On a mesh, ``batch`` is this rank's
+        rows and each leaf is this rank's shard (cache_shardings)."""
+        if self.place is None:
+            return self._make_caches(batch, max_len, self.device)
+        from repro_torch.runtime import sharding   # deferred: runtime imports models
+        whole = self.cache_shapes(batch, max_len)
+        return sharding.map_shardings(
+            lambda sh, leaf, key: torch.full(
+                pshard.local_shape(tuple(leaf.shape), sh.spec, self.place.sizes),
+                -1 if key == "pos" and leaf.ndim == 3 else 0, dtype=leaf.dtype,
+                device=self.device),
+            sharding.cache_shardings(self.place.sizes, whole, self.cfg), whole,
+            _keys(whole))
+
+    def local_rows(self, x):
+        """This rank's rows of a tensor over the mesh's whole batch (the
+        batch split over ("pod", "data"), as batch_spec places it); the
+        tensor itself off a mesh or when the batch is not split."""
+        sizes = self.place.sizes if self.place is not None else {}
+        dp = tuple(a for a in ("pod", "data") if a in sizes)
+        if not dp or pshard.axis_size(sizes, dp) == 1:
+            return x
+        return x[pshard.local_slice((x.shape[0],), (dp,), sizes, self.place.coord)]
+
+    def cache_shapes(self, batch: int, max_len: int) -> dict:
+        """The whole caches of the mesh's batch (``batch`` rows on each of
+        its ("pod", "data") ranks) as meta tensors: what cache_shardings
+        resolves, whatever shard this rank holds."""
+        sizes = self.place.sizes if self.place is not None else {}
+        return self._make_caches(batch * pshard.axis_size(sizes, ("pod", "data")), max_len,
+                                 "meta")
+
+    def local_caches(self, whole: dict) -> dict:
+        """This rank's shard of a whole cache tree (tensors or numpy arrays)
+        of the mesh's batch; the tree itself off a mesh."""
+        if self.place is None:
+            return whole
+        from repro_torch.runtime import sharding   # deferred: runtime imports models
+        shardings = sharding.cache_shardings(self.place.sizes, whole, self.cfg)
+        return sharding.map_shardings(
+            lambda sh, leaf: leaf[pshard.local_slice(tuple(leaf.shape), sh.spec, self.place.sizes,
+                                                 self.place.coord)], shardings, whole)
+
+    def _make_caches(self, batch: int, max_len: int, device) -> dict:
         stage_caches: list = []
         for spec in self.stages:
             if spec.cache is None:
                 stage_caches.append(None)
             elif spec.cache == "kv":
                 stage_caches.append({"kv": attention.make_cache(
-                    self.cfg, batch, max_len, spec.n_layers, spec.window, self.device)})
+                    self.cfg, batch, max_len, spec.n_layers, spec.window, device)})
             elif spec.cache == "rglru":
                 stage_caches.append({"rglru": recurrent.make_rglru_state(
-                    self.cfg, batch, spec.n_layers, self.device)})
+                    self.cfg, batch, spec.n_layers, device)})
             else:       # mlstm | slstm
                 n_m, n_s = (spec.n_layers, 0) if spec.cache == "mlstm" else (0, spec.n_layers)
-                st = xlstm.make_xlstm_state(self.cfg, batch, n_m, n_s, self.device)
+                st = xlstm.make_xlstm_state(self.cfg, batch, n_m, n_s, device)
                 stage_caches.append({spec.cache: st[spec.cache]})
         out = {"stages": stage_caches,
-               "pos": torch.zeros((batch,), dtype=torch.int32, device=self.device)}
+               "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
         key = {"audio": "enc_out", "vlm": "frontend"}.get(self.cfg.family)
         if key is not None:
             out[key] = torch.zeros((batch, self.cfg.frontend_tokens, self.cfg.d_model),
-                                   dtype=COMPUTE_DTYPE, device=self.device)
+                                   dtype=COMPUTE_DTYPE, device=device)
         return out
+
+
+def _keys(tree, key: str = ""):
+    """The tree with each leaf replaced by the dict key it sits under."""
+    if isinstance(tree, dict):
+        return {k: _keys(v, k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_keys(v, key) for v in tree]
+    return None if tree is None else key

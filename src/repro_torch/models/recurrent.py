@@ -14,6 +14,14 @@ on the card, its plain twin on the CPU), the function the JAX package
 computes with an associative scan; in a training step its gradient is
 the rg_lru backward kernel (ops.rg_lru's autograd). A decode step (S == 1)
 is the one-step update. Weights are cast at use (layers.at_use).
+
+Under a tp.TP whose "lru" is split (a mesh's "model" axis), each rank holds
+its W/M channels: the columns of w_in, w_gate, conv_w, conv_b and lam, the
+rows of w_out (its partial output summed over the group) and the rows of
+the float32 gate matrices w_r / w_i ("lru", "lru_out"), whose partial
+products over the rank's channels are summed in float32, both gates in one
+buffer, before the rank keeps its own columns. The recurrence and the
+decode states run on the rank's channels.
 """
 from __future__ import annotations
 
@@ -56,17 +64,25 @@ def _causal_conv(x, w, b, state):
     return out + b.to(x.dtype), new_state
 
 
-def rglru_apply(p: dict, x, cfg, state: dict | None = None):
-    """x: (B, S, D). state: {"h": (B, W), "conv": (B, K-1, W)} or None.
-    Returns (out (B, S, D), new state or None)."""
+def rglru_apply(p: dict, x, cfg, state: dict | None = None, tp=None):
+    """x: (B, S, D). state: {"h": (B, W), "conv": (B, K-1, W)} or None (W:
+    this rank's channels under ``tp``). Returns (out (B, S, D), new state or
+    None)."""
+    split = tp is not None and tp.split["lru"]
     gate = F.gelu(x @ at_use(p["w_gate"], x), approximate="tanh")
     u = x @ at_use(p["w_in"], x)
     u, conv_state = _causal_conv(u, p["conv_w"], p["conv_b"],
                                  None if state is None else state["conv"])
     uf = u.float()
     # the gates' weights and lam stay float32, as the reference uses them
-    r = torch.sigmoid(uf @ p["w_r"].float())
-    i = torch.sigmoid(uf @ p["w_i"].float())
+    if split:
+        both = tp.all_reduce_sum(torch.stack([uf @ p["w_r"].float(), uf @ p["w_i"].float()]))
+        w = uf.shape[-1]
+        mine = both[..., tp.offset(w):tp.offset(w) + w]
+        r, i = torch.sigmoid(mine[0]), torch.sigmoid(mine[1])
+    else:
+        r = torch.sigmoid(uf @ p["w_r"].float())
+        i = torch.sigmoid(uf @ p["w_i"].float())
     # jax.nn.softplus is logaddexp(x, 0), with no linear threshold
     lam = p["lam"].float()
     softplus = torch.logaddexp(lam, torch.zeros_like(lam))
@@ -84,7 +100,8 @@ def rglru_apply(p: dict, x, cfg, state: dict | None = None):
             h = ops.rg_lru(log_a, b, h0)
         new_state = {"h": h[:, -1, :].float(), "conv": conv_state}
     y = gate * h.to(COMPUTE_DTYPE)
-    return y @ at_use(p["w_out"], y), new_state
+    out = y @ at_use(p["w_out"], y)
+    return (tp.all_reduce_sum(out) if split else out), new_state
 
 
 def make_rglru_state(cfg, batch: int, n_layers: int, device=None) -> dict:

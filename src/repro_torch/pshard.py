@@ -191,6 +191,31 @@ def spec_for(mesh, logical_axes: tuple, shape: tuple, fsdp: bool = False) -> tup
     return tuple(out)
 
 
+def local_slice(shape: tuple, spec: tuple, sizes: dict, coord: dict) -> tuple:
+    """The slices of a leaf of ``shape`` that the rank at ``coord`` (axis ->
+    index) holds under ``spec`` (one entry a dim: None, an axis or a tuple of
+    axes, the first the major one) on a mesh of ``sizes`` (axis -> size)."""
+    out = []
+    for dim, entry in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        axes = () if entry is None else (entry if isinstance(entry, tuple) else (entry,))
+        index, count = 0, 1
+        for ax in axes:
+            index = index * sizes[ax] + coord.get(ax, 0)
+            count *= sizes[ax]
+        if dim % count:
+            raise ValueError(f"dim {dim} does not split over {axes} of {count}")
+        chunk = dim // count
+        out.append(slice(index * chunk, (index + 1) * chunk) if count > 1 else slice(None))
+    return tuple(out)
+
+
+def local_shape(shape: tuple, spec: tuple, sizes: dict) -> tuple:
+    """The shape of each rank's slice of a leaf of ``shape`` under ``spec``."""
+    return tuple(dim // axis_size(sizes, entry) if entry is not None else dim
+                 for dim, entry in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))))
+
+
+
 def ambient_mesh():
     """The mesh activated with ``with mesh:`` (DeviceMesh's own context), or
     None."""
@@ -203,8 +228,11 @@ def constrain(x: Tensor, logical_axes: tuple) -> Tensor:
     """The port's with_sharding_constraint, resolved through the
     divisibility-aware rules against the ambient mesh; a no-op outside a
     mesh context. A DTensor is redistributed to the resolved placements; a
-    plain tensor is a rank's own shard already (the data-parallel step splits
-    the batch before the model) and passes through."""
+    plain tensor is a rank's own shard already and passes through: the
+    data-parallel step splits the batch before the model, and on the
+    explicit tensor-parallel path (models/tp.py) each rank computes on its
+    local shard with the collectives written out, so nothing is
+    redistributed."""
     m = ambient_mesh()
     if m is None:
         return x

@@ -20,9 +20,17 @@ ring slot and states into their caches in place: the caches a step is
 first given become its buffers (consumed, as the reference's donated
 caches are), and the caches it returns are those buffers, which the next
 step takes without a copy. ``mesh`` stands for the reference's device
-mesh: None or one device (the model's); the sharded layouts wait for the
-tensor-parallel half of ROADMAP section 1's sharding item. jit_prefill_into is online.batcher.DecodeBatcher's
-admission: the prefill written straight into a slot of live caches.
+mesh: None or one device (the model's), or a torch.distributed DeviceMesh
+("data", "model"; launch.mesh.make_mesh) on which the model was built
+(Model(cfg, mesh=mesh): the dense and hybrid families when "model" is
+above 1). On a mesh each rank calls the step on its shard of each operand,
+as the reference's in_shardings place them: its rows of the tokens (the
+batch split over ("pod", "data")), its shard of the caches
+(cache_shardings), the whole ``active`` mask; it gets back its rows'
+logits, whole over the vocab, and its caches' shard. The layers issue the
+model axis's collectives (models/tp.py), inside the CUDA graph on the
+card. jit_prefill_into is online.batcher.DecodeBatcher's admission: the
+prefill written straight into a slot of live caches.
 """
 from __future__ import annotations
 
@@ -36,7 +44,9 @@ from repro_torch import graphs
 from repro_torch.faults import guards
 from repro_torch.models import Model
 from repro_torch.models.layers import COMPUTE_DTYPE, embed_lookup, logits_out
+from repro_torch.models.model import TP_FAMILIES, TP_SERVE_ITEM
 from repro_torch.planning import WarmStateShapeError
+from repro_torch.pshard import axis_size, mesh_shape
 
 # Host reads of the plan word (one a replan) since the last reset_counts().
 COUNTS = {"host_reads": 0}
@@ -117,16 +127,32 @@ def make_split_serve(model: Model, s: int) -> SplitPrograms:
 # --------------------------------------------------------------------------
 # compiled serve steps
 # --------------------------------------------------------------------------
+def _is_mesh(mesh) -> bool:
+    """A DeviceMesh, or an {axis: size} mapping standing for one."""
+    return hasattr(mesh, "mesh_dim_names") or isinstance(mesh, dict)
+
+
 def _placement(model: Model, mesh) -> torch.device:
     """The device that stands for ``mesh``: None, a device (or its name)
-    that is the model's, or a sequence of one such. A mesh of more than one
-    device needs the sharded serve layouts (ROADMAP section 1, the sharding
-    item's tensor-parallel half), which the port does not have yet."""
+    that is the model's, a sequence of one such, or the DeviceMesh the model
+    was built on. A model axis above 1 serves the dense and hybrid families
+    (models/tp.py); the others wait for the rest of ROADMAP section 1's
+    sharding item (tensor-parallel half). A list of several devices is not
+    a mesh: build a DeviceMesh and the model on it."""
+    if _is_mesh(mesh):
+        m = mesh_shape(mesh).get("model", 1)
+        if m > 1 and model.cfg.family not in TP_FAMILIES:
+            raise NotImplementedError(f"the {model.cfg.family} family on a model axis of {m} "
+                                      f"waits for {TP_SERVE_ITEM}")
+        if model.mesh is not mesh:
+            raise ValueError("the model was not built on this mesh: Model(cfg, mesh=mesh)")
+        return model.device
     if isinstance(mesh, (list, tuple)):
         if len(mesh) != 1:
             raise NotImplementedError(
-                f"a mesh of {len(mesh)} devices needs the sharded serve layouts (ROADMAP "
-                "section 1, the sharding item's tensor-parallel half); pass None or the "
+                f"a list of {len(mesh)} devices is not a mesh: serve on a DeviceMesh with a "
+                "model axis (the sharding item's tensor-parallel serve layouts; "
+                "launch.mesh.make_mesh and Model(cfg, mesh=mesh)), or pass None or the "
                 "model's one device")
         mesh = mesh[0]
     if mesh is not None and torch.device(mesh) != model.device and not (
@@ -170,6 +196,10 @@ def jit_prefill_into(model: Model, mesh, max_len: int):
     intermediate of the graph. One graph per prompt length."""
     from repro_torch.online.batcher import _map_caches  # deferred: avoid the cycle
     dev = _placement(model, mesh)
+    if _is_mesh(mesh) and axis_size(mesh, ("pod", "data")) > 1:
+        raise NotImplementedError("admission into a slot of caches whose batch is split over "
+                                  "(pod, data) waits for the batcher on a mesh; use a mesh "
+                                  "whose batch axes are 1")
 
     def body(ops):
         logits, one = model.prefill(ops["batch"], max_len)
@@ -220,7 +250,8 @@ def jit_decode_step(model: Model, mesh, batch: int, max_len: int):
     dev = _placement(model, mesh)
 
     def body(ops):
-        logits, new = model.decode_step(ops["caches"], ops["token"], in_place=True)
+        logits, new = model.decode_step(ops["caches"], ops["token"], in_place=True,
+                                        max_len=max_len)
         _write_caches(ops["caches"], new)
         return logits
 
@@ -237,10 +268,12 @@ def jit_masked_decode_step(model: Model, mesh, batch: int, max_len: int):
     dev = _placement(model, mesh)
 
     def body(ops):
-        active = ops["active"]
-        token = torch.where(active[:, None], ops["token"], torch.zeros_like(ops["token"]))
-        logits, new = model.decode_step(ops["caches"], token, in_place=True, active=active)
-        _write_caches(ops["caches"], new, active)
+        active = ops["active"]          # the whole batch's mask; on a mesh, this rank's
+        rows = model.local_rows(active)   # rows of it for its rows of the batch
+        token = torch.where(rows[:, None], ops["token"], torch.zeros_like(ops["token"]))
+        logits, new = model.decode_step(ops["caches"], token, in_place=True, active=active,
+                                        max_len=max_len)
+        _write_caches(ops["caches"], new, rows)
         return logits
 
     return _decode_program("masked_decode_step", body, model, batch, max_len, dev, masked=True)

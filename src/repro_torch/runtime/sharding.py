@@ -19,6 +19,8 @@ from repro_torch.pshard import (  # noqa: F401
     fleet_axis,
     fleet_mesh,
     fleet_sharding,
+    local_shape,
+    local_slice,
     mesh_shape,
     placements,
     replicate,
@@ -138,6 +140,8 @@ def map_shardings(fn, shardings, *trees):
     same structure; returns the tree of results."""
     if isinstance(shardings, NamedSharding):
         return fn(shardings, *trees)
+    if shardings is None:       # a stage without a cache
+        return None
     if isinstance(shardings, dict):
         return {k: map_shardings(fn, v, *(t[k] for t in trees)) for k, v in shardings.items()}
     if isinstance(shardings, (list, tuple)):

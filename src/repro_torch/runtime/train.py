@@ -14,8 +14,8 @@ tensors (a restored checkpoint) is copied into the model first.
 
 jit_train_step(model, mesh, ...) is the data-parallel step on a mesh whose
 axes other than ("pod", "data") are all of size 1 (a "model" axis above 1,
-and fsdp, wait for the tensor-parallel slice: ROADMAP.md section 1, the
-sharding item's TP half). Every rank holds the whole parameters. A step
+and fsdp, wait for TP / FSDP training: ROADMAP.md section 1, the sharding
+item's tensor-parallel half; serving has the model axis, models/tp.py). Every rank holds the whole parameters. A step
 takes the rank's rows of the global batch (batch_spec over ("pod",
 "data")), computes its gradients, all-reduces them over the data-parallel
 group so that every rank holds the whole gradient of the global batch's
@@ -48,8 +48,8 @@ from repro_torch.optim.adamw import (
 )
 from repro_torch.runtime import sharding as shlib
 
-TP_ITEM = ("the tensor-parallel half of ROADMAP.md section 1's sharding item (model-axis "
-           "specs, the flat attention layout, FSDP/TP training)")
+TP_ITEM = ("TP / FSDP training, in the tensor-parallel half of ROADMAP.md section 1's "
+           "sharding item (serving has the model axis)")
 
 
 class TrainState(NamedTuple):

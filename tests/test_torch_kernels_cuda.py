@@ -233,6 +233,23 @@ def test_flash_attention_at_the_moe_served_shape(cuda):
     _close(got.float(), want.float(), scale, 1e-2)
 
 
+def test_flash_attention_at_the_flat_per_rank_shape(cuda):
+    """recurrentgemma-9b's prefill on one rank of a model axis of 2, the
+    flat layout: its 16 query heads split 8 a rank, the one KV head
+    repeated a query head (G = 1), hd 256, window 2048, B = 4, S = 3072."""
+    rows, s, hd, window = 4 * 8, 3072, 256, 2048
+    g = torch.Generator(device=cuda).manual_seed(27)
+    q, k, v = (torch.randn((rows, s, hd), device=cuda, generator=g).bfloat16()
+               for _ in range(3))
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, 1, True, window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    want = fa.flash_attention_plain(q, k, v, 1, True, window)
+    scale = fa.flash_attention_plain(q, k, v.abs(), 1, True, window).float()
+    _close(got.float(), want.float(), scale, 1e-2)
+
+
 @pytest.mark.parametrize("b,sq,sk,h,kv,hd,causal", [
     (4, 3072, 3072, 32, 8, 128, True),    # llama-3.2-vision-11b self-attention
     (4, 3072, 1601, 32, 8, 128, False),   # its cross-attention: Sq > Sk, 1 key in the last block
