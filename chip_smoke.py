@@ -310,6 +310,34 @@ Phases, each fatal on failure (no phase catches its own error):
                  ranks' flash and rg_lru launches twice the unsharded
                  prefill's; gloo stages through the host, so 18.2's times
                  are no tensor-parallel performance number.
+ 19. tensor-parallel serving of the MoE, xLSTM, vision and audio families
+                 (expert parallelism, xLSTM heads, cross attention and the
+                 encoder over "model") -- 19.1 inside 13.1, 13.2, 14.1 and
+                 14.2, over each phase's model (deepseek-moe-16b,
+                 xlstm-125m on its 512-token graphed prompt,
+                 llama-3.2-vision-11b, whisper-small): 18.1's checks on a
+                 world-1 NCCL mesh (mesh_graph_checks: graphed prefill, 8
+                 decode and 8 masked steps bit-equal to the unsharded
+                 programs, the all-reduces of a capturing call counted
+                 against tp_collectives, none in a replay, a traced
+                 replay's kernels against the counted ones); 19.3 and 19.2
+                 last: 19.3 flash at the per-rank shapes of M = 2 and 4
+                 (deepseek's and the vlm's self attention over 1024, the
+                 vlm's cross attention over 1601 at 1024 and 3072 queries,
+                 whisper's encoder over 1500, decoder self over 448 and
+                 cross 448 over 1500), each against its twin and timed
+                 beside SDPA and its bound; deepseek's also in float32;
+                 19.2 two gloo ranks sharing the card, eager, at published
+                 widths with phase 16's depth cuts (deepseek 3 layers, the
+                 vlm 4 self + 1 cross over 1601 image tokens; xlstm and
+                 whisper whole), 4 requests of 1024 tokens (xlstm 512,
+                 whisper 448 over 1500 frames) and 8 decode steps against
+                 the unsharded Model(cfg, tp_size=2): the vlm, whisper and
+                 xlstm within 0.05 * max(1, max |logits|), deepseek's and
+                 xlstm's float32 compute within 1e-4 of it (deepseek's MoE
+                 drops equal; its bf16 share printed beside its flipped
+                 top-6 choices), flash launches twice the unsharded
+                 serve's.
 Every profiled window that records no device time is measured once more
 (profiled); a phase fails only if the retry is empty too. A graphed
 window whose trace is short of the replays that CUDA events saw run is
@@ -516,6 +544,24 @@ ENTRY_FAMILY_STEPS, ENTRY_FAMILY_RESUMED = 2, 1
 TP_M, TP_B, TP_S, TP_DECODE, TP_SEED = 2, 4, 3072, 8, 18
 TP_ARCHS = {"recurrentgemma-9b": 3, "qwen1.5-0.5b": None}
 TP_RANK_MS = (2, 4)
+# Phase 19: tensor-parallel serving of the MoE, xLSTM, vision and audio
+# families. 19.1 runs inside each family's serve phase (13.1, 13.2, 14.1,
+# 14.2) over its model; its mesh programs' launches collect in
+# TP19_LAUNCHES. 19.2 runs TP_M gloo ranks on the card for each family:
+# arch -> (layers kept or None, prompt tokens, frontend tokens or None),
+# the depths phase 16 keeps (deepseek its dense layer and two MoE layers,
+# the vlm four self layers and one cross layer over a 1601 x 4096
+# frontend), TP_B requests and TP_DECODE decode steps; deepseek's and
+# xlstm's float32 compute runs within TP19_F32_RTOL. 19.3 times flash at
+# the per-rank shapes.
+TP19_FAMILIES = {
+    "deepseek-moe-16b": (3, 1024, None),
+    "llama-3.2-vision-11b": (5, 1024, 1601),
+    "xlstm-125m": (None, 512, None),
+    "whisper-small": (None, 448, 1500),
+}
+TP19_SEED, TP19_F32_RTOL = 19, 1e-4
+TP19_LAUNCHES: dict = {}
 # TPU kernel each CUDA kernel replaces, and its source in this repo.
 NOMA_SOURCE = "src/repro_torch/kernels/csrc/noma_rates.cu"
 TPU_KERNELS = {
@@ -563,9 +609,15 @@ def wait_for_memory(torch) -> None:
           f"{free / 2**30:.2f} GiB after {waited:.1f} s{note}")
 
 
+# the peak reserve a sub-phase that measures its own (mesh_graph_checks)
+# found before it reset the allocator's peak, for the next memory_mark
+PEAK_BEFORE = {"bytes": 0}
+
+
 def memory_mark(torch, label: str, peaks: dict) -> None:
     """Keep the allocator's peak reserve since the last mark under label."""
-    peaks[label] = torch.cuda.max_memory_reserved()
+    peaks[label] = max(torch.cuda.max_memory_reserved(), PEAK_BEFORE["bytes"])
+    PEAK_BEFORE["bytes"] = 0
     torch.cuda.reset_peak_memory_stats()
 
 
@@ -1396,6 +1448,28 @@ def main() -> int:
     for name, n in ranks["launched"].items():
         launches[name] = launches.get(name, 0) + n
     memory_mark(torch, "18.2 (main process)", peaks)
+    # -- 19.3 flash at the other families' per-rank shapes, then 19.2 their
+    # two ranks on the card over gloo; 19.1's mesh programs ran in 13-14
+    tp19_flash, tp19_keys = tp_family_kernel_phase(dev, smi, errs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    memory_mark(torch, "19.3", peaks)
+    ranks19 = tp_family_ranks_phase(dev, smi)
+    unchecked = sorted(k for k in ranks19["shapes"] if k not in tp19_keys.values())
+    if unchecked:
+        fail(f"tp 19.2: the ranks launched flash_attention at shapes 19.3 does not check "
+             f"(query rows, Sq, Sk, hd, G, causal, window, kv_len): {unchecked}")
+    for name, key in tp19_keys.items():
+        tp19_flash[name]["launches"] = ranks19["shapes"].get(key, 0)
+    print(f"tp 19.2 flash_attention launches at 19.3's shapes: "
+          f"{ {n: r['launches'] for n, r in tp19_flash.items()} } (M=4's shapes and the "
+          f"served cross attention run on no path of one card)")
+    rows["flash_attention"].update(tp19_flash)
+    for source in (ranks19["launched"], TP19_LAUNCHES):
+        for name, n in source.items():
+            launches[name] = launches.get(name, 0) + n
+    print(f"tp 19.1 mesh programs' launches (13.1, 13.2, 14.1, 14.2): {TP19_LAUNCHES}")
+    memory_mark(torch, "19.2 (main process)", peaks)
     print(f"profile retries (windows with no device time, measured once more): "
           f"{PROFILE_RETRIES or 'none'}")
     print("memory: peak reserved by phase (GiB): " + ", ".join(
@@ -3771,6 +3845,10 @@ def moe_phase(dev, smi: str, errs: dict) -> tuple[dict, int]:
     graphed = graph_serve_checks(
         model, {"tokens": tokens[:, :p_len]},
         [tokens[:, p_len + i:p_len + i + 1] for i in range(DECODE_STEPS)], S, "moe 13.1", smi)
+    # 19.1: the same programs on a world-1 mesh over these weights
+    tp_family_graphs(dev, smi, model, {"tokens": tokens[:, :p_len]},
+                     [tokens[:, p_len + i:p_len + i + 1] for i in range(DECODE_STEPS)], S,
+                     "moe", MOE_ARCH)
     prof = profile_forward(lambda: model(tokens), f"moe 13.1 profile forward ({B} x {S})", smi,
                            {"expert bmm": {"aten::bmm"},
                             "dispatch and combine (sort, searchsorted, gathers, index_put)":
@@ -3865,6 +3943,9 @@ def xlstm_phase(dev, smi: str) -> None:
         model, {"tokens": tokens[:, :XLSTM_GRAPH_S]},
         [tokens[:, XLSTM_GRAPH_S + i:XLSTM_GRAPH_S + i + 1] for i in range(DECODE_STEPS)], S,
         "xlstm 13.2", smi)
+    tp_family_graphs(dev, smi, model, {"tokens": tokens[:, :XLSTM_GRAPH_S]},
+                     [tokens[:, XLSTM_GRAPH_S + i:XLSTM_GRAPH_S + i + 1]
+                      for i in range(DECODE_STEPS)], S, "xlstm", XLSTM_ARCH)
 
     # DecodeBatcher: 8 steps, the caches exported, 4 more steps on the live
     # batcher and on a fresh one that imported the export
@@ -4109,6 +4190,9 @@ def vlm_phase(dev, smi: str, errs: dict) -> tuple[dict, int]:
     graphed = graph_serve_checks(
         model, {"tokens": tokens[:, :p_len], "frontend": frontend},
         [tokens[:, p_len + i:p_len + i + 1] for i in range(DECODE_STEPS)], S, "vlm 14.1", smi)
+    tp_family_graphs(dev, smi, model, {"tokens": tokens[:, :p_len], "frontend": frontend},
+                     [tokens[:, p_len + i:p_len + i + 1] for i in range(DECODE_STEPS)], S,
+                     "vlm", VLM_ARCH)
     # a witness for the decode's distance from the forward: the same forward,
     # prefill and decode with every attention taking the decode's single pass
     with SinglePassAttention():
@@ -4204,6 +4288,9 @@ def audio_phase(dev, smi: str, errs: dict) -> tuple[dict, int]:
     graphed = graph_serve_checks(
         model, {"tokens": tokens[:, :p_len], "frontend": frontend},
         [tokens[:, p_len + i:p_len + i + 1] for i in range(DECODE_STEPS)], S, "audio 14.2", smi)
+    tp_family_graphs(dev, smi, model, {"tokens": tokens[:, :p_len], "frontend": frontend},
+                     [tokens[:, p_len + i:p_len + i + 1] for i in range(DECODE_STEPS)], S,
+                     "audio", AUDIO_ARCH)
     # the reference's split (not its forward): the second split point bit-equal
     # to the first
     split_times = split_checks(model, tokens, None, (main["split"], AUDIO_SPLIT),
@@ -5472,57 +5559,99 @@ class CountedAllReduce:
         dist.all_reduce(x, op=op, group=group)
 
 
-def tp_collectives(cfg) -> int:
-    """The all-reduces of one forward of a dense or hybrid model of the
-    grouped layout on a model axis of size 1 (every axis splits): the
-    embedding and the logits, two a layer (the mixer's output and the
-    MLP's) and one more a recurrent layer (its gates)."""
+# The all-reduces of one block of each kind on a model axis of size 1 (every
+# leaf splits): the mixer's output and the MLP's (or the MoE's: its experts'
+# and shared experts' partial outputs summed in one); an RG-LRU's gates;
+# a decoder block's cross attention; an mLSTM's C and n and an sLSTM's c, n,
+# h and m gathered over hd at the call's start and over heads at its end.
+TP_BLOCK_COLLECTIVES = {"attn": 2, "rec": 3, "cross": 2, "enc": 2, "dec": 3, "mlstm": 5,
+                        "slstm": 9}
+
+
+def tp_collectives(cfg, prefill: bool = True) -> int:
+    """The all-reduces of one forward of a model on a model axis of size 1:
+    the embedding and the logits, then TP_BLOCK_COLLECTIVES a block; the
+    audio encoder runs only in a prefill (a decode step reads enc_out)."""
     from repro_torch.models import stages_for
-    return 2 + sum(spec.n_layers * (2 + (spec.kind == "rec")) for spec in stages_for(cfg))
+    return 2 + sum(spec.n_layers * TP_BLOCK_COLLECTIVES[spec.kind] for spec in stages_for(cfg)
+                   if prefill or spec.kind != "enc")
+
+
+def moved(tree, device):
+    """A tree of tensors (None entries kept) copied to ``device``."""
+    from repro_torch.core.types import tree_map
+    return tree_map(lambda x: x.to(device), tree)
+
+
+def differing_held(tree, held) -> list:
+    """graphs.differing of a tree on the card against one held on the host,
+    each held leaf brought back to the card alone for its comparison."""
+    from repro_torch import graphs
+    got, want = graphs.tensors(tree), graphs.tensors(held)
+    if len(got) != len(want):
+        return ["structure"]
+    return [i for i, (x, y) in enumerate(zip(got, want))
+            if graphs.differing(x, y.to(x.device))]
 
 
 def tp_graph_phase(dev, smi: str, model, errs: dict) -> dict:
     """Phase 18.1: the compiled serve steps on a mesh (1, 1) ("data",
-    "model") of a world-1 NCCL group, over phase 6's model (its weights
-    shared, not copied: Model(mesh=).load_params_(share=True)): jit_prefill
-    of 4 x 3064 tokens, 8 jit_decode_step and 8 jit_masked_decode_step
-    (slot 1 idle every other step), each CUDA graph captured with its
-    collectives (a world-1 all-reduce is the identity), logits and caches
-    bit-equal to the unsharded programs' at every call, a traced replay's
-    kernels equal to what its bookkeeping counted, the collectives a call
-    issues counted. Returns the mesh programs' launches."""
+    "model") of a world-1 NCCL group, over phase 6's model: mesh_graph_checks
+    on 4 x 3064 tokens and 8 + 8 steps. Returns the mesh programs'
+    launches."""
+    from repro_torch.data import make_batch
+    B, S = SERVE_B, SERVE_S
+    p_len = S - DECODE_STEPS
+    tokens = make_batch(0, 0, B, S, model.cfg.vocab_size, device=dev)["tokens"]
+    return mesh_graph_checks(dev, smi, model, {"tokens": tokens[:, :p_len]},
+                             [tokens[:, p_len + i:p_len + i + 1] for i in range(DECODE_STEPS)],
+                             S, "tp 18.1", SERVE_ARCH)
+
+
+def mesh_graph_checks(dev, smi: str, model, batch: dict, toks: list, max_len: int, label: str,
+                      arch: str) -> dict:
+    """The compiled serve steps on a mesh (1, 1) ("data", "model") of a
+    world-1 NCCL group, over ``model``'s weights (shared, not copied:
+    Model(mesh=).load_params_(share=True)): jit_prefill of ``batch`` (its
+    frontend too), len(toks) jit_decode_step and as many
+    jit_masked_decode_step (slot 1 idle every other step), each CUDA graph
+    captured with its collectives (a world-1 all-reduce is the identity),
+    logits and caches bit-equal to the unsharded programs' at every call, a
+    traced replay's kernels equal to what its bookkeeping counted, the
+    collectives a call issues counted (a capturing call twice
+    tp_collectives, a replay none). Returns the mesh programs' launches."""
     import gc
 
     import torch
     from repro_torch import graphs
-    from repro_torch.data import make_batch
     from repro_torch.launch import mesh as lmesh
     from repro_torch.models import Model
     from repro_torch.runtime.serve import jit_decode_step, jit_masked_decode_step, jit_prefill
 
     t_phase = time.perf_counter()
+    PEAK_BEFORE["bytes"] = max(PEAK_BEFORE["bytes"], torch.cuda.max_memory_reserved())
+    torch.cuda.reset_peak_memory_stats()
     lmesh.init_process_group(device=dev)
     launched_total: dict = {}
     try:
         mesh = lmesh.make_mesh((1, 1), ("data", "model"))
         counted = CountedAllReduce()
-        tm = Model(model.cfg, device="meta", mesh=mesh, all_reduce=counted)
+        tm = Model(model.cfg, device="meta", mesh=mesh, all_reduce=counted,
+                   moe_capacity=model.moe_capacity)
         tm.load_params_(model.param_tree(), share=True)
         shared = tm.device == model.device and all(
             a.data_ptr() == b.data_ptr() for a, b in zip(tm.parameters(), model.parameters(),
                                                          strict=True))
-        per_call = tp_collectives(tm.cfg)
-        print(f"tp 18.1: an NCCL group of world size {torch.distributed.get_world_size()}, "
-              f"mesh {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}; {SERVE_ARCH} on it "
-              f"sharing phase 6's {model.param_bytes()} bytes of weights: {shared}; layout "
-              f"{tm.cfg.attn_layout}; {per_call} all-reduces a forward | {smi}")
+        per_pre, per_dec = tp_collectives(tm.cfg, True), tp_collectives(tm.cfg, False)
+        print(f"{label}: an NCCL group of world size {torch.distributed.get_world_size()}, "
+              f"mesh {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}; {arch} on it sharing "
+              f"the phase's {model.param_bytes()} bytes of weights: {shared}; layout "
+              f"{tm.cfg.attn_layout}; {per_pre} all-reduces a prefill, {per_dec} a decode step "
+              f"| {smi}")
         if not shared:
-            fail("tp 18.1: the mesh model does not share phase 6's weights")
-        B, S = SERVE_B, SERVE_S
-        p_len = S - DECODE_STEPS
-        tokens = make_batch(0, 0, B, S, model.cfg.vocab_size, device=dev)["tokens"]
-        batch = {"tokens": tokens[:, :p_len]}
-        toks = [tokens[:, p_len + i:p_len + i + 1] for i in range(DECODE_STEPS)]
+            fail(f"{label}: the mesh model does not share the phase's weights")
+        b = batch["tokens"].shape[0]
+        p_len = batch["tokens"].shape[1]
 
         def add(launched):
             for k, v in launched[0].items():
@@ -5535,7 +5664,7 @@ def tp_graph_phase(dev, smi: str, model, errs: dict) -> dict:
             before = counted.calls
             res, wall, launched = counted_call(fn)
             if counted.calls - before != n_calls:
-                fail(f"tp 18.1 {what}: {counted.calls - before} all-reduces issued, expected "
+                fail(f"{label} {what}: {counted.calls - before} all-reduces issued, expected "
                      f"{n_calls}")
             add(launched)
             return res, wall, launched
@@ -5547,48 +5676,64 @@ def tp_graph_phase(dev, smi: str, model, errs: dict) -> dict:
             from torch.autograd import DeviceType
             nccl = sum(e.count for e in prof.key_averages()
                        if e.device_type == DeviceType.CUDA and "nccl" in e.key.lower())
-            print(f"check tp 18.1 {what} replay, traced: the port's kernels on the device "
+            print(f"check {label} {what} replay, traced: the port's kernels on the device "
                   f"{seen}, the capturing call's eager run launched {eager[0]}, the replay "
                   f"counted {booked[0]}: {seen == eager[0] == booked[0]}; NCCL device records "
                   f"{nccl} (a world-1 in-place all-reduce moves no bytes)")
             if not seen == eager[0] == booked[0]:
-                fail(f"tp 18.1 {what}: the replay ran {seen}, its eager run launched "
+                fail(f"{label} {what}: the replay ran {seen}, its eager run launched "
                      f"{eager[0]}, the replay counted {booked[0]}")
+            if booked[1:] != eager[1:]:
+                fail(f"{label} {what}: the replay's flash shapes / MoE drops {booked[1:]} "
+                     f"differ from its eager run's {eager[1:]}")
             add(booked)
             return res
 
-        # prefill: each program's capturing call, then replays; the mesh's
-        # last replay traced
-        pre_u, _ = jit_prefill(model, None, S)
-        pre_m, _ = jit_prefill(tm, mesh, S)
-        (lu, cu), _, _ = counted_call(lambda: pre_u(None, batch))
-        (lm, cm), cap_wall, cap_launched = mesh_call(lambda: pre_m(None, batch),
-                                                     "prefill capture", 2 * per_call)
-        bad = graphs.differing((lm, cm), (lu, cu))
-        del lm, cm
+        # prefill: the unsharded program's capturing call and a replay (its
+        # graph released and its outputs held on the host during the mesh's
+        # captures: one pool and one set of caches on the card at a time),
+        # then the mesh program's capturing call and replays, its last
+        # replay traced
+        pre_u, _ = jit_prefill(model, None, max_len)
+        (lu, cu), _, u_first = counted_call(lambda: pre_u(None, batch))
+        del lu, cu
         (lu, cu), u_wall, _ = counted_call(lambda: pre_u(None, batch))
+        lu, cu = moved((lu, cu), "cpu")
+        pre_u.program.release()
+        del pre_u
+        gc.collect()
+        torch.cuda.empty_cache()
+        pre_m, _ = jit_prefill(tm, mesh, max_len)
+        (lm, cm), cap_wall, cap_launched = mesh_call(lambda: pre_m(None, batch),
+                                                     "prefill capture", 2 * per_pre)
+        bad = differing_held((lm, cm), (lu, cu))
+        if cap_launched[1:] != u_first[1:]:
+            fail(f"{label} prefill: the mesh's flash shapes / MoE drops {cap_launched[1:]} "
+                 f"differ from the unsharded program's {u_first[1:]}")
+        del lm, cm
         (lm, cm), m_wall, _ = mesh_call(lambda: pre_m(None, batch), "prefill replay", 0)
-        bad += graphs.differing((lm, cm), (lu, cu))
+        bad += differing_held((lm, cm), (lu, cu))
         del lm, cm
         lm, cm = traced_mesh(lambda: pre_m(None, batch), "prefill", cap_launched)
-        bad += graphs.differing((lm, cm), (lu, cu))
-        print(f"check tp 18.1 graphs prefill ({B} x {p_len} tokens) on the mesh: the capturing "
+        bad += differing_held((lm, cm), (lu, cu))
+        print(f"check {label} graphs prefill ({b} x {p_len} tokens) on the mesh: the capturing "
               f"call and two replays bit-equal to the unsharded program's, logits and caches: "
               f"{not bad}; admission_s mesh={m_wall:.4f} unsharded={u_wall:.4f} capturing "
               f"call={cap_wall:.4f}; capture_s={pre_m.program.capture_s:.4f}, pool_bytes="
-              f"{pool_bytes(torch, pre_m.program.pool)} | {smi}")
+              f"{pool_bytes(torch, pre_m.program.pool)}; MoE drops {sum(cap_launched[2])} "
+              f"| {smi}")
         if bad:
-            fail(f"tp 18.1 prefill: leaves {bad} differ from the unsharded program's")
-        pre_u.program.release()
+            fail(f"{label} prefill: leaves {bad} differ from the unsharded program's")
         pre_m.program.release()
-        del pre_u, pre_m, lm, lu
+        del pre_m, lm, lu
         gc.collect()
         torch.cuda.empty_cache()
+        cu = moved(cu, dev)         # the unsharded decode's caches, back on the card
 
         # decode: both programs adopt their prefill's caches; the mesh's
         # second step is traced
-        dec_u, _, _ = jit_decode_step(model, None, B, S)
-        dec_m, _, _ = jit_decode_step(tm, mesh, B, S)
+        dec_u, _, _ = jit_decode_step(model, None, b, max_len)
+        dec_m, _, _ = jit_decode_step(tm, mesh, b, max_len)
         m_ms, u_ms = [], []
         for k, tok in enumerate(toks):
             (lu, cu), u_wall, _ = counted_call(lambda: dec_u(None, cu, tok))
@@ -5597,30 +5742,30 @@ def tp_graph_phase(dev, smi: str, model, errs: dict) -> dict:
             else:
                 (lm, cm), m_wall, launched = mesh_call(lambda: dec_m(None, cm, tok),
                                                        f"decode step {k}",
-                                                       2 * per_call if k == 0 else 0)
+                                                       2 * per_dec if k == 0 else 0)
                 if k == 0:
                     d_eager = launched
                 else:
                     m_ms.append(m_wall * 1e3)
                     u_ms.append(u_wall * 1e3)
             if not torch.equal(lm, lu):
-                fail(f"tp 18.1 decode step {k}: the mesh program's logits differ")
+                fail(f"{label} decode step {k}: the mesh program's logits differ")
         bad = graphs.differing(cm, cu)
-        print(f"check tp 18.1 graphs decode on the mesh: {len(toks)} steps' logits and the "
+        print(f"check {label} graphs decode on the mesh: {len(toks)} steps' logits and the "
               f"caches after them bit-equal to the unsharded program's: {not bad}; ms a step "
               f"mesh={statistics.median(m_ms):.4f} unsharded={statistics.median(u_ms):.4f} "
               f"| {smi}")
         if bad:
-            fail(f"tp 18.1 decode: cache leaves {bad} differ")
+            fail(f"{label} decode: cache leaves {bad} differ")
         dec_u.program.release()
         dec_m.program.release()
 
         # masked: slot 1 idle every other step
-        mk_u, _, _ = jit_masked_decode_step(model, None, B, S)
-        mk_m, _, _ = jit_masked_decode_step(tm, mesh, B, S)
+        mk_u, _, _ = jit_masked_decode_step(model, None, b, max_len)
+        mk_m, _, _ = jit_masked_decode_step(tm, mesh, b, max_len)
         mk_ms = []
         for k, tok in enumerate(toks):
-            active = torch.tensor([i != 1 or k % 2 == 1 for i in range(B)], device=dev)
+            active = torch.tensor([i != 1 or k % 2 == 1 for i in range(b)], device=dev)
             (lu, cu), _, _ = counted_call(lambda: mk_u(None, cu, tok, active))
             if k == 1:
                 lm, cm = traced_mesh(lambda: mk_m(None, cm, tok, active), "masked step",
@@ -5628,19 +5773,20 @@ def tp_graph_phase(dev, smi: str, model, errs: dict) -> dict:
             else:
                 (lm, cm), m_wall, launched = mesh_call(lambda: mk_m(None, cm, tok, active),
                                                        f"masked step {k}",
-                                                       2 * per_call if k == 0 else 0)
+                                                       2 * per_dec if k == 0 else 0)
                 if k == 0:
                     k_eager = launched
                 else:
                     mk_ms.append(m_wall * 1e3)
             bad = graphs.differing((lm, cm), (lu, cu))
             if bad:
-                fail(f"tp 18.1 masked step {k}: leaves {bad} differ from the unsharded "
+                fail(f"{label} masked step {k}: leaves {bad} differ from the unsharded "
                      "program's")
-        print(f"check tp 18.1 graphs masked decode on the mesh: {len(toks)} steps, slot 1 "
+        print(f"check {label} graphs masked decode on the mesh: {len(toks)} steps, slot 1 "
               f"idle every other step, logits and caches bit-equal to the unsharded "
               f"program's: True; ms a step mesh={statistics.median(mk_ms):.4f}; all-reduces "
-              f"issued {counted.calls} (a capturing call {2 * per_call}, a replay 0) | {smi}")
+              f"issued {counted.calls} (a capturing call {2 * per_pre} / {2 * per_dec}, a "
+              f"replay 0) | {smi}")
         mk_u.program.release()
         mk_m.program.release()
         del dec_u, dec_m, mk_u, mk_m, cu, cm, lu, lm, tm
@@ -5648,7 +5794,8 @@ def tp_graph_phase(dev, smi: str, model, errs: dict) -> dict:
         torch.cuda.empty_cache()
     finally:
         lmesh.destroy_process_group()
-    print(f"tp: 18.1 took {time.perf_counter() - t_phase:.1f} s; mesh launches "
+    print(f"{label} took {time.perf_counter() - t_phase:.1f} s; peak reserved "
+          f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB; mesh launches "
           f"{launched_total} | {smi}")
     return launched_total
 
@@ -5661,23 +5808,28 @@ def tp_config(arch: str):
     return cfg if depth is None else dataclasses.replace(cfg, n_layers=depth)
 
 
-def tp_serve(model, tokens, max_len: int) -> tuple:
-    """Prefill tokens[:, :TP_S], then TP_DECODE cached decode steps (eager):
-    (the logits of each, float32 on the host; prefill s; decode ms a step;
-    the prefill's launches and flash shapes)."""
+def tp_serve(model, tokens, max_len: int, s: int | None = None, frontend=None) -> tuple:
+    """Prefill tokens[:, :s] (TP_S by default; over ``frontend`` when
+    given), then TP_DECODE cached decode steps (eager): (the logits of each,
+    float32 on the host; prefill s; decode ms a step; the prefill's launches
+    and flash shapes; each call's MoE drops)."""
     import torch
-    res, prefill_s, launched = counted_call(
-        lambda: model.prefill({"tokens": tokens[:, :TP_S]}, max_len))
+    s = TP_S if s is None else s
+    first = {"tokens": tokens[:, :s]}
+    if frontend is not None:
+        first["frontend"] = frontend
+    res, prefill_s, launched = counted_call(lambda: model.prefill(first, max_len))
     logits, caches = res
-    out, walls = [logits.float().cpu()], []
+    out, walls, drops = [logits.float().cpu()], [], [launched[2]]
     for i in range(TP_DECODE):
-        (logits, caches), wall, _ = counted_call(lambda: model.decode_step(
-            caches, tokens[:, TP_S + i:TP_S + i + 1], max_len=max_len))
+        (logits, caches), wall, step = counted_call(lambda: model.decode_step(
+            caches, tokens[:, s + i:s + i + 1], max_len=max_len))
         out.append(logits.float().cpu())
         walls.append(wall * 1e3)
+        drops.append(step[2])
     del caches
     torch.cuda.empty_cache()
-    return out, prefill_s, statistics.median(walls), launched[0], launched[1]
+    return out, prefill_s, statistics.median(walls), launched[0], launched[1], drops
 
 
 def tp_rank(rank: int, tmp: str) -> None:
@@ -5705,8 +5857,8 @@ def tp_rank(rank: int, tmp: str) -> None:
         model = Model(cfg, device=dev, mesh=mesh).init(
             torch.Generator(device=dev).manual_seed(TP_SEED))
         tokens = make_batch(0, 0, TP_B, TP_S + TP_DECODE, cfg.vocab_size, device=dev)["tokens"]
-        logits, prefill_s, dec_ms, launched, shapes = tp_serve(model, tokens,
-                                                               TP_S + TP_DECODE)
+        logits, prefill_s, dec_ms, launched, shapes, _ = tp_serve(model, tokens,
+                                                                  TP_S + TP_DECODE)
         out[arch] = dict(logits=logits, prefill_s=prefill_s, decode_ms=dec_ms,
                          launched=launched, shapes=shapes, layout=model.cfg.attn_layout,
                          bytes=model.param_bytes(), peak=torch.cuda.max_memory_reserved())
@@ -5765,7 +5917,7 @@ def tp_ranks_phase(dev, smi: str) -> dict:
         fail(f"tp 18.2: gloo's all-reduce of the card's tensors gave {[r['probe'] for r in ranks]}")
     out: dict = {"launched": {}, "shapes": {}}
     for arch in TP_ARCHS:
-        want, ref_pre, ref_dec, ref_launched, _ = refs[arch]
+        want, ref_pre, ref_dec, ref_launched, _, _ = refs[arch]
         vocab = tp_config(arch).vocab_size      # the padded columns hold -1e30
         bound = 0.05 * max(1.0, max(float(w[..., :vocab].abs().max()) for w in want))
         worst = 0.0
@@ -5853,6 +6005,259 @@ def tp_kernel_phase(dev, smi: str, errs: dict) -> tuple[dict, dict, dict]:
     print(f"tp: 18.3 took {time.perf_counter() - t_phase:.1f} s | {smi}")
     return flash, rg, keys
 
+
+
+# --------------------------------------------------------------------------
+# Phase 19: tensor-parallel serving of the MoE, xLSTM, vision and audio
+# families (expert parallelism, xLSTM heads, cross attention, the encoder)
+# --------------------------------------------------------------------------
+def tp_family_graphs(dev, smi: str, model, batch: dict, toks: list, max_len: int,
+                     label: str, arch: str) -> None:
+    """Phase 19.1, run inside a family's serve phase over its model:
+    mesh_graph_checks on the phase's graphed prompt and steps; the mesh
+    programs' launches are added to TP19_LAUNCHES."""
+    for name, n in mesh_graph_checks(dev, smi, model, batch, toks, max_len, f"tp 19.1 {label}",
+                                     arch).items():
+        TP19_LAUNCHES[name] = TP19_LAUNCHES.get(name, 0) + n
+
+
+class F32Compute:
+    """Within the block, the port's models compute in float32 (COMPUTE_DTYPE
+    of every model module set to float32, as the CPU tests set it)."""
+
+    MODULES = ("layers", "attention", "recurrent", "model", "moe", "xlstm")
+
+    def __enter__(self):
+        import importlib
+
+        import torch
+        self.saved = []
+        for name in self.MODULES:
+            mod = importlib.import_module(f"repro_torch.models.{name}")
+            self.saved.append((mod, mod.COMPUTE_DTYPE))
+            mod.COMPUTE_DTYPE = torch.float32
+        return self
+
+    def __exit__(self, *exc):
+        for mod, dt in self.saved:
+            mod.COMPUTE_DTYPE = dt
+
+
+def tp19_config(arch: str):
+    """19.2's config: published widths, the depth of TP19_FAMILIES."""
+    from repro_torch import configs
+    cfg = configs.get(arch)
+    depth, _, sf = TP19_FAMILIES[arch]
+    over = {} if depth is None else {"n_layers": depth}
+    if sf is not None:
+        over["frontend_tokens"] = sf
+    return dataclasses.replace(cfg, **over)
+
+
+def tp19_serve(dev, arch: str, f32: bool, mesh=None) -> dict:
+    """19.2's serve of one family: the model (unsharded with tp_size=TP_M,
+    or on ``mesh``) drawn from TP19_SEED, in float32 compute with ``f32``;
+    a prefill of TP_B x S tokens (its frontend too) and TP_DECODE cached
+    decode steps, eager, at the served MoE capacity, with the expert choices
+    recorded (Routes). Returns the logits (float32 on the host), times,
+    launches, flash shapes, MoE drops and routes."""
+    import contextlib
+
+    import torch
+    from repro_torch.data import make_batch
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import Model
+    cfg = tp19_config(arch)
+    _, s, sf = TP19_FAMILIES[arch]
+    torch.cuda.reset_peak_memory_stats()
+    with F32Compute() if f32 else contextlib.nullcontext():
+        kw = dict(tp_size=TP_M) if mesh is None else dict(mesh=mesh)
+        model = Model(cfg, device=dev, moe_capacity=launch_serve.MOE_CAPACITY, **kw)
+        if f32:
+            model = model.float()
+        model.init(torch.Generator(device=dev).manual_seed(TP19_SEED))
+        for spec, layers in zip(model.stages, model.stage_layers):
+            if spec.kind == "cross":
+                for blk in layers:
+                    blk.p.xgate.fill_(VLM_XGATE)
+        batch = make_batch(0, 0, TP_B, s + TP_DECODE, cfg.vocab_size, device=dev,
+                           frontend_shape=None if sf is None else (sf, cfg.d_model))
+        frontend = None if sf is None else model.local_rows(batch["frontend"])
+        with Routes() as routes:
+            out, prefill_s, dec_ms, launched, shapes, drops = tp_serve(
+                model, model.local_rows(batch["tokens"]), s + TP_DECODE, s, frontend)
+        res = dict(logits=out, prefill_s=prefill_s, decode_ms=dec_ms, launched=launched,
+                   shapes=shapes, drops=drops, routes=[r.cpu() for r in routes.seen],
+                   layout=model.cfg.attn_layout, bytes=model.param_bytes(),
+                   vocab=cfg.vocab_size)
+        del model
+    torch.cuda.empty_cache()
+    res["peak"] = torch.cuda.max_memory_reserved()
+    return res
+
+
+def tp19_rank(rank: int, tmp: str, dev) -> None:
+    """One of 19.2's ranks: a gloo group whose collectives take the card's
+    tensors (as 18.2's tp_rank), on ``dev``; each family of TP19_FAMILIES
+    served on the (1, TP_M) mesh, in each of tp19_dtypes. Writes what it
+    saw to tmp/rank<r>.pt."""
+    import torch
+    from repro_torch.launch import mesh as lmesh
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    mesh = lmesh.make_mesh((1, TP_M), ("data", "model"), device="cpu")
+    out = {}
+    for arch in TP19_FAMILIES:
+        for f32 in tp19_dtypes(arch):
+            out[arch, f32] = tp19_serve(dev, arch, f32, mesh)
+    torch.save(out, f"{tmp}/rank{rank}.pt")
+
+
+def tp19_dtypes(arch: str) -> tuple:
+    """bf16 for every family; the MoE also in float32 compute, where its
+    routing does not flip at bf16 near-ties, and xlstm-125m (a witness:
+    its bf16 gap, the largest of the bound-gated three, is rounding)."""
+    return (False, True) if arch in (MOE_ARCH, XLSTM_ARCH) else (False,)
+
+
+def tp_family_ranks_phase(dev, smi: str) -> dict:
+    """Phase 19.2: TP_M gloo ranks sharing the card, eager, each family of
+    TP19_FAMILIES at published width (depth cut as phase 16 cuts it),
+    against the unsharded Model(cfg, tp_size=TP_M) on the same weights in
+    this process: the vlm, whisper and xlstm logits within 0.05 * max(1,
+    max |logits|), printed as a share of it; deepseek-moe-16b's and
+    xlstm-125m's float32 compute within TP19_F32_RTOL * max(1, max
+    |logits|), deepseek's bf16 share printed beside the (token, layer) top-k
+    choices that differ from the unsharded model's; the ranks' flash launches exactly TP_M times the
+    unsharded serve's; each rank's MoE drops equal to the unsharded model's
+    in float32 (bf16's printed). Gloo stages every all-reduce through the
+    host: no time here is a tensor-parallelism number. Returns the ranks'
+    launches and flash shapes."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.launch import mesh as lmesh
+
+    t_phase = time.perf_counter()
+    refs = {}
+    for arch in TP19_FAMILIES:
+        for f32 in tp19_dtypes(arch):
+            refs[arch, f32] = r = tp19_serve(dev, arch, f32)
+            print(f"tp 19.2 unsharded {arch} ({tp19_config(arch).n_layers} layers, layout "
+                  f"{r['layout']}, {'float32' if f32 else 'bf16'} compute): prefill {TP_B} x "
+                  f"{TP19_FAMILIES[arch][1]} {r['prefill_s']:.4f} s, decode {r['decode_ms']:.4f} "
+                  f"ms a step; launches {r['launched']}, MoE drops {sum(map(sum, r['drops']))}; "
+                  f"peak_reserved_gib={r['peak'] / 2**30:.2f} | {smi}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp19_")
+    try:
+        t0 = time.perf_counter()
+        lmesh.spawn(tp19_rank, TP_M, (tmp, dev), init_method=f"file://{tmp}/rendezvous",
+                    device="cpu")
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(TP_M)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"tp 19.2: {TP_M} ranks on {torch.cuda.get_device_name(0)} over gloo, {spawn_s:.1f} s "
+          f"from spawn to exit | {smi}")
+    out: dict = {"launched": {}, "shapes": {}}
+    for (arch, f32), ref in refs.items():
+        want, vocab = ref["logits"], ref["vocab"]
+        absmax = max(float(w[..., :vocab].abs().max()) for w in want)
+        tol = (TP19_F32_RTOL if f32 else 0.05) * max(1.0, absmax)
+        what = "float32 compute" if f32 else "bf16"
+        worst = 0.0
+        for r, rk in enumerate(ranks):
+            got = rk[arch, f32]
+            for k, (g, w) in enumerate(zip(got["logits"], want, strict=True)):
+                if g.shape != w.shape or not bool(torch.isfinite(g[..., :vocab]).all()):
+                    fail(f"tp 19.2 {arch} {what} rank {r} call {k}: logits {tuple(g.shape)} not "
+                         f"finite or not {tuple(w.shape)}")
+                worst = max(worst, float((g - w).abs().max()))
+            print(f"time tp 19.2 {arch} {what} rank {r} ({got['layout']}; {got['bytes']} bytes "
+                  f"of weights): prefill_s={got['prefill_s']:.4f} decode_ms="
+                  f"{got['decode_ms']:.4f} (gloo through the host: not a tensor-parallel "
+                  f"performance number) peak_reserved_gib={got['peak'] / 2**30:.2f}; launches "
+                  f"{got['launched']} | {smi}")
+        summed = {k: sum(rk[arch, f32]["launched"][k] for rk in ranks) for k in ref["launched"]}
+        flips = 0
+        for g, w in zip(ranks[0][arch, f32]["routes"], ref["routes"], strict=True):
+            flips += int((torch.sort(g, -1)[0] != torch.sort(w, -1)[0]).any(-1).sum())
+        drops = [rk[arch, f32]["drops"] for rk in ranks]
+        same_drops = all(d == ref["drops"] for d in drops)
+        print(f"check tp 19.2 {arch} {what}: {len(want)} calls (prefill + {TP_DECODE} decode "
+              f"steps) of {TP_M} ranks against the unsharded path: max |difference| "
+              f"{worst:.6f}, {worst / tol:.4f} of the bound "
+              f"{TP19_F32_RTOL if f32 else 0.05:g}*max(1, max|logits|) = {tol:.5f}; flash "
+              f"launches {summed['flash_attention']}, "
+              f"{TP_M} x the unsharded {ref['launched']['flash_attention']}; (token, layer) "
+              f"top-k choices of rank 0 that differ from the unsharded model's: {flips} of "
+              f"{sum(r.shape[0] for r in ref['routes'])}; MoE drops by call "
+              f"{[sum(d) for d in drops[0]]} (unsharded {[sum(d) for d in ref['drops']]}), "
+              f"equal on every rank: {same_drops}")
+        if summed["flash_attention"] != TP_M * ref["launched"]["flash_attention"]:
+            fail(f"tp 19.2 {arch} {what}: the ranks launched {summed['flash_attention']} flash "
+                 f"kernels, expected {TP_M} x {ref['launched']['flash_attention']}")
+        if (arch != MOE_ARCH or f32) and not worst <= tol:
+            fail(f"tp 19.2 {arch} {what}: the ranks' logits differ from the unsharded path's by "
+                 f"{worst:.6f} > {tol:.6f}")
+        if (arch != MOE_ARCH or f32) and not same_drops:
+            fail(f"tp 19.2 {arch} {what}: the ranks' MoE drops {drops} differ from the "
+                 f"unsharded model's {ref['drops']}")
+        for k, n in summed.items():
+            out["launched"][k] = out["launched"].get(k, 0) + n
+        for rk in ranks:
+            for key, n in rk[arch, f32]["shapes"].items():
+                out["shapes"][key] = out["shapes"].get(key, 0) + n
+    print(f"tp: 19.2 took {time.perf_counter() - t_phase:.1f} s | {smi}")
+    return out
+
+
+def tp_family_kernel_phase(dev, smi: str, errs: dict) -> tuple[dict, dict]:
+    """Phase 19.3: flash_attention at the per-rank shapes of a model axis of
+    M = 2 and 4 (TP_RANK_MS), every one grouped (KV heads divide): 19.2's
+    prompts (deepseek-moe-16b's self attention, 16 / M of 16 heads at G = 1,
+    and llama-3.2-vision-11b's, 32 / M over 8 / M at G = 4, causal over
+    1024 tokens; the vlm's cross attention, 1024 over 1601; whisper-small's
+    encoder over 1500 frames, its decoder's causal self attention over 448
+    and cross attention, 448 over 1500, 12 / M heads at G = 1) and the
+    vlm's served cross attention, 3072 over 1601. Each against its twin and
+    timed beside its twin, SDPA and its bound (flash_row); deepseek's also
+    in float32 (19.2's float32-compute run) against its twin within
+    KERNEL_RTOL. Returns (rows, each row's key in flash_attention.SHAPES)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    t_phase = time.perf_counter()
+    rows, keys = {}, {}
+    for m in TP_RANK_MS:
+        for arch, label, sq, sk, causal in (
+                (MOE_ARCH, "self-attention", 1024, 1024, True),
+                (VLM_ARCH, "self-attention", 1024, 1024, True),
+                (VLM_ARCH, "cross-attention", 1024, 1601, False),
+                (VLM_ARCH, "cross-attention, served", 3072, 1601, False),
+                (AUDIO_ARCH, "encoder", 1500, 1500, False),
+                (AUDIO_ARCH, "decoder self-attention", 448, 448, True),
+                (AUDIO_ARCH, "decoder cross-attention", 448, 1500, False)):
+            cfg = configs.get(arch)
+            h, kv = cfg.n_heads // m, cfg.n_kv_heads // m
+            name = f"{arch} {label} per rank M={m}"
+            rows[name] = flash_row(dev, name, TP_B, h, kv, sq, sk, cfg.hd, causal, errs, smi,
+                                   190 + len(rows))
+            keys[name] = (TP_B * h, sq, sk, cfg.hd, h // kv, causal, 0, sk)
+    cfg = configs.get(MOE_ARCH)
+    h = cfg.n_heads // TP_M
+    gen = torch.Generator(device=dev).manual_seed(192)
+    q, k, v = (torch.randn((TP_B * h, 1024, cfg.hd), device=dev, generator=gen)
+               for _ in range(3))
+    check(f"flash_attention {MOE_ARCH} self-attention per rank M={TP_M} float32",
+          fa.flash_attention(q, k, v, 1, True), fa.flash_attention_plain(q, k, v, 1, True),
+          KERNEL_RTOL, fa.flash_attention_plain(q, k, v.abs(), 1, True), errs,
+          "flash_attention")
+    del q, k, v
+    torch.cuda.empty_cache()
+    print(f"tp: 19.3 took {time.perf_counter() - t_phase:.1f} s | {smi}")
+    return rows, keys
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -239,7 +239,8 @@ def model_params_from_numpy(model, tree: dict):
     xLSTM gates; float32 masters in a trainable model). On a model built on
     a mesh each whole leaf is cut to this rank's shard (the reference's
     Model(cfg, tp_size=M) tree, the flat layout's padded wq / wo / bq
-    included). Returns the model."""
+    included; a rank's experts, xLSTM heads and gate columns, every
+    family's). Returns the model."""
     return model.load_params_(_port_layout(model, tree, model.device))
 
 
@@ -282,8 +283,10 @@ def caches_from_numpy(tree, like, model=None):
     in the dtype and on the device of the matching leaf of ``like`` (a port
     cache tree of the same model, batch and max_len, e.g.
     Model.make_caches). With ``model`` built on a mesh, the whole tree is
-    first cut to this rank's shard (Model.local_caches), as ``like`` holds
-    it. A leaf of another shape raises ValueError."""
+    first cut to this rank's shard (Model.local_caches: the xLSTM states
+    split on hd, "enc_out" / "frontend" on the batch and whole over
+    "model"), as ``like`` holds it. A leaf of another shape raises
+    ValueError."""
     if model is not None:
         tree = model.local_caches(tree)
     if like is None or tree is None:

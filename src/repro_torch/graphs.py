@@ -382,6 +382,9 @@ class Compiled:
             graph = self._graphs.get(k)
             if graph is None:
                 out = _unalias(self.fn(static), bufs)
+                # the eager run's freed blocks go back to the card first: the
+                # capture allocates from its own pool and cannot reuse them
+                torch.cuda.empty_cache()
                 graph, secs = capture(lambda: self.fn(static), self._pool)
                 self._graphs[k] = graph
                 self.capture_s += secs

@@ -9,7 +9,9 @@ its Pallas kernel replaces on a TPU. Decode against the cache is the JAX
 package's single-pass path, plain tensor code. Cross attention (kv_src)
 projects K and V from another sequence, rotates neither q nor k and masks
 nothing: Sq > 8 queries go through the kernel (Sq != Sk), a few queries (a
-decode step) through the single-pass path, as the JAX core splits them.
+decode step) through the single-pass path, as the JAX core splits them; in
+the flat layout K and V are repeated once a query head, as for self
+attention, and it has no cache in either layout.
 
 Two layouts, as the JAX package's Model(cfg, tp_size=M) chooses them
 (cfg.attn_layout): "grouped" keeps q as KV groups of G query heads; "flat"
@@ -19,11 +21,13 @@ tp.TP (a mesh's "model" axis) each rank holds its columns of wq / wk / wv
 and its rows of wo, as the specs place them: grouped, its KV/M kv heads and
 their query heads; flat, its Hp/M query heads, with K and V gathered whole
 when wk / wv split inside a head. wo's partial output is summed over the
-group. Decode always runs the grouped math over the cache: a cache split by
-kv heads (grouped) attends locally; a cache whose sequence is split over
-the group (flat, its size a multiple of M) takes the gathered queries, runs
-the single pass over the rank's slots and merges the ranks' partial
-softmaxes (tp.TP.lse_combine: flash-decoding across ranks).
+group. Cross attention runs the same shards over its source, which every
+rank holds whole. Decode always runs the grouped math over the cache: a
+cache split by kv heads (grouped) attends locally; a cache whose sequence
+is split over the group (flat, its size a multiple of M) takes the
+gathered queries, runs the single pass over the rank's slots and merges
+the ranks' partial softmaxes (tp.TP.lse_combine: flash-decoding across
+ranks).
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import COMPUTE_DTYPE, ParamDef, at_use, rope
+from repro_torch.models.tp import split
 
 NEG_INF = -1e30
 
@@ -136,29 +141,21 @@ def attn_apply(p: dict, x, cfg, q_pos, kv_src=None, cache: dict | None = None,
         q = q + p["bq"].to(dt)
         kproj = kproj + p["bk"].to(dt)
         vproj = vproj + p["bv"].to(dt)
-    if flat and tp is not None and tp.split["kv"]:   # split inside a head
+    if flat and split(tp, "kv", kv * hd):   # split inside a head
         kproj, vproj = tp.gather_cols(kproj), tp.gather_cols(vproj)
+    qkv_split = split(tp, "qkv", _query_heads(cfg) * hd)
     hq_l, kv_l = q.shape[-1] // hd, kproj.shape[-1] // hd     # this rank's heads
-    h0 = tp.offset(hq_l) if tp is not None and tp.split["qkv"] else 0
+    h0 = tp.offset(hq_l) if qkv_split else 0
     q = q.view(b, s, hq_l, hd)
     kproj = kproj.view(b, -1, kv_l, hd)
     vproj = vproj.view(b, -1, kv_l, hd)
     if kv_src is not None:
-        if flat:
-            raise NotImplementedError("cross attention in the flat layout waits for the "
-                                      "cross-attention families on a model axis (ROADMAP.md "
-                                      "section 1, the sharding item's tensor-parallel half)")
-        sk = kproj.shape[1]
-        if s <= 8:   # the JAX core's single pass for a few queries
-            k_pos = torch.arange(sk, dtype=torch.int32, device=x.device)[None].expand(b, sk)
-            out = _single_pass(q.view(b, s, kv, g, hd), kproj, vproj, q_pos, k_pos,
-                               causal, window)
-        else:
-            out = ops.flash_attention(q, kproj, vproj, causal=causal, window=window)
-        return out.reshape(b, s, h * hd) @ at_use(p["wo"], out), None
+        out = _cross(q, kproj, vproj, q_pos, flat, h0, cfg, causal, window)
+        out = out.reshape(b, s, hq_l * hd) @ at_use(p["wo"], out)
+        return (tp.all_reduce_sum(out) if qkv_split else out), None
     q = rope(q, q_pos, cfg.rope_theta)
     kproj = rope(kproj, q_pos, cfg.rope_theta)
-    split = _seq_split(cfg, cache, tp, window, max_len) if flat else None
+    seq = _seq_split(cfg, cache, tp, window, max_len) if flat else None
 
     if cache is None or s > 1:
         if flat:    # K / V repeated once a query head of this rank's: G = 1
@@ -172,7 +169,7 @@ def attn_apply(p: dict, x, cfg, q_pos, kv_src=None, cache: dict | None = None,
             out = ops.flash_attention(q, kproj, vproj, causal=causal, window=window)
         new_cache = None
         if cache is not None:
-            new_cache = _prefill_cache(cache, kproj, vproj, q_pos, split)
+            new_cache = _prefill_cache(cache, kproj, vproj, q_pos, seq)
     else:
         # decode: a ring-buffer write at len % size (uniform over the batch),
         # then attention over the cache; slot is a device tensor (no sync).
@@ -181,15 +178,15 @@ def attn_apply(p: dict, x, cfg, q_pos, kv_src=None, cache: dict | None = None,
         size = cache["k"].shape[1]
         ring = (cache["k"], cache["v"], cache["pos"])
         new = (kproj.to(COMPUTE_DTYPE), vproj.to(COMPUTE_DTYPE), q_pos.to(cache["pos"].dtype))
-        if split is None:
+        if seq is None:
             slot = (cache["len"][:1] % size).long()
         else:
-            at = (cache["len"][:1] % (size * split.size)).long()
+            at = (cache["len"][:1] % (size * seq.size)).long()
             slot = at % size
-            mine = (at // size) == split.rank
+            mine = (at // size) == seq.rank
         old = ([t.index_select(1, slot) for t in ring]
-               if (in_place and active is not None) or split is not None else None)
-        if split is not None:
+               if (in_place and active is not None) or seq is not None else None)
+        if seq is not None:
             new = tuple(torch.where(mine.view(-1, *[1] * (n.ndim - 1)), n, o)
                         for n, o in zip(new, old))
         if in_place:
@@ -198,11 +195,11 @@ def attn_apply(p: dict, x, cfg, q_pos, kv_src=None, cache: dict | None = None,
             k_all, v_all, pos_all = (t.index_copy(1, slot, n) for t, n in zip(ring, new))
         if flat:    # the grouped math over every query head
             q_g = q.reshape(b, s, hq_l * hd)
-            if tp is not None and tp.split["qkv"]:
+            if qkv_split:
                 q_g = tp.gather_cols(q_g)
             q_g = q_g[..., :h * hd].view(b, s, kv, g, hd)
-            attend = _single_pass if split is None else (
-                lambda *a: _split_pass(*a, split))
+            attend = _single_pass if seq is None else (
+                lambda *a: _split_pass(*a, seq))
             out = attend(q_g, k_all, v_all, q_pos, pos_all, causal, window)
             out = out.reshape(b, s, h, hd)
             if _padded(cfg):
@@ -217,9 +214,35 @@ def attn_apply(p: dict, x, cfg, q_pos, kv_src=None, cache: dict | None = None,
                 t.index_copy_(1, slot, torch.where(keep, n, o))
         new_cache = {"k": k_all, "v": v_all, "pos": pos_all, "len": cache["len"] + s}
     out = out.reshape(b, s, hq_l * hd) @ at_use(p["wo"], out)
-    if tp is not None and tp.split["qkv"]:
+    if qkv_split:
         out = tp.all_reduce_sum(out)
     return out, new_cache
+
+
+def _cross(q, k, v, q_pos, flat: bool, h0: int, cfg, causal: bool, window: int):
+    """Cross attention of q (B, S, Hq, hd) (this rank's query heads, the
+    first global head h0) over k / v (B, Sk, KV, hd) (its KV heads, or all
+    of them in the flat layout): keys at 0..Sk-1 (the callers pass causal
+    False, no window). The flat layout repeats K / V once a query head (the
+    reference's head_map) and zeroes the padded heads. A few queries (a decode step) take the single pass,
+    more the kernel, as the JAX core splits them. Returns (B, S, Hq, hd)."""
+    b, s, hq, hd = q.shape
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    if flat:
+        heads = h0 + torch.arange(hq, device=q.device)
+        head_map = torch.clamp(heads // (h // kv), 0, kv - 1)
+        k, v = k[:, :, head_map], v[:, :, head_map]
+    sk, kv_l = k.shape[1], k.shape[2]
+    if s <= 8:
+        k_pos = torch.arange(sk, dtype=torch.int32, device=q.device)[None].expand(b, sk)
+        out = _single_pass(q.view(b, s, kv_l, hq // kv_l, hd), k, v, q_pos, k_pos, causal,
+                           window)
+        out = out.reshape(b, s, hq, hd)
+    else:
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    if flat and _padded(cfg):
+        out = out * (heads < h).to(out.dtype)[:, None]
+    return out
 
 
 def _padded(cfg) -> bool:

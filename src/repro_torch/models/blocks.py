@@ -19,8 +19,10 @@ blocks, "moe_impl" and "moe_capacity" (defaults "sorted" and 1.25, the
 reference's); a compiled decode step adds "in_place" and "active"
 (attention.attn_apply); "recompute" marks a block's remat recompute in the
 backward (its MoE drops are not logged again). A model on a mesh's
-"model" axis adds "tp" (a tp.TP: the attention, RG-LRU and MLP run this
-rank's shard, on a replicated residual stream with replicated norms) and
+"model" axis adds "tp" (a tp.TP: every mixer, the self and cross
+attention, the RG-LRU, the mLSTM and sLSTM heads, the MLP and the MoE
+experts, runs this rank's shard on a replicated residual stream with
+replicated norms and gates, each summing its partial output once) and
 "max_len" (its caches' length, which the flat layout's cache split reads).
 """
 from __future__ import annotations
@@ -86,21 +88,23 @@ def block_defs(cfg, spec: StageSpec) -> dict:
 def block_apply(cfg, spec: StageSpec, p: dict, x, aux: dict, cache=None):
     """Returns (x, new_cache, aux_loss); aux_loss is 0 but for MoE blocks."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    tp = aux.get("tp")
     if spec.kind in ("mlstm", "slstm"):
         apply = xlstm.mlstm_apply if spec.kind == "mlstm" else xlstm.slstm_apply
         h, st = apply(p[spec.kind], _norm(cfg, p, "ln1", x), cfg,
-                      state=None if cache is None else cache.get(spec.kind))
+                      state=None if cache is None else cache.get(spec.kind), tp=tp)
         return x + h, (None if st is None else {spec.kind: st}), zero
     if spec.kind == "cross":
         hx, _ = attention.attn_apply(p["xattn"], _norm(cfg, p, "ln1", x), cfg, aux["pos"],
-                                     kv_src=aux.get("frontend"), causal=False)
+                                     kv_src=aux.get("frontend"), causal=False, tp=tp)
+        # the gate multiplies the summed output: xgate is replicated
         x = x + torch.tanh(p["xgate"].float()).to(x.dtype) * hx
-        y = mlp_apply(p["mlp"], _norm(cfg, p, "ln2", x), cfg.act)
+        y = mlp_apply(p["mlp"], _norm(cfg, p, "ln2", x), cfg.act, cfg.d_ff, tp)
         return x + y, None, zero     # a cross stage holds no cache
     if spec.kind == "rec":
         h, st = recurrent.rglru_apply(
             p["rglru"], _norm(cfg, p, "ln1", x), cfg,
-            state=None if cache is None else cache.get("rglru"), tp=aux.get("tp"))
+            state=None if cache is None else cache.get("rglru"), tp=tp)
         new_cache = None if st is None else {"rglru": st}
     else:
         h, kv_cache = attention.attn_apply(
@@ -108,20 +112,20 @@ def block_apply(cfg, spec: StageSpec, p: dict, x, aux: dict, cache=None):
             cache=None if cache is None else cache.get("kv"),
             causal=spec.causal, window=spec.window,
             in_place=aux.get("in_place", False), active=aux.get("active"),
-            tp=aux.get("tp"), max_len=aux.get("max_len"))
+            tp=tp, max_len=aux.get("max_len"))
         new_cache = None if kv_cache is None else {"kv": kv_cache}
     x = x + h
     if spec.kind == "dec":
         hx, _ = attention.attn_apply(p["xattn"], _norm(cfg, p, "lnx", x), cfg, aux["pos"],
-                                     kv_src=aux.get("frontend"), causal=False)
+                                     kv_src=aux.get("frontend"), causal=False, tp=tp)
         x = x + hx
     if spec.moe:
         y, aux_l = moe.moe_apply(p["moe"], _norm(cfg, p, "ln2", x), cfg,
                                  impl=aux.get("moe_impl", "sorted"),
                                  capacity_factor=aux.get("moe_capacity", 1.25),
-                                 log=not aux.get("recompute", False))
+                                 log=not aux.get("recompute", False), tp=tp)
         return x + y, new_cache, aux_l
-    return (x + mlp_apply(p["mlp"], _norm(cfg, p, "ln2", x), cfg.act, aux.get("tp")),
+    return (x + mlp_apply(p["mlp"], _norm(cfg, p, "ln2", x), cfg.act, cfg.d_ff, tp),
             new_cache, zero)
 
 

@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models.tp import split
+
 COMPUTE_DTYPE = torch.bfloat16
 
 
@@ -170,17 +172,18 @@ def at_use(w, x):
     return w
 
 
-def mlp_apply(p: dict, x, act: str, tp=None):
+def mlp_apply(p: dict, x, act: str, width: int, tp=None):
     """SwiGLU (w1/w3/w2) or GELU (w1/w2) MLP. GELU is the tanh form, the
-    JAX default. Weights cast at use (at_use). With a tp.TP whose "mlp" is
-    split, w1 / w3 hold this rank's columns and w2 its rows: the partial
-    output is summed over the group (a replicated MLP is not reduced)."""
+    JAX default. Weights cast at use (at_use). With a tp.TP that splits
+    "mlp" at ``width`` (the MLP's d_ff), w1 / w3 hold this rank's columns
+    and w2 its rows: the partial output is summed over the group (a
+    replicated MLP is not reduced)."""
     if act == "swiglu":
         h = F.silu(x @ at_use(p["w1"], x)) * (x @ at_use(p["w3"], x))
     else:
         h = F.gelu(x @ at_use(p["w1"], x), approximate="tanh")
     out = h @ at_use(p["w2"], h)
-    return tp.all_reduce_sum(out) if tp is not None and tp.split["mlp"] else out
+    return tp.all_reduce_sum(out) if split(tp, "mlp", width) else out
 
 
 def mlp_defs(d_model: int, d_ff: int, act: str) -> dict:
@@ -197,15 +200,15 @@ def pad_vocab(v: int, multiple: int = 256) -> int:
     return ((v + multiple - 1) // multiple) * multiple
 
 
-def _vocab_split(tp) -> bool:
-    return tp is not None and tp.split["vocab"]
+def _vocab_split(tp, vocab: int) -> bool:
+    return split(tp, "vocab", pad_vocab(vocab))
 
 
-def embed_lookup(table, tokens, tp=None):
+def embed_lookup(table, tokens, vocab: int, tp=None):
     """Rows of ``table`` at ``tokens``. Vocab-parallel under a tp.TP whose
     "vocab" is split: each rank looks up the tokens in its rows, writes
     zeros for the others, and the group sums."""
-    if not _vocab_split(tp):
+    if not _vocab_split(tp, vocab):
         return F.embedding(tokens, table).to(COMPUTE_DTYPE)
     n = table.shape[0]
     idx = tokens - tp.offset(n)
@@ -219,7 +222,7 @@ def logits_out(x, table, vocab: int, tp=None):
     -1e30. Under a tp.TP whose "vocab" is split, each rank's columns are
     gathered whole (tp.gather_cols) before the mask."""
     logits = (x @ table.to(COMPUTE_DTYPE).T).float()
-    if _vocab_split(tp):
+    if _vocab_split(tp, vocab):
         logits = tp.gather_cols(logits)
     vp = logits.shape[-1]
     if vp != vocab:

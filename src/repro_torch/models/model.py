@@ -17,12 +17,14 @@ plain tensor code.
 
 Model(cfg, tp_size=M) picks the attention layout as the JAX package's
 does: the flat layout, H padded to a multiple of M, when the KV heads do
-not divide over M. Model(cfg, mesh=) builds the model on a
-("data", "model") DeviceMesh of torch.distributed (the dense and hybrid
-families; launch.mesh.make_mesh): each rank allocates only its shard of
-each parameter and cache leaf (pshard.spec_for, runtime.sharding.
-cache_shardings), takes its rows of the batch, and its layers issue the
-model axis's collectives (models/tp.py).
+not divide over M. Model(cfg, mesh=) builds a serving model of any
+family on a ("data", "model") DeviceMesh of torch.distributed
+(launch.mesh.make_mesh): each rank allocates only its shard of each
+parameter and cache leaf (pshard.spec_for, runtime.sharding.
+cache_shardings), takes its rows of the batch (and of the frontend), and
+its layers issue the model axis's collectives (models/tp.py). The audio
+encoder runs on the mesh too, its output whole over "model" on every
+rank, as the frontend / enc_out caches are held.
 """
 from __future__ import annotations
 
@@ -103,10 +105,8 @@ def _stack(trees: list):
     return torch.stack(trees)
 
 
-TP_SERVE_ITEM = ("ROADMAP.md section 1, the sharding item's tensor-parallel half (MoE "
-                 "expert parallelism, xLSTM heads, the cross-attention families, then "
-                 "TP / FSDP training)")
-TP_FAMILIES = ("dense", "hybrid")
+TP_ITEM = ("TP / FSDP training, in the tensor-parallel half of ROADMAP.md section 1's "
+           "sharding item (serving has the model axis)")
 
 
 class Model(nn.Module):
@@ -136,10 +136,9 @@ class Model(nn.Module):
             if tp_size not in (None, m):
                 raise ValueError(f"tp_size={tp_size} on a mesh whose model axis is {m}")
             tp_size = m
-            if m > 1 and (cfg.family not in TP_FAMILIES or trainable):
-                what = "training" if trainable else f"the {cfg.family} family"
-                raise NotImplementedError(f"{what} on a model axis of {m} waits for "
-                                          f"{TP_SERVE_ITEM}")
+            if m > 1 and trainable:
+                raise NotImplementedError(f"training on a model axis of {m} waits for "
+                                          f"{TP_ITEM}")
         if tp_size and cfg.family != "ssm" and cfg.n_kv_heads % tp_size != 0:
             cfg = dataclasses.replace(cfg, attn_layout="flat",
                                       heads_padded=tp.flat_heads(cfg.n_heads, tp_size))
@@ -155,6 +154,8 @@ class Model(nn.Module):
         self.place = None if mesh is None else tp.Placement.on(mesh)
         self.tp = (tp.TP.on_mesh(mesh, tp.widths(cfg, self.vocab_padded), all_reduce)
                    if sizes is not None and tp.MODEL_AXIS in sizes else None)
+        if self.tp is not None and cfg.family == "ssm":
+            self.tp.state_split = self._state_split()
         self.top = Params(self._top_defs(), self.device, trainable, self.place)
         self.stage_layers = nn.ModuleList(
             nn.ModuleList(Block(cfg, spec, self.device, trainable, self.place)
@@ -282,7 +283,8 @@ class Model(nn.Module):
 
     def _encode(self, frontend):
         """The audio encoder (stage 0) over frontend (B, F, D) plus the
-        sinusoid table. Returns enc_out (B, F, D)."""
+        sinusoid table. Returns enc_out (B, F, D) (on a mesh: this rank's
+        rows, whole over "model")."""
         b, f, _ = frontend.shape
         pos = self._positions(b, f)
         x = frontend.to(COMPUTE_DTYPE) + _sinusoid(pos, self.cfg.d_model)
@@ -320,7 +322,7 @@ class Model(nn.Module):
         b, s = tokens.shape
         if positions is None:
             positions = self._positions(b, s)
-        x = embed_lookup(self.top.embed, tokens, self.tp)
+        x = embed_lookup(self.top.embed, tokens, self.cfg.vocab_size, self.tp)
         stages, stage_layers = self.stages, self.stage_layers
         stage_caches = caches["stages"] if caches is not None else [None] * len(stages)
         if self.cfg.family == "audio":
@@ -410,10 +412,19 @@ class Model(nn.Module):
         return sharding.map_shardings(
             lambda sh, leaf, key: torch.full(
                 pshard.local_shape(tuple(leaf.shape), sh.spec, self.place.sizes),
-                -1 if key == "pos" and leaf.ndim == 3 else 0, dtype=leaf.dtype,
-                device=self.device),
+                _cache_fill(key, leaf), dtype=leaf.dtype, device=self.device),
             sharding.cache_shardings(self.place.sizes, whole, self.cfg), whole,
             _keys(whole))
+
+    def _state_split(self) -> dict:
+        """Each xLSTM state leaf's key -> whether cache_shardings places its
+        last dim (hd) on "model" (the layout xlstm's _heads_in reads)."""
+        from repro_torch.runtime import sharding   # deferred: runtime imports models
+        rows = pshard.axis_size(self.place.sizes, ("pod", "data"))
+        states = xlstm.make_xlstm_state(self.cfg, rows, 1, 1, "meta")
+        placed = sharding.cache_shardings(self.place.sizes, states, self.cfg)
+        return {key: sh.spec[-1] == tp.MODEL_AXIS
+                for leaves in placed.values() for key, sh in leaves.items()}
 
     def local_rows(self, x):
         """This rank's rows of a tensor over the mesh's whole batch (the
@@ -466,6 +477,15 @@ class Model(nn.Module):
             out[key] = torch.zeros((batch, self.cfg.frontend_tokens, self.cfg.d_model),
                                    dtype=COMPUTE_DTYPE, device=device)
         return out
+
+
+def _cache_fill(key: str, leaf) -> float:
+    """The value _make_caches fills a cache leaf with: -1 in a KV cache's
+    slot positions (empty slots), -1e30 in an sLSTM's stabiliser m
+    (xlstm.make_xlstm_state), 0 elsewhere."""
+    if key == "pos" and leaf.ndim == 3:
+        return -1
+    return -1e30 if key == "m" else 0
 
 
 def _keys(tree, key: str = ""):

@@ -24,11 +24,28 @@ Two places where a direct translation would give other answers:
     dispatch's backward, which sums a token's k slot gradients, does the
     same (_Dispatch).
 
+Expert parallelism (a tp.TP on a mesh's "model" axis): the specs put
+w1 / w3 / w2's experts dim on "model" where it divides (the first logical
+dim wins, so each rank holds E/M whole experts), else each expert's "mlp"
+dim where that divides, else nothing; the router is replicated. The
+residual stream is replicated, so every rank routes every token alike.
+With the experts split, each rank dispatches only the slots of its own
+experts, at the global capacity and rank within the expert, so exactly
+the unsharded dispatch's slots drop (a batch split over ("pod", "data")
+counts the slots of earlier row blocks and takes the whole batch's
+capacity: one all-reduce of each block's per-expert counts). It combines
+its slots in ascending expert order (the others add zero) and one
+all-reduce sums the ranks' partial outputs, the shared experts' partial
+output (column- then row-parallel over "mlp") added first where it splits
+too. No all-to-all. A layer whose leaves all stay whole issues no
+collective.
+
 The aux loss (load balance + 1e-3 z-loss) is returned as the reference
 does. ``drop_log()`` collects the dropped-slot count of every sorted
-dispatch run inside it, once a forward: a block recomputed under remat in
-the backward does not count again; a replayed CUDA graph appends the counts
-of its replay (repro_torch.graphs).
+dispatch run inside it, once a forward (on a mesh, each rank logs its
+layer's global count once, the unsharded model's): a block recomputed
+under remat in the backward does not count again; a replayed CUDA graph
+appends the counts of its replay (repro_torch.graphs).
 """
 from __future__ import annotations
 
@@ -38,6 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import COMPUTE_DTYPE, ParamDef
+from repro_torch.models.tp import split
 
 _DROP_LOG: list | None = None
 
@@ -105,12 +123,14 @@ def capacity(n_tokens: int, cfg, capacity_factor: float) -> int:
     return max(8, ((cap + 7) // 8) * 8)
 
 
-def dispatch(idx, n_experts: int, cap: int):
+def dispatch(idx, n_experts: int, cap: int, before=None):
     """The sorted dispatch of the (N, k) expert choices: (order, dest, keep)
     over the N*k slots sorted stably by expert. Slot i of the sorted order
     is slot order[i] of the flattened choices; it goes to buffer row
     dest[i] = expert * cap + rank within the expert, or is dropped (keep
-    False, dest E*cap) past the expert's capacity."""
+    False, dest E*cap) past the expert's capacity. ``before`` (E,): each
+    expert's slots that precede these in the batch (the rows of earlier
+    ranks of a split batch), which the ranks within the expert start at."""
     nk = idx.numel()
     flat_e = idx.reshape(nk)
     order = torch.argsort(flat_e, stable=True)
@@ -118,6 +138,8 @@ def dispatch(idx, n_experts: int, cap: int):
     starts = torch.searchsorted(sorted_e, torch.arange(n_experts, device=idx.device),
                                 side="left")
     rank = torch.arange(nk, device=idx.device) - starts[sorted_e]
+    if before is not None:
+        rank = rank + before[sorted_e]
     keep = rank < cap
     dest = torch.where(keep, sorted_e * cap + rank, n_experts * cap)
     return order, dest, keep
@@ -151,14 +173,35 @@ class _Dispatch(torch.autograd.Function):
 
 
 def _experts_sorted(p: dict, xt, gates, idx, cfg, capacity_factor: float = 1.25,
-                    log: bool = True):
+                    log: bool = True, e0: int = 0, tp=None):
+    """The sorted dispatch through experts e0 .. e0 + E_l - 1 (p's w1 / w3 /
+    w2 hold E_l experts: all of them, or a rank's): the global dispatch,
+    with the slots of other experts left out of the buffer and adding zero
+    to the combine. Under a ``tp`` whose batch is split into row blocks,
+    the capacity is the whole batch's and each slot's rank within its
+    expert counts the slots of earlier blocks (TP.row_table), so the whole
+    batch's slots drop."""
     n, d = xt.shape
     e, k = cfg.n_experts, cfg.top_k
+    e_l = p["w1"].shape[0]
     dt = COMPUTE_DTYPE
-    cap = capacity(n, cfg, capacity_factor)
-    order, dest, keep = dispatch(idx, e, cap)
+    before = None
+    if tp is not None and tp.rows[0] > 1:
+        flat = idx.reshape(-1)
+        counts = torch.zeros(e, dtype=torch.int64, device=idx.device).scatter_add_(
+            0, flat, torch.ones_like(flat))
+        table = tp.row_table(counts)
+        before = table[:tp.rows[1]].sum(0)
+        cap = capacity(n * tp.rows[0], cfg, capacity_factor)
+        dropped = torch.clamp_min(table.sum(0) - cap, 0).sum()
+    else:
+        cap = capacity(n, cfg, capacity_factor)
+    order, dest, keep = dispatch(idx, e, cap, before)
     if _DROP_LOG is not None and log:
-        log_drops([torch.sum(~keep)])
+        log_drops([torch.sum(~keep) if before is None else dropped])
+    if e_l != e:        # this rank's experts: rows e0 * cap .. of the global buffer
+        keep = keep & (dest >= e0 * cap) & (dest < (e0 + e_l) * cap)
+        dest = torch.where(keep, dest - e0 * cap, e_l * cap)
     tok = order // k                                # source token per slot
     # Slot j of token t sits at sorted position inv[t*k + j]; its expert
     # order is the order of the sorted slots.
@@ -167,10 +210,10 @@ def _experts_sorted(p: dict, xt, gates, idx, cfg, capacity_factor: float = 1.25,
     by_expert = torch.argsort(idx, dim=1)           # experts of a token are distinct
     at = inv.view(n, k).gather(1, by_expert)        # (N, k) ascending expert id
 
-    buf = _Dispatch.apply(xt.to(dt), tok, dest, keep, at, e * cap)
-    h = buf[:e * cap].view(e, cap, d)
+    buf = _Dispatch.apply(xt.to(dt), tok, dest, keep, at, e_l * cap)
+    h = buf[:e_l * cap].view(e_l, cap, d)
     hidden = F.silu(torch.bmm(h, p["w1"].to(dt))) * torch.bmm(h, p["w3"].to(dt))
-    out_flat = torch.bmm(hidden, p["w2"].to(dt)).reshape(e * cap, d)
+    out_flat = torch.bmm(hidden, p["w2"].to(dt)).reshape(e_l * cap, d)
 
     gate_slot = gates.reshape(-1)[order].to(dt)     # aligned with sorted slots
     contrib = out_flat[torch.where(keep, dest, 0)] * torch.where(
@@ -182,11 +225,11 @@ def _experts_sorted(p: dict, xt, gates, idx, cfg, capacity_factor: float = 1.25,
     return y
 
 
-def _experts_dense(p: dict, xt, gates, idx, cfg):
-    e = cfg.n_experts
+def _experts_dense(p: dict, xt, gates, idx, cfg, e0: int = 0):
+    e, e_l = cfg.n_experts, p["w1"].shape[0]
     dt = COMPUTE_DTYPE
     # combine weights (N, E): sum of gate over the slots routed to e
-    comb = torch.sum(F.one_hot(idx, e).float() * gates[..., None], dim=1)
+    comb = torch.sum(F.one_hot(idx, e).float() * gates[..., None], dim=1)[:, e0:e0 + e_l]
     hidden = F.silu(torch.einsum("nd,edf->enf", xt, p["w1"].to(dt)))
     hidden = hidden * torch.einsum("nd,edf->enf", xt, p["w3"].to(dt))
     out = torch.einsum("enf,efd->end", hidden, p["w2"].to(dt))
@@ -194,19 +237,32 @@ def _experts_dense(p: dict, xt, gates, idx, cfg):
 
 
 def moe_apply(p: dict, x, cfg, impl: str = "sorted", capacity_factor: float = 1.25,
-              log: bool = True):
+              log: bool = True, tp=None):
     """x: (B, S, D). Returns (y, aux_loss). ``log``: count the dispatch's
     dropped slots in an active drop_log (False for a remat recompute of a
-    forward that counted them already)."""
+    forward that counted them already). ``tp``: this rank's experts, or its
+    columns of each expert, and its columns of the shared experts (module
+    docstring); y is summed over the group where any of them split."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     gates, idx, aux = _router(p, xt, cfg)
+    e_split = split(tp, "experts", cfg.n_experts)
+    partial = e_split or split(tp, "mlp", cfg.moe_d_ff)    # first logical dim wins
+    e0 = tp.offset(p["w1"].shape[0]) if e_split else 0
     if impl == "sorted":
-        y = _experts_sorted(p, xt, gates, idx, cfg, capacity_factor, log)
+        y = _experts_sorted(p, xt, gates, idx, cfg, capacity_factor, log, e0, tp)
     else:
-        y = _experts_dense(p, xt, gates, idx, cfg)
+        y = _experts_dense(p, xt, gates, idx, cfg, e0)
     if cfg.n_shared_experts:
         dt = COMPUTE_DTYPE
         h = F.silu(xt @ p["sw1"].to(dt)) * (xt @ p["sw3"].to(dt))
-        y = y + h @ p["sw2"].to(dt)
+        shared = h @ p["sw2"].to(dt)
+        s_split = split(tp, "mlp", cfg.moe_d_ff * cfg.n_shared_experts)
+        if partial and not s_split:
+            y, partial = tp.all_reduce_sum(y), False
+        elif s_split and not partial:
+            shared = tp.all_reduce_sum(shared)
+        y = y + shared
+    if partial:
+        y = tp.all_reduce_sum(y)
     return y.reshape(b, s, d), aux

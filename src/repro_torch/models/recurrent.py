@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import COMPUTE_DTYPE, ParamDef, at_use
+from repro_torch.models.tp import split
 
 C_EXP = 8.0
 
@@ -68,14 +69,14 @@ def rglru_apply(p: dict, x, cfg, state: dict | None = None, tp=None):
     """x: (B, S, D). state: {"h": (B, W), "conv": (B, K-1, W)} or None (W:
     this rank's channels under ``tp``). Returns (out (B, S, D), new state or
     None)."""
-    split = tp is not None and tp.split["lru"]
+    lru_split = split(tp, "lru", cfg.rglru_dim or cfg.d_model)
     gate = F.gelu(x @ at_use(p["w_gate"], x), approximate="tanh")
     u = x @ at_use(p["w_in"], x)
     u, conv_state = _causal_conv(u, p["conv_w"], p["conv_b"],
                                  None if state is None else state["conv"])
     uf = u.float()
     # the gates' weights and lam stay float32, as the reference uses them
-    if split:
+    if lru_split:
         both = tp.all_reduce_sum(torch.stack([uf @ p["w_r"].float(), uf @ p["w_i"].float()]))
         w = uf.shape[-1]
         mine = both[..., tp.offset(w):tp.offset(w) + w]
@@ -101,7 +102,7 @@ def rglru_apply(p: dict, x, cfg, state: dict | None = None, tp=None):
         new_state = {"h": h[:, -1, :].float(), "conv": conv_state}
     y = gate * h.to(COMPUTE_DTYPE)
     out = y @ at_use(p["w_out"], y)
-    return (tp.all_reduce_sum(out) if split else out), new_state
+    return (tp.all_reduce_sum(out) if lru_split else out), new_state
 
 
 def make_rglru_state(cfg, batch: int, n_layers: int, device=None) -> dict:

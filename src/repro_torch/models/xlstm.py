@@ -10,10 +10,25 @@ sLSTM: per head scalar-memory LSTM with exponential input gating and a
 block-diagonal recurrent matrix, run step by step over time.
 
 The JAX package's lax.scan over chunks and over time are Python loops over
-tensors here; no Pallas kernel exists for either. The chunk math and the
-whole sLSTM recurrence stay float32, as in the reference, and so do the
-gate weights (wi, wf, w_zifo, b_zifo, r_zifo), which the reference never
-rounds to bf16.
+tensors here; no Pallas kernel exists for either.
+
+Heads over a mesh's "model" axis (a tp.TP): where M divides H, a rank's
+columns of wq / wk / wv / wo_gate, wi / wf, w_zifo / b_zifo (zifo is
+(h, 4hd), head-major) and its slices of r_zifo are whole heads, and it
+runs its heads' chunk scan and sLSTM loop (r_zifo is block-diagonal per
+head: no collective inside the time loop); wo / w_out are row-parallel,
+one all-reduce. Where the projections split but cut heads (H does not
+divide, h * hd does), the rank gathers them whole and runs every head,
+and multiplies its columns of the output by its rows of wo / w_out.
+The caches keep the reference's layout, each state split over "model" on
+its last dim (hd) where that divides (runtime.sharding.cache_shardings):
+a call assembles the heads it runs from that layout at its start and
+cuts its new states back to it at its end (_heads_in / _heads_out), one
+all-reduce each way a state leaf where the layouts differ.
+
+The chunk math and the whole sLSTM recurrence stay float32, as in the
+reference, and so do the gate weights (wi, wf, w_zifo, b_zifo, r_zifo),
+which the reference never rounds to bf16.
 """
 from __future__ import annotations
 
@@ -21,8 +36,39 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import COMPUTE_DTYPE, ParamDef
+from repro_torch.models.tp import split
 
 CHUNK = 256
+
+
+def _heads(cfg, tp) -> tuple[bool, bool]:
+    """(heads split, h * hd projections split) under ``tp``: each leaf's own
+    placement."""
+    return split(tp, "heads", cfg.n_heads), split(tp, "qkv", cfg.n_heads * cfg.hd)
+
+
+def _heads_in(state: dict, tp, heads_split: bool) -> dict:
+    """State leaves (B, H, ..., hd / M or hd) in the cache's layout as the
+    heads this rank runs, whole on hd: a leaf is gathered over hd where the
+    cache splits it (tp.state_split, the leaf's placement), then cut to this
+    rank's heads where it runs its own."""
+    out = {}
+    for key, t in state.items():
+        if tp.state_split[key]:
+            t = tp.gather(t, -1)
+        out[key] = tp.take(t, 1) if heads_split else t
+    return out
+
+
+def _heads_out(state: dict, tp, heads_split: bool) -> dict:
+    """The inverse of _heads_in: new states of the heads this rank ran, in
+    the cache's layout."""
+    out = {}
+    for key, t in state.items():
+        if heads_split:
+            t = tp.gather(t, 1)
+        out[key] = tp.take(t, -1) if tp.state_split[key] else t
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -86,20 +132,29 @@ def _mlstm_chunk_scan(q, k, v, log_f, log_i, state):
     return torch.cat(outs, dim=2), (C, n)
 
 
-def mlstm_apply(p: dict, x, cfg, state: dict | None = None):
-    """x: (B, S, D). state: {"C": (B, H, hd, hd), "n": (B, H, hd)} or None.
-    Returns (out (B, S, D), new state or None)."""
+def mlstm_apply(p: dict, x, cfg, state: dict | None = None, tp=None):
+    """x: (B, S, D). state: {"C": (B, H, hd, hd), "n": (B, H, hd)} or None
+    (on a mesh, the cache's shard: module docstring). Returns (out (B, S, D),
+    new state or None)."""
     b, s, d = x.shape
-    h, hd = cfg.n_heads, cfg.hd
+    hd = cfg.hd
     dt = COMPUTE_DTYPE
+    heads_split, qkv_split = _heads(cfg, tp)
+    gather = qkv_split and not heads_split       # a split that cuts heads
 
     def heads(w):
-        return (x @ w.to(dt)).view(b, s, h, hd).transpose(1, 2)
+        y = x @ w.to(dt)
+        if gather:
+            y = tp.gather_cols(y)
+        return y.view(b, s, -1, hd).transpose(1, 2)
 
     q, k, v = heads(p["wq"]), heads(p["wk"]), heads(p["wv"])
+    h = q.shape[1]                               # the heads this rank runs
     xf = x.float()
     log_i = torch.clamp(xf @ p["wi"].float(), -10.0, 5.0).transpose(1, 2)
     log_f = F.logsigmoid(xf @ p["wf"].float() + 3.0).transpose(1, 2)
+    if state is not None and tp is not None:
+        state = _heads_in(state, tp, heads_split)
 
     if state is not None and s == 1:
         # decode: single recurrent update
@@ -119,10 +174,15 @@ def mlstm_apply(p: dict, x, cfg, state: dict | None = None):
         st = None if state is None else (state["C"], state["n"])
         out, (cN, nN) = _mlstm_chunk_scan(q, k, v, log_f, log_i, st)
         new_state = None if state is None else {"C": cN, "n": nN}
+    if new_state is not None and tp is not None:
+        new_state = _heads_out(new_state, tp, heads_split)
 
     out = out.transpose(1, 2).reshape(b, s, h * hd).to(dt)
+    if gather:      # this rank's columns: its rows of wo
+        out = tp.take(out, -1)
     gate = F.silu(x @ p["wo_gate"].to(dt))
-    return (out * gate) @ p["wo"].to(dt), new_state
+    y = (out * gate) @ p["wo"].to(dt)
+    return (tp.all_reduce_sum(y) if qkv_split else y), new_state
 
 
 # --------------------------------------------------------------------------
@@ -139,13 +199,18 @@ def slstm_defs(cfg) -> dict:
     }
 
 
-def slstm_apply(p: dict, x, cfg, state: dict | None = None):
+def slstm_apply(p: dict, x, cfg, state: dict | None = None, tp=None):
     """Sequential loop over time. state: {"c", "n", "h", "m": (B, H, hd)}
-    or None. Returns (out (B, S, D), new state or None)."""
+    or None (on a mesh, the cache's shard: module docstring). Returns (out
+    (B, S, D), new state or None)."""
     b, s, d = x.shape
     h, hd = cfg.n_heads, cfg.hd
+    heads_split, out_split = _heads(cfg, tp)
     zifo = x.float() @ p["w_zifo"].float() + p["b_zifo"].float()
-    zifo = zifo.view(b, s, h, 4 * hd)
+    if not heads_split and split(tp, "qkv", 4 * h * hd):     # a split that cuts heads
+        zifo = tp.gather_cols(zifo)
+    zifo = zifo.view(b, s, -1, 4 * hd)
+    h = zifo.shape[2]                            # the heads this rank runs
 
     if state is None:
         c = torch.zeros((b, h, hd), dtype=torch.float32, device=x.device)
@@ -153,6 +218,8 @@ def slstm_apply(p: dict, x, cfg, state: dict | None = None):
         hh = torch.zeros_like(c)
         m = torch.full_like(c, -1e30)
     else:
+        if tp is not None:
+            state = _heads_in(state, tp, heads_split)
         c, n, hh, m = state["c"], state["n"], state["h"], state["m"]
 
     r = p["r_zifo"].float()
@@ -175,7 +242,12 @@ def slstm_apply(p: dict, x, cfg, state: dict | None = None):
         outs.append(hh)
     out = torch.stack(outs, dim=1).reshape(b, s, h * hd).to(COMPUTE_DTYPE)
     new_state = None if state is None else {"c": c, "n": n, "h": hh, "m": m}
-    return out @ p["w_out"].to(COMPUTE_DTYPE), new_state
+    if new_state is not None and tp is not None:
+        new_state = _heads_out(new_state, tp, heads_split)
+    if out_split and not heads_split:    # this rank's columns: its rows of w_out
+        out = tp.take(out, -1)
+    y = out @ p["w_out"].to(COMPUTE_DTYPE)
+    return (tp.all_reduce_sum(y) if out_split else y), new_state
 
 
 def make_xlstm_state(cfg, batch: int, n_m: int, n_s: int, device=None) -> dict:

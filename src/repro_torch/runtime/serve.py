@@ -22,11 +22,11 @@ caches are), and the caches it returns are those buffers, which the next
 step takes without a copy. ``mesh`` stands for the reference's device
 mesh: None or one device (the model's), or a torch.distributed DeviceMesh
 ("data", "model"; launch.mesh.make_mesh) on which the model was built
-(Model(cfg, mesh=mesh): the dense and hybrid families when "model" is
-above 1). On a mesh each rank calls the step on its shard of each operand,
-as the reference's in_shardings place them: its rows of the tokens (the
-batch split over ("pod", "data")), its shard of the caches
-(cache_shardings), the whole ``active`` mask; it gets back its rows'
+(Model(cfg, mesh=mesh), every family). On a mesh each rank calls the step
+on its shard of each operand, as the reference's in_shardings place them:
+its rows of the tokens and of the frontend (the batch split over ("pod",
+"data")), its shard of the caches (cache_shardings), the whole ``active``
+mask; it gets back its rows'
 logits, whole over the vocab, and its caches' shard. The layers issue the
 model axis's collectives (models/tp.py), inside the CUDA graph on the
 card. jit_prefill_into is online.batcher.DecodeBatcher's admission: the
@@ -44,9 +44,8 @@ from repro_torch import graphs
 from repro_torch.faults import guards
 from repro_torch.models import Model
 from repro_torch.models.layers import COMPUTE_DTYPE, embed_lookup, logits_out
-from repro_torch.models.model import TP_FAMILIES, TP_SERVE_ITEM
 from repro_torch.planning import WarmStateShapeError
-from repro_torch.pshard import axis_size, mesh_shape
+from repro_torch.pshard import axis_size
 
 # Host reads of the plan word (one a replan) since the last reset_counts().
 COUNTS = {"host_reads": 0}
@@ -104,7 +103,7 @@ def make_split_serve(model: Model, s: int) -> SplitPrograms:
     @torch.no_grad()
     def device_fn(tokens, frontend=None):
         b, sl = tokens.shape
-        x = embed_lookup(model.top.embed, tokens)
+        x = embed_lookup(model.top.embed, tokens, model.cfg.vocab_size)
         aux = frontend_aux(b, sl, frontend)
         for spec, layers in a_stages:
             x, _, _ = model._run_stage(spec, layers, x, aux, None)
@@ -135,15 +134,10 @@ def _is_mesh(mesh) -> bool:
 def _placement(model: Model, mesh) -> torch.device:
     """The device that stands for ``mesh``: None, a device (or its name)
     that is the model's, a sequence of one such, or the DeviceMesh the model
-    was built on. A model axis above 1 serves the dense and hybrid families
-    (models/tp.py); the others wait for the rest of ROADMAP section 1's
-    sharding item (tensor-parallel half). A list of several devices is not
-    a mesh: build a DeviceMesh and the model on it."""
+    was built on (any family, a model axis of any size: models/tp.py). A
+    list of several devices is not a mesh: build a DeviceMesh and the model
+    on it."""
     if _is_mesh(mesh):
-        m = mesh_shape(mesh).get("model", 1)
-        if m > 1 and model.cfg.family not in TP_FAMILIES:
-            raise NotImplementedError(f"the {model.cfg.family} family on a model axis of {m} "
-                                      f"waits for {TP_SERVE_ITEM}")
         if model.mesh is not mesh:
             raise ValueError("the model was not built on this mesh: Model(cfg, mesh=mesh)")
         return model.device

@@ -39,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.types import tree_flatten, tree_unflatten
 from repro_torch.models import Model
 from repro_torch.models.layers import logits_out
+from repro_torch.models.model import TP_ITEM
 from repro_torch.optim.adamw import (
     AdamWState,
     adamw_init,
@@ -48,8 +49,6 @@ from repro_torch.optim.adamw import (
 )
 from repro_torch.runtime import sharding as shlib
 
-TP_ITEM = ("TP / FSDP training, in the tensor-parallel half of ROADMAP.md section 1's "
-           "sharding item (serving has the model axis)")
 
 
 class TrainState(NamedTuple):

@@ -250,6 +250,24 @@ def test_flash_attention_at_the_flat_per_rank_shape(cuda):
     _close(got.float(), want.float(), scale, 1e-2)
 
 
+def test_flash_attention_at_the_vlm_per_rank_cross_shape(cuda):
+    """llama-3.2-vision-11b's cross attention on one rank of a model axis of
+    2, the grouped layout: 16 of its 32 query heads over 4 of its 8 KV heads
+    (G = 4), hd 128, 3072 queries over 1601 image tokens, no mask, B = 4."""
+    b, h, kv, sq, sk, hd = 4, 16, 4, 3072, 1601, 128
+    g = torch.Generator(device=cuda).manual_seed(28)
+    q = torch.randn((b * h, sq, hd), device=cuda, generator=g).bfloat16()
+    k, v = (torch.randn((b * kv, sk, hd), device=cuda, generator=g).bfloat16()
+            for _ in range(2))
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, h // kv, False, 0)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    want = fa.flash_attention_plain(q, k, v, h // kv, False, 0)
+    scale = fa.flash_attention_plain(q, k, v.abs(), h // kv, False, 0).float()
+    _close(got.float(), want.float(), scale, 1e-2)
+
+
 @pytest.mark.parametrize("b,sq,sk,h,kv,hd,causal", [
     (4, 3072, 3072, 32, 8, 128, True),    # llama-3.2-vision-11b self-attention
     (4, 3072, 1601, 32, 8, 128, False),   # its cross-attention: Sq > Sk, 1 key in the last block

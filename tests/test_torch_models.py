@@ -125,7 +125,7 @@ def test_rms_norm_and_mlp_f32(jx):
         # weights on the bf16 grid, so JAX's cast to bf16 at use is exact
         p = {k: torch.from_numpy((0.05 * rng.standard_normal(d.shape)).astype(np.float32))
              .to(torch.bfloat16).float() for k, d in layers.mlp_defs(128, 256, act).items()}
-        got = layers.mlp_apply(p, torch.from_numpy(x), act).numpy()
+        got = layers.mlp_apply(p, torch.from_numpy(x), act, p["w1"].shape[1]).numpy()
         want = np.asarray(jl.mlp_apply({k: jnp.asarray(v.numpy()) for k, v in p.items()},
                                        jnp.asarray(x), act))
         ax, a = np.abs(x), {k: np.abs(v.numpy()) for k, v in p.items()}

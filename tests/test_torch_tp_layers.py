@@ -12,10 +12,16 @@ layout's choice, the refusals), on the CPU.
   the JAX package's Model does (src/repro/models/model.py:42-46) for every
   arch and M in 1..8, and its parameter shapes (the padded wq / wo / bq)
   are the reference's;
-- a model axis above 1 still raises for the moe, ssm, vlm and audio
-  families (serve._placement, Model(mesh=)) and for training
-  (launch/train.py --mesh 1x2).
+- the xLSTM state layouts: a state split over "model" on hd, assembled
+  as the heads a rank runs and cut back (xlstm._heads_in / _heads_out,
+  with a simulated group), is the state again;
+- TP.splits reads each leaf's own width: MoE's "mlp" at d_ff, moe_d_ff
+  and the shared experts', xLSTM's "qkv" at h * hd and 4 * h * hd;
+- a model axis above 1 still raises for training, every family
+  (Model(mesh=, trainable=True), launch/train.py --mesh 1x2).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -30,6 +36,8 @@ from repro_torch.runtime import serve, sharding  # noqa: E402
 
 TP_ARCHS = ("qwen1.5-0.5b", "recurrentgemma-9b")
 REFUSED = ("deepseek-moe-16b", "xlstm-125m", "llama-3.2-vision-11b", "whisper-small")
+# Every family: the dense and hybrid archs, then the rest
+ALL_ARCHS = TP_ARCHS + REFUSED
 
 
 def _coords(sizes: dict):
@@ -42,10 +50,12 @@ def _coords(sizes: dict):
         yield coord
 
 
-@pytest.mark.parametrize("arch", TP_ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 @pytest.mark.parametrize("shape", [(1, 3), (2, 2), (1, 4)])
 def test_shards_put_back_are_the_whole_leaves(arch, shape):
-    """The top leaves and the first layer of each stage."""
+    """The top leaves and the first layer of each stage (the experts, the
+    xLSTM heads and gates, the cross attention and the encoder among
+    them). Reduced xlstm-125m holds no leaf that splits over 3."""
     sizes = {"data": shape[0], "model": shape[1]}
     model = Model(configs.get(arch).reduced(), device="meta", tp_size=shape[1])
     gen = torch.Generator().manual_seed(0)
@@ -72,15 +82,17 @@ def test_shards_put_back_are_the_whole_leaves(arch, shape):
                 tree_flatten(shard)[0], tree_flatten(whole)[0], strict=True))
         for a, b in zip(tree_flatten(back)[0], tree_flatten(whole)[0], strict=True):
             assert torch.equal(a, b)
-    assert split > 0, "no leaf was split"
+    assert (split > 0) == (arch != "xlstm-125m" or shape[1] != 3), (arch, shape, split)
 
 
-@pytest.mark.parametrize("arch", TP_ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 @pytest.mark.parametrize("shape", [(1, 3), (2, 2)])
 def test_cache_shards_put_back_are_the_whole_caches(arch, shape):
     """convert.caches_from_numpy(whole, like, model) on each rank's model
     (its placement set as a mesh would give it) holds the slices of
-    cache_shardings; put back, they are the whole caches."""
+    cache_shardings; put back, they are the whole caches: KV and RG-LRU
+    caches, the xLSTM states (split on hd), "frontend" and "enc_out"
+    (split over the batch, whole over "model")."""
     from repro_torch import convert
     from repro_torch.core.types import tree_map
     sizes = {"data": shape[0], "model": shape[1]}
@@ -105,11 +117,34 @@ def test_cache_shards_put_back_are_the_whole_caches(arch, shape):
             tree_flatten(got)[0], tree_flatten(whole)[0], strict=True))
     for a, b_ in zip(tree_flatten(back)[0], tree_flatten(whole)[0], strict=True):
         assert torch.equal(a, b_)
-    # recurrentgemma's 64-slot window and 128 channels stay whole over 3
+    # over 3: recurrentgemma's 64-slot window and 128 channels and xlstm's
+    # hd of 32 stay whole; the flat layouts' 108-slot caches split
     splits = any(sizes.get(ax, 1) > 1 for sh in sharding.sharding_leaves(placed)
                  for e in sh.spec if e is not None
                  for ax in (e if isinstance(e, tuple) else (e,)))
-    assert (split > 0) == splits and splits == (shape != (1, 3) or arch == TP_ARCHS[0])
+    assert (split > 0) == splits and splits == (
+        shape != (1, 3) or arch not in ("recurrentgemma-9b", "xlstm-125m"))
+    if shape == (2, 2) and arch in ("llama-3.2-vision-11b", "whisper-small"):
+        key = "frontend" if arch.startswith("llama") else "enc_out"
+        assert placed[key].spec == (("data",), None, None)
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+@pytest.mark.parametrize("shape", [(1, 2), (1, 3), (2, 2)])
+def test_fresh_caches_are_the_whole_caches_shards(arch, shape):
+    """Model.make_caches on each rank (its placement set as a mesh would
+    give it) holds the values of its slice of the unsharded model's fresh
+    caches: empty KV slots at -1, an sLSTM's stabiliser m at -1e30, zeros
+    elsewhere."""
+    sizes = {"data": shape[0], "model": shape[1]}
+    b, max_len = 4, 108
+    model = Model(configs.get(arch).reduced(), device="cpu", tp_size=shape[1])
+    whole = model._make_caches(b, max_len, "cpu")
+    for coord in _coords(sizes):
+        model.place = tp.Placement(sizes, coord)
+        got, want = model.make_caches(b // shape[0], max_len), model.local_caches(whole)
+        for x, y in zip(tree_flatten(got)[0], tree_flatten(want)[0], strict=True):
+            assert x.dtype == y.dtype and torch.equal(x, y), (arch, shape, coord)
 
 
 def test_local_slice_places_joint_axes_major_first():
@@ -185,16 +220,75 @@ def test_layout_and_padded_heads_match_the_reference():
 
 @pytest.mark.parametrize("name", REFUSED)
 def test_other_families_on_a_model_axis_raise(name):
+    """The four families that now serve on a model axis still refuse to
+    train on one (TP / FSDP training waits), naming the item."""
     cfg = configs.get(name).reduced()
-    mesh = {"data": 1, "model": 2}
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        Model(cfg, device="meta", mesh=mesh)
-    model = Model(cfg, device="meta")
-    for make in (lambda: serve.jit_prefill(model, mesh, 16),
-                 lambda: serve.jit_decode_step(model, mesh, 2, 16),
-                 lambda: serve.jit_masked_decode_step(model, mesh, 2, 16)):
-        with pytest.raises(NotImplementedError, match="tensor-parallel"):
-            make()
+    with pytest.raises(NotImplementedError, match="tensor-parallel.*TP / FSDP training|"
+                       "TP / FSDP training.*tensor-parallel"):
+        Model(cfg, device="meta", trainable=True, mesh={"data": 1, "model": 2})
+    model = Model(cfg, device="meta", tp_size=2)
+    assert all(d.shape for d in model.stage_layers[0][0].p.defs.values()
+               if not isinstance(d, dict))
+
+
+def _stacked_group(ranks: int):
+    """tp.TP handles of a simulated group, one a rank, called in turn: the
+    last rank's all-reduce writes the sum into every rank's buffer (so what
+    an earlier rank holds, its buffer or a view of it, is filled then)."""
+    pending: list = []
+
+    def reduce(x, op, group=None):
+        pending.append(x)
+        if len(pending) == ranks:
+            total = sum(t.clone() for t in pending)
+            for t in pending:
+                t.copy_(total)
+            pending.clear()
+    return [tp.TP(size=ranks, rank=r, all_reduce=reduce) for r in range(ranks)]
+
+
+@pytest.mark.parametrize("heads_split,state_split", [(True, True), (False, True),
+                                                     (True, False)])
+def test_xlstm_state_layouts_round_trip(heads_split, state_split):
+    """A state (B, H, hd, hd) held as the cache holds it over 2 ranks (split
+    on its last dim, or whole), assembled as the heads each rank runs
+    (_heads_in) is those heads of the whole state; cut back (_heads_out),
+    it is each rank's shard again."""
+    from repro_torch.models import xlstm
+    b, h, hd = 3, 4, 6
+    whole = torch.randn(b, h, hd, hd, generator=torch.Generator().manual_seed(2))
+    group = _stacked_group(2)
+    for g in group:
+        g.state_split = {"C": state_split}
+    shards = [g.take(whole, -1) if state_split else whole for g in group]
+    ins = [xlstm._heads_in({"C": sh}, g, heads_split)["C"] for g, sh in zip(group, shards)]
+    for g, got in zip(group, ins):
+        assert torch.equal(got, g.take(whole, 1) if heads_split else whole)
+    outs = [xlstm._heads_out({"C": x}, g, heads_split)["C"] for g, x in zip(group, ins)]
+    for got, want in zip(outs, shards):
+        assert torch.equal(got, want)
+
+
+def test_splits_read_each_leafs_own_width():
+    """The widths catalogue and the per-leaf flags on a model axis of 3 (a
+    simulated mesh) and of 2."""
+    ds = configs.get("deepseek-moe-16b").reduced()
+    got = tp.widths(ds, 512)
+    assert got["mlp"] == (64, 256) and got["experts"] == (8,) and got["heads"] == ()
+    xl = configs.get("xlstm-125m").reduced()
+    assert tp.widths(xl, 512)["qkv"] == (128, 512) and tp.widths(xl, 512)["heads"] == (4,)
+
+    def handle(cfg, m):
+        split = {(ax, w): sharding.spec_for({"model": m}, (ax,), (w,))[0] == "model"
+                 for ax, ws in tp.widths(cfg, 512).items() for w in ws}
+        return tp.TP(size=m, split=split)
+    h3, h2 = handle(ds, 3), handle(ds, 2)
+    assert not tp.split(h3, "experts", 8) and not tp.split(h3, "mlp", 64)
+    assert tp.split(h2, "experts", 8) and tp.split(h2, "mlp", 64) and tp.split(h2, "mlp", 256)
+    assert not tp.split(None, "mlp", 64) and not tp.split(h2, "mlp", 65)
+    x48 = handle(dataclasses.replace(xl, head_dim=48), 3)
+    assert (tp.split(x48, "qkv", 192) and tp.split(x48, "qkv", 768)
+            and not tp.split(x48, "heads", 4))
 
 
 def test_training_on_a_model_axis_raises():
