@@ -337,7 +337,31 @@ Phases, each fatal on failure (no phase catches its own error):
                  xlstm's float32 compute within 1e-4 of it (deepseek's MoE
                  drops equal; its bf16 share printed beside its flipped
                  top-6 choices), flash launches twice the unsharded
-                 serve's.
+                 serve's. 18.2 and 19.2 run in one spawn of two ranks
+                 (with 20.2), started before 18.3: the ranks take their
+                 first checkpoint use while 18.3 and 19.3 time the kernels,
+                 then go.
+ 20. tensor-parallel training of the dense and hybrid families -- 20.1
+                 inside 17.2 (qwen1.5-0.5b, 3 steps of 8 x 2048, ZeRO-1
+                 off and on) and 16 (recurrentgemma-9b rec, rec, attn, 3
+                 steps of 2 x 3072), each on a world-1 NCCL ("data",
+                 "model") mesh over the phase model's parameters: every
+                 leaf and metric bit-equal to make_train_step's (the
+                 hybrid's state held as digests), the all-reduces of each
+                 step counted against tp_train_collectives, torch's
+                 missing-autograd warning an error; 20.2 one gradient pass
+                 of qwen1.5-0.5b whole at 4 x 512 (bf16 and float32
+                 compute) and recurrentgemma-9b rec, rec, attn at 2 x 3072
+                 on two gloo ranks sharing the card, against the unsharded
+                 pass that 17.2 and 16 computed (its gradients read from
+                 the host): loss, global norm and every gradient leaf
+                 within 0.05 of its largest value (float32 compute 1e-4),
+                 each rank's launches the unsharded pass's; 20.3 the flash
+                 backward at the per-rank training shapes (qwen's (64,
+                 2048, 64) causal, recurrentgemma's flat (16, 3072, 256) G
+                 = 1 window 2048) and rg_lru_bwd at (2, 3072, 2048), each
+                 against its twin and timed, and every shape 20.2 launched
+                 checked.
 Every profiled window that records no device time is measured once more
 (profiled); a phase fails only if the retry is empty too. A graphed
 window whose trace is short of the replays that CUDA events saw run is
@@ -347,11 +371,13 @@ The last lines are the kernels JSON, the nvidia-smi line, and
 """
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -544,6 +570,7 @@ ENTRY_FAMILY_STEPS, ENTRY_FAMILY_RESUMED = 2, 1
 TP_M, TP_B, TP_S, TP_DECODE, TP_SEED = 2, 4, 3072, 8, 18
 TP_ARCHS = {"recurrentgemma-9b": 3, "qwen1.5-0.5b": None}
 TP_RANK_MS = (2, 4)
+TP_GO_WAIT_S = 600.0               # the spawned ranks' longest wait for 18.3 and 19.3
 # Phase 19: tensor-parallel serving of the MoE, xLSTM, vision and audio
 # families. 19.1 runs inside each family's serve phase (13.1, 13.2, 14.1,
 # 14.2) over its model; its mesh programs' launches collect in
@@ -1427,49 +1454,8 @@ def main() -> int:
         launches[name] += family_launches[name]
     launches["rg_lru_bwd"] = family_launches["rg_lru_bwd"]
     memory_mark(torch, "16", peaks)
-    # -- 18.3 the kernels at the per-rank shapes, then 18.2 two ranks on the
-    # card over gloo, last: the main process holds little by now
-    tp_flash, tp_rg, tp_keys = tp_kernel_phase(dev, smi, errs)
-    gc.collect()
-    torch.cuda.empty_cache()
-    memory_mark(torch, "18.3", peaks)
-    ranks = tp_ranks_phase(dev, smi)
-    unchecked = sorted(k for k in ranks["shapes"] if k not in tp_keys.values())
-    if unchecked:
-        fail(f"tp 18.2: the ranks launched flash_attention at shapes 18.3 does not check "
-             f"(query rows, Sq, Sk, hd, G, causal, window, kv_len): {unchecked}")
-    for name, key in tp_keys.items():
-        tp_flash[name]["launches"] = ranks["shapes"].get(key, 0)
-    print(f"tp 18.2 flash_attention launches at 18.3's shapes: "
-          f"{ {n: r['launches'] for n, r in tp_flash.items()} } (M=4's shapes run on no path "
-          f"of one card)")
-    rows["flash_attention"].update(tp_flash)
-    rows["rg_lru"].update(tp_rg)
-    for name, n in ranks["launched"].items():
-        launches[name] = launches.get(name, 0) + n
-    memory_mark(torch, "18.2 (main process)", peaks)
-    # -- 19.3 flash at the other families' per-rank shapes, then 19.2 their
-    # two ranks on the card over gloo; 19.1's mesh programs ran in 13-14
-    tp19_flash, tp19_keys = tp_family_kernel_phase(dev, smi, errs)
-    gc.collect()
-    torch.cuda.empty_cache()
-    memory_mark(torch, "19.3", peaks)
-    ranks19 = tp_family_ranks_phase(dev, smi)
-    unchecked = sorted(k for k in ranks19["shapes"] if k not in tp19_keys.values())
-    if unchecked:
-        fail(f"tp 19.2: the ranks launched flash_attention at shapes 19.3 does not check "
-             f"(query rows, Sq, Sk, hd, G, causal, window, kv_len): {unchecked}")
-    for name, key in tp19_keys.items():
-        tp19_flash[name]["launches"] = ranks19["shapes"].get(key, 0)
-    print(f"tp 19.2 flash_attention launches at 19.3's shapes: "
-          f"{ {n: r['launches'] for n, r in tp19_flash.items()} } (M=4's shapes and the "
-          f"served cross attention run on no path of one card)")
-    rows["flash_attention"].update(tp19_flash)
-    for source in (ranks19["launched"], TP19_LAUNCHES):
-        for name, n in source.items():
-            launches[name] = launches.get(name, 0) + n
-    print(f"tp 19.1 mesh programs' launches (13.1, 13.2, 14.1, 14.2): {TP19_LAUNCHES}")
-    memory_mark(torch, "19.2 (main process)", peaks)
+    # -- 18.3 and 19.3, then 18.2, 19.2 and 20.2 on two gloo ranks, then 20.3
+    tp_ranks_and_kernels(dev, smi, errs, rows, launches, peaks)
     print(f"profile retries (windows with no device time, measured once more): "
           f"{PROFILE_RETRIES or 'none'}")
     print("memory: peak reserved by phase (GiB): " + ", ".join(
@@ -1484,6 +1470,106 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def tp_ranks_and_kernels(dev, smi: str, errs: dict, rows: dict, launches: dict,
+                         peaks: dict) -> None:
+    """The end of the script: 18.3 and 19.3 (the kernels at the per-rank
+    serving shapes), then 18.2, 19.2 and 20.2 on TP_M gloo ranks sharing
+    the card, one spawn for the three (each reference computed first: 18.2's
+    and 19.2's here, 20.2's in 17.2 and 16), their checks, and 20.3. Adds
+    the kernels' rows and launches to ``rows`` and ``launches``."""
+    import gc
+    import shutil
+
+    import tempfile
+
+    import torch
+    # the ranks start first and wait (tp_spawned_rank) while 18.3 and 19.3
+    # time the kernels; they go while this process computes 18.2's and 19.2's
+    # references, whose times are only printed
+    spawned, failed = [], []
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+
+    def ranks():
+        try:
+            spawned.extend(tp_spawn_ranks(dev, smi, tmp))
+        except Exception as e:  # raised below, in this thread
+            failed.append(e)
+    thread = threading.Thread(target=ranks)
+    for t in TP20_WRITERS:      # the ranks read 20.2's references
+        t.join()
+    thread.start()
+    try:
+        tp_flash, tp_rg, tp_keys = tp_kernel_phase(dev, smi, errs)
+        gc.collect()
+        torch.cuda.empty_cache()
+        memory_mark(torch, "18.3", peaks)
+        tp19_flash, tp19_keys = tp_family_kernel_phase(dev, smi, errs)
+        gc.collect()
+        torch.cuda.empty_cache()
+        memory_mark(torch, "19.3", peaks)
+    except BaseException:       # the waiting ranks exit, and the spawn with them
+        open(f"{tmp}/stop", "w").close()
+        thread.join()
+        raise
+    open(f"{tmp}/go", "w").close()
+    t0 = time.perf_counter()
+    refs18 = tp_ranks_refs(dev, smi)
+    refs19 = tp_family_refs(dev, smi)
+    print(f"tp: the references of 18.2 and 19.2 took {time.perf_counter() - t0:.1f} s, while "
+          f"the ranks started")
+    thread.join()
+    if failed:
+        raise failed[0]
+    ranks = tp_ranks_check(smi, refs18, spawned)
+    unchecked = sorted(k for k in ranks["shapes"] if k not in tp_keys.values())
+    if unchecked:
+        fail(f"tp 18.2: the ranks launched flash_attention at shapes 18.3 does not check "
+             f"(query rows, Sq, Sk, hd, G, causal, window, kv_len): {unchecked}")
+    for name, key in tp_keys.items():
+        tp_flash[name]["launches"] = ranks["shapes"].get(key, 0)
+    print(f"tp 18.2 flash_attention launches at 18.3's shapes: "
+          f"{ {n: r['launches'] for n, r in tp_flash.items()} } (M=4's shapes run on no path "
+          f"of one card)")
+    rows["flash_attention"].update(tp_flash)
+    rows["rg_lru"].update(tp_rg)
+    for name, n in ranks["launched"].items():
+        launches[name] = launches.get(name, 0) + n
+    ranks19 = tp_family_ranks_check(smi, refs19, spawned)
+    unchecked = sorted(k for k in ranks19["shapes"] if k not in tp19_keys.values())
+    if unchecked:
+        fail(f"tp 19.2: the ranks launched flash_attention at shapes 19.3 does not check "
+             f"(query rows, Sq, Sk, hd, G, causal, window, kv_len): {unchecked}")
+    for name, key in tp19_keys.items():
+        tp19_flash[name]["launches"] = ranks19["shapes"].get(key, 0)
+    print(f"tp 19.2 flash_attention launches at 19.3's shapes: "
+          f"{ {n: r['launches'] for n, r in tp19_flash.items()} } (M=4's shapes and the "
+          f"served cross attention run on no path of one card)")
+    rows["flash_attention"].update(tp19_flash)
+    for source in (ranks19["launched"], TP19_LAUNCHES):
+        for name, n in source.items():
+            launches[name] = launches.get(name, 0) + n
+    print(f"tp 19.1 mesh programs' launches (13.1, 13.2, 14.1, 14.2): {TP19_LAUNCHES}")
+    memory_mark(torch, "18.2-20.2 (main process)", peaks)
+    # -- 20.2 checked, then 20.3 the kernels at the per-rank training shapes
+    tp20_launched, tp20_shapes, tp20_dtypes = tp_train_ranks_check(
+        smi, [rk["20.2"] for rk in spawned], max(rk["20.2", "s"] for rk in spawned))
+    shutil.rmtree(TP20_DIR["path"], ignore_errors=True)
+    tp20_bwd, tp20_rg = tp_train_kernel_phase(dev, smi, errs, tp20_shapes, tp20_dtypes)
+    tp20_rg["launches"] = tp20_launched.get("rg_lru_bwd", 0)
+    rows["flash_attention_bwd"].update(tp20_bwd)
+    rows["rg_lru_bwd"][f"recurrentgemma-9b per rank M={TP_M} training"] = tp20_rg
+    for source in (TP20_LAUNCHES, tp20_launched):
+        for name, n in source.items():
+            launches[name] = launches.get(name, 0) + n
+    print(f"tp 20: launches on its paths {TP20_LAUNCHES} (20.1, world-1 meshes) and "
+          f"{tp20_launched} (20.2's ranks); 20.3's rows' launches "
+          f"{ {n: r['launches'] for n, r in tp20_bwd.items()} } (the qwen1.5-0.5b 8 x 2048 "
+          f"shape of M = 2 runs on no path of one card)")
+    print(f"tp 20: phase 20 took {sum(TP20_TIMES.values()):.1f} s: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in TP20_TIMES.items()) + f" | {smi}")
+    memory_mark(torch, "20.3", peaks)
 
 
 def serve_phase(dev, kind: str, smi: str, errs: dict):
@@ -5200,7 +5286,13 @@ def family_train(dev, family: str, smi: str, errs: dict, bwd_rows: dict) -> dict
     print(f"time family 16.2 {family} ({cfg.name}, {b} x {s} tokens a step, median of "
           f"{FAMILY_STEPS}; launches a step {want}): "
           + " ".join(f"{k}={v}" for k, v in row.items()) + f" | {smi}")
-    del prof, rows_k, state, step, batches, met, model
+    del prof, rows_k, state, step, met
+    gc.collect()
+    torch.cuda.empty_cache()
+    if family == "hybrid":      # phase 20 over this model
+        for k, v in tp_hybrid(dev, smi, model, batches).items():
+            TP20_LAUNCHES[k] = TP20_LAUNCHES.get(k, 0) + v
+    del batches, model
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5489,6 +5581,13 @@ def sharding_phase(dev, smi: str, fleet: dict, errs: dict, peaks: dict) -> dict:
             for k, v in launched.items():
                 out[k] = out.get(k, 0) + v
             del state, step, make
+        # -- 20.1 over 17.2's model, batches and reference; 20.2's qwen references
+        for k, v in tp_train_mesh(dev, smi, TRAIN_ARCH, model, batches, TRAIN_CHUNK, TRAIN_SEED,
+                                  ref, ref_mets, ref_s * 1e3, (False, True)).items():
+            TP20_LAUNCHES[k] = TP20_LAUNCHES.get(k, 0) + v
+        for label, case in TP20_CASES.items():
+            if case[0] == TRAIN_ARCH:
+                tp_train_ref(dev, model, label)
         del model, batches, ref
         gc.collect()
         torch.cuda.empty_cache()
@@ -5832,19 +5931,15 @@ def tp_serve(model, tokens, max_len: int, s: int | None = None, frontend=None) -
     return out, prefill_s, statistics.median(walls), launched[0], launched[1], drops
 
 
-def tp_rank(rank: int, tmp: str) -> None:
-    """One of 18.2's ranks: a gloo group (launch.mesh.spawn with device
-    "cpu"; its mesh's device type is the CPU's) whose collectives take the
-    card's tensors; each TP_ARCHS model built on the mesh on the card, then
-    tp_serve. Writes what it saw to tmp/rank<r>.pt."""
+def tp_rank(dev, mesh, rank: int) -> dict:
+    """18.2's work on one rank of the (1, TP_M) gloo mesh (whose collectives
+    take the card's tensors): a probe of gloo's all-reduce of the card's
+    tensors, then each TP_ARCHS model built on the mesh on the card and
+    tp_serve. Returns what it saw."""
     import torch
     import torch.distributed as dist
     from repro_torch.data import make_batch
-    from repro_torch.launch import mesh as lmesh
     from repro_torch.models import Model
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    mesh = lmesh.make_mesh((1, TP_M), ("data", "model"), device="cpu")
     probe = {}
     for dt in (torch.bfloat16, torch.float32):
         x = torch.full((4,), float(rank + 1), dtype=dt, device=dev)
@@ -5864,30 +5959,75 @@ def tp_rank(rank: int, tmp: str) -> None:
                          bytes=model.param_bytes(), peak=torch.cuda.max_memory_reserved())
         del model
         torch.cuda.empty_cache()
+    return out
+
+
+def tp_spawned_rank(rank: int, tmp: str, dev, train_refs: dict) -> None:
+    """One of the TP_M gloo ranks that share the card (launch.mesh.spawn
+    with device "cpu": its mesh's device type is the CPU's, its collectives
+    take the card's tensors, staged through the host): 18.2's serve
+    (tp_rank), 19.2's (tp19_rank) and 20.2's training cases (tp20_rank
+    against ``train_refs``), on one (1, TP_M) mesh. The rank starts while
+    the main process times 18.3 and 19.3: it takes the first use of
+    torch.utils.checkpoint on the host (which imports torch._dynamo, about
+    10 s) and then waits, using nothing of the card, until tmp/go exists.
+    Writes what it saw to tmp/rank<r>.pt."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.launch import mesh as lmesh
+    torch.cuda.set_device(dev)
+    mesh = lmesh.make_mesh((1, TP_M), ("data", "model"), device="cpu")
+    t0 = time.perf_counter()
+    x = torch.ones(2, requires_grad=True)
+    checkpoint(torch.sin, x, use_reentrant=False).sum().backward()
+    warm = time.perf_counter() - t0
+    while not os.path.exists(f"{tmp}/go"):
+        if os.path.exists(f"{tmp}/stop"):      # the main process failed first
+            return
+        if time.perf_counter() - t0 > TP_GO_WAIT_S:
+            raise TimeoutError(f"rank {rank}: no go after {TP_GO_WAIT_S} s")
+        time.sleep(0.05)
+    out = {"warm_s": warm, "wait_s": time.perf_counter() - t0 - warm}
+    for key, fn in (("18.2", lambda: tp_rank(dev, mesh, rank)),
+                    ("19.2", lambda: tp19_rank(dev, mesh)),
+                    ("20.2", lambda: tp20_rank(dev, mesh, train_refs))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        out[key, "s"] = time.perf_counter() - t0
     torch.save(out, f"{tmp}/rank{rank}.pt")
 
 
-def tp_ranks_phase(dev, smi: str) -> dict:
-    """Phase 18.2: TP_M ranks on the one card over gloo (NCCL refuses two
-    ranks on one GPU), eager: each TP_ARCHS model at published width
-    (recurrentgemma-9b cut to rec, rec, attn: the flat layout, a
-    sequence-split decode cache, split RG-LRU channels; qwen1.5-0.5b whole,
-    grouped), a prefill of TP_B x TP_S and TP_DECODE decode steps, against
-    the unsharded Model(cfg, tp_size=TP_M) on the same weights in this
-    process within 0.05 * max(1, max |logits|); the ranks' summed flash and
-    rg_lru launches equal to TP_M times the unsharded prefill's. Gloo
-    stages CUDA tensors through the host, so the times are no
-    tensor-parallel performance number. Returns the ranks' launches and
-    flash shapes."""
+def tp_spawn_ranks(dev, smi: str, tmp: str) -> list:
+    """The one spawn of TP_M gloo ranks on the card for 18.2, 19.2 and 20.2
+    (tp_spawned_rank, rendezvous and results in ``tmp``, which it removes;
+    20.2's references wait on the host). Returns the ranks' results."""
     import shutil
-    import tempfile
 
     import torch
-    from repro_torch.data import make_batch
     from repro_torch.launch import mesh as lmesh
-    from repro_torch.models import Model
+    try:
+        t0 = time.perf_counter()
+        lmesh.spawn(tp_spawned_rank, TP_M, (tmp, dev, TP20_REFS),
+                    init_method=f"file://{tmp}/rendezvous", device="cpu")
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(TP_M)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    parts = {k: max(rk[k, "s"] for rk in ranks) for k in ("18.2", "19.2", "20.2")}
+    print(f"tp 18.2-20.2: {TP_M} ranks on {torch.cuda.get_device_name(0)} over gloo, "
+          f"{spawn_s:.1f} s from spawn to exit (one spawn for the three, started before "
+          f"18.3): the first checkpoint use {max(rk['warm_s'] for rk in ranks):.1f} s, the "
+          f"wait for 18.3 and 19.3 {max(rk['wait_s'] for rk in ranks):.1f} s, then "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + f" | {smi}")
+    return ranks
 
-    t_phase = time.perf_counter()
+
+def tp_ranks_refs(dev, smi: str) -> dict:
+    """Phase 18.2's references: each TP_ARCHS model unsharded (tp_size
+    TP_M) on the same weights in this process, tp_serve. Returns them."""
+    import torch
+    from repro_torch.data import make_batch
+    from repro_torch.models import Model
     refs = {}
     for arch in TP_ARCHS:
         cfg = tp_config(arch)
@@ -5901,17 +6041,26 @@ def tp_ranks_phase(dev, smi: str) -> dict:
               f"{refs[arch][3]} | {smi}")
         del model
         torch.cuda.empty_cache()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
-    try:
-        t0 = time.perf_counter()
-        lmesh.spawn(tp_rank, TP_M, (tmp,), init_method=f"file://{tmp}/rendezvous", device="cpu")
-        spawn_s = time.perf_counter() - t0
-        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(TP_M)]
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    print(f"tp 18.2: {TP_M} ranks on {torch.cuda.get_device_name(0)} over gloo, {spawn_s:.1f} s "
-          f"from spawn to exit; gloo all_reduce of CUDA tensors in each rank (bf16, float32; "
-          f"a sum of rank + 1 over the ranks): {[r['probe'] for r in ranks]} | {smi}")
+    return refs
+
+
+def tp_ranks_check(smi: str, refs: dict, ranks: list) -> dict:
+    """Phase 18.2: TP_M ranks on the one card over gloo (NCCL refuses two
+    ranks on one GPU), eager: each TP_ARCHS model at published width
+    (recurrentgemma-9b cut to rec, rec, attn: the flat layout, a
+    sequence-split decode cache, split RG-LRU channels; qwen1.5-0.5b whole,
+    grouped), a prefill of TP_B x TP_S and TP_DECODE decode steps, against
+    the unsharded Model(cfg, tp_size=TP_M) on the same weights in this
+    process within 0.05 * max(1, max |logits|); the ranks' summed flash and
+    rg_lru launches equal to TP_M times the unsharded prefill's. Gloo
+    stages CUDA tensors through the host, so the times are no
+    tensor-parallel performance number. Returns the ranks' launches and
+    flash shapes."""
+    import torch
+    ranks = [rk["18.2"] for rk in ranks]
+    print(f"tp 18.2: {TP_M} ranks on {torch.cuda.get_device_name(0)} over gloo; gloo all_reduce "
+          f"of CUDA tensors in each rank (bf16, float32; a sum of rank + 1 over the ranks): "
+          f"{[r['probe'] for r in ranks]} | {smi}")
     want_sum = float(sum(range(1, TP_M + 1)))
     if any(v != want_sum for r in ranks for v in r["probe"].values()):
         fail(f"tp 18.2: gloo's all-reduce of the card's tensors gave {[r['probe'] for r in ranks]}")
@@ -5950,7 +6099,6 @@ def tp_ranks_phase(dev, smi: str) -> dict:
         for rk in ranks:
             for key, n in rk[arch]["shapes"].items():
                 out["shapes"][key] = out["shapes"].get(key, 0) + n
-    print(f"tp: 18.2 took {time.perf_counter() - t_phase:.1f} s | {smi}")
     return out
 
 
@@ -6096,21 +6244,15 @@ def tp19_serve(dev, arch: str, f32: bool, mesh=None) -> dict:
     return res
 
 
-def tp19_rank(rank: int, tmp: str, dev) -> None:
-    """One of 19.2's ranks: a gloo group whose collectives take the card's
-    tensors (as 18.2's tp_rank), on ``dev``; each family of TP19_FAMILIES
-    served on the (1, TP_M) mesh, in each of tp19_dtypes. Writes what it
-    saw to tmp/rank<r>.pt."""
-    import torch
-    from repro_torch.launch import mesh as lmesh
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
-    mesh = lmesh.make_mesh((1, TP_M), ("data", "model"), device="cpu")
+def tp19_rank(dev, mesh) -> dict:
+    """19.2's work on one rank of the (1, TP_M) gloo mesh: each family of
+    TP19_FAMILIES served on the mesh, in each of tp19_dtypes. Returns what
+    it saw."""
     out = {}
     for arch in TP19_FAMILIES:
         for f32 in tp19_dtypes(arch):
             out[arch, f32] = tp19_serve(dev, arch, f32, mesh)
-    torch.save(out, f"{tmp}/rank{rank}.pt")
+    return out
 
 
 def tp19_dtypes(arch: str) -> tuple:
@@ -6120,7 +6262,23 @@ def tp19_dtypes(arch: str) -> tuple:
     return (False, True) if arch in (MOE_ARCH, XLSTM_ARCH) else (False,)
 
 
-def tp_family_ranks_phase(dev, smi: str) -> dict:
+def tp_family_refs(dev, smi: str) -> dict:
+    """Phase 19.2's references: each family of TP19_FAMILIES unsharded
+    (tp_size TP_M) in this process, in each of tp19_dtypes. Returns
+    them."""
+    refs = {}
+    for arch in TP19_FAMILIES:
+        for f32 in tp19_dtypes(arch):
+            refs[arch, f32] = r = tp19_serve(dev, arch, f32)
+            print(f"tp 19.2 unsharded {arch} ({tp19_config(arch).n_layers} layers, layout "
+                  f"{r['layout']}, {'float32' if f32 else 'bf16'} compute): prefill {TP_B} x "
+                  f"{TP19_FAMILIES[arch][1]} {r['prefill_s']:.4f} s, decode {r['decode_ms']:.4f} "
+                  f"ms a step; launches {r['launched']}, MoE drops {sum(map(sum, r['drops']))}; "
+                  f"peak_reserved_gib={r['peak'] / 2**30:.2f} | {smi}")
+    return refs
+
+
+def tp_family_ranks_check(smi: str, refs: dict, ranks: list) -> dict:
     """Phase 19.2: TP_M gloo ranks sharing the card, eager, each family of
     TP19_FAMILIES at published width (depth cut as phase 16 cuts it),
     against the unsharded Model(cfg, tp_size=TP_M) on the same weights in
@@ -6133,33 +6291,8 @@ def tp_family_ranks_phase(dev, smi: str) -> dict:
     in float32 (bf16's printed). Gloo stages every all-reduce through the
     host: no time here is a tensor-parallelism number. Returns the ranks'
     launches and flash shapes."""
-    import shutil
-    import tempfile
-
     import torch
-    from repro_torch.launch import mesh as lmesh
-
-    t_phase = time.perf_counter()
-    refs = {}
-    for arch in TP19_FAMILIES:
-        for f32 in tp19_dtypes(arch):
-            refs[arch, f32] = r = tp19_serve(dev, arch, f32)
-            print(f"tp 19.2 unsharded {arch} ({tp19_config(arch).n_layers} layers, layout "
-                  f"{r['layout']}, {'float32' if f32 else 'bf16'} compute): prefill {TP_B} x "
-                  f"{TP19_FAMILIES[arch][1]} {r['prefill_s']:.4f} s, decode {r['decode_ms']:.4f} "
-                  f"ms a step; launches {r['launched']}, MoE drops {sum(map(sum, r['drops']))}; "
-                  f"peak_reserved_gib={r['peak'] / 2**30:.2f} | {smi}")
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp19_")
-    try:
-        t0 = time.perf_counter()
-        lmesh.spawn(tp19_rank, TP_M, (tmp, dev), init_method=f"file://{tmp}/rendezvous",
-                    device="cpu")
-        spawn_s = time.perf_counter() - t0
-        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(TP_M)]
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    print(f"tp 19.2: {TP_M} ranks on {torch.cuda.get_device_name(0)} over gloo, {spawn_s:.1f} s "
-          f"from spawn to exit | {smi}")
+    ranks = [rk["19.2"] for rk in ranks]
     out: dict = {"launched": {}, "shapes": {}}
     for (arch, f32), ref in refs.items():
         want, vocab = ref["logits"], ref["vocab"]
@@ -6209,7 +6342,6 @@ def tp_family_ranks_phase(dev, smi: str) -> dict:
         for rk in ranks:
             for key, n in rk[arch, f32]["shapes"].items():
                 out["shapes"][key] = out["shapes"].get(key, 0) + n
-    print(f"tp: 19.2 took {time.perf_counter() - t_phase:.1f} s | {smi}")
     return out
 
 
@@ -6258,6 +6390,438 @@ def tp_family_kernel_phase(dev, smi: str, errs: dict) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     print(f"tp: 19.3 took {time.perf_counter() - t_phase:.1f} s | {smi}")
     return rows, keys
+
+
+# --------------------------------------------------------------------------
+# Phase 20: tensor-parallel training of the dense and hybrid families
+# --------------------------------------------------------------------------
+# torch's warning for a collective that autograd back-propagates through
+# with no autograd kernel (an in-place c10d all-reduce): an error in phase 20
+NO_AUTOGRAD = ".*autograd kernel was not registered.*"
+# The all-reduces of one block in a training step on a model axis of 1
+# (every leaf splits): (forward, remat recompute, backward). The forward's
+# are the mixer's and the MLP's partial outputs summed (and an RG-LRU's
+# gates); the recompute stops after the block's last saved tensor (the
+# MLP's w2 input: torch.utils.checkpoint's early stop), so the MLP's sum is
+# not issued again; the backward's are the sums of the mixer's and the
+# MLP's input cotangents (tp.TP.enter) and an RG-LRU's gates' gather.
+TP_TRAIN_BLOCK = {"attn": (2, 1, 2), "rec": (3, 2, 3)}
+# 20.2's cases: label -> (arch, layers kept or None, batch, tokens, chunk,
+# float32 compute). qwen1.5-0.5b whole; recurrentgemma-9b at phase 16's cut.
+TP20_CASES = {
+    "qwen1.5-0.5b bf16": ("qwen1.5-0.5b", None, 4, 512, 512, False),
+    "qwen1.5-0.5b float32": ("qwen1.5-0.5b", None, 4, 512, 512, True),
+    "recurrentgemma-9b bf16": ("recurrentgemma-9b", 3, 2, 3072, 512, False),
+}
+TP20_SEED, TP20_F32_RTOL = 20, 1e-4
+TP20_REFS: dict = {}        # label -> the unsharded step's readings (20.2)
+TP20_TIMES: dict = {}       # sub-phase -> seconds
+TP20_LAUNCHES: dict = {}    # the main paths' launches in phase 20
+TP20_DIR = {"path": None}   # where 20.2's reference gradients wait for the ranks
+TP20_WRITERS: list = []     # the threads writing them (joined before the spawn)
+
+
+def tp_train_collectives(cfg, s: int, chunk: int) -> int:
+    """The all-reduces of one train step (jit_train_step, chunked
+    cross-entropy) of a model on a model axis of size 1: the embedding's
+    sum; each block's forward, remat recompute and backward
+    (TP_TRAIN_BLOCK); each logits chunk's gather, again in its recompute,
+    and its input's cotangent sum; the global norm's sum of the split
+    leaves' squares. (No gradient is a per-rank partial at M = 1.)"""
+    from repro_torch.models import stages_for
+    blocks = sum(sp.n_layers * sum(TP_TRAIN_BLOCK[sp.kind]) for sp in stages_for(cfg))
+    return 1 + blocks + 3 * (s // min(chunk, s)) + 1
+
+
+def leaf_digest(x) -> tuple:
+    """Two 64-bit digests of a tensor's bit patterns (their sum, and the sum
+    of each pattern times itself shifted), chunk by chunk: a tree too large
+    to hold twice on the card is held to its digests."""
+    import torch
+    flat = x.detach().contiguous().view(-1).view(torch.int32)
+    a = b = 0
+    for i in range(0, flat.numel(), 1 << 26):
+        c = flat[i:i + (1 << 26)].long()
+        a += int(c.sum())
+        b += int((c * (c >> 9)).sum())
+    return a, b
+
+
+def tp_train_mesh(dev, smi: str, label: str, model, batches: list, chunk: int, seed: int,
+                  ref, ref_mets: list, ref_ms: float, zero1s: tuple) -> dict:
+    """20.1 for one arch, in a world-1 NCCL group: a model built on a (1, 1)
+    ("data", "model") mesh sharing ``model``'s parameters (the tensors
+    themselves), its collectives counted (CountedAllReduce); for each zero1
+    of ``zero1s``, len(batches) steps of jit_train_step from the init of
+    ``seed``, every leaf of the state (or its digests, where ``ref`` holds
+    digests) and every metric bit-equal to make_train_step's (``ref``,
+    ``ref_mets``), the all-reduces of each step equal to
+    tp_train_collectives, no missing-autograd warning (an error here); step
+    ms beside make_train_step's. Returns the flash and rg_lru launches."""
+    import warnings
+
+    import torch
+    from repro_torch.core.types import tree_flatten
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rg_lru as rl
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models import Model
+    from repro_torch.pshard import unshard
+    from repro_torch.runtime import train as rt
+
+    t0 = time.perf_counter()
+    mesh = lmesh.make_mesh((1, 1), ("data", "model"))
+    counted = CountedAllReduce()
+    tm = Model(model.cfg, device="meta", trainable=True, remat=True, mesh=mesh,
+               all_reduce=counted).load_params_(model.param_tree(), share=True)
+    shared = all(a.data_ptr() == b.data_ptr() for a, b in zip(tm.parameters(),
+                                                             model.parameters(), strict=True))
+    b, s = batches[0]["tokens"].shape
+    want_calls = tp_train_collectives(tm.cfg, s, chunk)
+    print(f"tp 20.1 {label}: {model.cfg.n_layers} layers on mesh "
+          f"{dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} of an NCCL group of world size "
+          f"{torch.distributed.get_world_size()}, sharing the phase's parameters: {shared}; "
+          f"{want_calls} all-reduces a step expected (tp_train_collectives) | {smi}")
+    if not shared:
+        fail(f"tp 20.1 {label}: the mesh model does not share the phase's parameters")
+    launched: dict = {}
+    digest = not isinstance(ref[0], torch.Tensor)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=NO_AUTOGRAD)
+        for zero1 in zero1s:
+            state = rt.init_state(tm, torch.Generator(device=dev).manual_seed(seed))
+            step = rt.jit_train_step(tm, mesh, zero1=zero1, seq_chunk=chunk)[0](
+                {k: v.shape for k, v in batches[0].items()})
+            walls, mets, calls = [], [], []
+            fa.reset_launches()
+            rl.reset_launches()
+            for bt in batches:
+                torch.cuda.synchronize()
+                counted.calls = 0
+                t_s = time.perf_counter()
+                state, met = step(state, bt)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t_s)
+                calls.append(counted.calls)
+                mets.append(met)
+            for k, v in {**fa.LAUNCHES, **rl.LAUNCHES}.items():
+                launched[k] = launched.get(k, 0) + v
+            leaves = tree_flatten(unshard(state))[0]
+            got = [leaf_digest(x) for x in leaves] if digest else leaves
+            differ = [i for i, (a, w) in enumerate(zip(got, ref, strict=True))
+                      if (a != w if digest else not torch.equal(a, w))]
+            same_met = all(torch.equal(a[k], w[k]) for a, w in zip(mets, ref_mets) for k in a)
+            step_ms = statistics.median(walls[1:]) * 1e3
+            print(f"check tp 20.1 {label} zero1={zero1}: {len(batches)} steps' params, moments "
+                  f"and steps bit-equal to make_train_step's{' (64-bit digests)' if digest else ''}"
+                  f": {not differ}, metrics bit-equal: {same_met}; all-reduces a step {calls} "
+                  f"(expected {want_calls})")
+            print(f"time tp 20.1 {label} zero1={zero1}: step_ms={step_ms:.2f} (median of steps "
+                  f"2-{len(batches)}; {[round(w * 1e3, 2) for w in walls]}), make_train_step "
+                  f"{ref_ms:.2f} ms | {smi}")
+            if differ or not same_met:
+                fail(f"tp 20.1 {label} zero1={zero1}: leaves {differ} (metrics equal "
+                     f"{same_met}) differ from make_train_step's")
+            if any(c != want_calls for c in calls):
+                fail(f"tp 20.1 {label} zero1={zero1}: all-reduces a step {calls}, expected "
+                     f"{want_calls}")
+            del state, step, leaves, got
+    del tm
+    TP20_TIMES[f"20.1 {label}"] = time.perf_counter() - t0
+    return launched
+
+
+def tp_hybrid(dev, smi: str, model, batches: list) -> dict:
+    """Phase 20 over phase 16's recurrentgemma-9b (rec, rec, attn at 2 x
+    3072): 20.2's unsharded reference, then 20.1: make_train_step's
+    DP_STEPS steps from the init of FAMILY_SEED (its state held as digests:
+    two would not fit on the card), and tp_train_mesh against them in a
+    world-1 NCCL group. Returns 20.1's launches."""
+    import torch
+    from repro_torch.core.types import tree_flatten
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.runtime import train as rt
+    def reserved(what):
+        print(f"tp 20 hybrid memory after {what}: reserved "
+              f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB, peak "
+              f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB")
+    reserved("16.2")
+    tp_train_ref(dev, model, "recurrentgemma-9b bf16")
+    reserved("20.2's reference")
+    batches = batches[:DP_STEPS]
+    t0 = time.perf_counter()
+    state = rt.init_state(model, torch.Generator(device=dev).manual_seed(FAMILY_SEED))
+    step = rt.make_train_step(model, seq_chunk=FAMILY_CHUNK)
+    walls, mets = [], []
+    for bt in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, bt)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        mets.append(met)
+    ref = [leaf_digest(x) for x in tree_flatten(state)[0]]
+    TP20_TIMES["20.1 recurrentgemma-9b reference steps"] = time.perf_counter() - t0
+    reserved("20.1's reference steps")
+    del state, step
+    torch.cuda.empty_cache()
+    lmesh.init_process_group(device=dev)
+    try:
+        return tp_train_mesh(dev, smi, model.cfg.name, model, batches, FAMILY_CHUNK, FAMILY_SEED,
+                             ref, mets, statistics.median(walls[1:]) * 1e3, (False,))
+    finally:
+        lmesh.destroy_process_group()
+        reserved("20.1's steps on the mesh")
+
+
+def tp_train_ref(dev, model, label: str) -> None:
+    """20.2's unsharded step for one case of TP20_CASES, on ``model`` (the
+    phase's model of that config): the init of TP20_SEED, the loss, global
+    norm and gradients of one batch, the flash and rg_lru launches; the
+    gradients copied to the host and written, on a thread of
+    TP20_WRITERS, to a raw float32 file 20.2's ranks read; each leaf's
+    largest |value| kept. Fills TP20_REFS[label]."""
+    import contextlib
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core.types import tree_flatten
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rg_lru as rl
+    from repro_torch.optim.adamw import _clip_scale
+    from repro_torch.runtime import train as rt
+
+    t0 = time.perf_counter()
+    arch, _, b, s, chunk, f32 = TP20_CASES[label]
+    if TP20_DIR["path"] is None:
+        TP20_DIR["path"] = tempfile.mkdtemp(prefix="chip_smoke_tp20_")
+    with F32Compute() if f32 else contextlib.nullcontext():
+        model.init(torch.Generator(device=dev).manual_seed(TP20_SEED))
+        batch = make_batch(TP20_SEED, 0, b, s, model.cfg.vocab_size, device=dev)
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        rl.reset_launches()
+        nll, _, g = rt.loss_and_grads(model, batch, seq_chunk=chunk)
+        norm = _clip_scale(g, 1.0)[1]
+        launched = {**fa.LAUNCHES, **rl.LAUNCHES}
+    leaves = tree_flatten(g)[0]
+    path = f"{TP20_DIR['path']}/{label.replace(' ', '_')}.f32"
+    t_host = time.perf_counter()
+    stage = torch.empty(1 << 26, dtype=torch.float32, pin_memory=True)
+    host = []
+    for x in leaves:    # through a pinned buffer: pageable copies run at a third
+        flat, out = x.reshape(-1), np.empty(x.numel(), np.float32)
+        for i in range(0, flat.numel(), stage.numel()):
+            n = min(stage.numel(), flat.numel() - i)
+            stage[:n].copy_(flat[i:i + n])
+            out[i:i + n] = stage[:n].numpy()
+        host.append(out)
+    del stage
+    t_host = time.perf_counter() - t_host
+
+    def write():    # numpy's tofile leaves the interpreter lock: the phase goes on
+        with open(path, "wb") as f:
+            for a in host:
+                a.tofile(f)
+    TP20_WRITERS.append(threading.Thread(target=write))
+    TP20_WRITERS[-1].start()
+    TP20_REFS[label] = dict(loss=float(nll), norm=float(norm), path=path, launched=launched,
+                            shapes=[tuple(x.shape) for x in leaves],
+                            scales=[float(x.abs().max()) for x in leaves])
+    del g, leaves
+    torch.cuda.empty_cache()
+    TP20_TIMES[f"20.2 reference {label}"] = time.perf_counter() - t0
+    print(f"tp 20.2 unsharded {label} ({b} x {s}): loss {float(nll)!r}, global norm "
+          f"{float(norm)!r}, launches {launched}; {time.perf_counter() - t0:.1f} s, the "
+          f"gradients' copy to the host {t_host:.1f} s of it (their file written meanwhile)")
+
+
+def tp20_rank(dev, mesh, refs: dict) -> dict:
+    """One of 20.2's ranks (inside 19.2's spawn, on its (1, TP_M) gloo mesh
+    over the card's tensors): each case of ``refs`` on a model built on the
+    mesh from the init of TP20_SEED, one batch's loss, global norm (the
+    whole model's: clip_by_global_norm_'s model axis) and gradients, each
+    leaf's shard against the unsharded gradient's slice (read from the
+    host), the flash and rg_lru launches and shapes; no missing-autograd
+    warning (an error here)."""
+    import contextlib
+    import warnings
+
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.types import tree_flatten
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rg_lru as rl
+    from repro_torch.models import Model
+    from repro_torch.optim.adamw import _clip_scale
+    from repro_torch.runtime import train as rt
+    out = {}
+    for label, ref in refs.items():
+        arch, layers, b, s, chunk, f32 = TP20_CASES[label]
+        cfg = configs.get(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        with F32Compute() if f32 else contextlib.nullcontext(), warnings.catch_warnings():
+            warnings.filterwarnings("error", message=NO_AUTOGRAD)
+            model = Model(cfg, device=dev, trainable=True, remat=True, mesh=mesh)
+            model.init(torch.Generator(device=dev).manual_seed(TP20_SEED))
+            batch = make_batch(TP20_SEED, 0, b, s, cfg.vocab_size, device=dev)
+            torch.cuda.synchronize()
+            fa.reset_launches()
+            rl.reset_launches()
+            t1 = time.perf_counter()
+            nll, _, g = rt.loss_and_grads(model, batch, seq_chunk=chunk)
+            norm = _clip_scale(g, 1.0, rt.model_axis(model))[1]
+            torch.cuda.synchronize()
+            step_s, init_s = time.perf_counter() - t1, t1 - t0
+            launched = {**fa.LAUNCHES, **rl.LAUNCHES}
+            shapes = dict(fa.SHAPES) | {("bwd",) + k: n for k, n in fa.BWD_SHAPES.items()}
+        errs, at = [], 0
+        whole = np.memmap(ref["path"], dtype=np.float32, mode="r")
+        for x, shape, cut in zip(tree_flatten(g)[0], ref["shapes"], model.param_slices(),
+                                 strict=True):
+            n = math.prod(shape)
+            w = np.ascontiguousarray(whole[at:at + n].reshape(shape)[cut])
+            errs.append(float((x - torch.from_numpy(w).to(x.device)).abs().max()))
+            at += n
+        out[label] = dict(loss=float(nll), norm=float(norm), errs=errs, launched=launched,
+                          shapes=shapes, step_s=step_s, init_s=init_s,
+                          seconds=time.perf_counter() - t0,
+                          peak=torch.cuda.max_memory_reserved(),
+                          layout=(model.cfg.attn_layout, model.cfg.heads_padded))
+        del model, g, whole
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_train_ranks_check(smi: str, ranks: list, seconds: float) -> tuple[dict, dict, dict]:
+    """20.2 in the main process: each case's loss and global norm on every
+    rank within the bound (0.05 * max(1, |x|) in bf16, TP20_F32_RTOL in
+    float32 compute) of the unsharded step's, every gradient leaf's shard
+    within the bound times the leaf's largest |value|, each rank's flash
+    and rg_lru launches equal to the unsharded step's. Returns the ranks'
+    launches and flash shapes."""
+    launched, shapes, dtypes = {}, {}, {}
+    for label, ref in TP20_REFS.items():
+        f32 = TP20_CASES[label][5]
+        tol = TP20_F32_RTOL if f32 else 0.05
+        worst, worst_leaf = 0.0, None
+        for r, rk in enumerate(ranks):
+            got = rk[label]
+            for i, (e, sc) in enumerate(zip(got["errs"], ref["scales"], strict=True)):
+                share = e / max(sc, 1e-30)
+                if share > worst:
+                    worst, worst_leaf = share, i
+            d_loss = abs(got["loss"] - ref["loss"]) / max(1.0, abs(ref["loss"]))
+            d_norm = abs(got["norm"] - ref["norm"]) / max(1.0, abs(ref["norm"]))
+            print(f"time tp 20.2 {label} rank {r} ({got['layout']}): the model built and "
+                  f"drawn {got['init_s']:.2f} s, one gradient pass {got['step_s']:.3f} s, the "
+                  f"case {got['seconds']:.1f} s (gloo through the "
+                  f"host: not a tensor-parallel performance number), peak_reserved_gib="
+                  f"{got['peak'] / 2**30:.2f}; launches {got['launched']} | {smi}")
+            if got["launched"] != ref["launched"]:
+                fail(f"tp 20.2 {label} rank {r}: launches {got['launched']}, the unsharded "
+                     f"step's {ref['launched']}")
+            if not (d_loss <= tol and d_norm <= tol):
+                fail(f"tp 20.2 {label} rank {r}: loss {got['loss']!r} / norm {got['norm']!r} "
+                     f"against {ref['loss']!r} / {ref['norm']!r} beyond {tol}")
+            for k, n in got["launched"].items():
+                launched[k] = launched.get(k, 0) + n
+            for key, n in got["shapes"].items():
+                shapes[key] = shapes.get(key, 0) + n
+                plain = key[1:] if key[0] == "bwd" else key
+                dtypes.setdefault(plain, set()).add("float32" if f32 else "bf16")
+        print(f"check tp 20.2 {label}: {len(ranks)} ranks against the unsharded step: loss "
+              f"{[rk[label]['loss'] for rk in ranks]} / {ref['loss']!r}, norm "
+              f"{[rk[label]['norm'] for rk in ranks]} / {ref['norm']!r}; every gradient leaf "
+              f"within {worst:.3e} of its largest |value| (leaf {worst_leaf}; bound {tol:g}); "
+              f"flash / rg_lru launches on each rank equal to the unsharded step's "
+              f"{ref['launched']}")
+        if worst > tol:
+            fail(f"tp 20.2 {label}: gradient leaf {worst_leaf} at {worst:.3e} of its largest "
+                 f"|value| > {tol}")
+    TP20_TIMES["20.2 ranks (in the spawn of 18.2 and 19.2)"] = seconds
+    return launched, shapes, {k: sorted(v) for k, v in dtypes.items()}
+
+
+def tp_train_kernel_phase(dev, smi: str, errs: dict, shapes: dict,
+                          dtypes: dict) -> tuple[dict, dict]:
+    """20.3: the kernels at the per-rank training shapes of a model axis of
+    2: the flash backward at qwen1.5-0.5b's (8 * 16 / 2, 2048, 64) causal
+    and at recurrentgemma-9b's flat (2 * 16 / 2, 3072, 256) G = 1 with
+    window 2048 (the hd-256 path), each against its twin (two launches
+    bit-equal) and timed beside SDPA's backward and its bound; rg_lru_bwd
+    at (2, 3072, 2048) bit-equal to its twin (two launches bit-equal) and
+    timed beside its twin, its bound and the same-bytes addcmul yardstick;
+    and every other shape 20.2's ranks launched checked (check_bwd) in each
+    compute dtype it ran in (``dtypes``: shape -> dtypes). Returns
+    (flash_attention_bwd rows, the rg_lru_bwd row), each with its launches
+    in 20.2."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import rg_lru as rl
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(203)
+    rows, checked = {}, set()
+    for arch, b, s, window in (("qwen1.5-0.5b", 8, 2048, 0),
+                               ("recurrentgemma-9b", 2, 3072, 2048)):
+        cfg = configs.get(arch)
+        h = cfg.n_heads // TP_M
+        name = f"{arch} per rank M={TP_M} training"
+        tensors = check_bwd(dev, gen, errs, f"20.3 {name} ({b * h}, {s}, {cfg.hd}) G=1", b * h, 1,
+                            s, s, cfg.hd, True, window)
+        rows[name] = time_bwd(f"20.3 {name}", b, h, h, cfg.hd, tensors, smi, True, window)
+        key = (b * h, s, s, cfg.hd, 1, True, window, s)
+        checked.add(key)
+        rows[name]["launches"] = shapes.get(("bwd",) + key, 0)
+        del tensors
+        torch.cuda.empty_cache()
+    for key in sorted({k[1:] if k[0] == "bwd" else k for k in shapes} - checked):
+        bh, sq, sk, hd, g, causal, window, kv_len = key
+        for dtype in dtypes.get(key, ("bf16",)):
+            check_bwd(dev, gen, errs, f"20.3 20.2's shape ({bh}, {sq}, {hd}) G={g} {dtype}", bh,
+                      g, sq, sk, hd, causal, window, None if kv_len == sk else kv_len,
+                      torch.float32 if dtype == "float32" else None)
+    b, s, w = 2, 3072, configs.get("recurrentgemma-9b").rglru_dim // TP_M
+    log_a = -8.0 * torch.rand((b, s, w), device=dev, generator=gen)
+    h = rl.rg_lru(log_a, torch.randn((b, s, w), device=dev, generator=gen))
+    dh = torch.randn((b, s, w), device=dev, generator=gen)
+    got, again = rl.rg_lru_bwd(log_a, h, None, dh), rl.rg_lru_bwd(log_a, h, None, dh)
+    want = rl.rg_lru_bwd_plain(log_a, h, None, dh)
+    torch.cuda.synchronize()
+    pairs = [(a, c, d) for a, c, d in zip(got, again, want) if d is not None]
+    equal = all(torch.equal(a, d) for a, _, d in pairs)
+    repeat = all(torch.equal(a, c) for a, c, _ in pairs)
+    err = max(float((a - d).abs().max()) for a, _, d in pairs)
+    errs["rg_lru_bwd"] = max(errs.get("rg_lru_bwd", 0.0), err)
+    print(f"check rg_lru_bwd 20.3 per rank M={TP_M} training ({b}, {s}, {w}): bit-equal to its "
+          f"twin {equal} (max_abs_err={err:.3e}), two launches bit-equal {repeat}")
+    if not (equal and repeat):
+        fail("rg_lru_bwd 20.3: differs from its twin or from itself at the per-rank shape")
+    buf = torch.empty_like(log_a)
+    n_el = b * s * w
+    t_bytes = 20 * n_el / HBM_BYTES_PER_S * 1e3
+    t_ops = 5 * n_el / FP32_INSTR_PER_S * 1e3
+    rg = {"ms": device_ms([lambda: rl.rg_lru_bwd(log_a, h, None, dh)], reps=20),
+          "plain_ms": device_ms([lambda: rl.rg_lru_bwd_plain(log_a, h, None, dh)], reps=1,
+                                trials=3),
+          "library_ms": None, "bound_ms": max(t_bytes, t_ops),
+          "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+          "stream_ms": device_ms([lambda: torch.addcmul(log_a, h, dh, out=buf)], reps=20)}
+    rg["bound_share"] = rg["bound_ms"] / rg["ms"]
+    print(f"time rg_lru_bwd 20.3 per rank M={TP_M} training ({b}, {s}, {w}): "
+          + " ".join(f"{k}={v}" for k, v in rg.items()) + f" | {smi}")
+    del log_a, h, dh, got, again, want, pairs, buf
+    torch.cuda.empty_cache()
+    TP20_TIMES["20.3"] = time.perf_counter() - t0
+    return rows, rg
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -28,6 +28,8 @@ from repro_torch.core.types import (
     NetworkEnv,
     RadioConstants,
     SplitPlan,
+    tree_flatten,
+    tree_unflatten,
 )
 from repro_torch.device import resolve_device
 from repro_torch.faults.injectors import FaultRates, FaultState
@@ -264,16 +266,56 @@ def train_state_from_numpy(model, params: dict, m: dict, v: dict, opt_step, step
     config, so a JAX state trains on in the port: the params loaded into
     the model's float32 masters (the state's params are the model's own
     parameters), m and v as float32 trees in the same layout, the steps
-    int32. Returns it."""
+    int32. On a model built on a mesh, m and v are cut to this rank's
+    shard, as the params are. Returns it."""
     from repro_torch.optim import AdamWState
     from repro_torch.runtime.train import TrainState
     if not model.trainable:
         raise ValueError("a TrainState needs a Model(trainable=True): float32 masters")
     dev = model.device
     model_params_from_numpy(model, params)
-    opt = AdamWState(step=tensor(opt_step, dev), m=_port_layout(model, m, dev),
-                     v=_port_layout(model, v, dev))
+    opt = AdamWState(step=tensor(opt_step, dev), m=_shard(model, _port_layout(model, m, dev)),
+                     v=_shard(model, _port_layout(model, v, dev)))
     return TrainState(params=model.param_tree(), opt=opt, step=tensor(step, dev))
+
+
+def _shard(model, tree):
+    """A whole tree shaped as the model's param_tree() cut to this rank's
+    shard (Model.param_slices), each leaf contiguous."""
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, [x if cut is None else x[cut].contiguous()
+                                    for x, cut in zip(leaves, model.param_slices(),
+                                                      strict=True)])
+
+
+def train_state_whole(model, state):
+    """The inverse of cutting a TrainState to a rank's shard, for a
+    checkpoint: every params, m and v leaf whole on every rank, the shards
+    of a leaf split over the mesh's "model" axis gathered (the model's
+    tp.TP: an all-reduce of a zero-filled whole buffer), a DTensor leaf
+    (ZeRO-1's moments) by full_tensor(). A state of a model off a mesh, or
+    already whole, passes through with only its DTensors gathered. Every
+    rank of the mesh calls it."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.runtime.train import TrainState
+    dims = model.model_dims()
+    shapes = [tuple(x.shape) for x in tree_flatten(model.param_shapes())[0]]
+
+    def whole(tree):
+        leaves, treedef = tree_flatten(tree)
+        out = []
+        for x, d, shape in zip(leaves, dims, shapes, strict=True):
+            if isinstance(x, DTensor):
+                x = x.full_tensor()
+            elif d >= 0 and tuple(x.shape) != shape:
+                with torch.no_grad():
+                    x = model.tp.gather(x.detach(), d)
+            out.append(x)
+        return tree_unflatten(treedef, out)
+    return TrainState(params=whole(state.params),
+                      opt=state.opt._replace(m=whole(state.opt.m), v=whole(state.opt.v)),
+                      step=state.step)
 
 
 def caches_from_numpy(tree, like, model=None):

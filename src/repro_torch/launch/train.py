@@ -15,17 +15,22 @@ step + 1 updates), and the one written at the end with the number of steps
 done; a run resumed from a label reads the stream from that step.
 
 --mesh D, DxM or PxDxM names the ("data",), ("data", "model") or ("pod",
-"data", "model") mesh; every axis but pod and data must be 1 (a model axis
-in training waits for TP / FSDP training, in the tensor-parallel half of
-ROADMAP.md section 1's sharding item).
+"data", "model") mesh. A model axis above 1 trains the dense and hybrid
+families tensor-parallel, the model built on the mesh (each rank its
+shard); the other families wait for TP / FSDP training there, in the
+tensor-parallel half of ROADMAP.md section 1's sharding item.
 Under torchrun, or inside a process group the caller made, each process is
-a rank; a mesh of more than one device without either starts its D ranks
+a rank; a mesh of more than one device without either starts its ranks
 itself (launch.mesh.spawn) and returns rank 0's result. Under a process
 group the step is runtime.train.jit_train_step over launch.mesh.make_mesh;
 without one it is make_train_step on the one device (the same bits). Every
 rank draws the whole global batch, as the one-device run does, and trains
-on its rows. Rank 0 writes the checkpoints, of whole tensors; every rank
-restores them onto the mesh (the state's shardings).
+on its rows. Rank 0 writes the checkpoints, of whole tensors (the model
+axis's shards gathered, convert.train_state_whole); every rank restores
+them and cuts its shard (the state's shardings), so a checkpoint restores
+on any mesh whose model axis gives the model the same parameter shapes (no
+mesh, too, where that is M = 1's: a flat layout that pads the heads holds
+wider wq / wo).
 """
 from __future__ import annotations
 
@@ -38,15 +43,21 @@ import time
 import torch
 import torch.distributed as dist
 
-from repro_torch import configs
+from repro_torch import configs, convert
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data import SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.launch import mesh as lmesh
 from repro_torch.models import Model
-from repro_torch.pshard import unshard
+from repro_torch.models.model import TP_TRAIN_FAMILIES
 from repro_torch.runtime import ft
-from repro_torch.runtime.train import TP_ITEM, init_state, jit_train_step, make_train_step
+from repro_torch.runtime.train import (
+    TP_ITEM,
+    TrainState,
+    init_state,
+    jit_train_step,
+    make_train_step,
+)
 
 MESH_AXES = {1: ("data",), 2: ("data", "model"), 3: ("pod", "data", "model")}
 
@@ -70,14 +81,21 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def check_mesh(spec: str) -> tuple[tuple, tuple]:
-    """(dims, axes) of a --mesh spec; raises for a model axis above 1."""
+    """(dims, axes) of a --mesh spec."""
     dims = tuple(int(x) for x in spec.split("x"))
     if len(dims) not in MESH_AXES or any(d < 1 for d in dims):
         raise ValueError(f"--mesh {spec}: 1 to 3 axes of at least one device")
-    axes = MESH_AXES[len(dims)]
-    if "model" in axes and dims[axes.index("model")] != 1:
-        raise NotImplementedError(f"--mesh {spec}: a model axis above 1 waits for {TP_ITEM}")
-    return dims, axes
+    return dims, MESH_AXES[len(dims)]
+
+
+def _model_size(dims, axes) -> int:
+    """The size of a mesh's "model" axis (1 without one)."""
+    return dims[axes.index("model")] if "model" in axes else 1
+
+
+def _config(args):
+    cfg = configs.get(args.arch)
+    return cfg.reduced() if args.reduced else cfg
 
 
 def frontend_shape(cfg, seq: int):
@@ -96,6 +114,10 @@ def main(argv=None) -> dict:
     tokens for vlm, (seq, d_model) frames for audio."""
     args = parse_args(argv)
     dims, axes = check_mesh(args.mesh)
+    family = _config(args).family
+    if _model_size(dims, axes) > 1 and family not in TP_TRAIN_FAMILIES:
+        raise NotImplementedError(f"--mesh {args.mesh}: training the {family} family on a "
+                                  f"model axis above 1 waits for {TP_ITEM}")
     if dist.is_initialized():
         return _train(args, dims, axes)
     if "RANK" in os.environ:            # torchrun: each process a rank
@@ -129,16 +151,15 @@ def _train(args, dims, axes) -> dict:
     """The training loop: on the mesh (dims, axes) of the process group, or
     on one device when dims is None."""
     dev = resolve_device(args.device)
-    cfg = configs.get(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
-    model = Model(cfg, device=dev, moe_capacity=2.0, trainable=True, remat=True)
+    cfg = _config(args)
+    mesh = None if dims is None else lmesh.make_mesh(dims, axes, device=dev)
+    tp_mesh = mesh if dims is not None and _model_size(dims, axes) > 1 else None
+    model = Model(cfg, device=dev, moe_capacity=2.0, trainable=True, remat=True, mesh=tp_mesh)
     fs = frontend_shape(cfg, args.seq)
     rank0 = dims is None or dist.get_rank() == 0
     if dims is None:
         step_fn, state_shard = make_train_step(model, args.microbatches), None
     else:
-        mesh = lmesh.make_mesh(dims, axes, device=dev)
         make, state_shard = jit_train_step(model, mesh, args.microbatches)
         shapes = {"tokens": (args.batch, args.seq), "targets": (args.batch, args.seq)}
         if fs is not None:
@@ -148,7 +169,7 @@ def _train(args, dims, axes) -> dict:
     mgr = CheckpointManager(args.ckpt_dir)
 
     def save(step: int, state) -> None:
-        whole = unshard(state) if dims is not None else state
+        whole = convert.train_state_whole(model, state) if dims is not None else state
         if rank0:
             mgr.save_async(step, whole)
 
@@ -159,9 +180,11 @@ def _train(args, dims, axes) -> dict:
             dist.barrier()
 
     state = init_state(model, torch.Generator(device=dev).manual_seed(args.seed))
+    # what a checkpoint holds: every leaf whole
+    like = state if dims is None else whole_like(model, state)
     start = mgr.latest_step()
     if start is not None:
-        state, start = mgr.restore(state, device=dev, shardings=state_shard)
+        state, start = mgr.restore(like, device=dev, shardings=state_shard)
         if rank0:
             print(f"[resume] from step {start}")
     else:
@@ -189,8 +212,7 @@ def _train(args, dims, axes) -> dict:
         settle()
         st = mgr.latest_step() or 0
         if mgr.latest_step() is not None:
-            holder["state"], st = mgr.restore(holder["state"], device=dev,
-                                              shardings=state_shard)
+            holder["state"], st = mgr.restore(like, device=dev, shardings=state_shard)
         return max(0, st - start)
 
     t0 = time.time()
@@ -209,6 +231,23 @@ def _train(args, dims, axes) -> dict:
               f"retries={retries} straggler_steps={stragglers}")
     return {"done": done, "start": start, "losses": losses, "retries": retries,
             "stragglers": stragglers, "state": holder["state"], "wall_s": dt}
+
+
+def whole_like(model, state) -> TrainState:
+    """A TrainState of meta tensors shaped as ``state`` with every params, m
+    and v leaf whole (Model.param_shapes) and float32: what a checkpoint of
+    a model's state holds, whatever shard this rank trains."""
+    shapes = model.param_shapes()
+
+    def meta(tree):
+        if isinstance(tree, dict):
+            return {k: meta(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [meta(v) for v in tree]
+        return torch.empty(tree.shape, dtype=torch.float32, device="meta")
+    return TrainState(params=meta(shapes),
+                      opt=state.opt._replace(m=meta(shapes), v=meta(shapes)),
+                      step=state.step)
 
 
 if __name__ == "__main__":

@@ -20,14 +20,16 @@ head (head_map) and attends at G = 1, the padded heads zeroed. Under a
 tp.TP (a mesh's "model" axis) each rank holds its columns of wq / wk / wv
 and its rows of wo, as the specs place them: grouped, its KV/M kv heads and
 their query heads; flat, its Hp/M query heads, with K and V gathered whole
-when wk / wv split inside a head. wo's partial output is summed over the
-group. Cross attention runs the same shards over its source, which every
-rank holds whole. Decode always runs the grouped math over the cache: a
-cache split by kv heads (grouped) attends locally; a cache whose sequence
-is split over the group (flat, its size a multiple of M) takes the
-gathered queries, runs the single pass over the rank's slots and merges
-the ranks' partial softmaxes (tp.TP.lse_combine: flash-decoding across
-ranks).
+when wk / wv split inside a head. The input enters the rank's heads
+(tp.TP.enter) and wo's partial output is summed over the group
+(tp.TP.reduce); a replicated wk / wv (flat, KV * hd not a multiple of M)
+gets a per-rank partial gradient (Model.grad_kinds). Cross attention runs
+the same shards over its source, which every rank holds whole. Decode
+always runs the grouped math over the cache: a cache split by kv heads
+(grouped) attends locally; a cache whose sequence is split over the group
+(flat, its size a multiple of M) takes the gathered queries, runs the
+single pass over the rank's slots and merges the ranks' partial softmaxes
+(tp.TP.lse_combine: flash-decoding across ranks).
 """
 from __future__ import annotations
 
@@ -132,8 +134,11 @@ def attn_apply(p: dict, x, cfg, q_pos, kv_src=None, cache: dict | None = None,
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     g = h // kv
     flat = cfg.attn_layout == "flat"
-    src = x if kv_src is None else kv_src
     dt = COMPUTE_DTYPE      # weights cast at use (a no-op on stored bf16)
+    qkv_split = split(tp, "qkv", _query_heads(cfg) * hd)
+    if qkv_split:           # the replicated stream enters the rank's heads
+        x = tp.enter(x)
+    src = x if kv_src is None else kv_src
     q = x @ at_use(p["wq"], x)
     kproj = src @ at_use(p["wk"], src)
     vproj = src @ at_use(p["wv"], src)
@@ -142,8 +147,10 @@ def attn_apply(p: dict, x, cfg, q_pos, kv_src=None, cache: dict | None = None,
         kproj = kproj + p["bk"].to(dt)
         vproj = vproj + p["bv"].to(dt)
     if flat and split(tp, "kv", kv * hd):   # split inside a head
-        kproj, vproj = tp.gather_cols(kproj), tp.gather_cols(vproj)
-    qkv_split = split(tp, "qkv", _query_heads(cfg) * hd)
+        # made whole, then used for the rank's own heads only: their
+        # cotangents are summed over the group before each rank takes its
+        # slice
+        kproj, vproj = tp.enter(tp.gather(kproj, -1)), tp.enter(tp.gather(vproj, -1))
     hq_l, kv_l = q.shape[-1] // hd, kproj.shape[-1] // hd     # this rank's heads
     h0 = tp.offset(hq_l) if qkv_split else 0
     q = q.view(b, s, hq_l, hd)
@@ -152,7 +159,7 @@ def attn_apply(p: dict, x, cfg, q_pos, kv_src=None, cache: dict | None = None,
     if kv_src is not None:
         out = _cross(q, kproj, vproj, q_pos, flat, h0, cfg, causal, window)
         out = out.reshape(b, s, hq_l * hd) @ at_use(p["wo"], out)
-        return (tp.all_reduce_sum(out) if qkv_split else out), None
+        return (tp.reduce(out) if qkv_split else out), None
     q = rope(q, q_pos, cfg.rope_theta)
     kproj = rope(kproj, q_pos, cfg.rope_theta)
     seq = _seq_split(cfg, cache, tp, window, max_len) if flat else None
@@ -215,7 +222,7 @@ def attn_apply(p: dict, x, cfg, q_pos, kv_src=None, cache: dict | None = None,
         new_cache = {"k": k_all, "v": v_all, "pos": pos_all, "len": cache["len"] + s}
     out = out.reshape(b, s, hq_l * hd) @ at_use(p["wo"], out)
     if qkv_split:
-        out = tp.all_reduce_sum(out)
+        out = tp.reduce(out)
     return out, new_cache
 
 

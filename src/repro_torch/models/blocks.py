@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.models import attention, moe, recurrent, xlstm
 from repro_torch.models.layers import ParamDef, layer_norm, mlp_apply, mlp_defs, rms_norm
+from repro_torch.models.tp import split
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,6 +128,21 @@ def block_apply(cfg, spec: StageSpec, p: dict, x, aux: dict, cache=None):
         return x + y, new_cache, aux_l
     return (x + mlp_apply(p["mlp"], _norm(cfg, p, "ln2", x), cfg.act, cfg.d_ff, tp),
             new_cache, zero)
+
+
+def rank_local(cfg, key: str, tp) -> bool:
+    """Whether a block's sub-dict ``key`` (its attention, MLP or RG-LRU) runs
+    rank-local under ``tp``: its input enters the rank's shard and its
+    partial output is summed over the group. Every other mixer (the MoE,
+    xLSTM and cross blocks, which train on no model axis above 1) counts as
+    replicated."""
+    if key == "attn":
+        return split(tp, "qkv", attention._query_heads(cfg) * cfg.hd)
+    if key == "mlp":
+        return split(tp, "mlp", cfg.d_ff)
+    if key == "rglru":
+        return split(tp, "lru", cfg.rglru_dim or cfg.d_model)
+    return False
 
 
 def _grouped(specs) -> list[StageSpec]:

@@ -176,14 +176,18 @@ def mlp_apply(p: dict, x, act: str, width: int, tp=None):
     """SwiGLU (w1/w3/w2) or GELU (w1/w2) MLP. GELU is the tanh form, the
     JAX default. Weights cast at use (at_use). With a tp.TP that splits
     "mlp" at ``width`` (the MLP's d_ff), w1 / w3 hold this rank's columns
-    and w2 its rows: the partial output is summed over the group (a
-    replicated MLP is not reduced)."""
+    and w2 its rows: the input enters the rank's columns (tp.TP.enter) and
+    the partial output is summed over the group (tp.TP.reduce); a
+    replicated MLP is neither."""
+    tp_split = split(tp, "mlp", width)
+    if tp_split:
+        x = tp.enter(x)
     if act == "swiglu":
         h = F.silu(x @ at_use(p["w1"], x)) * (x @ at_use(p["w3"], x))
     else:
         h = F.gelu(x @ at_use(p["w1"], x), approximate="tanh")
     out = h @ at_use(p["w2"], h)
-    return tp.all_reduce_sum(out) if split(tp, "mlp", width) else out
+    return tp.reduce(out) if tp_split else out
 
 
 def mlp_defs(d_model: int, d_ff: int, act: str) -> dict:
@@ -207,23 +211,28 @@ def _vocab_split(tp, vocab: int) -> bool:
 def embed_lookup(table, tokens, vocab: int, tp=None):
     """Rows of ``table`` at ``tokens``. Vocab-parallel under a tp.TP whose
     "vocab" is split: each rank looks up the tokens in its rows, writes
-    zeros for the others, and the group sums."""
+    zeros for the others, and the group sums (tp.TP.reduce: the table's
+    gradient lands in the rank's rows only)."""
     if not _vocab_split(tp, vocab):
         return F.embedding(tokens, table).to(COMPUTE_DTYPE)
     n = table.shape[0]
     idx = tokens - tp.offset(n)
     mine = (idx >= 0) & (idx < n)
     rows = F.embedding(idx.clamp(0, n - 1), table)
-    return tp.all_reduce_sum(torch.where(mine[..., None], rows, 0).to(COMPUTE_DTYPE))
+    return tp.reduce(torch.where(mine[..., None], rows, 0).to(COMPUTE_DTYPE))
 
 
 def logits_out(x, table, vocab: int, tp=None):
     """Project to the (padded) vocab in float32; mask the padding rows to
-    -1e30. Under a tp.TP whose "vocab" is split, each rank's columns are
-    gathered whole (tp.gather_cols) before the mask."""
+    -1e30. Under a tp.TP whose "vocab" is split, x enters the rank's
+    columns (tp.TP.enter) and they are gathered whole (tp.TP.gather) before
+    the mask."""
+    vocab_split = _vocab_split(tp, vocab)
+    if vocab_split:
+        x = tp.enter(x)
     logits = (x @ table.to(COMPUTE_DTYPE).T).float()
-    if _vocab_split(tp, vocab):
-        logits = tp.gather_cols(logits)
+    if vocab_split:
+        logits = tp.gather(logits, -1)
     vp = logits.shape[-1]
     if vp != vocab:
         mask = torch.arange(vp, device=x.device) < vocab

@@ -24,7 +24,11 @@ parameter and cache leaf (pshard.spec_for, runtime.sharding.
 cache_shardings), takes its rows of the batch (and of the frontend), and
 its layers issue the model axis's collectives (models/tp.py). The audio
 encoder runs on the mesh too, its output whole over "model" on every
-rank, as the frontend / enc_out caches are held.
+rank, as the frontend / enc_out caches are held. Model(cfg, mesh=,
+trainable=True) holds float32 masters of the rank's shard; the dense and
+hybrid families train on a model axis above 1 (its collectives are
+autograd Functions, grad_kinds says which gradients the train step sums
+over the group), the others on a model axis of 1 only.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import pshard
+from repro_torch.core.types import tree_flatten
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, blocks, recurrent, tp, xlstm
 from repro_torch.models.layers import (
@@ -105,8 +110,13 @@ def _stack(trees: list):
     return torch.stack(trees)
 
 
-TP_ITEM = ("TP / FSDP training, in the tensor-parallel half of ROADMAP.md section 1's "
-           "sharding item (serving has the model axis)")
+TP_ITEM = ("TP / FSDP training of the MoE, xLSTM, vision and audio families, and FSDP, "
+           "in the tensor-parallel half of ROADMAP.md section 1's sharding item (serving "
+           "has the model axis for every family, training for the dense and hybrid ones)")
+# the families that train on a model axis above 1
+TP_TRAIN_FAMILIES = ("dense", "hybrid")
+# a parameter's kind on the model axis (Model.grad_kinds)
+WHOLE, SPLIT, PARTIAL = 0, 1, 2
 
 
 class Model(nn.Module):
@@ -136,9 +146,9 @@ class Model(nn.Module):
             if tp_size not in (None, m):
                 raise ValueError(f"tp_size={tp_size} on a mesh whose model axis is {m}")
             tp_size = m
-            if m > 1 and trainable:
-                raise NotImplementedError(f"training on a model axis of {m} waits for "
-                                          f"{TP_ITEM}")
+            if m > 1 and trainable and cfg.family not in TP_TRAIN_FAMILIES:
+                raise NotImplementedError(f"training the {cfg.family} family on a model "
+                                          f"axis of {m} waits for {TP_ITEM}")
         if tp_size and cfg.family != "ssm" and cfg.n_kv_heads % tp_size != 0:
             cfg = dataclasses.replace(cfg, attn_layout="flat",
                                       heads_padded=tp.flat_heads(cfg.n_heads, tp_size))
@@ -202,6 +212,55 @@ class Model(nn.Module):
         return {**param_specs(self._top_defs()),
                 "stages": [[param_specs(blk.p.defs) for blk in layers]
                            for layers in self.stage_layers]}
+
+    def _per_leaf(self, fn) -> list:
+        """fn(def, spec, local) for every parameter, in the order tree_flatten
+        gives param_tree()'s leaves: spec its placement's (() off a mesh),
+        local whether a rank-local mixer uses it (blocks.rank_local)."""
+        values: list = []
+
+        def walk(defs: dict, local: bool) -> dict:
+            out = {}
+            for k, d in defs.items():
+                if isinstance(d, dict):
+                    out[k] = walk(d, local or blocks.rank_local(self.cfg, k, self.tp))
+                else:
+                    spec = () if self.place is None else self.place.spec(d.axes, d.shape)
+                    out[k] = len(values)
+                    values.append(fn(d, spec, local))
+            return out
+        ids = tree_flatten({**walk(self._top_defs(), False),
+                            "stages": [[walk(blk.p.defs, False) for blk in layers]
+                                       for layers in self.stage_layers]})[0]
+        return [values[i] for i in ids]
+
+    def grad_kinds(self) -> list[int]:
+        """Each parameter's kind on the model axis (in tree_flatten order of
+        param_tree()): SPLIT (its spec puts a dim on "model": its squares
+        are summed over the group in the global norm), PARTIAL (held whole,
+        but a rank-local mixer uses it for the rank's share of the work:
+        each rank's gradient is a partial sum, summed over the group before
+        clipping) or WHOLE (held whole and used alike on every rank: the
+        same gradient everywhere). Every leaf is WHOLE off a mesh."""
+        def kind(d, spec, local):
+            if tp.MODEL_AXIS in _axes(spec):
+                return SPLIT
+            return PARTIAL if local else WHOLE
+        return self._per_leaf(kind)
+
+    def model_dims(self) -> list[int]:
+        """Each parameter's dim split over "model" (in tree_flatten order of
+        param_tree()), -1 for a leaf held whole."""
+        def dim(d, spec, local):
+            return next((i for i, e in enumerate(spec) if tp.MODEL_AXIS in _axes((e,))), -1)
+        return self._per_leaf(dim)
+
+    def param_slices(self) -> list:
+        """Each parameter's slice of its whole leaf that this rank holds (in
+        tree_flatten order of param_tree()); None off a mesh."""
+        if self.place is None:
+            return [None] * len(tree_flatten(self.param_tree())[0])
+        return self._per_leaf(lambda d, spec, local: self.place.slice(d.axes, d.shape))
 
     def param_shapes(self) -> dict:
         """Every parameter whole (the flat layout's padded widths included),
@@ -477,6 +536,11 @@ class Model(nn.Module):
             out[key] = torch.zeros((batch, self.cfg.frontend_tokens, self.cfg.d_model),
                                    dtype=COMPUTE_DTYPE, device=device)
         return out
+
+
+def _axes(spec: tuple) -> set:
+    """The mesh axes a spec names (an entry may be a tuple of axes)."""
+    return {a for e in spec if e is not None for a in (e if isinstance(e, tuple) else (e,))}
 
 
 def _cache_fill(key: str, leaf) -> float:

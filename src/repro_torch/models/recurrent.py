@@ -20,7 +20,9 @@ its W/M channels: the columns of w_in, w_gate, conv_w, conv_b and lam, the
 rows of w_out (its partial output summed over the group) and the rows of
 the float32 gate matrices w_r / w_i ("lru", "lru_out"), whose partial
 products over the rank's channels are summed in float32, both gates in one
-buffer, before the rank keeps its own columns. The recurrence and the
+buffer, before the rank keeps its own columns (tp.TP.reduce_take, whose
+backward gathers the columns' cotangents). The input enters the rank's
+channels (tp.TP.enter); w_out's partial output is summed (tp.TP.reduce). The recurrence and the
 decode states run on the rank's channels.
 """
 from __future__ import annotations
@@ -70,6 +72,8 @@ def rglru_apply(p: dict, x, cfg, state: dict | None = None, tp=None):
     this rank's channels under ``tp``). Returns (out (B, S, D), new state or
     None)."""
     lru_split = split(tp, "lru", cfg.rglru_dim or cfg.d_model)
+    if lru_split:       # the replicated stream enters the rank's channels
+        x = tp.enter(x)
     gate = F.gelu(x @ at_use(p["w_gate"], x), approximate="tanh")
     u = x @ at_use(p["w_in"], x)
     u, conv_state = _causal_conv(u, p["conv_w"], p["conv_b"],
@@ -77,10 +81,8 @@ def rglru_apply(p: dict, x, cfg, state: dict | None = None, tp=None):
     uf = u.float()
     # the gates' weights and lam stay float32, as the reference uses them
     if lru_split:
-        both = tp.all_reduce_sum(torch.stack([uf @ p["w_r"].float(), uf @ p["w_i"].float()]))
-        w = uf.shape[-1]
-        mine = both[..., tp.offset(w):tp.offset(w) + w]
-        r, i = torch.sigmoid(mine[0]), torch.sigmoid(mine[1])
+        r, i = tp.reduce_take([uf @ p["w_r"].float(), uf @ p["w_i"].float()])
+        r, i = torch.sigmoid(r), torch.sigmoid(i)
     else:
         r = torch.sigmoid(uf @ p["w_r"].float())
         i = torch.sigmoid(uf @ p["w_i"].float())
@@ -102,7 +104,7 @@ def rglru_apply(p: dict, x, cfg, state: dict | None = None, tp=None):
         new_state = {"h": h[:, -1, :].float(), "conv": conv_state}
     y = gate * h.to(COMPUTE_DTYPE)
     out = y @ at_use(p["w_out"], y)
-    return (tp.all_reduce_sum(out) if lru_split else out), new_state
+    return (tp.reduce(out) if lru_split else out), new_state
 
 
 def make_rglru_state(cfg, batch: int, n_layers: int, device=None) -> dict:

@@ -7,17 +7,36 @@ partition the program. The port places each leaf as the same specs say
 does not divide stays whole) and computes on plain local tensors, with the
 reductions and gathers named here, on the mesh's "model" sub-group:
 
-  all_reduce_sum / all_reduce_max   row-parallel matmuls, vocab-parallel
-                                     embedding, the RG-LRU gates' partial
-                                     products, the MoE's partial combine over
-                                     a rank's experts, the flash-decoding
-                                     combine;
-  gather / gather_cols               a dim split over the ranks made whole
-                                     (logits, K / V split inside a head,
-                                     decode queries, projections whose split
-                                     cuts heads, the xLSTM states' layouts);
+  reduce (Megatron's "g")            row-parallel matmuls and the
+                                     vocab-parallel embedding: the sum over
+                                     the group forward, the identity
+                                     backward (the summed output feeds
+                                     computation every rank repeats);
+  enter (Megatron's "f")             a replicated activation entering
+                                     rank-local computation: the identity
+                                     forward, the sum of the ranks'
+                                     cotangents backward;
+  gather                             a dim split over the ranks made whole
+                                     (logits, K / V split inside a head); its
+                                     backward takes the rank's slice (K / V,
+                                     used for the rank's own heads only, go
+                                     through enter after it);
+  reduce_take                        the RG-LRU gates: partial products
+                                     summed, each rank keeping its channels;
+                                     backward, the slices' cotangents
+                                     gathered;
+  all_reduce_sum / all_reduce_max    the raw collectives: the MoE's partial
+                                     combine over a rank's experts, the
+                                     flash-decoding combine, the xLSTM
+                                     states' layouts;
   lse_combine                        the ranks' partial softmax attention over
                                      their cache slots merged into one.
+
+The first four are autograd Functions where a graph is built (grad on and
+an input that requires grad); otherwise they issue exactly the serving
+path's collectives on the same buffers. A replicated leaf that a
+rank-local computation uses gets a per-rank partial gradient, which the
+train step sums over the group (Model.grad_kinds).
 
 Every collective is an all-reduce: a gather is the all-reduce of a
 zero-filled whole buffer in which each rank writes its slice. So one code
@@ -130,10 +149,7 @@ class TP:
         """The first global index of this rank's slice of a split dim."""
         return self.rank * n_local
 
-    def gather(self, x, dim: int = -1):
-        """A dim split over the group made whole: each rank writes its slice
-        into a zero-filled buffer n * size long on ``dim``, then all-reduce
-        (adding zeros changes no value)."""
+    def _gather(self, x, dim: int):
         dim %= x.ndim
         n = x.shape[dim]
         shape = list(x.shape)
@@ -142,9 +158,49 @@ class TP:
         buf.narrow(dim, self.offset(n), n).copy_(x)
         return self.all_reduce_sum(buf)
 
+    def gather(self, x, dim: int = -1):
+        """A dim split over the group made whole: each rank writes its slice
+        into a zero-filled buffer n * size long on ``dim``, then all-reduce
+        (adding zeros changes no value). Backward: the rank's slice of the
+        cotangent (the whole result is used alike on every rank)."""
+        if _graph(x):
+            return _Gather.apply(x, self, dim % x.ndim)
+        return self._gather(x, dim)
+
     def gather_cols(self, x):
         """The last dim split over the group made whole (gather)."""
         return self.gather(x, -1)
+
+    def reduce(self, x):
+        """A partial result summed over the group (a row-parallel matmul's
+        output, the vocab-parallel embedding); the identity backward."""
+        if _graph(x):
+            return _Reduce.apply(x, self)
+        return self.all_reduce_sum(x)
+
+    def enter(self, x):
+        """A replicated activation entering rank-local computation: itself
+        forward; backward, the ranks' partial cotangents summed."""
+        if _graph(x):
+            return _Enter.apply(x, self)
+        return x
+
+    def _reduce_take(self, parts, dim: int):
+        both = self.all_reduce_sum(torch.stack(parts))
+        n = both.shape[dim] // self.size
+        mine = both.narrow(dim, self.offset(n), n)
+        return tuple(mine[i] for i in range(len(parts)))
+
+    def reduce_take(self, parts: list, dim: int = -1) -> tuple:
+        """Partial products (each rank's sum over its channels) summed over
+        the group in one buffer, each rank keeping its slice of ``dim``
+        (the RG-LRU gates). Backward: the slices' cotangents gathered whole
+        (each rank uses its slice differently, so a slice's gradient reaches
+        every rank's partial product)."""
+        dim %= parts[0].ndim
+        if _graph(*parts):
+            return _ReduceTake.apply(self, dim + 1, *parts)
+        return self._reduce_take(parts, dim + 1)
 
     def take(self, x, dim: int = -1):
         """This rank's slice of a whole dim that splits over the group."""
@@ -177,6 +233,57 @@ class TP:
         both = torch.cat([acc * scale[..., None], (l * scale)[..., None]], dim=-1)
         both = self.all_reduce_sum(both)
         return both[..., :-1] / torch.clamp_min(both[..., -1:], 1e-30)
+
+
+def _graph(*xs) -> bool:
+    """Whether an op on ``xs`` is recorded by autograd."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        # on a copy: the graph's tensor may be saved for another node's backward
+        return tp.all_reduce_sum(x.clone(memory_format=torch.contiguous_format))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        # on a copy: autograd may hand the same tensor to several branches
+        return ctx.tp.all_reduce_sum(g.clone(memory_format=torch.contiguous_format)), None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim, ctx.n = tp, dim, x.shape[dim]
+        return tp._gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.tp.offset(ctx.n), ctx.n).contiguous(), None, None
+
+
+class _ReduceTake(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tp, dim, *parts):
+        ctx.tp, ctx.dim = tp, dim
+        return tp._reduce_take(list(parts), dim)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        whole = ctx.tp._gather(torch.stack(gs), ctx.dim)
+        return (None, None, *whole.unbind(0))
 
 
 def widths(cfg, vocab_padded: int) -> dict:

@@ -1,6 +1,6 @@
 """Training step: cross-entropy (optionally chunked) plus the MoE aux loss,
 microbatch accumulation, global-norm clipping and AdamW, on one device
-(make_train_step) or data-parallel over a device mesh (jit_train_step).
+(make_train_step) or over a device mesh (jit_train_step).
 
 The state is a TrainState of trees, as the JAX package's. Its params are
 the model's own parameters (Model.param_tree(): float32 masters of a
@@ -12,21 +12,31 @@ it was given, params and moments: the port's form of the JAX step's
 donated state, at 16 bytes a parameter. A state whose params are other
 tensors (a restored checkpoint) is copied into the model first.
 
-jit_train_step(model, mesh, ...) is the data-parallel step on a mesh whose
-axes other than ("pod", "data") are all of size 1 (a "model" axis above 1,
-and fsdp, wait for TP / FSDP training: ROADMAP.md section 1, the sharding
-item's tensor-parallel half; serving has the model axis, models/tp.py). Every rank holds the whole parameters. A step
-takes the rank's rows of the global batch (batch_spec over ("pod",
-"data")), computes its gradients, all-reduces them over the data-parallel
-group so that every rank holds the whole gradient of the global batch's
-loss (each rank's mean weighted by its share of the target tokens), clips
-by the global norm of that gradient (the one-device step's order) and runs
-AdamW. With zero1, each rank keeps only its slice of the moments of the
-leaves of at least 2^16 elements (the first replicated dim that divides,
-as the reference widens them: DTensors split over the data axes), updates
-its slice of those parameters, and the slices are all-gathered. AdamW is
-elementwise and correctly rounded, so zero1 on and off give the same bits,
-and a mesh of one device gives the bits of make_train_step.
+A model built on a mesh's "model" axis (Model(cfg, mesh=, trainable=True):
+the dense and hybrid families) holds and steps its shard of every
+parameter and moment: its layers' collectives are autograd Functions
+(models/tp.py), loss_and_grads sums the gradients that are per-rank
+partials over the axis (Model.grad_kinds) and the global norm is the whole
+model's (clip_by_global_norm_'s model_axis). The logits are gathered whole
+before the cross-entropy (a vocab-parallel log-softmax would save that
+gather).
+
+jit_train_step(model, mesh, ...) is the step on a ("pod", "data",
+"model") mesh (fsdp, other axes above 1, and the MoE, xLSTM, vlm and audio
+families on a model axis above 1 wait for TP / FSDP training: ROADMAP.md
+section 1, the sharding item's tensor-parallel half). A step takes the
+rank's rows of the global batch (batch_spec over ("pod", "data"): the
+ranks of one data index take the same rows), computes its gradients,
+all-reduces them over the data-parallel group so that every rank holds its
+shard of the gradient of the global batch's loss (each rank's mean
+weighted by its share of the target tokens), clips by the global norm of
+that gradient (the one-device step's order) and runs AdamW. With zero1,
+each rank keeps only its slice of the moments of the leaves of at least
+2^16 elements (the first replicated dim of the whole leaf that divides, as
+the reference widens them: DTensors split over the data axes), updates its
+slice of those parameters, and the slices are all-gathered over the data
+axes. AdamW is elementwise and correctly rounded, so zero1 on and off give
+the same bits, and a mesh of one device gives the bits of make_train_step.
 """
 from __future__ import annotations
 
@@ -39,7 +49,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.types import tree_flatten, tree_unflatten
 from repro_torch.models import Model
 from repro_torch.models.layers import logits_out
-from repro_torch.models.model import TP_ITEM
+from repro_torch.models.model import PARTIAL, SPLIT, TP_ITEM
 from repro_torch.optim.adamw import (
     AdamWState,
     adamw_init,
@@ -105,7 +115,7 @@ def loss_fn_chunked(model: Model, batch: dict, aux_weight=1e-2, seq_chunk: int =
     unembed, vocab = model.top.unembed, model.cfg.vocab_size
 
     def chunk_nll(h_c, t_c):
-        return _nll_sum(logits_out(h_c, unembed, vocab), t_c)
+        return _nll_sum(logits_out(h_c, unembed, vocab, model.tp), t_c)
 
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -125,7 +135,9 @@ def loss_and_grads(model: Model, batch: dict, n_microbatches: int = 1, seq_chunk
     """(nll, aux, grads) of the loss at the model's parameters: grads a tree
     shaped as Model.param_tree(). Microbatches split the batch on axis 0;
     their gradients are summed in order from zeros and divided by n, and so
-    are nll and aux."""
+    are nll and aux. On a model axis, the gradients that are per-rank
+    partials (Model.grad_kinds: PARTIAL) are then summed over it, all in
+    one all-reduce."""
     if seq_chunk:
         lfn = lambda b: loss_fn_chunked(model, b, seq_chunk=seq_chunk)  # noqa: E731
     else:
@@ -152,7 +164,22 @@ def loss_and_grads(model: Model, batch: dict, n_microbatches: int = 1, seq_chunk
         nll, aux = nll_sum / n, aux_sum / n
     else:
         nll, aux, g = grad_fn(batch)
-    return nll, aux, tree_unflatten(treedef, list(g))
+    g = list(g)
+    if model.tp is not None:
+        idx = [i for i, k in enumerate(model.grad_kinds()) if k == PARTIAL]
+        if idx:
+            flat = model.tp.all_reduce_sum(torch.cat([g[i].reshape(-1) for i in idx]))
+            for i, part in zip(idx, flat.split([g[i].numel() for i in idx])):
+                g[i] = part.view(g[i].shape)
+    return nll, aux, tree_unflatten(treedef, g)
+
+
+def model_axis(model: Model):
+    """clip_by_global_norm_'s model_axis for a model on a mesh's "model"
+    axis ((its tp.TP, each leaf's SPLIT flag)), or None."""
+    if model.tp is None:
+        return None
+    return model.tp, [k == SPLIT for k in model.grad_kinds()]
 
 
 def make_train_step(model: Model, n_microbatches: int = 1, base_lr=3e-4, total_steps=10000,
@@ -164,11 +191,12 @@ def make_train_step(model: Model, n_microbatches: int = 1, base_lr=3e-4, total_s
     scalars). Every family trains: vlm and audio batches carry "frontend"."""
     if not model.trainable:
         raise ValueError("make_train_step needs a Model(trainable=True): float32 masters")
+    axis = model_axis(model)
 
     def train_step(state: TrainState, batch: dict):
         state = attach(model, state)
         nll, aux, g = loss_and_grads(model, batch, n_microbatches, seq_chunk)
-        g, gnorm = clip_by_global_norm_(g)
+        g, gnorm = clip_by_global_norm_(g, model_axis=axis)
         lr = cosine_lr(state.step, base_lr=base_lr, total=total_steps)
         _, opt = adamw_update_(state.params, g, state.opt, lr)
         del g
@@ -212,8 +240,9 @@ def _zero1_shardings(mesh, p_shard, params_shapes, min_size=2**16):
 
 
 class _DataParallel:
-    """The rank's place on a data-parallel mesh: its group, its index along
-    the ("pod", "data") axes (pod-major) and their size."""
+    """The rank's place on a data-parallel mesh: its group (on a ("data",
+    "model") mesh, the ranks of its "model" index), its index along the
+    ("pod", "data") axes (pod-major) and their size."""
 
     def __init__(self, mesh):
         import torch.distributed as dist
@@ -225,10 +254,11 @@ class _DataParallel:
             self.index = self.index * sizes[a] + mesh.get_local_rank(a)
         if len(self.axes) == 1:
             self.group = mesh.get_group(self.axes[0])
-        elif mesh.size() == dist.get_world_size():
+        elif mesh.size() == dist.get_world_size() and sizes.get("model", 1) == 1:
             self.group = None          # the other axes are 1: every rank of the world
         else:
-            raise ValueError("a ('pod', 'data') mesh must span the process group")
+            raise ValueError("a ('pod', 'data') mesh must span the process group, with a "
+                             "model axis of 1")
 
     def rows(self, x, what: str):
         """This rank's rows of a global batch leaf (a DTensor's local shard;
@@ -309,60 +339,86 @@ def _dp_loss_and_grads(model: Model, dp: _DataParallel, batch: dict, n_microbatc
 
 def jit_train_step(model: Model, mesh, n_microbatches: int = 1, zero1: bool = False,
                    seq_chunk: int = 0, fsdp: bool = False):
-    """The data-parallel train step on ``mesh`` (module docstring). Returns
-    (make, state_shard) as the reference does: make(batch_shapes) checks a
-    global batch's shapes (a dict of tensors or shapes) against the mesh and
+    """The train step on ``mesh`` (module docstring). Returns (make,
+    state_shard) as the reference does: make(batch_shapes) checks a global
+    batch's shapes (a dict of tensors or shapes) against the mesh and
     returns step(state, batch) -> (state, metrics); state_shard is the
-    TrainState of NamedSharding (params replicated, the moments widened by
-    ZeRO-1 when zero1). step takes a TrainState of whole tensors or of this
-    rank's shards (DTensors: a restore with shardings=state_shard) and a
-    batch of global leaves (every rank the same: it takes its rows), of
-    DTensors, or of the rank's rows; it returns the moments that ZeRO-1
-    shards as DTensors (pshard.unshard gathers them) and the rest whole."""
+    TrainState of NamedSharding (params as tree_shardings places them, the
+    moments widened by ZeRO-1 when zero1). A model axis above 1 needs the
+    model built on ``mesh`` (Model(cfg, mesh=mesh, trainable=True)). step
+    takes a TrainState of whole tensors, of this rank's shards, or of
+    DTensors (a restore with shardings=state_shard) and a batch of global
+    leaves (every rank the same: it takes its rows), of DTensors, or of the
+    rank's rows; it returns the params as the model's own shards, the
+    moments that ZeRO-1 widens as DTensors of the whole leaf and the other
+    moments as this rank's shards (convert.train_state_whole gathers a
+    state whole)."""
     if fsdp:
         raise NotImplementedError(f"fsdp=True waits for {TP_ITEM}")
     sizes = shlib.mesh_shape(mesh)
-    wide = {a: n for a, n in sizes.items() if a not in ("pod", "data") and n > 1}
+    wide = {a: n for a, n in sizes.items() if a not in ("pod", "data", "model") and n > 1}
     if wide:
         raise NotImplementedError(f"mesh axes {wide} of more than one device wait for "
                                   f"{TP_ITEM}")
     if not model.trainable:
         raise ValueError("jit_train_step needs a Model(trainable=True): float32 masters")
+    if sizes.get("model", 1) > 1 and model.mesh is not mesh:
+        raise ValueError("the model was not built on this mesh: Model(cfg, mesh=mesh, "
+                         "trainable=True)")
     dp = _DataParallel(mesh)
-    params_shapes = model.param_tree()
-    p_shard = shlib.tree_shardings(mesh, model.specs(), params_shapes, fsdp=fsdp)
-    m_shard = _zero1_shardings(mesh, p_shard, params_shapes) if zero1 else p_shard
+    whole_shapes = model.param_shapes()
+    p_shard = shlib.tree_shardings(mesh, model.specs(), whole_shapes, fsdp=fsdp)
+    m_shard = _zero1_shardings(mesh, p_shard, whole_shapes) if zero1 else p_shard
     scalar = shlib.NamedSharding(mesh, ())
     opt_shard = AdamWState(step=scalar, m=m_shard, v=m_shard)
     state_shard = TrainState(params=p_shard, opt=opt_shard, step=scalar)
-    m_leaves = shlib.sharding_leaves(m_shard)
-    leaves, treedef = tree_flatten(params_shapes)
-    shapes = [tuple(p.shape) for p in leaves]
-    spans = [dp.span(ns, shape) for ns, shape in zip(m_leaves, shapes, strict=True)]
+    p_leaves, m_leaves = shlib.sharding_leaves(p_shard), shlib.sharding_leaves(m_shard)
+    leaves, treedef = tree_flatten(model.param_tree())
+    shapes = [tuple(x.shape) for x in tree_flatten(whole_shapes)[0]]
+    # the data-parallel slice of each leaf's shard (its dim is held whole on "model")
+    spans = [dp.span(ns, tuple(p.shape)) for ns, p in zip(m_leaves, leaves, strict=True)]
+    # the slice of each whole leaf that this rank's shard holds, where it is not all of it
+    cuts = [None if tuple(p.shape) == s else c
+            for p, s, c in zip(leaves, shapes, model.param_slices(), strict=True)]
+
+    def mine(x, ns, i):
+        """This rank's part of a moment leaf under ``ns``: a DTensor's local
+        shard, or the data-parallel slice of the rank's shard of a whole
+        leaf (or of a shard)."""
+        from torch.distributed.tensor import DTensor
+        if (cuts[i] is not None and not isinstance(x, DTensor)
+                and tuple(x.shape) == shapes[i]):
+            x = x[cuts[i]].contiguous()
+        return dp.local(x, ns)
 
     def whole(xs):
         """Moment slices as the tree of their whole leaves."""
         return tree_unflatten(treedef, [x if at is None else dp.wrap(x, ns, s)
                                         for x, at, ns, s in zip(xs, spans, m_leaves, shapes)])
 
+    axis = model_axis(model)
+
     def train_step(state: TrainState, batch: dict):
-        state = TrainState(params=shlib.unshard(state.params), opt=state.opt,
+        params = [dp.local(x, ns) for x, ns in zip(tree_flatten(state.params)[0], p_leaves,
+                                                   strict=True)]
+        state = TrainState(params=tree_unflatten(treedef, params), opt=state.opt,
                            step=shlib.unshard(state.step))
         state = attach(model, state)
-        m, v = ([dp.local(x, ns) for x, ns in zip(tree_flatten(t)[0], m_leaves, strict=True)]
+        m, v = ([mine(x, ns, i) for i, (x, ns) in enumerate(zip(tree_flatten(t)[0], m_leaves,
+                                                              strict=True))]
                 for t in (state.opt.m, state.opt.v))
         nll, aux, g = _dp_loss_and_grads(model, dp, batch, n_microbatches, seq_chunk)
-        g, gnorm = clip_by_global_norm_(g)
+        g, gnorm = clip_by_global_norm_(g, model_axis=axis)
         lr = cosine_lr(state.step)
-        p_leaves = tree_flatten(state.params)[0]
+        p_leaves_now = tree_flatten(state.params)[0]
         p_loc = [p if at is None else p.narrow(*at).contiguous()   # a view at dim 0
-                 for p, at in zip(p_leaves, spans)]
+                 for p, at in zip(p_leaves_now, spans)]
         g_loc = [x if at is None else x.narrow(*at) for x, at in zip(tree_flatten(g)[0], spans)]
         _, opt = adamw_update_(p_loc, g_loc, AdamWState(
             step=shlib.unshard(state.opt.step), m=m, v=v), lr)
         del g, g_loc
         with torch.no_grad():
-            for p, loc, at in zip(p_leaves, p_loc, spans):
+            for p, loc, at in zip(p_leaves_now, p_loc, spans):
                 if at is not None:
                     dp.gather_into(p, loc, at[0])
         opt = AdamWState(step=opt.step, m=whole(opt.m), v=whole(opt.v))

@@ -747,6 +747,32 @@ def test_flash_attention_bwd_at_the_qwen_train_shape(cuda):
     _check_bwd(cuda, 128, 1, 2048, 2048, 64, True, 0, None, torch.bfloat16, 23)
 
 
+@pytest.mark.parametrize("bh,sq,hd,window", [
+    (64, 2048, 64, 0),          # qwen1.5-0.5b at 8 x 2048 over a model axis of 2
+    (16, 3072, 256, 2048),      # recurrentgemma-9b's flat layout at 2 x 3072, M = 2
+])
+def test_flash_attention_bwd_at_the_per_rank_training_shapes(cuda, bh, sq, hd, window):
+    """The flash backward at the per-rank shapes of tensor-parallel
+    training: each rank's query heads at G = 1 (K / V repeated once a head
+    in the flat layout), causal, bf16; two launches bit-equal."""
+    _check_bwd(cuda, bh, 1, sq, sq, hd, True, window, None, torch.bfloat16, bh + hd)
+
+
+def test_rg_lru_bwd_at_the_per_rank_training_shape(cuda):
+    """rg_lru_bwd at recurrentgemma-9b's 2 x 3072 step over a model axis of
+    2 (W 2048 channels a rank): bit-equal to its twin, two launches
+    bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(203)
+    log_a = -8.0 * torch.rand((2, 3072, 2048), device=cuda, generator=g)
+    dh = torch.randn((2, 3072, 2048), device=cuda, generator=g)
+    h = rl.rg_lru(log_a, torch.randn((2, 3072, 2048), device=cuda, generator=g))
+    got, again = rl.rg_lru_bwd(log_a, h, None, dh), rl.rg_lru_bwd(log_a, h, None, dh)
+    want = rl.rg_lru_bwd_plain(log_a, h, None, dh)
+    for x_, y_, z_ in zip(got, again, want):
+        if z_ is not None:
+            assert torch.equal(x_, z_) and torch.equal(x_, y_)
+
+
 def test_train_step_on_the_card_counts_launches(cuda):
     """The reduced qwen1.5-0.5b's train step on the card: per step 2 flash
     forwards a layer (the forward, and its recomputation under remat) and

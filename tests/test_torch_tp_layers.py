@@ -17,8 +17,10 @@ layout's choice, the refusals), on the CPU.
   with a simulated group), is the state again;
 - TP.splits reads each leaf's own width: MoE's "mlp" at d_ff, moe_d_ff
   and the shared experts', xLSTM's "qkv" at h * hd and 4 * h * hd;
-- a model axis above 1 still raises for training, every family
-  (Model(mesh=, trainable=True), launch/train.py --mesh 1x2).
+- training on a model axis above 1: the dense and hybrid families build
+  (each rank's float32 shard, on a stand-in mesh), their per-rank partial
+  gradients named by placement (Model.grad_kinds), and the other families
+  still raise (Model(mesh=, trainable=True), launch/train.py --mesh 1x2).
 """
 import dataclasses
 
@@ -291,12 +293,78 @@ def test_splits_read_each_leafs_own_width():
             and not tp.split(x48, "heads", 4))
 
 
+class _StandInMesh:
+    """What Model(mesh=) reads of a DeviceMesh, for one rank of a mesh of
+    ``sizes`` at ``coord``, with no process group (a model on the meta
+    device issues no collective)."""
+
+    def __init__(self, sizes: dict, coord: dict):
+        self.mesh_dim_names = tuple(sizes)
+        self.mesh = torch.arange(int(np.prod(list(sizes.values())))).reshape(
+            tuple(sizes.values()))
+        self._coord = coord
+
+    def get_coordinate(self):
+        return [self._coord[a] for a in self.mesh_dim_names]
+
+    def get_local_rank(self, axis):
+        return self._coord[axis]
+
+    def get_group(self, axis):
+        return None
+
+
+# the leaves whose gradient is a per-rank partial (Model.grad_kinds): a
+# replicated wk / wv (and their biases) beside split query heads
+PARTIALS = {("qwen1.5-0.5b", 2): set(), ("qwen1.5-0.5b", 3): {"wk", "wv", "bk", "bv"},
+            ("recurrentgemma-9b", 2): set(), ("recurrentgemma-9b", 3): {"wk", "wv"}}
+
+
 def test_training_on_a_model_axis_raises():
+    """The dense and hybrid families build trainable on a model axis of 2
+    and 3 (each leaf the float32 shard its placement assigns, every leaf
+    SPLIT, PARTIAL or WHOLE as its placement and its mixer say); the MoE
+    family still raises, naming the TP item; --mesh 1x2 parses."""
+    from repro_torch.models.model import PARTIAL, SPLIT, WHOLE
+    assert launch_train.check_mesh("1x2") == ((1, 2), ("data", "model"))
     with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        launch_train.check_mesh("1x2")
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        Model(configs.get("qwen1.5-0.5b").reduced(), device="meta", trainable=True,
-              mesh={"data": 1, "model": 2})
+        Model(configs.get("deepseek-moe-16b").reduced(), device="meta", trainable=True,
+              mesh=_StandInMesh({"data": 1, "model": 2}, {"data": 0, "model": 1}))
+    for (arch, m), partial in PARTIALS.items():
+        sizes = {"data": 1, "model": m}
+        model = Model(configs.get(arch).reduced(), device="meta", trainable=True,
+                      mesh=_StandInMesh(sizes, {"data": 0, "model": m - 1}))
+        whole = model.param_shapes()
+        for p, x, sh in zip(tree_flatten(model.param_tree())[0], tree_flatten(whole)[0],
+                            sharding.sharding_leaves(sharding.tree_shardings(
+                                sizes, model.specs(), whole))):
+            assert p.dtype == torch.float32 and p.requires_grad
+            assert tuple(p.shape) == sharding.local_shape(tuple(x.shape), sh.spec, sizes)
+        names, kinds = _leaf_names(model), model.grad_kinds()
+        assert len(kinds) == len(names)
+        got = {n.rsplit(".", 1)[-1] for n, k in zip(names, kinds) if k == PARTIAL}
+        assert got == partial, (arch, m, got)
+        for n, k, sh in zip(names, kinds, sharding.sharding_leaves(sharding.tree_shardings(
+                sizes, model.specs(), whole))):
+            assert (k == SPLIT) == ("model" in sh.spec), (arch, m, n)
+            assert k in (SPLIT, PARTIAL, WHOLE)
+
+
+def _leaf_names(model) -> list:
+    """Each parameter's dotted path, in tree_flatten order of param_tree()."""
+    out = []
+
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                walk(tree[k], f"{prefix}.{k}" if prefix else k)
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                walk(v, f"{prefix}.{i}")
+        else:
+            out.append(prefix)
+    walk(model.param_tree(), "")
+    return out
 
 
 def test_a_model_not_built_on_the_mesh_is_refused():

@@ -41,6 +41,7 @@ from repro_torch.pshard import unshard  # noqa: E402
 from repro_torch.runtime import train as t_train  # noqa: E402
 
 ARCH = "qwen1.5-0.5b"
+TP_ARCHS = ("qwen1.5-0.5b", "recurrentgemma-9b")
 WORLD = 2
 BATCH, SEQ = 4, 32
 STEPS = (7, 8)                        # the batches of the two compared steps
@@ -75,6 +76,14 @@ def train_rank(rank: int, carried, tmp: str) -> None:
                                         "--ckpt-dir", f"{tmp}/ckpt"])
     out["launch"] = (launch["losses"], again["start"], again["losses"])
     _port_f32()
+    tp_mesh = make_mesh((1, WORLD), ("data", "model"), device="cpu")
+    for arch in TP_ARCHS:      # a model axis of 2: each rank its shard
+        model = Model(configs.get(arch).reduced(), device="cpu", trainable=True, mesh=tp_mesh)
+        state = t_train.init_state(model, torch.Generator().manual_seed(0))
+        b = make_batch(0, 5, BATCH, SEQ, model.cfg.vocab_size, device="cpu")
+        step = t_train.jit_train_step(model, tp_mesh)[0]({k: v.shape for k, v in b.items()})
+        out["tp", arch] = {k: float(v) for k, v in step(state, b)[1].items()}
+    del tp_mesh
     mesh = make_mesh((WORLD,), ("data",), device="cpu")
     for zero1 in (False, True):
         model = Model(cfg, device="cpu", trainable=True)
@@ -254,16 +263,37 @@ def test_entry_point_on_two_ranks_matches_one_device(case):
     assert all(np.isfinite(list(got.values())))
 
 
-def test_a_model_axis_raises_naming_the_tp_item():
+def test_a_model_axis_raises_naming_the_tp_item(case, monkeypatch):
+    """The dense and hybrid families build and step on a ("data", "model")
+    mesh of (1, 2) (in float32 compute: the loss and the global norm within
+    1e-5 of the unsharded port's Model(cfg, tp_size=2) step from the same
+    init; tests/test_torch_tp_train.py holds them to the JAX package); the
+    MoE family and fsdp=True still raise, naming the TP item (the test's
+    name is from the slice that refused every model axis)."""
+    for name in MODEL_MODULES:
+        mod = importlib.import_module(f"repro_torch.models.{name}")
+        if hasattr(mod, "COMPUTE_DTYPE"):
+            monkeypatch.setattr(mod, "COMPUTE_DTYPE", torch.float32)
+    for arch in TP_ARCHS:
+        model = Model(configs.get(arch).reduced(), device="cpu", trainable=True, tp_size=2)
+        state = t_train.init_state(model, torch.Generator().manual_seed(0))
+        b = make_batch(0, 5, BATCH, SEQ, model.cfg.vocab_size, device="cpu")
+        want = t_train.make_train_step(model)(state, b)[1]
+        got = case["ranks"]["tp", arch]
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(got[k], float(want[k]), rtol=1e-5)
+    assert launch_train.check_mesh("2x2") == ((2, 2), ("data", "model"))
     with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        launch_train.check_mesh("2x2")
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        launch_train.main(LAUNCH + ["--mesh", "1x2x2", "--steps", "1"])
+        launch_train.main(LAUNCH[:1] + ["deepseek-moe-16b"] + LAUNCH[2:]
+                          + ["--mesh", "1x2x2", "--steps", "1"])
     assert launch_train.check_mesh("2x1") == ((2, 1), ("data", "model"))
     assert launch_train.check_mesh("2x4x1") == ((2, 4, 1), ("pod", "data", "model"))
+    moe = Model(configs.get("deepseek-moe-16b").reduced(), device="cpu", trainable=True)
+    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+        Model(configs.get("deepseek-moe-16b").reduced(), device="meta", trainable=True,
+              mesh={"data": 1, "model": 2})
     model = Model(configs.get(ARCH).reduced(), device="cpu", trainable=True)
-    mesh = {"data": 1, "model": 2}
+    with pytest.raises(ValueError, match="built on this mesh"):
+        t_train.jit_train_step(model, {"data": 1, "model": 2})
     with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        t_train.jit_train_step(model, mesh)
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        t_train.jit_train_step(model, {"data": 1}, fsdp=True)
+        t_train.jit_train_step(moe, {"data": 1}, fsdp=True)
