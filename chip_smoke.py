@@ -251,8 +251,9 @@ Phases, each fatal on failure (no phase catches its own error):
                  at full width (FAMILIES: recurrentgemma-9b cut to rec, rec,
                  attn; deepseek-moe-16b to its dense layer and 2 MoE layers;
                  llama-3.2-vision-11b to 4 self + 1 cross layers over a
-                 1601 x 4096 frontend, every xgate 0.5; xlstm-125m and
-                 whisper-small whole), float32 masters and AdamW in place:
+                 1601 x 4096 frontend, every xgate 0.5; xlstm-125m to 6
+                 of its 12 layers; whisper-small whole), float32 masters
+                 and AdamW in place:
                  16.0 rg_lru_bwd bit-equal to its twin at the hybrid's
                  (2, 3072, 4096) with and without h0, at a ragged S and W,
                  at W % 4 != 0 and with dh off 16 bytes (cp.async), two
@@ -265,6 +266,7 @@ Phases, each fatal on failure (no phase catches its own error):
                  each backward timed beside SDPA's backward; 16.1 an untimed
                  step, then two gradient passes from one state and batch
                  bit-equal in every leaf; 16.2 FAMILY_STEPS timed steps
+                 (xlstm-125m FAMILY_SSM_STEPS)
                  (exact flash, rg_lru and rg_lru_bwd launches a step: 2
                  forwards and 1 backward a layer under remat; one MoE drop
                  count a MoE layer; no launch at an unchecked shape): step
@@ -362,6 +364,24 @@ Phases, each fatal on failure (no phase catches its own error):
                  = 1 window 2048) and rg_lru_bwd at (2, 3072, 2048), each
                  against its twin and timed, and every shape 20.2 launched
                  checked.
+ 21. tensor-parallel training of the MoE, xLSTM, vision and audio
+                 families -- 21.1 inside 16 (tp_family_train, over each
+                 family's phase model): deepseek-moe-16b (3 layers, 4 x
+                 2048; ZeRO-1 off and on), llama-3.2-vision-11b (5
+                 layers, 2 x 2048 over 1601 image tokens), whisper-small
+                 (4 x 448 over 1500 frames) and xlstm-125m (6 layers, 2 x
+                 128), TP21_STEPS steps each on a world-1 NCCL mesh: every
+                 leaf (64-bit digests), metric and MoE drop count bit-equal
+                 to make_train_step's, the all-reduces of each step counted
+                 against tp_train_collectives, the missing-autograd warning
+                 an error; 21.2 one gradient pass of each (TP21_CASES: the
+                 vlm and whisper in bf16 within 0.05, deepseek and xlstm in
+                 float32 compute within 1e-4, drops and launches equal) on
+                 the two gloo ranks of 18.2-20.2's spawn against the
+                 unsharded pass 16 computed; 21.3 the flash forward and
+                 backward at every per-rank shape 21.2 launched, against
+                 their twins, the bf16 ones timed beside SDPA's and their
+                 bounds.
 Every profiled window that records no device time is measured once more
 (profiled); a phase fails only if the retry is empty too. A graphed
 window whose trace is short of the replays that CUDA events saw run is
@@ -536,18 +556,23 @@ FLASH_BWD_RTOL, FLASH_BWD_F32_RTOL, LSE_RTOL = 1e-2, 1e-5, 1e-5
 # family -> (arch, layers kept or None, batch, tokens a sequence, frontend
 # tokens or None). The hybrid keeps rec, rec, attn (window 2048); deepseek
 # its dense first layer and two MoE layers; the vlm four self-attention
-# layers and one cross layer over a 1601 x 4096 frontend; xlstm-125m and
-# whisper-small (over 1500 frames) are whole.
+# layers and one cross layer over a 1601 x 4096 frontend; xlstm-125m six
+# of its twelve layers (mLSTM, sLSTM three times: its host-bound step took
+# 7.6 s whole on an NVIDIA H100 80GB HBM3, 700.00 W; cut for phase 21's
+# time); whisper-small (over 1500 frames) is whole.
 FAMILIES = {
     "hybrid": ("recurrentgemma-9b", 3, 2, 3072, None),
     "moe": ("deepseek-moe-16b", 3, 4, 2048, None),
     "vlm": ("llama-3.2-vision-11b", 5, 2, 2048, 1601),
     "audio": ("whisper-small", None, 4, 448, 1500),
-    # last: its profiled step records about a million events, after which a
-    # window may come back empty
-    "ssm": ("xlstm-125m", None, 4, 512, None),
+    # last: its profiled step records about half a million events, after
+    # which a window may come back empty
+    "ssm": ("xlstm-125m", 6, 4, 512, None),
 }
 FAMILY_SEED, FAMILY_STEPS, FAMILY_LR, FAMILY_CHUNK = 16, 5, 3e-3, 512
+# xlstm-125m's host-bound step takes FAMILY_SSM_STEPS timed steps (cut for
+# phase 21's time)
+FAMILY_SSM_STEPS = 3
 FAMILY_CAPACITY, FAMILY_XGATE = 2.0, 0.5     # the launcher's capacity; every xgate
 # 16.3: the reduced model in float32 compute on the card against itself on
 # the CPU (the plain twins): the loss within REDUCED_LOSS_RTOL, each
@@ -1475,10 +1500,11 @@ def main() -> int:
 def tp_ranks_and_kernels(dev, smi: str, errs: dict, rows: dict, launches: dict,
                          peaks: dict) -> None:
     """The end of the script: 18.3 and 19.3 (the kernels at the per-rank
-    serving shapes), then 18.2, 19.2 and 20.2 on TP_M gloo ranks sharing
-    the card, one spawn for the three (each reference computed first: 18.2's
-    and 19.2's here, 20.2's in 17.2 and 16), their checks, and 20.3. Adds
-    the kernels' rows and launches to ``rows`` and ``launches``."""
+    serving shapes), then 18.2, 19.2, 20.2 and 21.2 on TP_M gloo ranks
+    sharing the card, one spawn for the four (each reference computed
+    first: 18.2's and 19.2's here, 20.2's in 17.2 and 16, 21.2's in 16),
+    their checks, 20.3 and 21.3. Adds the kernels' rows and launches to
+    ``rows`` and ``launches``."""
     import gc
     import shutil
 
@@ -1551,11 +1577,10 @@ def tp_ranks_and_kernels(dev, smi: str, errs: dict, rows: dict, launches: dict,
         for name, n in source.items():
             launches[name] = launches.get(name, 0) + n
     print(f"tp 19.1 mesh programs' launches (13.1, 13.2, 14.1, 14.2): {TP19_LAUNCHES}")
-    memory_mark(torch, "18.2-20.2 (main process)", peaks)
+    memory_mark(torch, "18.2-21.2 (main process)", peaks)
     # -- 20.2 checked, then 20.3 the kernels at the per-rank training shapes
     tp20_launched, tp20_shapes, tp20_dtypes = tp_train_ranks_check(
-        smi, [rk["20.2"] for rk in spawned], max(rk["20.2", "s"] for rk in spawned))
-    shutil.rmtree(TP20_DIR["path"], ignore_errors=True)
+        smi, "20", [rk["20.2"] for rk in spawned], max(rk["20.2", "s"] for rk in spawned))
     tp20_bwd, tp20_rg = tp_train_kernel_phase(dev, smi, errs, tp20_shapes, tp20_dtypes)
     tp20_rg["launches"] = tp20_launched.get("rg_lru_bwd", 0)
     rows["flash_attention_bwd"].update(tp20_bwd)
@@ -1567,9 +1592,28 @@ def tp_ranks_and_kernels(dev, smi: str, errs: dict, rows: dict, launches: dict,
           f"{tp20_launched} (20.2's ranks); 20.3's rows' launches "
           f"{ {n: r['launches'] for n, r in tp20_bwd.items()} } (the qwen1.5-0.5b 8 x 2048 "
           f"shape of M = 2 runs on no path of one card)")
-    print(f"tp 20: phase 20 took {sum(TP20_TIMES.values()):.1f} s: "
-          + ", ".join(f"{k} {v:.1f} s" for k, v in TP20_TIMES.items()) + f" | {smi}")
     memory_mark(torch, "20.3", peaks)
+    # -- 21.2 checked, then 21.3 the flash kernels at the per-rank training shapes
+    tp21_launched, tp21_shapes, tp21_dtypes = tp_train_ranks_check(
+        smi, "21", [rk["21.2"] for rk in spawned], max(rk["21.2", "s"] for rk in spawned))
+    shutil.rmtree(TP20_DIR["path"], ignore_errors=True)
+    tp21_fwd, tp21_bwd, checked = tp21_kernel_phase(dev, smi, errs, tp21_shapes, tp21_dtypes)
+    unchecked = sorted({k[1:] if k[0] == "bwd" else k for k in tp21_shapes} - checked)
+    if unchecked:
+        fail(f"tp 21.2: the ranks launched flash_attention at shapes 21.3 does not check "
+             f"(query rows, Sq, Sk, hd, G, causal, window, kv_len): {unchecked}")
+    rows["flash_attention"].update(tp21_fwd)
+    rows["flash_attention_bwd"].update(tp21_bwd)
+    for source in (TP21_LAUNCHES, tp21_launched):
+        for name, n in source.items():
+            launches[name] = launches.get(name, 0) + n
+    print(f"tp 21: launches on its paths {TP21_LAUNCHES} (21.1, world-1 meshes) and "
+          f"{tp21_launched} (21.2's ranks)")
+    for phase in ("20", "21"):
+        times = {k: v for k, v in TP_TIMES.items() if k.startswith(phase + ".")}
+        print(f"tp {phase}: phase {phase} took {sum(times.values()):.1f} s: "
+              + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()) + f" | {smi}")
+    memory_mark(torch, "21.3", peaks)
 
 
 def serve_phase(dev, kind: str, smi: str, errs: dict):
@@ -5175,6 +5219,7 @@ def family_train(dev, family: str, smi: str, errs: dict, bwd_rows: dict) -> dict
 
     t_fam = time.perf_counter()
     cfg, b, s, f = family_config(family)
+    n_steps = FAMILY_SSM_STEPS if family == "ssm" else FAMILY_STEPS
     gen = torch.Generator(device=dev).manual_seed(FAMILY_SEED + 1)
     model = Model(cfg, device=dev, trainable=True, remat=True, moe_capacity=FAMILY_CAPACITY)
     calls = family_attention(model, b, s, f)
@@ -5212,7 +5257,7 @@ def family_train(dev, family: str, smi: str, errs: dict, bwd_rows: dict) -> dict
     step = rt.make_train_step(model, base_lr=FAMILY_LR, seq_chunk=FAMILY_CHUNK)
     fs = None if f is None else (f, cfg.d_model)
     batches = [make_batch(FAMILY_SEED, i, b, s, cfg.vocab_size, fs, device=dev)
-               for i in range(FAMILY_STEPS + 2)]
+               for i in range(n_steps + 2)]
     state, met = step(state, batches[0])
     torch.cuda.synchronize()
     first = float(met["loss"])
@@ -5235,7 +5280,7 @@ def family_train(dev, family: str, smi: str, errs: dict, bwd_rows: dict) -> dict
     # -- 16.2 timed steps ------------------------------------------------------------
     walls, losses, launches = [], [], {k: 0 for k in want}
     shapes = {"forward": set(), "backward": set()}
-    for i in range(FAMILY_STEPS):
+    for i in range(n_steps):
         torch.cuda.synchronize()
         fa.reset_launches()
         rl.reset_launches()
@@ -5284,14 +5329,15 @@ def family_train(dev, family: str, smi: str, errs: dict, bwd_rows: dict) -> dict
                gemm_share=gemm / busy_us, peak_reserved_gib=peak / 2**30,
                loss_first=first, loss_last=losses[-1], parameters=n_params)
     print(f"time family 16.2 {family} ({cfg.name}, {b} x {s} tokens a step, median of "
-          f"{FAMILY_STEPS}; launches a step {want}): "
+          f"{n_steps}; launches a step {want}): "
           + " ".join(f"{k}={v}" for k, v in row.items()) + f" | {smi}")
     del prof, rows_k, state, step, met
     gc.collect()
     torch.cuda.empty_cache()
-    if family == "hybrid":      # phase 20 over this model
-        for k, v in tp_hybrid(dev, smi, model, batches).items():
-            TP20_LAUNCHES[k] = TP20_LAUNCHES.get(k, 0) + v
+    if family == "hybrid" or family in TP21_FAMILIES:   # phase 20 or 21 over this model
+        counts = TP20_LAUNCHES if family == "hybrid" else TP21_LAUNCHES
+        for k, v in tp_family_train(dev, smi, family, model, batches).items():
+            counts[k] = counts.get(k, 0) + v
     del batches, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -5582,8 +5628,9 @@ def sharding_phase(dev, smi: str, fleet: dict, errs: dict, peaks: dict) -> dict:
                 out[k] = out.get(k, 0) + v
             del state, step, make
         # -- 20.1 over 17.2's model, batches and reference; 20.2's qwen references
-        for k, v in tp_train_mesh(dev, smi, TRAIN_ARCH, model, batches, TRAIN_CHUNK, TRAIN_SEED,
-                                  ref, ref_mets, ref_s * 1e3, (False, True)).items():
+        for k, v in tp_train_mesh(dev, smi, "20", TRAIN_ARCH, model, batches, TRAIN_CHUNK,
+                                  TRAIN_SEED, ref, ref_mets, [[] for _ in batches], ref_s * 1e3,
+                                  (False, True)).items():
             TP20_LAUNCHES[k] = TP20_LAUNCHES.get(k, 0) + v
         for label, case in TP20_CASES.items():
             if case[0] == TRAIN_ARCH:
@@ -5966,8 +6013,8 @@ def tp_spawned_rank(rank: int, tmp: str, dev, train_refs: dict) -> None:
     """One of the TP_M gloo ranks that share the card (launch.mesh.spawn
     with device "cpu": its mesh's device type is the CPU's, its collectives
     take the card's tensors, staged through the host): 18.2's serve
-    (tp_rank), 19.2's (tp19_rank) and 20.2's training cases (tp20_rank
-    against ``train_refs``), on one (1, TP_M) mesh. The rank starts while
+    (tp_rank), 19.2's (tp19_rank) and 20.2's and 21.2's training cases
+    (tp_train_rank against ``train_refs``), on one (1, TP_M) mesh. The rank starts while
     the main process times 18.3 and 19.3: it takes the first use of
     torch.utils.checkpoint on the host (which imports torch._dynamo, about
     10 s) and then waits, using nothing of the card, until tmp/go exists.
@@ -5990,7 +6037,10 @@ def tp_spawned_rank(rank: int, tmp: str, dev, train_refs: dict) -> None:
     out = {"warm_s": warm, "wait_s": time.perf_counter() - t0 - warm}
     for key, fn in (("18.2", lambda: tp_rank(dev, mesh, rank)),
                     ("19.2", lambda: tp19_rank(dev, mesh)),
-                    ("20.2", lambda: tp20_rank(dev, mesh, train_refs))):
+                    ("20.2", lambda: tp_train_rank(dev, mesh, {
+                        lb: r for lb, r in train_refs.items() if lb in TP20_CASES})),
+                    ("21.2", lambda: tp_train_rank(dev, mesh, {
+                        lb: r for lb, r in train_refs.items() if lb in TP21_CASES}))):
         t0 = time.perf_counter()
         out[key] = fn()
         out[key, "s"] = time.perf_counter() - t0
@@ -5998,9 +6048,10 @@ def tp_spawned_rank(rank: int, tmp: str, dev, train_refs: dict) -> None:
 
 
 def tp_spawn_ranks(dev, smi: str, tmp: str) -> list:
-    """The one spawn of TP_M gloo ranks on the card for 18.2, 19.2 and 20.2
-    (tp_spawned_rank, rendezvous and results in ``tmp``, which it removes;
-    20.2's references wait on the host). Returns the ranks' results."""
+    """The one spawn of TP_M gloo ranks on the card for 18.2, 19.2, 20.2 and
+    21.2 (tp_spawned_rank, rendezvous and results in ``tmp``, which it
+    removes; 20.2's and 21.2's references wait on the host). Returns the
+    ranks' results."""
     import shutil
 
     import torch
@@ -6013,9 +6064,9 @@ def tp_spawn_ranks(dev, smi: str, tmp: str) -> list:
         ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(TP_M)]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    parts = {k: max(rk[k, "s"] for rk in ranks) for k in ("18.2", "19.2", "20.2")}
-    print(f"tp 18.2-20.2: {TP_M} ranks on {torch.cuda.get_device_name(0)} over gloo, "
-          f"{spawn_s:.1f} s from spawn to exit (one spawn for the three, started before "
+    parts = {k: max(rk[k, "s"] for rk in ranks) for k in ("18.2", "19.2", "20.2", "21.2")}
+    print(f"tp 18.2-21.2: {TP_M} ranks on {torch.cuda.get_device_name(0)} over gloo, "
+          f"{spawn_s:.1f} s from spawn to exit (one spawn for the four, started before "
           f"18.3): the first checkpoint use {max(rk['warm_s'] for rk in ranks):.1f} s, the "
           f"wait for 18.3 and 19.3 {max(rk['wait_s'] for rk in ranks):.1f} s, then "
           + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + f" | {smi}")
@@ -6399,38 +6450,69 @@ def tp_family_kernel_phase(dev, smi: str, errs: dict) -> tuple[dict, dict]:
 # with no autograd kernel (an in-place c10d all-reduce): an error in phase 20
 NO_AUTOGRAD = ".*autograd kernel was not registered.*"
 # The all-reduces of one block in a training step on a model axis of 1
-# (every leaf splits): (forward, remat recompute, backward). The forward's
-# are the mixer's and the MLP's partial outputs summed (and an RG-LRU's
-# gates); the recompute stops after the block's last saved tensor (the
-# MLP's w2 input: torch.utils.checkpoint's early stop), so the MLP's sum is
-# not issued again; the backward's are the sums of the mixer's and the
-# MLP's input cotangents (tp.TP.enter) and an RG-LRU's gates' gather.
-TP_TRAIN_BLOCK = {"attn": (2, 1, 2), "rec": (3, 2, 3)}
-# 20.2's cases: label -> (arch, layers kept or None, batch, tokens, chunk,
-# float32 compute). qwen1.5-0.5b whole; recurrentgemma-9b at phase 16's cut.
+# (every leaf splits): (forward, remat recompute, backward), by block kind
+# ("moe": an attention block whose MLP is the MoE). The forward's are the
+# mixer's and the MLP's (or the MoE's: experts and shared experts in one)
+# partial outputs summed, an RG-LRU's gates and a decoder block's cross
+# attention; the recompute stops after the block's last saved tensor
+# (torch.utils.checkpoint's early stop: the MLP's w2 input, the shared
+# experts' sw2 input, an xLSTM's output projection's input), so the last
+# sum of a block is not issued again, and an xLSTM block's only one is
+# not; the backward's are the sums of each rank-local part's input
+# cotangents (tp.TP.enter: the mixer's, the MLP's, a decoder block's cross
+# attention's, the MoE's tokens and its gates) and an RG-LRU's gates'
+# gather. Read off the code with a counting all-reduce on a world-1 gloo
+# group (reduced configs: the same blocks).
+TP_TRAIN_BLOCK = {"attn": (2, 1, 2), "rec": (3, 2, 3), "moe": (2, 1, 3), "cross": (2, 1, 2),
+                  "enc": (2, 1, 2), "dec": (3, 2, 3), "mlstm": (1, 0, 1), "slstm": (1, 0, 1)}
+# The training cases of 20.2 and 21.2: label -> (arch, layers kept or None,
+# batch, tokens, chunk, float32 compute, frontend tokens or None). 20.2:
+# qwen1.5-0.5b whole; recurrentgemma-9b at phase 16's cut. 21.2: the
+# other families at phase 16's cuts (FAMILIES), deepseek-moe-16b and
+# xlstm-125m in float32 compute (as 19.2 holds them), the vlm over its
+# 1601 image tokens and whisper-small over 1500 frames; xlstm at 2 x 128
+# (its host-bound step: the sLSTM's loop over time).
 TP20_CASES = {
-    "qwen1.5-0.5b bf16": ("qwen1.5-0.5b", None, 4, 512, 512, False),
-    "qwen1.5-0.5b float32": ("qwen1.5-0.5b", None, 4, 512, 512, True),
-    "recurrentgemma-9b bf16": ("recurrentgemma-9b", 3, 2, 3072, 512, False),
+    "qwen1.5-0.5b bf16": ("qwen1.5-0.5b", None, 4, 512, 512, False, None),
+    "qwen1.5-0.5b float32": ("qwen1.5-0.5b", None, 4, 512, 512, True, None),
+    "recurrentgemma-9b bf16": ("recurrentgemma-9b", 3, 2, 3072, 512, False, None),
 }
+TP21_CASES = {
+    "deepseek-moe-16b float32": ("deepseek-moe-16b", 3, 1, 512, 512, True, None),
+    "llama-3.2-vision-11b bf16": ("llama-3.2-vision-11b", 5, 1, 512, 512, False, 1601),
+    "whisper-small bf16": ("whisper-small", None, 2, 448, 512, False, 1500),
+    "xlstm-125m float32": ("xlstm-125m", 6, 2, 128, 512, True, None),
+}
+TRAIN_CASES = {**TP20_CASES, **TP21_CASES}
 TP20_SEED, TP20_F32_RTOL = 20, 1e-4
-TP20_REFS: dict = {}        # label -> the unsharded step's readings (20.2)
-TP20_TIMES: dict = {}       # sub-phase -> seconds
+TP20_REFS: dict = {}        # label -> the unsharded step's readings (20.2, 21.2)
+TP_TIMES: dict = {}         # sub-phase of 20 or 21 -> seconds
 TP20_LAUNCHES: dict = {}    # the main paths' launches in phase 20
-TP20_DIR = {"path": None}   # where 20.2's reference gradients wait for the ranks
+TP21_LAUNCHES: dict = {}    # and in phase 21 (21.1)
+TP20_DIR = {"path": None}   # where 20.2's and 21.2's reference gradients wait
 TP20_WRITERS: list = []     # the threads writing them (joined before the spawn)
+# Phase 21.1: the families whose phase-16 model trains on a world-1 mesh
+# (family_train's hook), TP21_STEPS steps each at phase 16's batch (xlstm
+# at TP21_SSM_BATCH), ZeRO-1 on as well for TP21_ZERO1 (its expert-split
+# moments widened over "data").
+TP21_FAMILIES = ("moe", "vlm", "audio", "ssm")
+TP21_STEPS, TP21_SSM_BATCH, TP21_ZERO1 = 2, (2, 128), "moe"
 
 
 def tp_train_collectives(cfg, s: int, chunk: int) -> int:
     """The all-reduces of one train step (jit_train_step, chunked
     cross-entropy) of a model on a model axis of size 1: the embedding's
     sum; each block's forward, remat recompute and backward
-    (TP_TRAIN_BLOCK); each logits chunk's gather, again in its recompute,
-    and its input's cotangent sum; the global norm's sum of the split
-    leaves' squares. (No gradient is a per-rank partial at M = 1.)"""
+    (TP_TRAIN_BLOCK); the audio encoder's output's cotangent sum (it enters
+    the decoder's cross attentions once, Model.forward; a vlm's frontend is
+    data); each logits chunk's gather, again in its recompute, and its
+    input's cotangent sum; the global norm's sum of the split leaves'
+    squares. (No gradient is a per-rank partial at M = 1.)"""
     from repro_torch.models import stages_for
-    blocks = sum(sp.n_layers * sum(TP_TRAIN_BLOCK[sp.kind]) for sp in stages_for(cfg))
-    return 1 + blocks + 3 * (s // min(chunk, s)) + 1
+    blocks = sum(sp.n_layers * sum(TP_TRAIN_BLOCK["moe" if sp.moe else sp.kind])
+                 for sp in stages_for(cfg))
+    encoder = int(cfg.family == "audio")
+    return 1 + blocks + encoder + 3 * (s // min(chunk, s)) + 1
 
 
 def leaf_digest(x) -> tuple:
@@ -6447,15 +6529,17 @@ def leaf_digest(x) -> tuple:
     return a, b
 
 
-def tp_train_mesh(dev, smi: str, label: str, model, batches: list, chunk: int, seed: int,
-                  ref, ref_mets: list, ref_ms: float, zero1s: tuple) -> dict:
-    """20.1 for one arch, in a world-1 NCCL group: a model built on a (1, 1)
-    ("data", "model") mesh sharing ``model``'s parameters (the tensors
-    themselves), its collectives counted (CountedAllReduce); for each zero1
-    of ``zero1s``, len(batches) steps of jit_train_step from the init of
-    ``seed``, every leaf of the state (or its digests, where ``ref`` holds
-    digests) and every metric bit-equal to make_train_step's (``ref``,
-    ``ref_mets``), the all-reduces of each step equal to
+def tp_train_mesh(dev, smi: str, phase: str, label: str, model, batches: list, chunk: int,
+                  seed: int, ref, ref_mets: list, ref_drops: list, ref_ms: float,
+                  zero1s: tuple) -> dict:
+    """20.1 / 21.1 for one arch, in a world-1 NCCL group: a model built on
+    a (1, 1) ("data", "model") mesh sharing ``model``'s parameters (the
+    tensors themselves), its collectives counted (CountedAllReduce); for
+    each zero1 of ``zero1s``, len(batches) steps of jit_train_step from the
+    init of ``seed`` (xgates at FAMILY_XGATE), every leaf of the state (or
+    its digests, where ``ref`` holds digests), every metric and each step's
+    MoE dropped slots bit-equal to make_train_step's (``ref``,
+    ``ref_mets``, ``ref_drops``), the all-reduces of each step equal to
     tp_train_collectives, no missing-autograd warning (an error here); step
     ms beside make_train_step's. Returns the flash and rg_lru launches."""
     import warnings
@@ -6465,45 +6549,51 @@ def tp_train_mesh(dev, smi: str, label: str, model, batches: list, chunk: int, s
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rg_lru as rl
     from repro_torch.launch import mesh as lmesh
-    from repro_torch.models import Model
+    from repro_torch.models import Model, moe
     from repro_torch.pshard import unshard
     from repro_torch.runtime import train as rt
 
     t0 = time.perf_counter()
+    tag = f"tp {phase}.1 {label}"
     mesh = lmesh.make_mesh((1, 1), ("data", "model"))
     counted = CountedAllReduce()
     tm = Model(model.cfg, device="meta", trainable=True, remat=True, mesh=mesh,
+               moe_capacity=model.moe_capacity,
                all_reduce=counted).load_params_(model.param_tree(), share=True)
     shared = all(a.data_ptr() == b.data_ptr() for a, b in zip(tm.parameters(),
                                                              model.parameters(), strict=True))
     b, s = batches[0]["tokens"].shape
     want_calls = tp_train_collectives(tm.cfg, s, chunk)
-    print(f"tp 20.1 {label}: {model.cfg.n_layers} layers on mesh "
+    print(f"{tag}: {model.cfg.n_layers} layers on mesh "
           f"{dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} of an NCCL group of world size "
           f"{torch.distributed.get_world_size()}, sharing the phase's parameters: {shared}; "
-          f"{want_calls} all-reduces a step expected (tp_train_collectives) | {smi}")
+          f"{b} x {s} tokens; {want_calls} all-reduces a step expected (tp_train_collectives) "
+          f"| {smi}")
     if not shared:
-        fail(f"tp 20.1 {label}: the mesh model does not share the phase's parameters")
+        fail(f"{tag}: the mesh model does not share the phase's parameters")
     launched: dict = {}
     digest = not isinstance(ref[0], torch.Tensor)
     with warnings.catch_warnings():
         warnings.filterwarnings("error", message=NO_AUTOGRAD)
         for zero1 in zero1s:
             state = rt.init_state(tm, torch.Generator(device=dev).manual_seed(seed))
+            set_xgate(tm)
             step = rt.jit_train_step(tm, mesh, zero1=zero1, seq_chunk=chunk)[0](
                 {k: v.shape for k, v in batches[0].items()})
-            walls, mets, calls = [], [], []
+            walls, mets, calls, drops = [], [], [], []
             fa.reset_launches()
             rl.reset_launches()
             for bt in batches:
                 torch.cuda.synchronize()
                 counted.calls = 0
                 t_s = time.perf_counter()
-                state, met = step(state, bt)
+                with moe.drop_log() as log:
+                    state, met = step(state, bt)
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t_s)
                 calls.append(counted.calls)
                 mets.append(met)
+                drops.append([int(x) for x in log])
             for k, v in {**fa.LAUNCHES, **rl.LAUNCHES}.items():
                 launched[k] = launched.get(k, 0) + v
             leaves = tree_flatten(unshard(state))[0]
@@ -6512,100 +6602,136 @@ def tp_train_mesh(dev, smi: str, label: str, model, batches: list, chunk: int, s
                       if (a != w if digest else not torch.equal(a, w))]
             same_met = all(torch.equal(a[k], w[k]) for a, w in zip(mets, ref_mets) for k in a)
             step_ms = statistics.median(walls[1:]) * 1e3
-            print(f"check tp 20.1 {label} zero1={zero1}: {len(batches)} steps' params, moments "
+            print(f"check {tag} zero1={zero1}: {len(batches)} steps' params, moments "
                   f"and steps bit-equal to make_train_step's{' (64-bit digests)' if digest else ''}"
                   f": {not differ}, metrics bit-equal: {same_met}; all-reduces a step {calls} "
-                  f"(expected {want_calls})")
-            print(f"time tp 20.1 {label} zero1={zero1}: step_ms={step_ms:.2f} (median of steps "
+                  f"(expected {want_calls}); MoE dropped slots {drops} (make_train_step's "
+                  f"{ref_drops})")
+            print(f"time {tag} zero1={zero1}: step_ms={step_ms:.2f} (median of steps "
                   f"2-{len(batches)}; {[round(w * 1e3, 2) for w in walls]}), make_train_step "
                   f"{ref_ms:.2f} ms | {smi}")
             if differ or not same_met:
-                fail(f"tp 20.1 {label} zero1={zero1}: leaves {differ} (metrics equal "
+                fail(f"{tag} zero1={zero1}: leaves {differ} (metrics equal "
                      f"{same_met}) differ from make_train_step's")
             if any(c != want_calls for c in calls):
-                fail(f"tp 20.1 {label} zero1={zero1}: all-reduces a step {calls}, expected "
+                fail(f"{tag} zero1={zero1}: all-reduces a step {calls}, expected "
                      f"{want_calls}")
+            if drops != ref_drops:
+                fail(f"{tag} zero1={zero1}: dropped slots {drops}, make_train_step's "
+                     f"{ref_drops}")
             del state, step, leaves, got
     del tm
-    TP20_TIMES[f"20.1 {label}"] = time.perf_counter() - t0
+    TP_TIMES[f"{phase}.1 {label}"] = time.perf_counter() - t0
     return launched
 
 
-def tp_hybrid(dev, smi: str, model, batches: list) -> dict:
+def tp_family_train(dev, smi: str, family: str, model, batches: list) -> dict:
     """Phase 20 over phase 16's recurrentgemma-9b (rec, rec, attn at 2 x
-    3072): 20.2's unsharded reference, then 20.1: make_train_step's
-    DP_STEPS steps from the init of FAMILY_SEED (its state held as digests:
-    two would not fit on the card), and tp_train_mesh against them in a
-    world-1 NCCL group. Returns 20.1's launches."""
+    3072), phase 21 over its deepseek-moe-16b, llama-3.2-vision-11b,
+    whisper-small and xlstm-125m: the x.2 unsharded reference of the
+    family's case, then x.1: make_train_step's steps (DP_STEPS for the
+    hybrid, TP21_STEPS for the others, xlstm at TP21_SSM_BATCH) from the
+    init of FAMILY_SEED (xgates at FAMILY_XGATE; the state held as digests:
+    two would not fit on the card, and each step's MoE drops logged), and
+    tp_train_mesh against them in a world-1 NCCL group (ZeRO-1 on as well
+    for TP21_ZERO1). Returns x.1's launches."""
     import torch
     from repro_torch.core.types import tree_flatten
+    from repro_torch.data import make_batch
     from repro_torch.launch import mesh as lmesh
+    from repro_torch.models import moe
     from repro_torch.runtime import train as rt
+    phase = "20" if family == "hybrid" else "21"
+    label = next(lb for lb, case in TRAIN_CASES.items() if case[0] == model.cfg.name)
+
     def reserved(what):
-        print(f"tp 20 hybrid memory after {what}: reserved "
+        print(f"tp {phase} {family} memory after {what}: reserved "
               f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB, peak "
               f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB")
     reserved("16.2")
-    tp_train_ref(dev, model, "recurrentgemma-9b bf16")
-    reserved("20.2's reference")
-    batches = batches[:DP_STEPS]
+    tp_train_ref(dev, model, label)
+    reserved(f"{phase}.2's reference")
+    if family == "ssm":
+        b, s = TP21_SSM_BATCH
+        batches = [make_batch(FAMILY_SEED, i, b, s, model.cfg.vocab_size, device=dev)
+                   for i in range(TP21_STEPS)]
+    batches = batches[:DP_STEPS if phase == "20" else TP21_STEPS]
     t0 = time.perf_counter()
     state = rt.init_state(model, torch.Generator(device=dev).manual_seed(FAMILY_SEED))
+    set_xgate(model)
     step = rt.make_train_step(model, seq_chunk=FAMILY_CHUNK)
-    walls, mets = [], []
+    walls, mets, drops = [], [], []
     for bt in batches:
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, met = step(state, bt)
+        t_s = time.perf_counter()
+        with moe.drop_log() as log:
+            state, met = step(state, bt)
         torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
+        walls.append(time.perf_counter() - t_s)
         mets.append(met)
+        drops.append([int(x) for x in log])
     ref = [leaf_digest(x) for x in tree_flatten(state)[0]]
-    TP20_TIMES["20.1 recurrentgemma-9b reference steps"] = time.perf_counter() - t0
-    reserved("20.1's reference steps")
+    TP_TIMES[f"{phase}.1 {model.cfg.name} reference steps"] = time.perf_counter() - t0
+    reserved(f"{phase}.1's reference steps")
     del state, step
     torch.cuda.empty_cache()
     lmesh.init_process_group(device=dev)
     try:
-        return tp_train_mesh(dev, smi, model.cfg.name, model, batches, FAMILY_CHUNK, FAMILY_SEED,
-                             ref, mets, statistics.median(walls[1:]) * 1e3, (False,))
+        return tp_train_mesh(dev, smi, phase, model.cfg.name, model, batches, FAMILY_CHUNK,
+                             FAMILY_SEED, ref, mets, drops, statistics.median(walls[1:]) * 1e3,
+                             (False, True) if family == TP21_ZERO1 else (False,))
     finally:
         lmesh.destroy_process_group()
-        reserved("20.1's steps on the mesh")
+        reserved(f"{phase}.1's steps on the mesh")
+
+
+def train_case_batch(label: str, vocab: int, dev):
+    """The batch of a TRAIN_CASES case (make_batch of TP20_SEED, with its
+    frontend)."""
+    from repro_torch import configs
+    from repro_torch.data import make_batch
+    arch, _, b, s, _, _, f = TRAIN_CASES[label]
+    fs = None if f is None else (f, configs.get(arch).d_model)
+    return make_batch(TP20_SEED, 0, b, s, vocab, fs, device=dev)
 
 
 def tp_train_ref(dev, model, label: str) -> None:
-    """20.2's unsharded step for one case of TP20_CASES, on ``model`` (the
-    phase's model of that config): the init of TP20_SEED, the loss, global
-    norm and gradients of one batch, the flash and rg_lru launches; the
-    gradients copied to the host and written, on a thread of
-    TP20_WRITERS, to a raw float32 file 20.2's ranks read; each leaf's
-    largest |value| kept. Fills TP20_REFS[label]."""
+    """20.2's or 21.2's unsharded step for one case of TRAIN_CASES, on
+    ``model`` (the phase's model of that config): the init of TP20_SEED
+    (xgates at FAMILY_XGATE), the loss, global norm, MoE dropped slots and
+    gradients of one batch, the flash and rg_lru launches; the gradients
+    copied to the host and written, on a thread of TP20_WRITERS, to a raw
+    float32 file the ranks read; each leaf's largest |value| kept. Fills
+    TP20_REFS[label]."""
     import contextlib
     import tempfile
 
     import numpy as np
     import torch
     from repro_torch.core.types import tree_flatten
-    from repro_torch.data import make_batch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rg_lru as rl
+    from repro_torch.models import moe
     from repro_torch.optim.adamw import _clip_scale
     from repro_torch.runtime import train as rt
 
     t0 = time.perf_counter()
-    arch, _, b, s, chunk, f32 = TP20_CASES[label]
+    phase = "21" if label in TP21_CASES else "20"
+    arch, _, b, s, chunk, f32, f = TRAIN_CASES[label]
     if TP20_DIR["path"] is None:
         TP20_DIR["path"] = tempfile.mkdtemp(prefix="chip_smoke_tp20_")
     with F32Compute() if f32 else contextlib.nullcontext():
         model.init(torch.Generator(device=dev).manual_seed(TP20_SEED))
-        batch = make_batch(TP20_SEED, 0, b, s, model.cfg.vocab_size, device=dev)
+        set_xgate(model)
+        batch = train_case_batch(label, model.cfg.vocab_size, dev)
         torch.cuda.synchronize()
         fa.reset_launches()
         rl.reset_launches()
-        nll, _, g = rt.loss_and_grads(model, batch, seq_chunk=chunk)
+        with moe.drop_log() as log:
+            nll, _, g = rt.loss_and_grads(model, batch, seq_chunk=chunk)
         norm = _clip_scale(g, 1.0)[1]
         launched = {**fa.LAUNCHES, **rl.LAUNCHES}
+        drops = [int(x) for x in log]
     leaves = tree_flatten(g)[0]
     path = f"{TP20_DIR['path']}/{label.replace(' ', '_')}.f32"
     t_host = time.perf_counter()
@@ -6628,24 +6754,26 @@ def tp_train_ref(dev, model, label: str) -> None:
     TP20_WRITERS.append(threading.Thread(target=write))
     TP20_WRITERS[-1].start()
     TP20_REFS[label] = dict(loss=float(nll), norm=float(norm), path=path, launched=launched,
-                            shapes=[tuple(x.shape) for x in leaves],
+                            drops=drops, shapes=[tuple(x.shape) for x in leaves],
                             scales=[float(x.abs().max()) for x in leaves])
     del g, leaves
     torch.cuda.empty_cache()
-    TP20_TIMES[f"20.2 reference {label}"] = time.perf_counter() - t0
-    print(f"tp 20.2 unsharded {label} ({b} x {s}): loss {float(nll)!r}, global norm "
-          f"{float(norm)!r}, launches {launched}; {time.perf_counter() - t0:.1f} s, the "
-          f"gradients' copy to the host {t_host:.1f} s of it (their file written meanwhile)")
+    TP_TIMES[f"{phase}.2 reference {label}"] = time.perf_counter() - t0
+    print(f"tp {phase}.2 unsharded {label} ({b} x {s}{f' over {f}' if f else ''}): loss "
+          f"{float(nll)!r}, global norm {float(norm)!r}, launches {launched}, MoE dropped "
+          f"slots {drops}; {time.perf_counter() - t0:.1f} s, the gradients' copy to the host "
+          f"{t_host:.1f} s of it (their file written meanwhile)")
 
 
-def tp20_rank(dev, mesh, refs: dict) -> dict:
-    """One of 20.2's ranks (inside 19.2's spawn, on its (1, TP_M) gloo mesh
-    over the card's tensors): each case of ``refs`` on a model built on the
-    mesh from the init of TP20_SEED, one batch's loss, global norm (the
-    whole model's: clip_by_global_norm_'s model axis) and gradients, each
-    leaf's shard against the unsharded gradient's slice (read from the
-    host), the flash and rg_lru launches and shapes; no missing-autograd
-    warning (an error here)."""
+def tp_train_rank(dev, mesh, refs: dict) -> dict:
+    """One of 20.2's or 21.2's ranks (inside 19.2's spawn, on its (1, TP_M)
+    gloo mesh over the card's tensors): each case of ``refs`` on a model
+    built on the mesh from the init of TP20_SEED (xgates at FAMILY_XGATE),
+    one batch's loss, global norm (the whole model's: clip_by_global_norm_'s
+    model axis), MoE dropped slots and gradients, each leaf's shard against
+    the unsharded gradient's slice (read from the host), the flash and
+    rg_lru launches and shapes; no missing-autograd warning (an error
+    here)."""
     import contextlib
     import warnings
 
@@ -6653,15 +6781,14 @@ def tp20_rank(dev, mesh, refs: dict) -> dict:
     import torch
     from repro_torch import configs
     from repro_torch.core.types import tree_flatten
-    from repro_torch.data import make_batch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rg_lru as rl
-    from repro_torch.models import Model
+    from repro_torch.models import Model, moe
     from repro_torch.optim.adamw import _clip_scale
     from repro_torch.runtime import train as rt
     out = {}
     for label, ref in refs.items():
-        arch, layers, b, s, chunk, f32 = TP20_CASES[label]
+        arch, layers, b, s, chunk, f32, _ = TRAIN_CASES[label]
         cfg = configs.get(arch)
         if layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=layers)
@@ -6669,14 +6796,17 @@ def tp20_rank(dev, mesh, refs: dict) -> dict:
         torch.cuda.reset_peak_memory_stats()
         with F32Compute() if f32 else contextlib.nullcontext(), warnings.catch_warnings():
             warnings.filterwarnings("error", message=NO_AUTOGRAD)
-            model = Model(cfg, device=dev, trainable=True, remat=True, mesh=mesh)
+            model = Model(cfg, device=dev, trainable=True, remat=True, mesh=mesh,
+                          moe_capacity=FAMILY_CAPACITY)
             model.init(torch.Generator(device=dev).manual_seed(TP20_SEED))
-            batch = make_batch(TP20_SEED, 0, b, s, cfg.vocab_size, device=dev)
+            set_xgate(model)
+            batch = train_case_batch(label, cfg.vocab_size, dev)
             torch.cuda.synchronize()
             fa.reset_launches()
             rl.reset_launches()
             t1 = time.perf_counter()
-            nll, _, g = rt.loss_and_grads(model, batch, seq_chunk=chunk)
+            with moe.drop_log() as log:
+                nll, _, g = rt.loss_and_grads(model, batch, seq_chunk=chunk)
             norm = _clip_scale(g, 1.0, rt.model_axis(model))[1]
             torch.cuda.synchronize()
             step_s, init_s = time.perf_counter() - t1, t1 - t0
@@ -6692,7 +6822,7 @@ def tp20_rank(dev, mesh, refs: dict) -> dict:
             at += n
         out[label] = dict(loss=float(nll), norm=float(norm), errs=errs, launched=launched,
                           shapes=shapes, step_s=step_s, init_s=init_s,
-                          seconds=time.perf_counter() - t0,
+                          drops=[int(x) for x in log], seconds=time.perf_counter() - t0,
                           peak=torch.cuda.max_memory_reserved(),
                           layout=(model.cfg.attn_layout, model.cfg.heads_padded))
         del model, g, whole
@@ -6700,16 +6830,19 @@ def tp20_rank(dev, mesh, refs: dict) -> dict:
     return out
 
 
-def tp_train_ranks_check(smi: str, ranks: list, seconds: float) -> tuple[dict, dict, dict]:
-    """20.2 in the main process: each case's loss and global norm on every
-    rank within the bound (0.05 * max(1, |x|) in bf16, TP20_F32_RTOL in
-    float32 compute) of the unsharded step's, every gradient leaf's shard
-    within the bound times the leaf's largest |value|, each rank's flash
-    and rg_lru launches equal to the unsharded step's. Returns the ranks'
-    launches and flash shapes."""
+def tp_train_ranks_check(smi: str, phase: str, ranks: list,
+                         seconds: float) -> tuple[dict, dict, dict]:
+    """20.2 or 21.2 in the main process: each case's loss and global norm
+    on every rank within the bound (0.05 * max(1, |x|) in bf16,
+    TP20_F32_RTOL in float32 compute) of the unsharded step's, every
+    gradient leaf's shard within the bound times the leaf's largest
+    |value|, each rank's MoE dropped slots and flash and rg_lru launches
+    equal to the unsharded step's. Returns the ranks' launches, flash
+    shapes and each shape's compute dtypes."""
     launched, shapes, dtypes = {}, {}, {}
-    for label, ref in TP20_REFS.items():
-        f32 = TP20_CASES[label][5]
+    for label in ranks[0]:
+        ref = TP20_REFS[label]
+        f32 = TRAIN_CASES[label][5]
         tol = TP20_F32_RTOL if f32 else 0.05
         worst, worst_leaf = 0.0, None
         for r, rk in enumerate(ranks):
@@ -6720,34 +6853,75 @@ def tp_train_ranks_check(smi: str, ranks: list, seconds: float) -> tuple[dict, d
                     worst, worst_leaf = share, i
             d_loss = abs(got["loss"] - ref["loss"]) / max(1.0, abs(ref["loss"]))
             d_norm = abs(got["norm"] - ref["norm"]) / max(1.0, abs(ref["norm"]))
-            print(f"time tp 20.2 {label} rank {r} ({got['layout']}): the model built and "
+            print(f"time tp {phase}.2 {label} rank {r} ({got['layout']}): the model built and "
                   f"drawn {got['init_s']:.2f} s, one gradient pass {got['step_s']:.3f} s, the "
                   f"case {got['seconds']:.1f} s (gloo through the "
                   f"host: not a tensor-parallel performance number), peak_reserved_gib="
                   f"{got['peak'] / 2**30:.2f}; launches {got['launched']} | {smi}")
             if got["launched"] != ref["launched"]:
-                fail(f"tp 20.2 {label} rank {r}: launches {got['launched']}, the unsharded "
+                fail(f"tp {phase}.2 {label} rank {r}: launches {got['launched']}, the unsharded "
                      f"step's {ref['launched']}")
+            if got["drops"] != ref["drops"]:
+                fail(f"tp {phase}.2 {label} rank {r}: MoE dropped slots {got['drops']}, the "
+                     f"unsharded step's {ref['drops']}")
             if not (d_loss <= tol and d_norm <= tol):
-                fail(f"tp 20.2 {label} rank {r}: loss {got['loss']!r} / norm {got['norm']!r} "
-                     f"against {ref['loss']!r} / {ref['norm']!r} beyond {tol}")
+                fail(f"tp {phase}.2 {label} rank {r}: loss {got['loss']!r} / norm "
+                     f"{got['norm']!r} against {ref['loss']!r} / {ref['norm']!r} beyond {tol}")
             for k, n in got["launched"].items():
                 launched[k] = launched.get(k, 0) + n
             for key, n in got["shapes"].items():
                 shapes[key] = shapes.get(key, 0) + n
                 plain = key[1:] if key[0] == "bwd" else key
                 dtypes.setdefault(plain, set()).add("float32" if f32 else "bf16")
-        print(f"check tp 20.2 {label}: {len(ranks)} ranks against the unsharded step: loss "
-              f"{[rk[label]['loss'] for rk in ranks]} / {ref['loss']!r}, norm "
+        print(f"check tp {phase}.2 {label}: {len(ranks)} ranks against the unsharded step: "
+              f"loss {[rk[label]['loss'] for rk in ranks]} / {ref['loss']!r}, norm "
               f"{[rk[label]['norm'] for rk in ranks]} / {ref['norm']!r}; every gradient leaf "
               f"within {worst:.3e} of its largest |value| (leaf {worst_leaf}; bound {tol:g}); "
-              f"flash / rg_lru launches on each rank equal to the unsharded step's "
-              f"{ref['launched']}")
+              f"MoE dropped slots on each rank {ranks[0][label]['drops']} (the unsharded "
+              f"step's {ref['drops']}); flash / rg_lru launches on each rank equal to the "
+              f"unsharded step's {ref['launched']}")
         if worst > tol:
-            fail(f"tp 20.2 {label}: gradient leaf {worst_leaf} at {worst:.3e} of its largest "
-                 f"|value| > {tol}")
-    TP20_TIMES["20.2 ranks (in the spawn of 18.2 and 19.2)"] = seconds
+            fail(f"tp {phase}.2 {label}: gradient leaf {worst_leaf} at {worst:.3e} of its "
+                 f"largest |value| > {tol}")
+    TP_TIMES[f"{phase}.2 ranks (in the spawn of 18.2 and 19.2)"] = seconds
     return launched, shapes, {k: sorted(v) for k, v in dtypes.items()}
+
+
+def tp21_kernel_phase(dev, smi: str, errs: dict, shapes: dict,
+                      dtypes: dict) -> tuple[dict, dict, set]:
+    """21.3: the flash kernels at every per-rank training shape 21.2's ranks
+    launched (``shapes``: key -> launches, a backward's key prefixed
+    "bwd"; ``dtypes``: shape -> compute dtypes), each checked in each dtype
+    it ran in (check_bwd: the forward against its twin, two backward
+    launches bit-equal, each gradient against the twin); at each bf16 shape
+    the forward timed by flash_row and the backward by time_bwd, beside
+    their twins, SDPA's and their bounds. Returns (forward rows, backward
+    rows, each with its launches in 21.2, and the shapes checked)."""
+    import torch
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(213)
+    fwd_rows, bwd_rows, checked = {}, {}, set()
+    for key in sorted({k[1:] if k[0] == "bwd" else k for k in shapes}):
+        bh, sq, sk, hd, g, causal, window, kv_len = key
+        checked.add(key)
+        name = (f"per rank M={TP_M} training ({bh}, {sq}, {hd}) over {sk} G={g}"
+                f"{' causal' if causal else ''}{f' window {window}' if window else ''}")
+        for dtype in dtypes.get(key, ("bf16",)):
+            f32 = dtype == "float32"
+            tensors = check_bwd(dev, gen, errs, f"21.3 {name} {dtype}", bh, g, sq, sk, hd,
+                                causal, window, None if kv_len == sk else kv_len,
+                                torch.float32 if f32 else None)
+            if not f32:
+                fwd_rows[name] = flash_row(dev, f"21.3 {name}", 1, bh, bh // g, sq, sk, hd,
+                                           causal, errs, smi, 213, window)
+                fwd_rows[name]["launches"] = shapes.get(key, 0)
+                bwd_rows[name] = time_bwd(f"21.3 {name}", 1, bh, bh // g, hd, tensors, smi,
+                                          causal, window)
+                bwd_rows[name]["launches"] = shapes.get(("bwd",) + key, 0)
+            del tensors
+            torch.cuda.empty_cache()
+    TP_TIMES["21.3"] = time.perf_counter() - t0
+    return fwd_rows, bwd_rows, checked
 
 
 def tp_train_kernel_phase(dev, smi: str, errs: dict, shapes: dict,
@@ -6819,7 +6993,7 @@ def tp_train_kernel_phase(dev, smi: str, errs: dict, shapes: dict,
           + " ".join(f"{k}={v}" for k, v in rg.items()) + f" | {smi}")
     del log_a, h, dh, got, again, want, pairs, buf
     torch.cuda.empty_cache()
-    TP20_TIMES["20.3"] = time.perf_counter() - t0
+    TP_TIMES["20.3"] = time.perf_counter() - t0
     return rows, rg
 
 

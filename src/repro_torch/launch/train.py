@@ -15,10 +15,10 @@ step + 1 updates), and the one written at the end with the number of steps
 done; a run resumed from a label reads the stream from that step.
 
 --mesh D, DxM or PxDxM names the ("data",), ("data", "model") or ("pod",
-"data", "model") mesh. A model axis above 1 trains the dense and hybrid
-families tensor-parallel, the model built on the mesh (each rank its
-shard); the other families wait for TP / FSDP training there, in the
-tensor-parallel half of ROADMAP.md section 1's sharding item.
+"data", "model") mesh. A model axis above 1 trains any family
+tensor-parallel, the model built on the mesh (each rank its shard); each
+rank takes its rows of the tokens and of the frontend (a vlm's image
+tokens, whisper's frames).
 Under torchrun, or inside a process group the caller made, each process is
 a rank; a mesh of more than one device without either starts its ranks
 itself (launch.mesh.spawn) and returns rank 0's result. Under a process
@@ -49,10 +49,8 @@ from repro_torch.data import SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.launch import mesh as lmesh
 from repro_torch.models import Model
-from repro_torch.models.model import TP_TRAIN_FAMILIES
 from repro_torch.runtime import ft
 from repro_torch.runtime.train import (
-    TP_ITEM,
     TrainState,
     init_state,
     jit_train_step,
@@ -114,10 +112,6 @@ def main(argv=None) -> dict:
     tokens for vlm, (seq, d_model) frames for audio."""
     args = parse_args(argv)
     dims, axes = check_mesh(args.mesh)
-    family = _config(args).family
-    if _model_size(dims, axes) > 1 and family not in TP_TRAIN_FAMILIES:
-        raise NotImplementedError(f"--mesh {args.mesh}: training the {family} family on a "
-                                  f"model axis above 1 waits for {TP_ITEM}")
     if dist.is_initialized():
         return _train(args, dims, axes)
     if "RANK" in os.environ:            # torchrun: each process a rank

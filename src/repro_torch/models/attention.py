@@ -24,7 +24,10 @@ when wk / wv split inside a head. The input enters the rank's heads
 (tp.TP.enter) and wo's partial output is summed over the group
 (tp.TP.reduce); a replicated wk / wv (flat, KV * hd not a multiple of M)
 gets a per-rank partial gradient (Model.grad_kinds). Cross attention runs
-the same shards over its source, which every rank holds whole. Decode
+the same shards over its source, which every rank holds whole; the model
+enters it once for every cross attention of a forward (Model.forward: the
+audio encoder's output gets the ranks' partial cotangents summed; a vlm's
+frontend, data, needs no gradient). Decode
 always runs the grouped math over the cache: a cache split by kv heads
 (grouped) attends locally; a cache whose sequence is split over the group
 (flat, its size a multiple of M) takes the gathered queries, runs the

@@ -22,7 +22,8 @@ backward (its MoE drops are not logged again). A model on a mesh's
 "model" axis adds "tp" (a tp.TP: every mixer, the self and cross
 attention, the RG-LRU, the mLSTM and sLSTM heads, the MLP and the MoE
 experts, runs this rank's shard on a replicated residual stream with
-replicated norms and gates, each summing its partial output once) and
+replicated norms and gates, each summing its partial output once, in
+serving and training alike) and
 "max_len" (its caches' length, which the flat layout's cache split reads).
 """
 from __future__ import annotations
@@ -131,17 +132,24 @@ def block_apply(cfg, spec: StageSpec, p: dict, x, aux: dict, cache=None):
 
 
 def rank_local(cfg, key: str, tp) -> bool:
-    """Whether a block's sub-dict ``key`` (its attention, MLP or RG-LRU) runs
-    rank-local under ``tp``: its input enters the rank's shard and its
-    partial output is summed over the group. Every other mixer (the MoE,
-    xLSTM and cross blocks, which train on no model axis above 1) counts as
-    replicated."""
-    if key == "attn":
+    """Whether a block's sub-dict ``key`` runs rank-local under ``tp``: its
+    input enters the rank's shard and its partial output is summed over the
+    group, so a leaf of it held whole gets a per-rank partial gradient. The
+    self and cross attention (and the encoder's and decoder's, under the
+    same keys), the MLP, the RG-LRU, and the mLSTM and sLSTM where their
+    output projection splits (a split that cuts heads runs every head with
+    whole wi / wf / r_zifo, keeping its columns). Not the MoE: its router
+    reads the tokens un-entered and the gates enter (moe.moe_apply), so the
+    router's gradient is whole on every rank; its experts and shared
+    experts are split or used alike."""
+    if key in ("attn", "xattn"):
         return split(tp, "qkv", attention._query_heads(cfg) * cfg.hd)
     if key == "mlp":
         return split(tp, "mlp", cfg.d_ff)
     if key == "rglru":
         return split(tp, "lru", cfg.rglru_dim or cfg.d_model)
+    if key in ("mlstm", "slstm"):
+        return split(tp, "qkv", cfg.n_heads * cfg.hd)
     return False
 
 

@@ -25,10 +25,10 @@ cache_shardings), takes its rows of the batch (and of the frontend), and
 its layers issue the model axis's collectives (models/tp.py). The audio
 encoder runs on the mesh too, its output whole over "model" on every
 rank, as the frontend / enc_out caches are held. Model(cfg, mesh=,
-trainable=True) holds float32 masters of the rank's shard; the dense and
-hybrid families train on a model axis above 1 (its collectives are
-autograd Functions, grad_kinds says which gradients the train step sums
-over the group), the others on a model axis of 1 only.
+trainable=True) holds float32 masters of the rank's shard, and every
+family trains on the model axis: its collectives are autograd Functions
+(models/tp.py), grad_kinds says which gradients the train step sums over
+the group.
 """
 from __future__ import annotations
 
@@ -110,11 +110,9 @@ def _stack(trees: list):
     return torch.stack(trees)
 
 
-TP_ITEM = ("TP / FSDP training of the MoE, xLSTM, vision and audio families, and FSDP, "
-           "in the tensor-parallel half of ROADMAP.md section 1's sharding item (serving "
-           "has the model axis for every family, training for the dense and hybrid ones)")
-# the families that train on a model axis above 1
-TP_TRAIN_FAMILIES = ("dense", "hybrid")
+TP_ITEM = ("FSDP, the fully sharded half of TP / FSDP training in ROADMAP.md section 1's "
+           "sharding item (its tensor-parallel half, serving and training every family on "
+           "a model axis, is done)")
 # a parameter's kind on the model axis (Model.grad_kinds)
 WHOLE, SPLIT, PARTIAL = 0, 1, 2
 
@@ -146,9 +144,6 @@ class Model(nn.Module):
             if tp_size not in (None, m):
                 raise ValueError(f"tp_size={tp_size} on a mesh whose model axis is {m}")
             tp_size = m
-            if m > 1 and trainable and cfg.family not in TP_TRAIN_FAMILIES:
-                raise NotImplementedError(f"training the {cfg.family} family on a model "
-                                          f"axis of {m} waits for {TP_ITEM}")
         if tp_size and cfg.family != "ssm" and cfg.n_kv_heads % tp_size != 0:
             cfg = dataclasses.replace(cfg, attn_layout="flat",
                                       heads_padded=tp.flat_heads(cfg.n_heads, tp_size))
@@ -343,7 +338,9 @@ class Model(nn.Module):
     def _encode(self, frontend):
         """The audio encoder (stage 0) over frontend (B, F, D) plus the
         sinusoid table. Returns enc_out (B, F, D) (on a mesh: this rank's
-        rows, whole over "model")."""
+        rows, whole over "model"; in training it enters the decoder's cross
+        attentions once, forward, so the encoder's backward runs on the
+        ranks' partial cotangents summed)."""
         b, f, _ = frontend.shape
         pos = self._positions(b, f)
         x = frontend.to(COMPUTE_DTYPE) + _sinusoid(pos, self.cfg.d_model)
@@ -403,6 +400,11 @@ class Model(nn.Module):
             kv_src = None if frontend is None else frontend.to(COMPUTE_DTYPE)
             if caches is not None and kv_src is not None:
                 caches = dict(caches, frontend=kv_src)
+        if kv_src is not None and blocks.rank_local(self.cfg, "xattn", self.tp):
+            # the source enters the cross attentions' heads once: its
+            # cotangents from every layer summed on the rank, then over the
+            # group, as one device sums them
+            kv_src = self.tp.enter(kv_src)
         aux = self.aux(positions, kv_src, max_len)
         if in_place:
             aux.update(in_place=True, active=None if active is None else self.local_rows(active),

@@ -40,8 +40,19 @@ output (column- then row-parallel over "mlp") added first where it splits
 too. No all-to-all. A layer whose leaves all stay whole issues no
 collective.
 
+Training on the mesh (tp.TP's autograd Functions): the partial outputs
+are summed by tp.reduce; the tokens enter the rank's experts (tp.enter),
+and so do the gates where the combine is partial, so each rank's router
+gets the whole gradient of its gates. The router itself reads the tokens
+un-entered: it is used alike on every rank (WHOLE in Model.grad_kinds),
+and its aux loss, the same on every rank, counts once. Shared experts
+held whole beside split experts read the tokens un-entered too.
+
 The aux loss (load balance + 1e-3 z-loss) is returned as the reference
-does. ``drop_log()`` collects the dropped-slot count of every sorted
+does, over the whole batch: a training forward whose batch is split into
+row blocks sums the router's per-expert statistics over the blocks
+(tp.TP.rows_sum) before it takes their product. ``drop_log()`` collects
+the dropped-slot count of every sorted
 dispatch run inside it, once a forward (on a mesh, each rank logs its
 layer's global count once, the unsharded model's): a block recomputed
 under remat in the backward does not count again; a replayed CUDA graph
@@ -114,6 +125,21 @@ def _router(p: dict, xt, cfg):
     lb = e * torch.sum(me * ce)
     z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     return gates, idx, lb + 1e-3 * z
+
+
+def _batch_aux(p: dict, xt, idx, cfg, tp):
+    """The aux loss of the whole batch of a split one (this rank's rows xt
+    and their choices idx): each block's sums of the router probabilities,
+    of the choices and of the squared log-sum-exp, summed over the row
+    blocks (tp.TP.rows_sum), divided by the whole batch's tokens."""
+    logits = (xt @ p["router"].to(COMPUTE_DTYPE)).float()
+    e = cfg.n_experts
+    sums = tp.rows_sum(torch.cat([
+        torch.softmax(logits, dim=-1).sum(0), F.one_hot(idx, e).float().sum((0, 1)),
+        (torch.logsumexp(logits, dim=-1) ** 2).sum()[None]]))
+    n = xt.shape[0] * tp.rows[0]
+    me, ce, z = sums[:e] / n, sums[e:2 * e] / n, sums[2 * e] / n
+    return e * torch.sum(me * ce) + 1e-3 * z
 
 
 def capacity(n_tokens: int, cfg, capacity_factor: float) -> int:
@@ -246,23 +272,32 @@ def moe_apply(p: dict, x, cfg, impl: str = "sorted", capacity_factor: float = 1.
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     gates, idx, aux = _router(p, xt, cfg)
+    if tp is not None and tp.rows[0] > 1 and torch.is_grad_enabled() \
+            and p["router"].requires_grad:
+        aux = _batch_aux(p, xt, idx, cfg, tp)
     e_split = split(tp, "experts", cfg.n_experts)
     partial = e_split or split(tp, "mlp", cfg.moe_d_ff)    # first logical dim wins
+    s_split = bool(cfg.n_shared_experts) and split(
+        tp, "mlp", cfg.moe_d_ff * cfg.n_shared_experts)
     e0 = tp.offset(p["w1"].shape[0]) if e_split else 0
+    # the tokens enter once for the rank-local work (one sum of both parts'
+    # cotangents); the router and whole shared experts read them as they are
+    xe = tp.enter(xt) if partial or s_split else xt
+    xd, gd = (xe, tp.enter(gates)) if partial else (xt, gates)
     if impl == "sorted":
-        y = _experts_sorted(p, xt, gates, idx, cfg, capacity_factor, log, e0, tp)
+        y = _experts_sorted(p, xd, gd, idx, cfg, capacity_factor, log, e0, tp)
     else:
-        y = _experts_dense(p, xt, gates, idx, cfg, e0)
+        y = _experts_dense(p, xd, gd, idx, cfg, e0)
     if cfg.n_shared_experts:
         dt = COMPUTE_DTYPE
-        h = F.silu(xt @ p["sw1"].to(dt)) * (xt @ p["sw3"].to(dt))
+        xs = xe if s_split else xt
+        h = F.silu(xs @ p["sw1"].to(dt)) * (xs @ p["sw3"].to(dt))
         shared = h @ p["sw2"].to(dt)
-        s_split = split(tp, "mlp", cfg.moe_d_ff * cfg.n_shared_experts)
         if partial and not s_split:
-            y, partial = tp.all_reduce_sum(y), False
+            y, partial = tp.reduce(y), False
         elif s_split and not partial:
-            shared = tp.all_reduce_sum(shared)
+            shared = tp.reduce(shared)
         y = y + shared
     if partial:
-        y = tp.all_reduce_sum(y)
+        y = tp.reduce(y)
     return y.reshape(b, s, d), aux

@@ -25,16 +25,21 @@ reductions and gathers named here, on the mesh's "model" sub-group:
                                      summed, each rank keeping its channels;
                                      backward, the slices' cotangents
                                      gathered;
-  all_reduce_sum / all_reduce_max    the raw collectives: the MoE's partial
-                                     combine over a rank's experts, the
+  rows_sum                           a batch split into row blocks over
+                                     ("pod", "data"): each block's partial
+                                     sums (the MoE router's statistics)
+                                     summed over the blocks, the identity
+                                     backward;
+  all_reduce_sum / all_reduce_max    the raw collectives: the
                                      flash-decoding combine, the xLSTM
                                      states' layouts;
   lse_combine                        the ranks' partial softmax attention over
                                      their cache slots merged into one.
 
-The first four are autograd Functions where a graph is built (grad on and
-an input that requires grad); otherwise they issue exactly the serving
-path's collectives on the same buffers. A replicated leaf that a
+The first five are autograd Functions where a graph is built (grad on and
+an input that requires grad); otherwise the first four issue exactly the
+serving path's collectives on the same buffers (serving never calls
+rows_sum). A replicated leaf that a
 rank-local computation uses gets a per-rank partial gradient, which the
 train step sums over the group (Model.grad_kinds).
 
@@ -222,6 +227,28 @@ class TP:
         import torch.distributed as dist
         return self._reduce(table, "SUM", dist.group.WORLD) // self.size
 
+    def _rows_sum(self, x):
+        n_blocks, index = self.rows
+        table = torch.zeros((n_blocks, *x.shape), dtype=x.dtype, device=x.device)
+        if self.rank == 0:
+            table[index] = x
+        import torch.distributed as dist
+        return self._reduce(table, "SUM", dist.group.WORLD).sum(0)
+
+    def rows_sum(self, x):
+        """``x`` (each row block's partial sums, alike on the ranks of a
+        block's group) summed over the batch's row blocks: one all-reduce
+        over the whole mesh of a (count of row blocks, ...) table, each
+        block's row written by its group's first rank, then summed over the
+        blocks in order (the same bits on every rank). Backward: the
+        identity (the sum is used alike on every rank, each block's share of
+        it by the block's own rows). A batch held whole gives x."""
+        if self.rows[0] == 1:
+            return x
+        if _graph(x):
+            return _RowsSum.apply(x, self)
+        return self._rows_sum(x)
+
     def lse_combine(self, m, l, acc):
         """Softmax attention whose keys are split over the group, merged:
         each rank's partial row max ``m`` (...), sum ``l`` (...) of exp(s -
@@ -261,6 +288,16 @@ class _Enter(torch.autograd.Function):
     def backward(ctx, g):
         # on a copy: autograd may hand the same tensor to several branches
         return ctx.tp.all_reduce_sum(g.clone(memory_format=torch.contiguous_format)), None
+
+
+class _RowsSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        return tp._rows_sum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 class _Gather(torch.autograd.Function):

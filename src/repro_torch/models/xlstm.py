@@ -24,7 +24,16 @@ The caches keep the reference's layout, each state split over "model" on
 its last dim (hd) where that divides (runtime.sharding.cache_shardings):
 a call assembles the heads it runs from that layout at its start and
 cuts its new states back to it at its end (_heads_in / _heads_out), one
-all-reduce each way a state leaf where the layouts differ.
+all-reduce each way a state leaf where the layouts differ. A training
+forward carries no state, so neither runs there.
+
+Training on the mesh (tp.TP's autograd Functions): the input enters the
+rank's work where a projection splits (tp.enter), and the row-parallel
+output is summed by tp.reduce. Where heads are cut, each gathered
+projection enters again: every rank runs every head but keeps only its
+columns, so the whole wi / wf (mLSTM) and r_zifo (sLSTM) get per-rank
+partial gradients (PARTIAL in Model.grad_kinds); where the heads split
+they split with them.
 
 The chunk math and the whole sLSTM recurrence stay float32, as in the
 reference, and so do the gate weights (wi, wf, w_zifo, b_zifo, r_zifo),
@@ -141,11 +150,13 @@ def mlstm_apply(p: dict, x, cfg, state: dict | None = None, tp=None):
     dt = COMPUTE_DTYPE
     heads_split, qkv_split = _heads(cfg, tp)
     gather = qkv_split and not heads_split       # a split that cuts heads
+    if qkv_split:           # the replicated stream enters the rank's work
+        x = tp.enter(x)
 
     def heads(w):
         y = x @ w.to(dt)
-        if gather:
-            y = tp.gather_cols(y)
+        if gather:          # made whole, then used for the rank's columns only
+            y = tp.enter(tp.gather_cols(y))
         return y.view(b, s, -1, hd).transpose(1, 2)
 
     q, k, v = heads(p["wq"]), heads(p["wk"]), heads(p["wv"])
@@ -182,7 +193,7 @@ def mlstm_apply(p: dict, x, cfg, state: dict | None = None, tp=None):
         out = tp.take(out, -1)
     gate = F.silu(x @ p["wo_gate"].to(dt))
     y = (out * gate) @ p["wo"].to(dt)
-    return (tp.all_reduce_sum(y) if qkv_split else y), new_state
+    return (tp.reduce(y) if qkv_split else y), new_state
 
 
 # --------------------------------------------------------------------------
@@ -206,9 +217,14 @@ def slstm_apply(p: dict, x, cfg, state: dict | None = None, tp=None):
     b, s, d = x.shape
     h, hd = cfg.n_heads, cfg.hd
     heads_split, out_split = _heads(cfg, tp)
+    z_split = split(tp, "qkv", 4 * h * hd)
+    if z_split:             # the replicated stream enters the rank's columns
+        x = tp.enter(x)
     zifo = x.float() @ p["w_zifo"].float() + p["b_zifo"].float()
-    if not heads_split and split(tp, "qkv", 4 * h * hd):     # a split that cuts heads
+    if z_split and not heads_split:     # a split that cuts heads
         zifo = tp.gather_cols(zifo)
+        if out_split:       # every head run, the rank's columns kept
+            zifo = tp.enter(zifo)
     zifo = zifo.view(b, s, -1, 4 * hd)
     h = zifo.shape[2]                            # the heads this rank runs
 
@@ -247,7 +263,7 @@ def slstm_apply(p: dict, x, cfg, state: dict | None = None, tp=None):
     if out_split and not heads_split:    # this rank's columns: its rows of w_out
         out = tp.take(out, -1)
     y = out @ p["w_out"].to(COMPUTE_DTYPE)
-    return (tp.all_reduce_sum(y) if out_split else y), new_state
+    return (tp.reduce(y) if out_split else y), new_state
 
 
 def make_xlstm_state(cfg, batch: int, n_m: int, n_s: int, device=None) -> dict:

@@ -12,9 +12,9 @@ it was given, params and moments: the port's form of the JAX step's
 donated state, at 16 bytes a parameter. A state whose params are other
 tensors (a restored checkpoint) is copied into the model first.
 
-A model built on a mesh's "model" axis (Model(cfg, mesh=, trainable=True):
-the dense and hybrid families) holds and steps its shard of every
-parameter and moment: its layers' collectives are autograd Functions
+A model built on a mesh's "model" axis (Model(cfg, mesh=, trainable=True),
+every family) holds and steps its shard of every parameter and moment:
+its layers' collectives are autograd Functions
 (models/tp.py), loss_and_grads sums the gradients that are per-rank
 partials over the axis (Model.grad_kinds) and the global norm is the whole
 model's (clip_by_global_norm_'s model_axis). The logits are gathered whole
@@ -22,9 +22,8 @@ before the cross-entropy (a vocab-parallel log-softmax would save that
 gather).
 
 jit_train_step(model, mesh, ...) is the step on a ("pod", "data",
-"model") mesh (fsdp, other axes above 1, and the MoE, xLSTM, vlm and audio
-families on a model axis above 1 wait for TP / FSDP training: ROADMAP.md
-section 1, the sharding item's tensor-parallel half). A step takes the
+"model") mesh (fsdp and other axes above 1 wait for FSDP: ROADMAP.md
+section 1, the sharding item). A step takes the
 rank's rows of the global batch (batch_spec over ("pod", "data"): the
 ranks of one data index take the same rows), computes its gradients,
 all-reduces them over the data-parallel group so that every rank holds its
@@ -131,17 +130,18 @@ def loss_fn_chunked(model: Model, batch: dict, aux_weight=1e-2, seq_chunk: int =
     return loss + aux_weight * aux, (loss, aux)
 
 
-def loss_and_grads(model: Model, batch: dict, n_microbatches: int = 1, seq_chunk: int = 0):
-    """(nll, aux, grads) of the loss at the model's parameters: grads a tree
-    shaped as Model.param_tree(). Microbatches split the batch on axis 0;
-    their gradients are summed in order from zeros and divided by n, and so
-    are nll and aux. On a model axis, the gradients that are per-rank
-    partials (Model.grad_kinds: PARTIAL) are then summed over it, all in
-    one all-reduce."""
+def loss_and_grads(model: Model, batch: dict, n_microbatches: int = 1, seq_chunk: int = 0,
+                   aux_weight=1e-2):
+    """(nll, aux, grads) of the loss (nll + aux_weight * aux) at the model's
+    parameters: grads a tree shaped as Model.param_tree(). Microbatches
+    split the batch on axis 0; their gradients are summed in order from
+    zeros and divided by n, and so are nll and aux. On a model axis, the
+    gradients that are per-rank partials (Model.grad_kinds: PARTIAL) are
+    then summed over it, all in one all-reduce."""
     if seq_chunk:
-        lfn = lambda b: loss_fn_chunked(model, b, seq_chunk=seq_chunk)  # noqa: E731
+        lfn = lambda b: loss_fn_chunked(model, b, aux_weight, seq_chunk)  # noqa: E731
     else:
-        lfn = lambda b: loss_fn(model, b)  # noqa: E731
+        lfn = lambda b: loss_fn(model, b, aux_weight)  # noqa: E731
     leaves, treedef = tree_flatten(model.param_tree())
 
     def grad_fn(b):
@@ -320,19 +320,28 @@ def _dp_loss_and_grads(model: Model, dp: _DataParallel, batch: dict, n_microbatc
     """loss_and_grads of the rank's rows, then the global batch's (nll, aux,
     gradients) on every rank: each rank's mean is weighted by its share of
     the target tokens and the weighted gradients are summed over the
-    data-parallel group (a share of 1 on a one-rank mesh: the same bits)."""
+    data-parallel group (a share of 1 on a one-rank mesh: the same bits).
+    A model on a model axis whose batch is split into row blocks computes
+    the MoE aux loss of the whole batch on every rank (moe._batch_aux), each
+    rank's gradient of it its own rows' part: its weight is divided by the
+    share, so that the weighted sum adds the parts, and its reading is the
+    same on every rank."""
     import torch.distributed as dist
     local = {k: dp.rows(v, k) for k, v in batch.items()}
-    nll, aux, g = loss_and_grads(model, local, n_microbatches, seq_chunk)
     cnt = torch.clamp((local["targets"] >= 0).sum().float(), min=1.0)
     total = cnt.clone()
     dist.all_reduce(total, group=dp.group)
     share = cnt / total
+    whole_aux = model.tp is not None and model.tp.rows[0] > 1
+    nll, aux, g = loss_and_grads(model, local, n_microbatches, seq_chunk,
+                                 1e-2 / share if whole_aux else 1e-2)
     g_leaves = tree_flatten(g)[0]
     torch._foreach_mul_(g_leaves, share)
     for x in g_leaves:
         dist.all_reduce(x, group=dp.group)
-    readings = torch.stack([nll, aux]) * share
+    # a whole-batch aux loss is counted once: the first row block's
+    part = (aux if dp.index == 0 else torch.zeros_like(aux)) if whole_aux else aux * share
+    readings = torch.stack([nll * share, part])
     dist.all_reduce(readings, group=dp.group)
     return readings[0], readings[1], g
 

@@ -875,3 +875,64 @@ def test_hybrid_and_moe_gradient_passes_are_bit_equal(cuda, name, n_rec):
     assert torch.equal(passes[0][0], passes[1][0])
     for a, b in zip(tree_flatten(passes[0][2])[0], tree_flatten(passes[1][2])[0], strict=True):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name,seq,n_calls", [
+    ("deepseek-moe-16b", 64, 3),           # 3 attention layers, two of them MoE
+    ("xlstm-125m", 64, 0),                 # mLSTM, sLSTM, mLSTM: no kernel
+    ("llama-3.2-vision-11b", 64, 4),       # attn, cross, attn, cross over 16 image tokens
+    ("whisper-small", 64, 6),              # 2 encoder, 2 x (decoder self + cross)
+])
+def test_world_1_tensor_parallel_step_is_bit_equal_to_make_train_step(cuda, name, seq,
+                                                                       n_calls):
+    """The reduced model on a world-1 NCCL ("data", "model") mesh (every
+    leaf split over a group of one, the collectives autograd Functions):
+    2 steps of jit_train_step, every leaf of the state, every metric and
+    each step's MoE dropped slots bit-equal to make_train_step's from the
+    same init (xgates at 0.5), no missing-autograd warning, and a step's
+    flash launches those of the unsharded step (2 forwards a call under
+    remat, 1 backward)."""
+    import warnings
+
+    from repro_torch.core.types import tree_flatten
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch.train import frontend_shape
+    from repro_torch.models import moe
+    from repro_torch.runtime import train as t_train
+    cfg = configs.get(name).reduced()
+    batches = [make_batch(0, i, 4, seq, cfg.vocab_size, frontend_shape(cfg, seq), device=cuda)
+               for i in range(2)]
+    lmesh.init_process_group(device=cuda)
+    try:
+        mesh = lmesh.make_mesh((1, 1), ("data", "model"))
+        runs = []
+        for on_mesh in (False, True):
+            model = Model(cfg, device=cuda, trainable=True, mesh=mesh if on_mesh else None)
+            state = t_train.init_state(model, torch.Generator(device=cuda).manual_seed(0))
+            with torch.no_grad():
+                for layers in model.stage_layers:
+                    for blk in layers:
+                        if "xgate" in blk.p.tree():
+                            blk.p.tree()["xgate"].fill_(0.5)
+            step = (t_train.jit_train_step(model, mesh)[0]({k: v.shape for k, v in
+                                                             batches[0].items()})
+                    if on_mesh else t_train.make_train_step(model))
+            mets, drops = [], []
+            with warnings.catch_warnings():
+                warnings.filterwarnings("error", message=".*autograd kernel was not registered.*")
+                for b in batches:
+                    fa.reset_launches()
+                    with moe.drop_log() as log:
+                        state, met = step(state, b)
+                    torch.cuda.synchronize()
+                    assert fa.LAUNCHES == {"flash_attention": 2 * n_calls,
+                                           "flash_attention_bwd": n_calls}
+                    mets.append(met)
+                    drops.append([int(x) for x in log])
+            runs.append(([x.detach().clone() for x in tree_flatten(state)[0]], mets, drops))
+    finally:
+        lmesh.destroy_process_group()
+    (a, ma, da), (b, mb, db) = runs
+    assert da == db
+    assert all(torch.equal(x[k], y[k]) for x, y in zip(ma, mb) for k in x)
+    assert all(torch.equal(x, y) for x, y in zip(a, b, strict=True))

@@ -222,12 +222,18 @@ def test_layout_and_padded_heads_match_the_reference():
 
 @pytest.mark.parametrize("name", REFUSED)
 def test_other_families_on_a_model_axis_raise(name):
-    """The four families that now serve on a model axis still refuse to
-    train on one (TP / FSDP training waits), naming the item."""
+    """The four families that served on a model axis before they trained on
+    one now build trainable on a stand-in mesh of (1, 2), every leaf a
+    float32 shard that requires grad; what still raises is FSDP, naming
+    the item (the test's name is from the slice that refused them)."""
+    from repro_torch.runtime import train as t_train
     cfg = configs.get(name).reduced()
+    model = Model(cfg, device="meta", trainable=True,
+                  mesh=_StandInMesh({"data": 1, "model": 2}, {"data": 0, "model": 1}))
+    assert all(p.dtype == torch.float32 and p.requires_grad for p in model.parameters())
     with pytest.raises(NotImplementedError, match="tensor-parallel.*TP / FSDP training|"
                        "TP / FSDP training.*tensor-parallel"):
-        Model(cfg, device="meta", trainable=True, mesh={"data": 1, "model": 2})
+        t_train.jit_train_step(model, {"data": 1, "model": 2}, fsdp=True)
     model = Model(cfg, device="meta", tp_size=2)
     assert all(d.shape for d in model.stage_layers[0][0].p.defs.values()
                if not isinstance(d, dict))
@@ -315,24 +321,38 @@ class _StandInMesh:
 
 
 # the leaves whose gradient is a per-rank partial (Model.grad_kinds): a
-# replicated wk / wv (and their biases) beside split query heads
+# replicated wk / wv (and their biases) beside split query heads, in the
+# self and the cross attention; the whole wi / wf / r_zifo of an xLSTM
+# whose heads are cut (head_dim 48 on 3 ranks: every head run, the rank's
+# columns kept); never the MoE's router (its gates enter, moe.moe_apply)
 PARTIALS = {("qwen1.5-0.5b", 2): set(), ("qwen1.5-0.5b", 3): {"wk", "wv", "bk", "bv"},
-            ("recurrentgemma-9b", 2): set(), ("recurrentgemma-9b", 3): {"wk", "wv"}}
+            ("recurrentgemma-9b", 2): set(), ("recurrentgemma-9b", 3): {"wk", "wv"},
+            ("deepseek-moe-16b", 2): set(), ("deepseek-moe-16b", 3): {"wk", "wv"},
+            ("xlstm-125m", 2): set(), ("xlstm-125m", 3): set(),
+            ("xlstm-125m hd48", 3): {"wi", "wf", "r_zifo"},
+            ("llama-3.2-vision-11b", 2): set(), ("llama-3.2-vision-11b", 3): {"wk", "wv"},
+            ("whisper-small", 2): set(), ("whisper-small", 3): {"wk", "wv"}}
+
+
+def _case_cfg(name: str):
+    """A PARTIALS case's reduced config ("<arch> hd48": head_dim 48)."""
+    arch, _, variant = name.partition(" ")
+    cfg = configs.get(arch).reduced()
+    return dataclasses.replace(cfg, head_dim=48) if variant == "hd48" else cfg
 
 
 def test_training_on_a_model_axis_raises():
-    """The dense and hybrid families build trainable on a model axis of 2
-    and 3 (each leaf the float32 shard its placement assigns, every leaf
-    SPLIT, PARTIAL or WHOLE as its placement and its mixer say); the MoE
-    family still raises, naming the TP item; --mesh 1x2 parses."""
+    """Every family builds trainable on a model axis of 2 and 3 (each leaf
+    the float32 shard its placement assigns, every leaf SPLIT, PARTIAL or
+    WHOLE as its placement and its mixer say; the MoE router WHOLE); only
+    FSDP still raises, naming the TP item (tests/test_torch_train_dp.py;
+    the test's name is from the slices that refused a model axis); --mesh
+    1x2 parses."""
     from repro_torch.models.model import PARTIAL, SPLIT, WHOLE
     assert launch_train.check_mesh("1x2") == ((1, 2), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        Model(configs.get("deepseek-moe-16b").reduced(), device="meta", trainable=True,
-              mesh=_StandInMesh({"data": 1, "model": 2}, {"data": 0, "model": 1}))
-    for (arch, m), partial in PARTIALS.items():
+    for (name, m), partial in PARTIALS.items():
         sizes = {"data": 1, "model": m}
-        model = Model(configs.get(arch).reduced(), device="meta", trainable=True,
+        model = Model(_case_cfg(name), device="meta", trainable=True,
                       mesh=_StandInMesh(sizes, {"data": 0, "model": m - 1}))
         whole = model.param_shapes()
         for p, x, sh in zip(tree_flatten(model.param_tree())[0], tree_flatten(whole)[0],
@@ -343,11 +363,13 @@ def test_training_on_a_model_axis_raises():
         names, kinds = _leaf_names(model), model.grad_kinds()
         assert len(kinds) == len(names)
         got = {n.rsplit(".", 1)[-1] for n, k in zip(names, kinds) if k == PARTIAL}
-        assert got == partial, (arch, m, got)
+        assert got == partial, (name, m, got)
         for n, k, sh in zip(names, kinds, sharding.sharding_leaves(sharding.tree_shardings(
                 sizes, model.specs(), whole))):
-            assert (k == SPLIT) == ("model" in sh.spec), (arch, m, n)
+            assert (k == SPLIT) == ("model" in sh.spec), (name, m, n)
             assert k in (SPLIT, PARTIAL, WHOLE)
+            if n.endswith(".moe.router"):
+                assert k == WHOLE, (name, m, n)
 
 
 def _leaf_names(model) -> list:

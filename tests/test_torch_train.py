@@ -663,18 +663,19 @@ def test_launch_train_saves_and_resumes(tmp_path):
 def test_training_is_dense_only_and_serving_stays_frozen():
     """Every registered arch builds trainable (float32 masters that require
     grad, every family: the name is from the slice that trained the dense
-    family alone); --mesh 2x2 parses (the dense and hybrid families train
-    tensor-parallel) and the MoE family still refuses a model axis above
-    1; a serving model keeps frozen bf16 parameters and builds no graph."""
+    family alone); --mesh 2x2 parses (every family trains tensor-parallel:
+    tests/test_torch_tp_train*.py) and FSDP still refuses, naming the
+    item; a serving model keeps frozen bf16 parameters and builds no
+    graph."""
     for name in configs.all_names():
         model = Model(configs.get(name).reduced(), device="cpu", trainable=True)
         assert all(p.requires_grad and p.dtype == torch.float32 for p in model.parameters()), \
             name
     assert not hasattr(Model, "TRAINING_WAITS_FOR")
     assert launch_train.check_mesh("2x2") == ((2, 2), ("data", "model"))
+    moe = Model(configs.get("deepseek-moe-16b").reduced(), device="cpu", trainable=True)
     with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        launch_train.main(["--arch", "deepseek-moe-16b", "--reduced", "--device", "cpu",
-                           "--mesh", "2x2", "--steps", "1"])
+        t_train.jit_train_step(moe, {"data": 2, "model": 2}, fsdp=True)
     cfg = configs.get(ARCH).reduced()
     served = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
     assert all(not p.requires_grad for p in served.parameters())

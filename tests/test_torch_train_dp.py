@@ -41,7 +41,8 @@ from repro_torch.pshard import unshard  # noqa: E402
 from repro_torch.runtime import train as t_train  # noqa: E402
 
 ARCH = "qwen1.5-0.5b"
-TP_ARCHS = ("qwen1.5-0.5b", "recurrentgemma-9b")
+TP_ARCHS = ("qwen1.5-0.5b", "recurrentgemma-9b", "deepseek-moe-16b", "xlstm-125m",
+            "llama-3.2-vision-11b", "whisper-small")
 WORLD = 2
 BATCH, SEQ = 4, 32
 STEPS = (7, 8)                        # the batches of the two compared steps
@@ -62,6 +63,12 @@ def _copy(tree):
     return tree_map(lambda x: x.detach().clone(), tree)
 
 
+def _tp_batch(cfg):
+    """The model-axis step's batch, with the launcher's frontend."""
+    return make_batch(0, 5, BATCH, SEQ, cfg.vocab_size, launch_train.frontend_shape(cfg, SEQ),
+                      device="cpu")
+
+
 def train_rank(rank: int, carried, tmp: str) -> None:
     """One rank: the data-parallel gradients at the carried state, then two
     steps with ZeRO-1 off and on; the entry point at --mesh 2x1 (1 step,
@@ -80,7 +87,7 @@ def train_rank(rank: int, carried, tmp: str) -> None:
     for arch in TP_ARCHS:      # a model axis of 2: each rank its shard
         model = Model(configs.get(arch).reduced(), device="cpu", trainable=True, mesh=tp_mesh)
         state = t_train.init_state(model, torch.Generator().manual_seed(0))
-        b = make_batch(0, 5, BATCH, SEQ, model.cfg.vocab_size, device="cpu")
+        b = _tp_batch(model.cfg)
         step = t_train.jit_train_step(model, tp_mesh)[0]({k: v.shape for k, v in b.items()})
         out["tp", arch] = {k: float(v) for k, v in step(state, b)[1].items()}
     del tp_mesh
@@ -264,12 +271,14 @@ def test_entry_point_on_two_ranks_matches_one_device(case):
 
 
 def test_a_model_axis_raises_naming_the_tp_item(case, monkeypatch):
-    """The dense and hybrid families build and step on a ("data", "model")
-    mesh of (1, 2) (in float32 compute: the loss and the global norm within
+    """Every family builds and steps on a ("data", "model") mesh of (1, 2)
+    (in float32 compute: the loss, the aux loss and the global norm within
     1e-5 of the unsharded port's Model(cfg, tp_size=2) step from the same
-    init; tests/test_torch_tp_train.py holds them to the JAX package); the
-    MoE family and fsdp=True still raise, naming the TP item (the test's
-    name is from the slice that refused every model axis)."""
+    init; tests/test_torch_tp_train.py, test_torch_tp_train_moe_xlstm.py
+    and test_torch_tp_train_vlm_audio.py hold them to the JAX package);
+    fsdp=True and mesh axes beyond ("pod", "data", "model") still raise,
+    naming the TP item (the test's name is from the slice that refused
+    every model axis)."""
     for name in MODEL_MODULES:
         mod = importlib.import_module(f"repro_torch.models.{name}")
         if hasattr(mod, "COMPUTE_DTYPE"):
@@ -277,21 +286,20 @@ def test_a_model_axis_raises_naming_the_tp_item(case, monkeypatch):
     for arch in TP_ARCHS:
         model = Model(configs.get(arch).reduced(), device="cpu", trainable=True, tp_size=2)
         state = t_train.init_state(model, torch.Generator().manual_seed(0))
-        b = make_batch(0, 5, BATCH, SEQ, model.cfg.vocab_size, device="cpu")
-        want = t_train.make_train_step(model)(state, b)[1]
+        want = t_train.make_train_step(model)(state, _tp_batch(model.cfg))[1]
         got = case["ranks"]["tp", arch]
         for k in ("loss", "grad_norm"):
             np.testing.assert_allclose(got[k], float(want[k]), rtol=1e-5)
+        assert abs(got["aux"] - float(want["aux"])) <= 1e-5 * max(1.0, abs(float(want["aux"])))
     assert launch_train.check_mesh("2x2") == ((2, 2), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        launch_train.main(LAUNCH[:1] + ["deepseek-moe-16b"] + LAUNCH[2:]
-                          + ["--mesh", "1x2x2", "--steps", "1"])
+    assert launch_train.check_mesh("1x2x2") == ((1, 2, 2), ("pod", "data", "model"))
+    with pytest.raises(ValueError, match="1 to 3 axes"):
+        launch_train.check_mesh("1x1x2x2")
     assert launch_train.check_mesh("2x1") == ((2, 1), ("data", "model"))
     assert launch_train.check_mesh("2x4x1") == ((2, 4, 1), ("pod", "data", "model"))
     moe = Model(configs.get("deepseek-moe-16b").reduced(), device="cpu", trainable=True)
     with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        Model(configs.get("deepseek-moe-16b").reduced(), device="meta", trainable=True,
-              mesh={"data": 1, "model": 2})
+        t_train.jit_train_step(moe, {"data": 1, "model": 1, "expert": 2})
     model = Model(configs.get(ARCH).reduced(), device="cpu", trainable=True)
     with pytest.raises(ValueError, match="built on this mesh"):
         t_train.jit_train_step(model, {"data": 1, "model": 2})
