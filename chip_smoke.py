@@ -286,7 +286,7 @@ Phases, each fatal on failure (no phase catches its own error):
                  NOMA launches, a graphed step's traced launches against the
                  counted ones and the replays that ran; 17.2
                  jit_train_step on a ("data",) mesh at qwen1.5-0.5b 8 x 2048,
-                 3 steps with ZeRO-1 off and 3 on, bit-equal to
+                 2 steps with ZeRO-1 off and 2 on, bit-equal to
                  make_train_step's from the same state and batches, step
                  ms, MFU, peak reserve; 17.3 compressed_psum bit-equal to
                  error_feedback_update's g_hat; 17.4 launch.train.main
@@ -344,8 +344,8 @@ Phases, each fatal on failure (no phase catches its own error):
                  first checkpoint use while 18.3 and 19.3 time the kernels,
                  then go.
  20. tensor-parallel training of the dense and hybrid families -- 20.1
-                 inside 17.2 (qwen1.5-0.5b, 3 steps of 8 x 2048, ZeRO-1
-                 off and on) and 16 (recurrentgemma-9b rec, rec, attn, 3
+                 inside 17.2 (qwen1.5-0.5b, 2 steps of 8 x 2048, ZeRO-1
+                 off and on) and 16 (recurrentgemma-9b rec, rec, attn, 2
                  steps of 2 x 3072), each on a world-1 NCCL ("data",
                  "model") mesh over the phase model's parameters: every
                  leaf and metric bit-equal to make_train_step's (the
@@ -382,6 +382,25 @@ Phases, each fatal on failure (no phase catches its own error):
                  backward at every per-rank shape 21.2 launched, against
                  their twins, the bf16 ones timed beside SDPA's and their
                  bounds.
+ 22. FSDP, the pod axis and the MoE step on a data mesh -- 22.1 inside
+                 17.2 (qwen1.5-0.5b, 2 steps of 8 x 2048 with FSDP on a
+                 world-1 (1, 1) ("data", "model") mesh and with FSDP and
+                 ZeRO-1 on (1, 1, 1) ("pod", "data", "model")) and 16
+                 (deepseek-moe-16b's 3 layers, 2 steps on a world-1
+                 ("data",) mesh, the model built on it): every leaf (or its
+                 digests), metric and MoE drop count bit-equal to
+                 make_train_step's, the all-reduces of each step counted
+                 against tp_train_collectives plus fsdp_collectives; 22.2
+                 on the two gloo ranks of 18.2-21.2's spawn, float32
+                 compute: qwen1.5-0.5b's gradient pass at 20.2's 4 x 512 on
+                 a (2, 1) mesh without and with FSDP (the FSDP slices
+                 bit-equal to the pass without it, both within 1e-4 of
+                 each leaf's largest value of 20.2's unsharded pass), and
+                 deepseek-moe-16b's 3 layers on a (2,) ("data",) mesh over
+                 2 x 256 tokens at capacity 1.25 (the loss and aux loss
+                 within 1e-4 of an unsharded pass over the whole batch,
+                 written in 16, the drops equal, every gradient leaf
+                 within 1e-4); its flash shapes checked in 21.3.
 Every profiled window that records no device time is measured once more
 (profiled); a phase fails only if the retry is empty too. A graphed
 window whose trace is short of the replays that CUDA events saw run is
@@ -541,8 +560,9 @@ CE_B, CE_S, CE_CHUNK = 2, 512, 128
 # restart trains 2 more, writing only its final checkpoint.
 ENTRY_STEPS, ENTRY_RESUMED, ENTRY_EVERY = 4, 2, 3
 # Phase 17: the data-parallel step's steps at TRAIN_B x TRAIN_S (with ZeRO-1
-# off and on) and compressed_psum's gradient (the unembedding's shape)
-DP_STEPS = 3
+# off and on; 20.1 and 22.1 take as many: the first step is untimed, the
+# second timed) and compressed_psum's gradient (the unembedding's shape)
+DP_STEPS = 2
 PSUM_SHAPE = (151936, 1024)
 # 15.1: flash_attention_bwd against its twin, each gradient element within
 # this fraction of the sum of the magnitudes of its terms
@@ -569,10 +589,10 @@ FAMILIES = {
     # which a window may come back empty
     "ssm": ("xlstm-125m", 6, 4, 512, None),
 }
-FAMILY_SEED, FAMILY_STEPS, FAMILY_LR, FAMILY_CHUNK = 16, 5, 3e-3, 512
-# xlstm-125m's host-bound step takes FAMILY_SSM_STEPS timed steps (cut for
-# phase 21's time)
-FAMILY_SSM_STEPS = 3
+# 16.2's timed steps a family: FAMILY_STEPS, xlstm-125m's host-bound step
+# FAMILY_SSM_STEPS (both cut to leave room for phase 22)
+FAMILY_SEED, FAMILY_STEPS, FAMILY_LR, FAMILY_CHUNK = 16, 3, 3e-3, 512
+FAMILY_SSM_STEPS = 2
 FAMILY_CAPACITY, FAMILY_XGATE = 2.0, 0.5     # the launcher's capacity; every xgate
 # 16.3: the reduced model in float32 compute on the card against itself on
 # the CPU (the plain twins): the loss within REDUCED_LOSS_RTOL, each
@@ -582,9 +602,9 @@ FAMILY_CAPACITY, FAMILY_XGATE = 2.0, 0.5     # the launcher's capacity; every xg
 # another order by the kernels and cuBLAS.
 REDUCED_B, REDUCED_S, REDUCED_LOSS_RTOL, REDUCED_GRAD_RTOL = 2, 64, 1e-5, 1e-4
 # 16.4: the entry point for every family (whisper-small and xlstm-125m at
-# full size, the others --reduced), 2 steps at 8 x 128 each; whisper-small
+# full size, the others --reduced), 1 step at 8 x 128 each; whisper-small
 # then resumed for 1 step from its final checkpoint.
-ENTRY_FAMILY_STEPS, ENTRY_FAMILY_RESUMED = 2, 1
+ENTRY_FAMILY_STEPS, ENTRY_FAMILY_RESUMED = 1, 1
 # Phase 18: tensor-parallel serving. 18.2 runs TP_M ranks on the one card
 # (gloo: NCCL refuses two ranks on one GPU): each arch of TP_ARCHS at
 # published width, its depth cut where given (arch -> layers kept or None:
@@ -666,11 +686,20 @@ def wait_for_memory(torch) -> None:
 PEAK_BEFORE = {"bytes": 0}
 
 
+# the wall clock at the last memory_mark (the script's start before the first)
+PHASE_CLOCK = {"t": time.perf_counter()}
+
+
 def memory_mark(torch, label: str, peaks: dict) -> None:
-    """Keep the allocator's peak reserve since the last mark under label."""
+    """Keep the allocator's peak reserve since the last mark under label,
+    and print the seconds since the last mark (where the time went)."""
     peaks[label] = max(torch.cuda.max_memory_reserved(), PEAK_BEFORE["bytes"])
     PEAK_BEFORE["bytes"] = 0
     torch.cuda.reset_peak_memory_stats()
+    now = time.perf_counter()
+    print(f"phase clock: {label} done, {now - PHASE_CLOCK['t']:.1f} s since the last mark",
+          flush=True)
+    PHASE_CLOCK["t"] = now
 
 
 def row_scale(want):
@@ -1500,10 +1529,11 @@ def main() -> int:
 def tp_ranks_and_kernels(dev, smi: str, errs: dict, rows: dict, launches: dict,
                          peaks: dict) -> None:
     """The end of the script: 18.3 and 19.3 (the kernels at the per-rank
-    serving shapes), then 18.2, 19.2, 20.2 and 21.2 on TP_M gloo ranks
-    sharing the card, one spawn for the four (each reference computed
-    first: 18.2's and 19.2's here, 20.2's in 17.2 and 16, 21.2's in 16),
-    their checks, 20.3 and 21.3. Adds the kernels' rows and launches to
+    serving shapes), then 18.2, 19.2, 20.2, 21.2 and 22.2 on TP_M gloo
+    ranks sharing the card, one spawn for the five (each reference
+    computed first: 18.2's and 19.2's here, 20.2's in 17.2 and 16, 21.2's
+    and 22.2's in 16; 22.2 also reads 20.2's), their checks, 20.3 and 21.3
+    (22.2's shapes with 21.2's). Adds the kernels' rows and launches to
     ``rows`` and ``launches``."""
     import gc
     import shutil
@@ -1593,10 +1623,17 @@ def tp_ranks_and_kernels(dev, smi: str, errs: dict, rows: dict, launches: dict,
           f"{ {n: r['launches'] for n, r in tp20_bwd.items()} } (the qwen1.5-0.5b 8 x 2048 "
           f"shape of M = 2 runs on no path of one card)")
     memory_mark(torch, "20.3", peaks)
-    # -- 21.2 checked, then 21.3 the flash kernels at the per-rank training shapes
+    # -- 21.2 and 22.2 checked, then 21.3 the flash kernels at the per-rank
+    # training shapes of both
     tp21_launched, tp21_shapes, tp21_dtypes = tp_train_ranks_check(
         smi, "21", [rk["21.2"] for rk in spawned], max(rk["21.2", "s"] for rk in spawned))
+    tp22_launched, tp22_shapes = tp22_ranks_check(
+        smi, [rk["22.2"] for rk in spawned], max(rk["22.2", "s"] for rk in spawned))
     shutil.rmtree(TP20_DIR["path"], ignore_errors=True)
+    for key, n in tp22_shapes.items():      # 22.2 ran in float32 compute
+        tp21_shapes[key] = tp21_shapes.get(key, 0) + n
+        plain = key[1:] if key[0] == "bwd" else key
+        tp21_dtypes[plain] = sorted(set(tp21_dtypes.get(plain, ())) | {"float32"})
     tp21_fwd, tp21_bwd, checked = tp21_kernel_phase(dev, smi, errs, tp21_shapes, tp21_dtypes)
     unchecked = sorted({k[1:] if k[0] == "bwd" else k for k in tp21_shapes} - checked)
     if unchecked:
@@ -1609,7 +1646,12 @@ def tp_ranks_and_kernels(dev, smi: str, errs: dict, rows: dict, launches: dict,
             launches[name] = launches.get(name, 0) + n
     print(f"tp 21: launches on its paths {TP21_LAUNCHES} (21.1, world-1 meshes) and "
           f"{tp21_launched} (21.2's ranks)")
-    for phase in ("20", "21"):
+    for source in (TP22_LAUNCHES, tp22_launched):
+        for name, n in source.items():
+            launches[name] = launches.get(name, 0) + n
+    print(f"tp 22: launches on its paths {TP22_LAUNCHES} (22.1, world-1 meshes) and "
+          f"{tp22_launched} (22.2's ranks; their shapes checked in 21.3)")
+    for phase in ("20", "21", "22"):
         times = {k: v for k, v in TP_TIMES.items() if k.startswith(phase + ".")}
         print(f"tp {phase}: phase {phase} took {sum(times.values()):.1f} s: "
               + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()) + f" | {smi}")
@@ -5334,10 +5376,8 @@ def family_train(dev, family: str, smi: str, errs: dict, bwd_rows: dict) -> dict
     del prof, rows_k, state, step, met
     gc.collect()
     torch.cuda.empty_cache()
-    if family == "hybrid" or family in TP21_FAMILIES:   # phase 20 or 21 over this model
-        counts = TP20_LAUNCHES if family == "hybrid" else TP21_LAUNCHES
-        for k, v in tp_family_train(dev, smi, family, model, batches).items():
-            counts[k] = counts.get(k, 0) + v
+    if family == "hybrid" or family in TP21_FAMILIES:   # phase 20, 21 or 22 over this model
+        add_launches(tp_family_train(dev, smi, family, model, batches))
     del batches, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -5467,7 +5507,7 @@ def sharding_phase(dev, smi: str, fleet: dict, errs: dict, peaks: dict) -> dict:
     fleet_mesh(), every leaf bit-equal to phase 7's unsharded states,
     exact NOMA launches, one graphed step's traced launches against the
     counted ones; 17.2 jit_train_step on a ("data",) mesh of one at
-    qwen1.5-0.5b 8 x 2048, 3 steps with ZeRO-1 off and 3 on, both bit-equal
+    qwen1.5-0.5b 8 x 2048, DP_STEPS steps with ZeRO-1 off and on, both bit-equal
     to make_train_step's (phase 15.2's step) from the same state and
     batches; 17.3 compressed_psum over the group bit-equal to
     error_feedback_update's g_hat; 17.4 launch/train.py --mesh 1x1
@@ -5627,11 +5667,13 @@ def sharding_phase(dev, smi: str, fleet: dict, errs: dict, peaks: dict) -> dict:
             for k, v in launched.items():
                 out[k] = out.get(k, 0) + v
             del state, step, make
-        # -- 20.1 over 17.2's model, batches and reference; 20.2's qwen references
-        for k, v in tp_train_mesh(dev, smi, "20", TRAIN_ARCH, model, batches, TRAIN_CHUNK,
-                                  TRAIN_SEED, ref, ref_mets, [[] for _ in batches], ref_s * 1e3,
-                                  (False, True)).items():
-            TP20_LAUNCHES[k] = TP20_LAUNCHES.get(k, 0) + v
+        # -- 20.1 and 22.1 over 17.2's model, batches and reference; 20.2's qwen
+        # references (which 22.2 reads too)
+        add_launches(tp_train_mesh(
+            dev, smi, TRAIN_ARCH, model, batches, TRAIN_CHUNK, TRAIN_SEED, ref, ref_mets,
+            [[] for _ in batches], ref_s * 1e3,
+            tuple(("20", (1, 1), ("data", "model"), z, False) for z in (False, True))
+            + TP22_QWEN_RUNS))
         for label, case in TP20_CASES.items():
             if case[0] == TRAIN_ARCH:
                 tp_train_ref(dev, model, label)
@@ -6014,7 +6056,8 @@ def tp_spawned_rank(rank: int, tmp: str, dev, train_refs: dict) -> None:
     with device "cpu": its mesh's device type is the CPU's, its collectives
     take the card's tensors, staged through the host): 18.2's serve
     (tp_rank), 19.2's (tp19_rank) and 20.2's and 21.2's training cases
-    (tp_train_rank against ``train_refs``), on one (1, TP_M) mesh. The rank starts while
+    (tp_train_rank against ``train_refs``), on one (1, TP_M) mesh, then
+    22.2's on a (TP_M, 1) and a (TP_M,) mesh (tp22_rank). The rank starts while
     the main process times 18.3 and 19.3: it takes the first use of
     torch.utils.checkpoint on the host (which imports torch._dynamo, about
     10 s) and then waits, using nothing of the card, until tmp/go exists.
@@ -6040,7 +6083,8 @@ def tp_spawned_rank(rank: int, tmp: str, dev, train_refs: dict) -> None:
                     ("20.2", lambda: tp_train_rank(dev, mesh, {
                         lb: r for lb, r in train_refs.items() if lb in TP20_CASES})),
                     ("21.2", lambda: tp_train_rank(dev, mesh, {
-                        lb: r for lb, r in train_refs.items() if lb in TP21_CASES}))):
+                        lb: r for lb, r in train_refs.items() if lb in TP21_CASES})),
+                    ("22.2", lambda: tp22_rank(dev, train_refs))):
         t0 = time.perf_counter()
         out[key] = fn()
         out[key, "s"] = time.perf_counter() - t0
@@ -6048,10 +6092,10 @@ def tp_spawned_rank(rank: int, tmp: str, dev, train_refs: dict) -> None:
 
 
 def tp_spawn_ranks(dev, smi: str, tmp: str) -> list:
-    """The one spawn of TP_M gloo ranks on the card for 18.2, 19.2, 20.2 and
-    21.2 (tp_spawned_rank, rendezvous and results in ``tmp``, which it
-    removes; 20.2's and 21.2's references wait on the host). Returns the
-    ranks' results."""
+    """The one spawn of TP_M gloo ranks on the card for 18.2, 19.2, 20.2,
+    21.2 and 22.2 (tp_spawned_rank, rendezvous and results in ``tmp``,
+    which it removes; 20.2's, 21.2's and 22.2's references wait on the
+    host). Returns the ranks' results."""
     import shutil
 
     import torch
@@ -6064,9 +6108,10 @@ def tp_spawn_ranks(dev, smi: str, tmp: str) -> list:
         ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(TP_M)]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    parts = {k: max(rk[k, "s"] for rk in ranks) for k in ("18.2", "19.2", "20.2", "21.2")}
-    print(f"tp 18.2-21.2: {TP_M} ranks on {torch.cuda.get_device_name(0)} over gloo, "
-          f"{spawn_s:.1f} s from spawn to exit (one spawn for the four, started before "
+    parts = {k: max(rk[k, "s"] for rk in ranks)
+             for k in ("18.2", "19.2", "20.2", "21.2", "22.2")}
+    print(f"tp 18.2-22.2: {TP_M} ranks on {torch.cuda.get_device_name(0)} over gloo, "
+          f"{spawn_s:.1f} s from spawn to exit (one spawn for the five, started before "
           f"18.3): the first checkpoint use {max(rk['warm_s'] for rk in ranks):.1f} s, the "
           f"wait for 18.3 and 19.3 {max(rk['wait_s'] for rk in ranks):.1f} s, then "
           + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + f" | {smi}")
@@ -6483,12 +6528,29 @@ TP21_CASES = {
     "whisper-small bf16": ("whisper-small", None, 2, 448, 512, False, 1500),
     "xlstm-125m float32": ("xlstm-125m", 6, 2, 128, 512, True, None),
 }
-TRAIN_CASES = {**TP20_CASES, **TP21_CASES}
+# Phase 22: FSDP and the pod axis. 22.1 in a world-1 NCCL group: inside
+# 17.2, qwen1.5-0.5b with FSDP on a (1, 1) ("data", "model") mesh and with
+# FSDP and ZeRO-1 on a (1, 1, 1) ("pod", "data", "model") mesh, DP_STEPS
+# steps each against 17.2's make_train_step; inside 16, deepseek-moe-16b
+# on a ("data",) mesh of one, built on it, TP21_STEPS steps against 21.1's
+# reference. 22.2 in the one spawn, TP_M gloo ranks in float32 compute:
+# qwen1.5-0.5b at 20.2's 4 x 512 on a (TP_M, 1) mesh without and with FSDP
+# (20.2's reference), and deepseek-moe-16b (phase 16's 3 layers) on a
+# (TP_M,) ("data",) mesh over 2 x 256 tokens (21.2's 512, split into two
+# rows) at the capacity factor TP22_CAPACITY, against an unsharded pass
+# over the whole batch (TP22_CASES, written in 16).
+TP22_QWEN_RUNS = (("22", (1, 1), ("data", "model"), False, True),
+                  ("22", (1, 1, 1), ("pod", "data", "model"), True, True))
+TP22_MOE_RUNS = (("22", (1,), ("data",), False, False),)
+TP22_CASES = {"deepseek-moe-16b float32 data": ("deepseek-moe-16b", 3, 2, 256, 512, True, None)}
+TP22_CAPACITY = 1.25
+TRAIN_CASES = {**TP20_CASES, **TP21_CASES, **TP22_CASES}
 TP20_SEED, TP20_F32_RTOL = 20, 1e-4
 TP20_REFS: dict = {}        # label -> the unsharded step's readings (20.2, 21.2)
 TP_TIMES: dict = {}         # sub-phase of 20 or 21 -> seconds
 TP20_LAUNCHES: dict = {}    # the main paths' launches in phase 20
 TP21_LAUNCHES: dict = {}    # and in phase 21 (21.1)
+TP22_LAUNCHES: dict = {}    # and in phase 22 (22.1)
 TP20_DIR = {"path": None}   # where 20.2's and 21.2's reference gradients wait
 TP20_WRITERS: list = []     # the threads writing them (joined before the spawn)
 # Phase 21.1: the families whose phase-16 model trains on a world-1 mesh
@@ -6497,6 +6559,14 @@ TP20_WRITERS: list = []     # the threads writing them (joined before the spawn)
 # moments widened over "data").
 TP21_FAMILIES = ("moe", "vlm", "audio", "ssm")
 TP21_STEPS, TP21_SSM_BATCH, TP21_ZERO1 = 2, (2, 128), "moe"
+
+
+def add_launches(by_phase: dict) -> None:
+    """Add tp_train_mesh's launches to TP20_ / TP21_ / TP22_LAUNCHES."""
+    for phase, got in by_phase.items():
+        into = {"20": TP20_LAUNCHES, "21": TP21_LAUNCHES, "22": TP22_LAUNCHES}[phase]
+        for k, v in got.items():
+            into[k] = into.get(k, 0) + v
 
 
 def tp_train_collectives(cfg, s: int, chunk: int) -> int:
@@ -6529,19 +6599,37 @@ def leaf_digest(x) -> tuple:
     return a, b
 
 
-def tp_train_mesh(dev, smi: str, phase: str, label: str, model, batches: list, chunk: int,
-                  seed: int, ref, ref_mets: list, ref_drops: list, ref_ms: float,
-                  zero1s: tuple) -> dict:
-    """20.1 / 21.1 for one arch, in a world-1 NCCL group: a model built on
-    a (1, 1) ("data", "model") mesh sharing ``model``'s parameters (the
-    tensors themselves), its collectives counted (CountedAllReduce); for
-    each zero1 of ``zero1s``, len(batches) steps of jit_train_step from the
+def fsdp_collectives(model) -> int:
+    """The all-reduces FSDP adds to one train step (chunked cross-entropy)
+    on data axes of one device, where every leaf with an "embed" dim
+    splits: each block leaf's gather at the block's start, again at the
+    start of its remat recompute, and its reduce in the backward; each top
+    leaf's (embed, the final norm, unembed in the chunked loss) gather once
+    a forward and its reduce; the global norm's sum of the data-split
+    leaves' squares. Read off the code with a counting all-reduce on a
+    world-1 gloo group (reduced configs: 88 for qwen1.5-0.5b, 112 for
+    deepseek-moe-16b)."""
+    def embed_leaves(defs):
+        return sum(embed_leaves(d) if isinstance(d, dict) else "embed" in d.axes
+                   for d in defs.values())
+    blocks = sum(embed_leaves(blk.p.defs) for layers in model.stage_layers for blk in layers)
+    return 3 * blocks + 2 * embed_leaves(model.top.defs) + 1
+
+
+def tp_train_mesh(dev, smi: str, label: str, model, batches: list, chunk: int, seed: int, ref,
+                  ref_mets: list, ref_drops: list, ref_ms: float, runs: tuple) -> dict:
+    """20.1 / 21.1 / 22.1 for one arch, in a world-1 NCCL group: for each run
+    (phase, mesh shape, axis names, zero1, fsdp) of ``runs``, a model built
+    on that mesh sharing ``model``'s parameters (the tensors themselves;
+    FSDP over data axes of one keeps them), its collectives counted
+    (CountedAllReduce), and len(batches) steps of jit_train_step from the
     init of ``seed`` (xgates at FAMILY_XGATE), every leaf of the state (or
     its digests, where ``ref`` holds digests), every metric and each step's
     MoE dropped slots bit-equal to make_train_step's (``ref``,
     ``ref_mets``, ``ref_drops``), the all-reduces of each step equal to
-    tp_train_collectives, no missing-autograd warning (an error here); step
-    ms beside make_train_step's. Returns the flash and rg_lru launches."""
+    tp_train_collectives (with a model axis) plus fsdp_collectives (with
+    fsdp), no missing-autograd warning (an error here); step ms beside
+    make_train_step's. Returns the flash and rg_lru launches by phase."""
     import warnings
 
     import torch
@@ -6553,33 +6641,34 @@ def tp_train_mesh(dev, smi: str, phase: str, label: str, model, batches: list, c
     from repro_torch.pshard import unshard
     from repro_torch.runtime import train as rt
 
-    t0 = time.perf_counter()
-    tag = f"tp {phase}.1 {label}"
-    mesh = lmesh.make_mesh((1, 1), ("data", "model"))
-    counted = CountedAllReduce()
-    tm = Model(model.cfg, device="meta", trainable=True, remat=True, mesh=mesh,
-               moe_capacity=model.moe_capacity,
-               all_reduce=counted).load_params_(model.param_tree(), share=True)
-    shared = all(a.data_ptr() == b.data_ptr() for a, b in zip(tm.parameters(),
-                                                             model.parameters(), strict=True))
-    b, s = batches[0]["tokens"].shape
-    want_calls = tp_train_collectives(tm.cfg, s, chunk)
-    print(f"{tag}: {model.cfg.n_layers} layers on mesh "
-          f"{dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} of an NCCL group of world size "
-          f"{torch.distributed.get_world_size()}, sharing the phase's parameters: {shared}; "
-          f"{b} x {s} tokens; {want_calls} all-reduces a step expected (tp_train_collectives) "
-          f"| {smi}")
-    if not shared:
-        fail(f"{tag}: the mesh model does not share the phase's parameters")
     launched: dict = {}
     digest = not isinstance(ref[0], torch.Tensor)
-    with warnings.catch_warnings():
-        warnings.filterwarnings("error", message=NO_AUTOGRAD)
-        for zero1 in zero1s:
-            state = rt.init_state(tm, torch.Generator(device=dev).manual_seed(seed))
-            set_xgate(tm)
-            step = rt.jit_train_step(tm, mesh, zero1=zero1, seq_chunk=chunk)[0](
-                {k: v.shape for k, v in batches[0].items()})
+    b, s = batches[0]["tokens"].shape
+    for phase, shape, axes, zero1, fsdp in runs:
+        t0 = time.perf_counter()
+        tag = f"tp {phase}.1 {label}"
+        mesh = lmesh.make_mesh(shape, axes)
+        counted = CountedAllReduce()
+        tm = Model(model.cfg, device="meta", trainable=True, remat=True, mesh=mesh,
+                   moe_capacity=model.moe_capacity,
+                   all_reduce=counted).load_params_(model.param_tree(), share=True)
+        state = rt.init_state(tm, torch.Generator(device=dev).manual_seed(seed))
+        set_xgate(tm)
+        step = rt.jit_train_step(tm, mesh, zero1=zero1, seq_chunk=chunk, fsdp=fsdp)[0](
+            {k: v.shape for k, v in batches[0].items()})
+        shared = all(a.data_ptr() == b_.data_ptr() for a, b_ in zip(
+            tm.parameters(), model.parameters(), strict=True))
+        want_calls = ((tp_train_collectives(tm.cfg, s, chunk) if "model" in axes else 0)
+                      + (fsdp_collectives(tm) if fsdp else 0))
+        print(f"{tag}: {model.cfg.n_layers} layers on mesh {dict(zip(axes, shape))} of an "
+              f"NCCL group of world size {torch.distributed.get_world_size()}, zero1={zero1}, "
+              f"fsdp={fsdp} ({sum(d >= 0 for d in tm.data_dims())} leaves over the data "
+              f"axes), sharing the phase's parameters: {shared}; {b} x {s} tokens; "
+              f"{want_calls} all-reduces a step expected | {smi}")
+        if not shared:
+            fail(f"{tag}: the mesh model does not share the phase's parameters")
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error", message=NO_AUTOGRAD)
             walls, mets, calls, drops = [], [], [], []
             fa.reset_launches()
             rl.reset_launches()
@@ -6594,34 +6683,31 @@ def tp_train_mesh(dev, smi: str, phase: str, label: str, model, batches: list, c
                 calls.append(counted.calls)
                 mets.append(met)
                 drops.append([int(x) for x in log])
-            for k, v in {**fa.LAUNCHES, **rl.LAUNCHES}.items():
-                launched[k] = launched.get(k, 0) + v
-            leaves = tree_flatten(unshard(state))[0]
-            got = [leaf_digest(x) for x in leaves] if digest else leaves
-            differ = [i for i, (a, w) in enumerate(zip(got, ref, strict=True))
-                      if (a != w if digest else not torch.equal(a, w))]
-            same_met = all(torch.equal(a[k], w[k]) for a, w in zip(mets, ref_mets) for k in a)
-            step_ms = statistics.median(walls[1:]) * 1e3
-            print(f"check {tag} zero1={zero1}: {len(batches)} steps' params, moments "
-                  f"and steps bit-equal to make_train_step's{' (64-bit digests)' if digest else ''}"
-                  f": {not differ}, metrics bit-equal: {same_met}; all-reduces a step {calls} "
-                  f"(expected {want_calls}); MoE dropped slots {drops} (make_train_step's "
-                  f"{ref_drops})")
-            print(f"time {tag} zero1={zero1}: step_ms={step_ms:.2f} (median of steps "
-                  f"2-{len(batches)}; {[round(w * 1e3, 2) for w in walls]}), make_train_step "
-                  f"{ref_ms:.2f} ms | {smi}")
-            if differ or not same_met:
-                fail(f"{tag} zero1={zero1}: leaves {differ} (metrics equal "
-                     f"{same_met}) differ from make_train_step's")
-            if any(c != want_calls for c in calls):
-                fail(f"{tag} zero1={zero1}: all-reduces a step {calls}, expected "
-                     f"{want_calls}")
-            if drops != ref_drops:
-                fail(f"{tag} zero1={zero1}: dropped slots {drops}, make_train_step's "
-                     f"{ref_drops}")
-            del state, step, leaves, got
-    del tm
-    TP_TIMES[f"{phase}.1 {label}"] = time.perf_counter() - t0
+        into = launched.setdefault(phase, {})
+        for k, v in {**fa.LAUNCHES, **rl.LAUNCHES}.items():
+            into[k] = into.get(k, 0) + v
+        leaves = tree_flatten(unshard(state))[0]
+        got = [leaf_digest(x) for x in leaves] if digest else leaves
+        differ = [i for i, (a, w) in enumerate(zip(got, ref, strict=True))
+                  if (a != w if digest else not torch.equal(a, w))]
+        same_met = all(torch.equal(a[k], w[k]) for a, w in zip(mets, ref_mets) for k in a)
+        step_ms = statistics.median(walls[1:]) * 1e3
+        what = f"{tag} {'x'.join(map(str, shape))} zero1={zero1} fsdp={fsdp}"
+        print(f"check {what}: {len(batches)} steps' params, moments and steps bit-equal to "
+              f"make_train_step's{' (64-bit digests)' if digest else ''}: {not differ}, "
+              f"metrics bit-equal: {same_met}; all-reduces a step {calls} (expected "
+              f"{want_calls}); MoE dropped slots {drops} (make_train_step's {ref_drops})")
+        print(f"time {what}: step_ms={step_ms:.2f} (median of steps 2-{len(batches)}; "
+              f"{[round(w * 1e3, 2) for w in walls]}), make_train_step {ref_ms:.2f} ms | {smi}")
+        if differ or not same_met:
+            fail(f"{what}: leaves {differ} (metrics equal {same_met}) differ from "
+                 f"make_train_step's")
+        if any(c != want_calls for c in calls):
+            fail(f"{what}: all-reduces a step {calls}, expected {want_calls}")
+        if drops != ref_drops:
+            fail(f"{what}: dropped slots {drops}, make_train_step's {ref_drops}")
+        del state, step, leaves, got, tm
+        TP_TIMES[f"{phase}.1 {label} {'x'.join(map(str, shape))}"] = time.perf_counter() - t0
     return launched
 
 
@@ -6634,7 +6720,9 @@ def tp_family_train(dev, smi: str, family: str, model, batches: list) -> dict:
     init of FAMILY_SEED (xgates at FAMILY_XGATE; the state held as digests:
     two would not fit on the card, and each step's MoE drops logged), and
     tp_train_mesh against them in a world-1 NCCL group (ZeRO-1 on as well
-    for TP21_ZERO1). Returns x.1's launches."""
+    for TP21_ZERO1; for deepseek-moe-16b also 22.1 on a ("data",) mesh,
+    and 22.2's unsharded reference, TP22_CASES). Returns the launches by
+    phase."""
     import torch
     from repro_torch.core.types import tree_flatten
     from repro_torch.data import make_batch
@@ -6651,6 +6739,10 @@ def tp_family_train(dev, smi: str, family: str, model, batches: list) -> dict:
     reserved("16.2")
     tp_train_ref(dev, model, label)
     reserved(f"{phase}.2's reference")
+    for lb, case in TP22_CASES.items():
+        if case[0] == model.cfg.name:
+            tp_train_ref(dev, model, lb)
+            reserved("22.2's reference")
     if family == "ssm":
         b, s = TP21_SSM_BATCH
         batches = [make_batch(FAMILY_SEED, i, b, s, model.cfg.vocab_size, device=dev)
@@ -6675,11 +6767,13 @@ def tp_family_train(dev, smi: str, family: str, model, batches: list) -> dict:
     reserved(f"{phase}.1's reference steps")
     del state, step
     torch.cuda.empty_cache()
+    runs = tuple((phase, (1, 1), ("data", "model"), z, False)
+                 for z in ((False, True) if family == TP21_ZERO1 else (False,)))
     lmesh.init_process_group(device=dev)
     try:
-        return tp_train_mesh(dev, smi, phase, model.cfg.name, model, batches, FAMILY_CHUNK,
+        return tp_train_mesh(dev, smi, model.cfg.name, model, batches, FAMILY_CHUNK,
                              FAMILY_SEED, ref, mets, drops, statistics.median(walls[1:]) * 1e3,
-                             (False, True) if family == TP21_ZERO1 else (False,))
+                             runs + (TP22_MOE_RUNS if family == "moe" else ()))
     finally:
         lmesh.destroy_process_group()
         reserved(f"{phase}.1's steps on the mesh")
@@ -6696,13 +6790,13 @@ def train_case_batch(label: str, vocab: int, dev):
 
 
 def tp_train_ref(dev, model, label: str) -> None:
-    """20.2's or 21.2's unsharded step for one case of TRAIN_CASES, on
-    ``model`` (the phase's model of that config): the init of TP20_SEED
-    (xgates at FAMILY_XGATE), the loss, global norm, MoE dropped slots and
-    gradients of one batch, the flash and rg_lru launches; the gradients
-    copied to the host and written, on a thread of TP20_WRITERS, to a raw
-    float32 file the ranks read; each leaf's largest |value| kept. Fills
-    TP20_REFS[label]."""
+    """20.2's, 21.2's or 22.2's unsharded step for one case of TRAIN_CASES,
+    on ``model`` (the phase's model of that config; a TP22_CASES case at
+    TP22_CAPACITY): the init of TP20_SEED (xgates at FAMILY_XGATE), the
+    loss, aux loss, global norm, MoE dropped slots and gradients of one
+    batch, the flash and rg_lru launches; the gradients copied to the host
+    and written, on a thread of TP20_WRITERS, to a raw float32 file the
+    ranks read; each leaf's largest |value| kept. Fills TP20_REFS[label]."""
     import contextlib
     import tempfile
 
@@ -6716,10 +6810,13 @@ def tp_train_ref(dev, model, label: str) -> None:
     from repro_torch.runtime import train as rt
 
     t0 = time.perf_counter()
-    phase = "21" if label in TP21_CASES else "20"
+    phase = "22" if label in TP22_CASES else "21" if label in TP21_CASES else "20"
     arch, _, b, s, chunk, f32, f = TRAIN_CASES[label]
     if TP20_DIR["path"] is None:
         TP20_DIR["path"] = tempfile.mkdtemp(prefix="chip_smoke_tp20_")
+    capacity = model.moe_capacity
+    if label in TP22_CASES:
+        model.moe_capacity = TP22_CAPACITY
     with F32Compute() if f32 else contextlib.nullcontext():
         model.init(torch.Generator(device=dev).manual_seed(TP20_SEED))
         set_xgate(model)
@@ -6728,10 +6825,11 @@ def tp_train_ref(dev, model, label: str) -> None:
         fa.reset_launches()
         rl.reset_launches()
         with moe.drop_log() as log:
-            nll, _, g = rt.loss_and_grads(model, batch, seq_chunk=chunk)
+            nll, aux, g = rt.loss_and_grads(model, batch, seq_chunk=chunk)
         norm = _clip_scale(g, 1.0)[1]
         launched = {**fa.LAUNCHES, **rl.LAUNCHES}
         drops = [int(x) for x in log]
+    model.moe_capacity = capacity
     leaves = tree_flatten(g)[0]
     path = f"{TP20_DIR['path']}/{label.replace(' ', '_')}.f32"
     t_host = time.perf_counter()
@@ -6753,14 +6851,16 @@ def tp_train_ref(dev, model, label: str) -> None:
                 a.tofile(f)
     TP20_WRITERS.append(threading.Thread(target=write))
     TP20_WRITERS[-1].start()
-    TP20_REFS[label] = dict(loss=float(nll), norm=float(norm), path=path, launched=launched,
-                            drops=drops, shapes=[tuple(x.shape) for x in leaves],
+    TP20_REFS[label] = dict(loss=float(nll), aux=float(aux), norm=float(norm), path=path,
+                            launched=launched, drops=drops,
+                            shapes=[tuple(x.shape) for x in leaves],
                             scales=[float(x.abs().max()) for x in leaves])
     del g, leaves
     torch.cuda.empty_cache()
     TP_TIMES[f"{phase}.2 reference {label}"] = time.perf_counter() - t0
     print(f"tp {phase}.2 unsharded {label} ({b} x {s}{f' over {f}' if f else ''}): loss "
-          f"{float(nll)!r}, global norm {float(norm)!r}, launches {launched}, MoE dropped "
+          f"{float(nll)!r}, aux {float(aux)!r}, global norm {float(norm)!r}, launches "
+          f"{launched}, MoE dropped "
           f"slots {drops}; {time.perf_counter() - t0:.1f} s, the gradients' copy to the host "
           f"{t_host:.1f} s of it (their file written meanwhile)")
 
@@ -6811,7 +6911,7 @@ def tp_train_rank(dev, mesh, refs: dict) -> dict:
             torch.cuda.synchronize()
             step_s, init_s = time.perf_counter() - t1, t1 - t0
             launched = {**fa.LAUNCHES, **rl.LAUNCHES}
-            shapes = dict(fa.SHAPES) | {("bwd",) + k: n for k, n in fa.BWD_SHAPES.items()}
+            shapes = flash_shapes(fa)
         errs, at = [], 0
         whole = np.memmap(ref["path"], dtype=np.float32, mode="r")
         for x, shape, cut in zip(tree_flatten(g)[0], ref["shapes"], model.param_slices(),
@@ -6828,6 +6928,155 @@ def tp_train_rank(dev, mesh, refs: dict) -> dict:
         del model, g, whole
         torch.cuda.empty_cache()
     return out
+
+
+def tp22_rank(dev, refs: dict) -> dict:
+    """22.2 on one of the TP_M gloo ranks (float32 compute): qwen1.5-0.5b at
+    20.2's case on a (TP_M, 1) ("data", "model") mesh, one gradient pass
+    (runtime.train._dp_loss_and_grads: the global batch's gradient,
+    before clipping) without FSDP and one with it, each leaf's FSDP slice
+    against the pass without it (bit-equal?) and against 20.2's unsharded
+    gradient (read from the host); then deepseek-moe-16b (phase 16's 3
+    layers) built on a (TP_M,) ("data",) mesh at TP22_CAPACITY over
+    TP22_CASES' batch, its loss, aux, dropped slots and gradients against
+    the unsharded pass over the whole batch. Returns what it saw."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.types import tree_flatten
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models import Model, moe
+    from repro_torch.runtime import train as rt
+
+    def against(g, label, cuts):
+        """Each leaf's max |difference| from the reference file's slice."""
+        ref, errs, at = refs[label], [], 0
+        whole = np.memmap(ref["path"], dtype=np.float32, mode="r")
+        for x, shape, cut in zip(g, ref["shapes"], cuts, strict=True):
+            n = math.prod(shape)
+            w = np.ascontiguousarray(whole[at:at + n].reshape(shape)[cut])
+            errs.append(float((x - torch.from_numpy(w).to(x.device)).abs().max()))
+            at += n
+        return errs
+
+    out = {}
+    qwen = "qwen1.5-0.5b float32"
+    arch, _, _, _, chunk, _, _ = TRAIN_CASES[qwen]
+    mesh = lmesh.make_mesh((TP_M, 1), ("data", "model"), device="cpu")
+    with F32Compute():
+        batch = train_case_batch(qwen, configs.get(arch).vocab_size, dev)
+        held = None
+        for fsdp in (False, True):
+            t0 = time.perf_counter()
+            model = Model(configs.get(arch), device=dev, trainable=True, remat=True, mesh=mesh)
+            rt.jit_train_step(model, mesh, seq_chunk=chunk, fsdp=fsdp)
+            model.init(torch.Generator(device=dev).manual_seed(TP20_SEED))
+            fa.reset_launches()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            nll, aux, g = rt._dp_loss_and_grads(model, rt._DataParallel(mesh), batch, 1, chunk)
+            torch.cuda.synchronize()
+            g = tree_flatten(g)[0]
+            cuts = model.param_slices()
+            got = dict(loss=float(nll), aux=float(aux), errs=against(g, qwen, cuts),
+                       pass_s=time.perf_counter() - t1, seconds=time.perf_counter() - t0,
+                       launched=dict(fa.LAUNCHES), shapes=flash_shapes(fa),
+                       local=[tuple(x.shape) for x in g],
+                       split=sum(d >= 0 for d in model.data_dims()))
+            if held is None:
+                held = g
+            else:
+                got["same"] = [torch.equal(x, w[c]) for x, w, c in zip(g, held, cuts)]
+            out[qwen, fsdp] = got
+            del model, g
+            torch.cuda.empty_cache()
+        del held
+        torch.cuda.empty_cache()
+    del mesh
+    for label, (arch, layers, _, _, chunk, _, _) in TP22_CASES.items():
+        t0 = time.perf_counter()
+        dmesh = lmesh.make_mesh((TP_M,), ("data",), device="cpu")
+        cfg = dataclasses.replace(configs.get(arch), n_layers=layers)
+        with F32Compute():
+            model = Model(cfg, device=dev, trainable=True, remat=True, mesh=dmesh,
+                          moe_capacity=TP22_CAPACITY)
+            model.init(torch.Generator(device=dev).manual_seed(TP20_SEED))
+            batch = train_case_batch(label, cfg.vocab_size, dev)
+            fa.reset_launches()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with moe.drop_log() as log:
+                nll, aux, g = rt._dp_loss_and_grads(model, rt._DataParallel(dmesh), batch, 1,
+                                                    chunk)
+            torch.cuda.synchronize()
+            g = tree_flatten(g)[0]
+            out[label] = dict(loss=float(nll), aux=float(aux), drops=[int(x) for x in log],
+                              rows=model.tp.rows, errs=against(g, label, model.param_slices()),
+                              launched=dict(fa.LAUNCHES), shapes=flash_shapes(fa),
+                              pass_s=time.perf_counter() - t1,
+                              seconds=time.perf_counter() - t0)
+        del model, g, dmesh
+        torch.cuda.empty_cache()
+    return out
+
+
+def flash_shapes(fa) -> dict:
+    """The flash shapes launched since fa.reset_launches(), a backward's key
+    prefixed "bwd" (as tp_train_ranks_check merges them)."""
+    return dict(fa.SHAPES) | {("bwd",) + k: n for k, n in fa.BWD_SHAPES.items()}
+
+
+def tp22_ranks_check(smi: str, ranks: list, seconds: float) -> tuple[dict, dict]:
+    """22.2 in the main process: on every rank qwen1.5-0.5b's FSDP gradient
+    slices bit-equal to its pass without FSDP, each leaf (both passes)
+    within TP20_F32_RTOL of its largest |value| of 20.2's unsharded
+    gradient, the loss within TP20_F32_RTOL, every FSDP leaf a rank's half;
+    deepseek-moe-16b on the data mesh: two row blocks, the loss and the aux
+    loss within TP20_F32_RTOL of the unsharded pass over the whole batch,
+    the dropped slots equal, every gradient leaf within TP20_F32_RTOL of
+    its largest |value|. Returns the ranks' flash launches and shapes."""
+    tol = TP20_F32_RTOL
+    qwen = "qwen1.5-0.5b float32"
+    launched, shapes = {}, {}
+    for r, rk in enumerate(ranks):
+        for key, got in rk.items():
+            label = key[0] if isinstance(key, tuple) else key
+            ref = TP20_REFS[label]
+            worst = max(e / max(sc, 1e-30) for e, sc in zip(got["errs"], ref["scales"]))
+            d_loss = abs(got["loss"] - ref["loss"]) / max(1.0, abs(ref["loss"]))
+            d_aux = abs(got["aux"] - ref["aux"]) / max(1.0, abs(ref["aux"]))
+            what = f"tp 22.2 {label}" + (f" fsdp={key[1]}" if isinstance(key, tuple) else "")
+            for k, n in got["launched"].items():
+                launched[k] = launched.get(k, 0) + n
+            for k, n in got["shapes"].items():
+                shapes[k] = shapes.get(k, 0) + n
+            print(f"check {what} rank {r}: loss {got['loss']!r} / {ref['loss']!r}, aux "
+                  f"{got['aux']!r} / {ref['aux']!r}; every gradient leaf within {worst:.3e} "
+                  f"of its largest |value| (bound {tol:g})"
+                  + (f"; FSDP slices bit-equal to the pass without FSDP: "
+                     f"{all(got['same'])} ({got['split']} leaves over 'data')"
+                     if "same" in got else "")
+                  + (f"; row blocks {got['rows']}, MoE dropped slots {got['drops']} (the "
+                     f"unsharded pass's {ref['drops']})" if "drops" in got else ""))
+            print(f"time {what} rank {r}: the gradient pass {got['pass_s']:.2f} s, the case "
+                  f"{got['seconds']:.1f} s (gloo through the host: not a data-parallel "
+                  f"performance number) | {smi}")
+            if worst > tol or d_loss > tol or d_aux > tol:
+                fail(f"{what} rank {r}: gradients {worst:.3e}, loss {d_loss:.3e}, aux "
+                     f"{d_aux:.3e} beyond {tol}")
+            if "same" in got and not all(got["same"]):
+                fail(f"{what} rank {r}: FSDP slices differ from the pass without FSDP at "
+                     f"leaves {[i for i, x in enumerate(got['same']) if not x]}")
+            if "drops" in got and (got["drops"] != ref["drops"] or got["rows"] != (TP_M, r)):
+                fail(f"{what} rank {r}: drops {got['drops']} (rows {got['rows']}), the "
+                     f"unsharded pass's {ref['drops']}")
+        halves = [a != b for a, b in zip(rk[qwen, True]["local"], rk[qwen, False]["local"])]
+        if sum(halves) != rk[qwen, True]["split"]:
+            fail(f"tp 22.2 {qwen} rank {r}: {sum(halves)} leaves held as a data slice, "
+                 f"{rk[qwen, True]['split']} split over 'data'")
+    TP_TIMES["22.2 ranks (in the spawn of 18.2-21.2)"] = seconds
+    return launched, shapes
 
 
 def tp_train_ranks_check(smi: str, phase: str, ranks: list,

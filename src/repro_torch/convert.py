@@ -267,7 +267,8 @@ def train_state_from_numpy(model, params: dict, m: dict, v: dict, opt_step, step
     the model's float32 masters (the state's params are the model's own
     parameters), m and v as float32 trees in the same layout, the steps
     int32. On a model built on a mesh, m and v are cut to this rank's
-    shard, as the params are. Returns it."""
+    shard, as the params are (the data axes' slice of each leaf FSDP splits
+    over them too, once Model.use_fsdp ran). Returns it."""
     from repro_torch.optim import AdamWState
     from repro_torch.runtime.train import TrainState
     if not model.trainable:
@@ -290,26 +291,30 @@ def _shard(model, tree):
 
 def train_state_whole(model, state):
     """The inverse of cutting a TrainState to a rank's shard, for a
-    checkpoint: every params, m and v leaf whole on every rank, the shards
-    of a leaf split over the mesh's "model" axis gathered (the model's
-    tp.TP: an all-reduce of a zero-filled whole buffer), a DTensor leaf
-    (ZeRO-1's moments) by full_tensor(). A state of a model off a mesh, or
-    already whole, passes through with only its DTensors gathered. Every
-    rank of the mesh calls it."""
+    checkpoint: every params, m and v leaf whole on every rank, the slices
+    of a leaf that FSDP splits over the data axes gathered over them (the
+    model's tp.DataShards), then the shards of a leaf split over the mesh's
+    "model" axis over it (the model's tp.TP), each an all-reduce of a
+    zero-filled whole buffer, and a DTensor leaf (ZeRO-1's moments) by
+    full_tensor(). A state of a model off a mesh, or already whole, passes
+    through with only its DTensors gathered. Every rank of the mesh calls
+    it."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.runtime.train import TrainState
-    dims = model.model_dims()
+    dims, data_dims = model.model_dims(), model.data_dims()
     shapes = [tuple(x.shape) for x in tree_flatten(model.param_shapes())[0]]
 
     def whole(tree):
         leaves, treedef = tree_flatten(tree)
         out = []
-        for x, d, shape in zip(leaves, dims, shapes, strict=True):
+        for x, d, dd, shape in zip(leaves, dims, data_dims, shapes, strict=True):
             if isinstance(x, DTensor):
                 x = x.full_tensor()
-            elif d >= 0 and tuple(x.shape) != shape:
-                with torch.no_grad():
+            with torch.no_grad():
+                if dd >= 0 and x.shape[dd] != shape[dd]:
+                    x = model.fsdp.gather_leaf(x.detach(), dd)
+                if d >= 0 and tuple(x.shape) != shape:
                     x = model.tp.gather(x.detach(), d)
             out.append(x)
         return tree_unflatten(treedef, out)

@@ -15,10 +15,12 @@ step + 1 updates), and the one written at the end with the number of steps
 done; a run resumed from a label reads the stream from that step.
 
 --mesh D, DxM or PxDxM names the ("data",), ("data", "model") or ("pod",
-"data", "model") mesh. A model axis above 1 trains any family
-tensor-parallel, the model built on the mesh (each rank its shard); each
-rank takes its rows of the tokens and of the frontend (a vlm's image
-tokens, whisper's frames).
+"data", "model") mesh. The model is built on the mesh (each rank its
+shard): a model axis above 1 trains any family tensor-parallel, and a MoE
+layer takes the whole global batch's capacity and aux loss; each rank
+takes its rows of the tokens and of the frontend (a vlm's image tokens,
+whisper's frames), the ranks of one model index across ("pod", "data")
+their own rows.
 Under torchrun, or inside a process group the caller made, each process is
 a rank; a mesh of more than one device without either starts its ranks
 itself (launch.mesh.spawn) and returns rank 0's result. Under a process
@@ -86,11 +88,6 @@ def check_mesh(spec: str) -> tuple[tuple, tuple]:
     return dims, MESH_AXES[len(dims)]
 
 
-def _model_size(dims, axes) -> int:
-    """The size of a mesh's "model" axis (1 without one)."""
-    return dims[axes.index("model")] if "model" in axes else 1
-
-
 def _config(args):
     cfg = configs.get(args.arch)
     return cfg.reduced() if args.reduced else cfg
@@ -147,8 +144,7 @@ def _train(args, dims, axes) -> dict:
     dev = resolve_device(args.device)
     cfg = _config(args)
     mesh = None if dims is None else lmesh.make_mesh(dims, axes, device=dev)
-    tp_mesh = mesh if dims is not None and _model_size(dims, axes) > 1 else None
-    model = Model(cfg, device=dev, moe_capacity=2.0, trainable=True, remat=True, mesh=tp_mesh)
+    model = Model(cfg, device=dev, moe_capacity=2.0, trainable=True, remat=True, mesh=mesh)
     fs = frontend_shape(cfg, args.seq)
     rank0 = dims is None or dist.get_rank() == 0
     if dims is None:

@@ -19,7 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.tp import split
+from repro_torch.models.tp import DATA_AXES, dim_on, split
+from repro_torch.pshard import local_slice
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -80,11 +81,14 @@ class Params(nn.Module):
 
     ``place`` (a tp.Placement, or None): each leaf is this rank's shard of
     its def, the slice pshard.spec_for assigns on the mesh; load_() cuts a
-    leaf given whole to that slice."""
+    leaf given whole to that slice. Under an FSDP placement (reshard_), a
+    leaf whose "embed" dim splits over the data axes holds its slice of
+    that dim as well, and gathered() / leaf() make it whole before use."""
 
     def __init__(self, defs: dict, device, trainable: bool = False, place=None):
         super().__init__()
         self.defs, self.place = defs, place
+        self.data_dims: dict = {}   # leaf -> its dim split over the data axes (FSDP)
         for k, d in defs.items():
             if isinstance(d, dict):
                 self.add_module(k, Params(d, device, trainable, place))
@@ -119,6 +123,46 @@ class Params(nn.Module):
     def tree(self) -> dict:
         out: dict = dict(self._parameters)
         out.update({k: m.tree() for k, m in self._modules.items()})
+        return out
+
+    @torch.no_grad()
+    def reshard_(self, place) -> None:
+        """Take ``place`` (this placement with fsdp on): each own leaf that it
+        splits over the data axes becomes this rank's slice of its
+        current shard (the dim is whole in that shard: an "embed" dim no
+        other rule took). Child Params are resharded by their own call."""
+        sizes, coord = place.sizes, place.coord
+        for k, d in self.defs.items():
+            if isinstance(d, dict):
+                continue
+            spec = place.spec(d.axes, d.shape)
+            dim = dim_on(spec, DATA_AXES)
+            if dim < 0:
+                continue
+            old = self._parameters[k]
+            keep = tuple(e if i == dim else None for i, e in enumerate(spec))
+            cut = old[local_slice(tuple(old.shape), keep, sizes, coord)]
+            if cut.shape != old.shape:      # data axes of 1 keep the tensor itself
+                self._parameters[k] = nn.Parameter(
+                    cut.clone(memory_format=torch.contiguous_format),
+                    requires_grad=old.requires_grad)
+            self.data_dims[k] = dim
+        self.place = place
+
+    def leaf(self, k: str, data=None):
+        """Parameter ``k``, made whole over the data axes (``data``, a
+        tp.DataShards) where this rank holds its slice of them."""
+        p = self._parameters[k]
+        dim = self.data_dims.get(k, -1)
+        return p if data is None or dim < 0 else data.gather_leaf(p, dim)
+
+    def gathered(self, data=None) -> dict:
+        """tree() with every leaf split over the data axes made whole (one
+        gather a leaf: each is used once a call)."""
+        if data is None:
+            return self.tree()
+        out = {k: self.leaf(k, data) for k in self._parameters}
+        out.update({k: m.gathered(data) for k, m in self._modules.items()})
         return out
 
 

@@ -18,17 +18,23 @@ plain tensor code.
 Model(cfg, tp_size=M) picks the attention layout as the JAX package's
 does: the flat layout, H padded to a multiple of M, when the KV heads do
 not divide over M. Model(cfg, mesh=) builds a serving model of any
-family on a ("data", "model") DeviceMesh of torch.distributed
-(launch.mesh.make_mesh): each rank allocates only its shard of each
-parameter and cache leaf (pshard.spec_for, runtime.sharding.
-cache_shardings), takes its rows of the batch (and of the frontend), and
-its layers issue the model axis's collectives (models/tp.py). The audio
-encoder runs on the mesh too, its output whole over "model" on every
-rank, as the frontend / enc_out caches are held. Model(cfg, mesh=,
-trainable=True) holds float32 masters of the rank's shard, and every
-family trains on the model axis: its collectives are autograd Functions
-(models/tp.py), grad_kinds says which gradients the train step sums over
-the group.
+family on a ("data",), ("data", "model") or ("pod", "data", "model")
+DeviceMesh of torch.distributed (launch.mesh.make_mesh): each rank
+allocates only its shard of each parameter and cache leaf
+(pshard.spec_for, runtime.sharding.cache_shardings), takes its rows of
+the batch (and of the frontend), and its layers issue the model axis's
+collectives (models/tp.py); a MoE layer takes the capacity and the aux
+loss of the whole batch, its rows split into row blocks over ("pod",
+"data"). The audio encoder runs on the mesh too, its output whole over
+"model" on every rank, as the frontend / enc_out caches are held.
+Model(cfg, mesh=, trainable=True) holds float32 masters of the rank's
+shard, and every family trains on the mesh: its collectives are autograd
+Functions (models/tp.py), grad_kinds says which gradients the train step
+sums over the model axis. use_fsdp (runtime.train.jit_train_step(fsdp=
+True)) splits every "embed" dim over the data axes as well: each block
+gathers its leaves whole at its start (again in its remat recompute), the
+top leaves are gathered once a forward, and each gather's backward
+reduces the cotangent to the rank's slice (tp.DataShards).
 """
 from __future__ import annotations
 
@@ -78,7 +84,11 @@ class Block(nn.Module):
         self.p = Params(blocks.block_defs(cfg, spec), device, trainable, place)
 
     def forward(self, x, aux: dict, cache=None):
-        return blocks.block_apply(self.cfg, self.spec, self.p.tree(), x, aux, cache)
+        # an FSDP model gathers the block's leaves here, under the block's
+        # checkpoint: the recompute gathers them again, and they are freed
+        # with the block's activations
+        return blocks.block_apply(self.cfg, self.spec, self.p.gathered(aux.get("fsdp")), x,
+                                  aux, cache)
 
 
 def _index(tree, i: int):
@@ -110,9 +120,6 @@ def _stack(trees: list):
     return torch.stack(trees)
 
 
-TP_ITEM = ("FSDP, the fully sharded half of TP / FSDP training in ROADMAP.md section 1's "
-           "sharding item (its tensor-parallel half, serving and training every family on "
-           "a model axis, is done)")
 # a parameter's kind on the model axis (Model.grad_kinds)
 WHOLE, SPLIT, PARTIAL = 0, 1, 2
 
@@ -128,11 +135,11 @@ class Model(nn.Module):
     training forward under torch.utils.checkpoint.
 
     ``tp_size``: the attention layout for a model axis of that size (module
-    docstring). ``mesh``: a DeviceMesh with named dims ("data", "model";
+    docstring). ``mesh``: a DeviceMesh with named dims ("data"; "model" and
     "pod" too): this rank's shard of every leaf (tp_size is then the mesh's
-    "model" size), its rows of a batch split over ("pod", "data"), and the
-    "model" axis's collectives, through ``all_reduce`` when given
-    (tp.TP)."""
+    "model" size, 1 without one), its rows of a batch split over ("pod",
+    "data"), and the "model" axis's collectives, through ``all_reduce`` when
+    given (tp.TP, which also carries the batch's row blocks)."""
 
     def __init__(self, cfg, device=None, moe_impl: str = "sorted",
                  moe_capacity: float = 1.25, trainable: bool = False, remat: bool = True,
@@ -157,8 +164,9 @@ class Model(nn.Module):
         self.remat = remat
         self.mesh = mesh
         self.place = None if mesh is None else tp.Placement.on(mesh)
-        self.tp = (tp.TP.on_mesh(mesh, tp.widths(cfg, self.vocab_padded), all_reduce)
-                   if sizes is not None and tp.MODEL_AXIS in sizes else None)
+        self.tp = (None if mesh is None
+                   else tp.TP.on_mesh(mesh, tp.widths(cfg, self.vocab_padded), all_reduce))
+        self.fsdp = None        # the data axes' tp.DataShards once use_fsdp ran
         if self.tp is not None and cfg.family == "ssm":
             self.tp.state_split = self._state_split()
         self.top = Params(self._top_defs(), self.device, trainable, self.place)
@@ -245,14 +253,45 @@ class Model(nn.Module):
 
     def model_dims(self) -> list[int]:
         """Each parameter's dim split over "model" (in tree_flatten order of
-        param_tree()), -1 for a leaf held whole."""
-        def dim(d, spec, local):
-            return next((i for i, e in enumerate(spec) if tp.MODEL_AXIS in _axes((e,))), -1)
-        return self._per_leaf(dim)
+        param_tree()), -1 for a leaf held whole on it."""
+        return self._per_leaf(lambda d, spec, local: tp.dim_on(spec, (tp.MODEL_AXIS,)))
+
+    def data_dims(self) -> list[int]:
+        """Each parameter's dim split over the data axes ("pod", "data") by
+        FSDP (use_fsdp; in tree_flatten order of param_tree()), -1 for a leaf
+        held whole on them (every leaf without FSDP)."""
+        return self._per_leaf(lambda d, spec, local: tp.dim_on(spec, tp.DATA_AXES))
+
+    def use_fsdp(self, data) -> "Model":
+        """Shard the model's leaves over the mesh's data axes as well, as
+        pshard.spec_for(fsdp=True) places them: each leaf with an "embed"
+        dim that no other rule took and that divides becomes this rank's
+        slice of its shard (Params.reshard_), and is gathered whole over
+        ``data`` (a tp.DataShards of this rank's data-parallel group)
+        before each use. The other methods then describe the FSDP shards
+        (param_slices, data_dims). A model already sharded so takes
+        ``data`` as its handle."""
+        if self.place is None:
+            raise ValueError("FSDP needs a model built on a mesh: Model(cfg, mesh=mesh, "
+                             "trainable=True)")
+        if not self.place.fsdp:
+            self.place = dataclasses.replace(self.place, fsdp=True)
+            for m in self.modules():
+                if isinstance(m, Params):
+                    m.reshard_(self.place)
+        self.fsdp = data
+        return self
+
+    def top_leaf(self, name: str):
+        """A top-level parameter (embed, unembed, a final norm leaf), gathered
+        whole over the data axes under FSDP: read once a forward (or, for
+        the chunked loss's unembed, once a loss)."""
+        return self.top.leaf(name, self.fsdp)
 
     def param_slices(self) -> list:
         """Each parameter's slice of its whole leaf that this rank holds (in
-        tree_flatten order of param_tree()); None off a mesh."""
+        tree_flatten order of param_tree(); the data axes' slice too under
+        FSDP); None off a mesh."""
         if self.place is None:
             return [None] * len(tree_flatten(self.param_tree())[0])
         return self._per_leaf(lambda d, spec, local: self.place.slice(d.axes, d.shape))
@@ -321,19 +360,20 @@ class Model(nn.Module):
     # ---------------- forward paths ----------------
     def _final_norm(self, x):
         if self.cfg.family == "audio":
-            return layer_norm(x, self.top.final_norm_w, self.top.final_norm_b,
+            return layer_norm(x, self.top_leaf("final_norm_w"), self.top_leaf("final_norm_b"),
                               self.cfg.norm_eps)
-        return rms_norm(x, self.top.final_norm_w, self.cfg.norm_eps)
+        return rms_norm(x, self.top_leaf("final_norm_w"), self.cfg.norm_eps)
 
     def _positions(self, b: int, s: int):
         return torch.arange(s, dtype=torch.int32, device=self.device)[None].expand(b, s)
 
     def aux(self, positions, frontend=None, max_len: int | None = None) -> dict:
         """What every block gets beside its input: positions, the sequence
-        the cross attention reads (or None), the MoE options, and on a model
-        axis the tp.TP and the caches' max_len."""
+        the cross attention reads (or None), the MoE options, and on a mesh
+        the tp.TP, the caches' max_len and the FSDP handle (or None)."""
         return {"pos": positions, "frontend": frontend, "moe_impl": self.moe_impl,
-                "moe_capacity": self.moe_capacity, "tp": self.tp, "max_len": max_len}
+                "moe_capacity": self.moe_capacity, "tp": self.tp, "max_len": max_len,
+                "fsdp": self.fsdp}
 
     def _encode(self, frontend):
         """The audio encoder (stage 0) over frontend (B, F, D) plus the
@@ -378,7 +418,7 @@ class Model(nn.Module):
         b, s = tokens.shape
         if positions is None:
             positions = self._positions(b, s)
-        x = embed_lookup(self.top.embed, tokens, self.cfg.vocab_size, self.tp)
+        x = embed_lookup(self.top_leaf("embed"), tokens, self.cfg.vocab_size, self.tp)
         stages, stage_layers = self.stages, self.stage_layers
         stage_caches = caches["stages"] if caches is not None else [None] * len(stages)
         if self.cfg.family == "audio":
@@ -418,8 +458,8 @@ class Model(nn.Module):
         if last:
             x = x[:, -1:]
         x = self._final_norm(x)
-        logits = x if return_hidden else logits_out(x, self.top.unembed, self.cfg.vocab_size,
-                                                    self.tp)
+        logits = x if return_hidden else logits_out(x, self.top_leaf("unembed"),
+                                                    self.cfg.vocab_size, self.tp)
         new_caches = None
         if caches is not None:
             if self.cfg.family == "audio":

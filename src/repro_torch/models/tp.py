@@ -43,12 +43,25 @@ rows_sum). A replicated leaf that a
 rank-local computation uses gets a per-rank partial gradient, which the
 train step sums over the group (Model.grad_kinds).
 
+FSDP (runtime.train.jit_train_step(fsdp=True)) holds a leaf whose
+"embed" dim splits over the mesh's data axes ("pod", "data") as this
+rank's slice of it too (Placement.fsdp), and DataShards, the handle of
+those axes' group, adds the pair:
+
+  gather_leaf                        a leaf gathered whole over the data
+                                     axes before use; backward, the reduce
+                                     over them of its cotangent, each rank
+                                     weighted by its token share (scale)
+                                     and keeping its slice.
+
 Every collective is an all-reduce: a gather is the all-reduce of a
-zero-filled whole buffer in which each rank writes its slice. So one code
-path runs on NCCL, on gloo over CPU tensors and on gloo over CUDA tensors
-(which takes all_reduce but not all_gather). The handle takes its
-all-reduce as an argument (``torch.distributed.all_reduce`` by default), so
-a caller may stage it through the host.
+zero-filled whole buffer in which each rank writes its slice, a reduce
+kept as a slice the all-reduce of the whole cotangent, sliced. So one
+code path runs on NCCL, on gloo over CPU tensors and on gloo over CUDA
+tensors (which takes all_reduce but not all_gather or reduce_scatter).
+The handle takes its all-reduce as an argument
+(``torch.distributed.all_reduce`` by default), so a caller may stage it
+through the host.
 """
 from __future__ import annotations
 
@@ -61,6 +74,7 @@ import torch
 from repro_torch.pshard import local_shape, local_slice, mesh_shape, spec_for
 
 MODEL_AXIS = "model"
+DATA_AXES = ("pod", "data")
 # The logical axes of the parameters that the rules put on "model"
 # (pshard.RULES). One axis may take several widths in one model (MoE:
 # "mlp" at d_ff, moe_d_ff and the shared experts'; xLSTM: "qkv" at h * hd
@@ -74,21 +88,31 @@ def mesh_coord(mesh) -> dict[str, int]:
     return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
 
 
+def dim_on(spec: tuple, axes: tuple) -> int:
+    """The first dim of ``spec`` whose entry names one of ``axes``, or -1."""
+    for d, entry in enumerate(spec):
+        if entry is not None and set(entry if isinstance(entry, tuple) else (entry,)) & set(axes):
+            return d
+    return -1
+
+
 @dataclasses.dataclass(frozen=True)
 class Placement:
     """Where a rank sits on a mesh: the axis sizes and its coordinate. A
     parameter def's spec is pshard.spec_for of its logical axes and full
-    shape; its local shape and slice follow."""
+    shape (with ``fsdp``, its "embed" dim split over the data axes as
+    well); its local shape and slice follow."""
 
     sizes: dict
     coord: dict
+    fsdp: bool = False
 
     @classmethod
     def on(cls, mesh) -> "Placement":
         return cls(mesh_shape(mesh), mesh_coord(mesh))
 
     def spec(self, axes: tuple, shape: tuple) -> tuple:
-        return spec_for(self.sizes, axes, tuple(shape))
+        return spec_for(self.sizes, axes, tuple(shape), fsdp=self.fsdp)
 
     def local_shape(self, axes: tuple, shape: tuple) -> tuple:
         return local_shape(tuple(shape), self.spec(axes, shape), self.sizes)
@@ -97,44 +121,17 @@ class Placement:
         return local_slice(tuple(shape), self.spec(axes, shape), self.sizes, self.coord)
 
 
-class TP:
-    """The model axis as the layers see it: the sub-group, this rank's index
-    and the group's size, which leaves are split over it (``split``: (axis,
-    width) -> bool, True where pshard.spec_for puts a leaf's dim of that
-    logical axis and width on "model"; the function split() reads it), which
-    xLSTM state leaves the caches hold split on their last dim
-    (``state_split``: key -> bool, from runtime.sharding.cache_shardings; the
-    model fills it), and the all-reduce to use (``all_reduce(tensor, op=...,
-    group=...)``, in place; torch.distributed.all_reduce unless given). A
-    group of size 1 issues its collectives too, so they are captured where a
-    mesh is given."""
+class Group:
+    """A sub-group of a mesh's ranks as the layers see it: its size, this
+    rank's index in it, the process group and the all-reduce to use
+    (``all_reduce(tensor, op=..., group=...)``, in place;
+    torch.distributed.all_reduce unless given). A group of size 1 issues
+    its collectives too, so they are captured where a mesh is given."""
 
-    def __init__(self, size: int = 1, rank: int = 0, group=None, split: dict | None = None,
-                 all_reduce: Callable | None = None, rows: tuple = (1, 0),
-                 state_split: dict | None = None):
+    def __init__(self, size: int = 1, rank: int = 0, group=None,
+                 all_reduce: Callable | None = None):
         self.size, self.rank, self.group = int(size), int(rank), group
-        self.split = dict(split or {})
-        self.state_split = dict(state_split or {})
         self._all_reduce = all_reduce
-        # (count, index) of the batch's row blocks over ("pod", "data")
-        self.rows = tuple(rows)
-
-    @classmethod
-    def on_mesh(cls, mesh, widths: dict, all_reduce: Callable | None = None) -> "TP":
-        """The handle of this rank's "model" sub-group of ``mesh``; ``widths``
-        maps each logical axis of SPLIT_AXES to the model's widths on it
-        (widths())."""
-        sizes = mesh_shape(mesh)
-        size = sizes.get(MODEL_AXIS, 1)
-        split = {(ax, w): spec_for(sizes, (ax,), (w,))[0] == MODEL_AXIS
-                 for ax, ws in widths.items() for w in ws}
-        coord = mesh_coord(mesh)
-        count, index = 1, 0
-        for ax in ("pod", "data"):
-            if ax in sizes:
-                count, index = count * sizes[ax], index * sizes[ax] + coord[ax]
-        return cls(size, mesh.get_local_rank(MODEL_AXIS), mesh.get_group(MODEL_AXIS),
-                   split, all_reduce, (count, index))
 
     def _reduce(self, x, op: str, group):
         import torch.distributed as dist
@@ -162,6 +159,52 @@ class TP:
         buf = torch.zeros(shape, dtype=x.dtype, device=x.device)
         buf.narrow(dim, self.offset(n), n).copy_(x)
         return self.all_reduce_sum(buf)
+
+    def take(self, x, dim: int = -1):
+        """This rank's slice of a whole dim that splits over the group."""
+        n = x.shape[dim] // self.size
+        return x.narrow(dim, self.offset(n), n)
+
+
+class TP(Group):
+    """The model axis as the layers see it (a Group): which leaves are split
+    over it (``split``: (axis, width) -> bool, True where pshard.spec_for
+    puts a leaf's dim of that logical axis and width on "model"; the
+    function split() reads it), which xLSTM state leaves the caches hold
+    split on their last dim (``state_split``: key -> bool, from
+    runtime.sharding.cache_shardings; the model fills it), and the batch's
+    row blocks over ("pod", "data") (``rows``: their count and this rank's
+    index). On a mesh without a "model" axis the handle has size 1 and no
+    group: no leaf splits, so its layers issue no model collective, and it
+    carries the row blocks."""
+
+    def __init__(self, size: int = 1, rank: int = 0, group=None, split: dict | None = None,
+                 all_reduce: Callable | None = None, rows: tuple = (1, 0),
+                 state_split: dict | None = None):
+        super().__init__(size, rank, group, all_reduce)
+        self.split = dict(split or {})
+        self.state_split = dict(state_split or {})
+        # (count, index) of the batch's row blocks over ("pod", "data")
+        self.rows = tuple(rows)
+
+    @classmethod
+    def on_mesh(cls, mesh, widths: dict, all_reduce: Callable | None = None) -> "TP":
+        """The handle of this rank's "model" sub-group of ``mesh`` (of size 1
+        and no group where the mesh has no "model" axis); ``widths`` maps
+        each logical axis of SPLIT_AXES to the model's widths on it
+        (widths())."""
+        sizes = mesh_shape(mesh)
+        split = {(ax, w): spec_for(sizes, (ax,), (w,))[0] == MODEL_AXIS
+                 for ax, ws in widths.items() for w in ws}
+        coord = mesh_coord(mesh)
+        count, index = 1, 0
+        for ax in DATA_AXES:
+            if ax in sizes:
+                count, index = count * sizes[ax], index * sizes[ax] + coord[ax]
+        if MODEL_AXIS not in sizes:
+            return cls(1, 0, None, split, all_reduce, (count, index))
+        return cls(sizes[MODEL_AXIS], mesh.get_local_rank(MODEL_AXIS),
+                   mesh.get_group(MODEL_AXIS), split, all_reduce, (count, index))
 
     def gather(self, x, dim: int = -1):
         """A dim split over the group made whole: each rank writes its slice
@@ -206,11 +249,6 @@ class TP:
         if _graph(*parts):
             return _ReduceTake.apply(self, dim + 1, *parts)
         return self._reduce_take(parts, dim + 1)
-
-    def take(self, x, dim: int = -1):
-        """This rank's slice of a whole dim that splits over the group."""
-        n = x.shape[dim] // self.size
-        return x.narrow(dim, self.offset(n), n)
 
     def row_table(self, counts):
         """(count of row blocks, n) table of every row block's ``counts`` (n,)
@@ -262,6 +300,34 @@ class TP:
         return both[..., :-1] / torch.clamp_min(both[..., -1:], 1e-30)
 
 
+class DataShards(Group):
+    """The data axes ("pod", "data") of a mesh as an FSDP model sees them (a
+    Group): the ranks of this rank's model index across those axes,
+    pod-major, each holding its slice of every leaf that Placement.fsdp
+    splits over them. ``scale``: the weight of this rank's gradient (its
+    share of the global batch's target tokens), which the train step sets
+    around its gradient pass; None weighs every rank 1."""
+
+    def __init__(self, size: int = 1, rank: int = 0, group=None,
+                 all_reduce: Callable | None = None):
+        super().__init__(size, rank, group, all_reduce)
+        self.scale = None
+
+    def gather_leaf(self, x, dim: int):
+        """A leaf's slice made whole over the data axes (the all-reduce of a
+        zero-filled buffer). Backward: the whole cotangent times ``scale``,
+        summed over the group, this rank keeping its slice (each rank uses
+        the whole leaf on its own rows)."""
+        if _graph(x):
+            return _GatherLeaf.apply(x, self, dim % x.ndim)
+        return self._gather(x, dim)
+
+    def _reduce_slice(self, g, dim: int, n: int):
+        g = g * self.scale if self.scale is not None else g.clone(
+            memory_format=torch.contiguous_format)
+        return self.all_reduce_sum(g).narrow(dim, self.offset(n), n).contiguous()
+
+
 def _graph(*xs) -> bool:
     """Whether an op on ``xs`` is recorded by autograd."""
     return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
@@ -309,6 +375,17 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g.narrow(ctx.dim, ctx.tp.offset(ctx.n), ctx.n).contiguous(), None, None
+
+
+class _GatherLeaf(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, data, dim):
+        ctx.data, ctx.dim, ctx.n = data, dim, x.shape[dim]
+        return data._gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.data._reduce_slice(g, ctx.dim, ctx.n), None, None
 
 
 class _ReduceTake(torch.autograd.Function):

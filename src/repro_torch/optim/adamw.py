@@ -55,7 +55,7 @@ def cosine_lr(step, base_lr=3e-4, warmup=100, total=10000, min_frac=0.1):
     return torch.where(step < warmup, warm, cos)
 
 
-def _clip_scale(grads, max_norm, model_axis=None):
+def _clip_scale(grads, max_norm, model_axis=None, data_axis=None):
     """(min(1, max_norm / |grads|), |grads|): the squares summed leaf by leaf
     in the tree's order (dict keys sorted, as jax.tree.leaves orders them).
 
@@ -63,13 +63,18 @@ def _clip_scale(grads, max_norm, model_axis=None):
     leaf in that order, True where the leaf is split over the group)): each
     split leaf's sum of squares is summed over the group (all of them in
     one all-reduce) before the leaves are added up, and a leaf held whole,
-    the same on every rank, counts once: the whole model's norm."""
+    the same on every rank, counts once: the whole model's norm.
+    ``data_axis`` ((tp.DataShards, the flags of the leaves FSDP splits over
+    the data axes)): those leaves' sums are summed over the data axes
+    first, the same way."""
     sq = [torch.sum(g.float() ** 2) for g in tree_flatten(grads)[0]]
-    if model_axis is not None:
-        tp, flags = model_axis
+    for axis in (data_axis, model_axis):
+        if axis is None:
+            continue
+        group, flags = axis
         idx = [i for i, f in enumerate(flags) if f]
         if idx:
-            summed = tp.all_reduce_sum(torch.stack([sq[i] for i in idx]))
+            summed = group.all_reduce_sum(torch.stack([sq[i] for i in idx]))
             for j, i in enumerate(idx):
                 sq[i] = summed[j]
     gn = torch.sqrt(sum(sq))
@@ -83,12 +88,12 @@ def clip_by_global_norm(grads, max_norm=1.0):
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads, max_norm=1.0, model_axis=None):
+def clip_by_global_norm_(grads, max_norm=1.0, model_axis=None, data_axis=None):
     """clip_by_global_norm writing the scaled gradients into ``grads``'
     leaves; returns (grads, the global norm). The same bits. With
-    ``model_axis`` (_clip_scale), ``grads`` are a tensor-parallel model's
-    shards and the norm is the whole model's."""
-    scale, gn = _clip_scale(grads, max_norm, model_axis)
+    ``model_axis`` and ``data_axis`` (_clip_scale), ``grads`` are a sharded
+    model's shards and the norm is the whole model's."""
+    scale, gn = _clip_scale(grads, max_norm, model_axis, data_axis)
     for g in tree_flatten(grads)[0]:
         for c in _chunks(g):
             c.mul_(scale)

@@ -936,3 +936,59 @@ def test_world_1_tensor_parallel_step_is_bit_equal_to_make_train_step(cuda, name
     assert da == db
     assert all(torch.equal(x[k], y[k]) for x, y in zip(ma, mb) for k in x)
     assert all(torch.equal(x, y) for x, y in zip(a, b, strict=True))
+
+
+@pytest.mark.parametrize("shape,axes,zero1", [
+    ((1, 1), ("data", "model"), False),
+    ((1, 1, 1), ("pod", "data", "model"), True),
+])
+@pytest.mark.parametrize("name,n_calls", [("qwen1.5-0.5b", 3), ("deepseek-moe-16b", 3)])
+def test_world_1_fsdp_step_is_bit_equal_to_make_train_step(cuda, name, n_calls, shape, axes,
+                                                           zero1):
+    """The reduced model with FSDP on a world-1 NCCL mesh, ("data", "model")
+    or ("pod", "data", "model") with ZeRO-1 (every "embed" leaf gathered
+    over a data group of one before each use, its gradient reduced after):
+    2 steps of jit_train_step(fsdp=True), every leaf of the state, every
+    metric and each step's MoE dropped slots bit-equal to make_train_step's
+    from the same init, and the flash launches of the unsharded step."""
+    import warnings
+
+    from repro_torch.core.types import tree_flatten
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models import moe
+    from repro_torch.pshard import unshard
+    from repro_torch.runtime import train as t_train
+    cfg = configs.get(name).reduced()
+    batches = [make_batch(0, i, 4, 64, cfg.vocab_size, device=cuda) for i in range(2)]
+    lmesh.init_process_group(device=cuda)
+    try:
+        mesh = lmesh.make_mesh(shape, axes)
+        runs = []
+        for on_mesh in (False, True):
+            model = Model(cfg, device=cuda, trainable=True, mesh=mesh if on_mesh else None)
+            step = (t_train.jit_train_step(model, mesh, zero1=zero1, fsdp=True)[0](
+                {k: v.shape for k, v in batches[0].items()}) if on_mesh
+                else t_train.make_train_step(model))
+            state = t_train.init_state(model, torch.Generator(device=cuda).manual_seed(0))
+            mets, drops = [], []
+            with warnings.catch_warnings():
+                warnings.filterwarnings("error", message=".*autograd kernel was not registered.*")
+                for b in batches:
+                    fa.reset_launches()
+                    with moe.drop_log() as log:
+                        state, met = step(state, b)
+                    torch.cuda.synchronize()
+                    assert fa.LAUNCHES == {"flash_attention": 2 * n_calls,
+                                           "flash_attention_bwd": n_calls}
+                    mets.append(met)
+                    drops.append([int(x) for x in log])
+            if on_mesh:
+                assert sum(d >= 0 for d in model.data_dims()) > 0
+            runs.append(([x.detach().clone() for x in tree_flatten(unshard(state))[0]], mets,
+                         drops))
+    finally:
+        lmesh.destroy_process_group()
+    (a, ma, da), (b, mb, db) = runs
+    assert da == db
+    assert all(torch.equal(x[k], y[k]) for x, y in zip(ma, mb) for k in x)
+    assert all(torch.equal(x, y) for x, y in zip(a, b, strict=True))

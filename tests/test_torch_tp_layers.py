@@ -224,16 +224,27 @@ def test_layout_and_padded_heads_match_the_reference():
 def test_other_families_on_a_model_axis_raise(name):
     """The four families that served on a model axis before they trained on
     one now build trainable on a stand-in mesh of (1, 2), every leaf a
-    float32 shard that requires grad; what still raises is FSDP, naming
-    the item (the test's name is from the slice that refused them)."""
+    float32 shard that requires grad, and jit_train_step(fsdp=True) builds
+    on it: every leaf with an "embed" dim FSDP splits (over a data axis of
+    1 here) keeps its shape and requires grad (the test's name is from the
+    slice that refused them; tests/test_torch_fsdp_pod.py steps them)."""
     from repro_torch.runtime import train as t_train
     cfg = configs.get(name).reduced()
     model = Model(cfg, device="meta", trainable=True,
                   mesh=_StandInMesh({"data": 1, "model": 2}, {"data": 0, "model": 1}))
     assert all(p.dtype == torch.float32 and p.requires_grad for p in model.parameters())
-    with pytest.raises(NotImplementedError, match="tensor-parallel.*TP / FSDP training|"
-                       "TP / FSDP training.*tensor-parallel"):
-        t_train.jit_train_step(model, {"data": 1, "model": 2}, fsdp=True)
+    shapes = [tuple(p.shape) for p in tree_flatten(model.param_tree())[0]]
+    make, shard = t_train.jit_train_step(model, model.mesh, fsdp=True)
+    assert callable(make({"tokens": (2, 8), "targets": (2, 8)}))
+    assert [tuple(p.shape) for p in tree_flatten(model.param_tree())[0]] == shapes
+    assert all(p.requires_grad for p in model.parameters())
+    axes = model._per_leaf(lambda d, spec, local: d.axes)
+    assert [axes[i][d] if d >= 0 else None for i, d in enumerate(model.data_dims())] == \
+        ["embed" if "embed" in a else None for a in axes], name
+    assert [sharding.placements(model.mesh, ns.spec) for ns in
+            sharding.sharding_leaves(shard.params)] == [
+        sharding.placements(model.mesh, model.place.spec(*dims)) for dims in
+        model._per_leaf(lambda d, spec, local: (d.axes, d.shape))]
     model = Model(cfg, device="meta", tp_size=2)
     assert all(d.shape for d in model.stage_layers[0][0].p.defs.values()
                if not isinstance(d, dict))

@@ -664,18 +664,26 @@ def test_training_is_dense_only_and_serving_stays_frozen():
     """Every registered arch builds trainable (float32 masters that require
     grad, every family: the name is from the slice that trained the dense
     family alone); --mesh 2x2 parses (every family trains tensor-parallel:
-    tests/test_torch_tp_train*.py) and FSDP still refuses, naming the
-    item; a serving model keeps frozen bf16 parameters and builds no
-    graph."""
+    tests/test_torch_tp_train*.py); jit_train_step(fsdp=True) builds on a
+    stand-in (2, 2) mesh, each "embed" leaf's dim halved, and refuses a
+    model not built on the mesh; a serving model keeps frozen bf16
+    parameters and builds no graph."""
     for name in configs.all_names():
         model = Model(configs.get(name).reduced(), device="cpu", trainable=True)
         assert all(p.requires_grad and p.dtype == torch.float32 for p in model.parameters()), \
             name
     assert not hasattr(Model, "TRAINING_WAITS_FOR")
     assert launch_train.check_mesh("2x2") == ((2, 2), ("data", "model"))
+    from test_torch_tp_layers import _StandInMesh
     moe = Model(configs.get("deepseek-moe-16b").reduced(), device="cpu", trainable=True)
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        t_train.jit_train_step(moe, {"data": 2, "model": 2}, fsdp=True)
+    with pytest.raises(ValueError, match="built on this mesh.*fsdp"):
+        t_train.jit_train_step(moe, {"data": 2, "model": 1}, fsdp=True)
+    moe = Model(configs.get("deepseek-moe-16b").reduced(), device="meta", trainable=True,
+                mesh=_StandInMesh({"data": 2, "model": 2}, {"data": 1, "model": 0}))
+    before = moe.top.embed.shape
+    make, _ = t_train.jit_train_step(moe, moe.mesh, fsdp=True)
+    assert callable(make({"tokens": (2, 8), "targets": (2, 8)}))
+    assert moe.top.embed.shape == (before[0], before[1] // 2)
     cfg = configs.get(ARCH).reduced()
     served = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
     assert all(not p.requires_grad for p in served.parameters())
